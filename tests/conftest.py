@@ -71,6 +71,11 @@ def _install_hypothesis_stub() -> None:
 _install_hypothesis_stub()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
+
+
 @pytest.fixture(scope="session")
 def tiny_hg() -> HeteroGraph:
     """Small deterministic bipartite-ish HG (movie/director/actor style)."""
