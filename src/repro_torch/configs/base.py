@@ -30,7 +30,7 @@ class HGNNConfig:
     # Hand-written kernels (Hopper CUDA) on the hot loop; the name is the
     # reference's, where it selects the Pallas kernels.
     use_pallas: bool = False
-    # Degree-bucketed padded NA layout (>1); not ported yet.
+    # Degree-bucketed padded NA layout (>1); ported for RGCN, not for HAN.
     degree_buckets: int = 0
     # Fused NA→SA epilogue: the semantic-score pass-1 partial accumulates
     # inside the NA kernel, saving one full [P, N, D] read.  Stacked only.

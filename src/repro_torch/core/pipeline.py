@@ -9,21 +9,28 @@ parameters live at the root of the parameter dict and hidden layers under
 so the reference's own parameters carry across unchanged
 (``repro_torch.interop.params_from_numpy``).
 
-Ported arms (the first slice, HAN full-graph inference):
+Ported arms — HAN (slice 1) and RGCN (slice 2) full-graph inference:
 
-* FP ``per_type`` (layer 0) and the ``dense`` re-projection of hidden
-  layers, with the ``target`` handoff;
+* FP ``per_type`` (layer 0; reshaped to heads when ``fp.heads``), the
+  ``dense`` re-projection of HAN's hidden layers with the ``target``
+  handoff, and the ``identity`` FP of RGCN's hidden layers with the
+  ``all`` handoff;
 * NA ``gat`` on the ``stacked`` ``[P, N, K]`` layout — plain, or ONE
   ``gat_na`` kernel launch for the whole stack (``na.use_pallas``), or that
   launch with the fused NA→SA epilogue (``sa.fuse_epilogue``);
+* NA ``mean`` per relation on the ``padded``, ``bucketed`` and ``csr``
+  layouts — with ``na.use_pallas`` the padded and bucketed arms launch the
+  ``segment_spmm`` kernel (one launch per relation, per bucket);
 * SA ``attention`` on the stack, or, after the fused epilogue, the O(P)
   softmax plus the ``semantic_combine`` kernel (with the reference's
-  closed-form ``row_mask`` correction for padded rows);
-* the ``linear`` head.
+  closed-form ``row_mask`` correction for padded rows); SA ``rel_sum``;
+* the ``linear`` and ``select_linear`` heads.
 
-Every other arm raises ``NotImplementedError`` naming its ROADMAP item; no
-arm is served by another one.  The reference's sharding constraints are
-no-ops on one device and are dropped.
+:func:`check_ported` accepts exactly HAN's and RGCN's combinations of these
+arms.  Arms of later slices raise ``NotImplementedError`` naming their
+ROADMAP item, and combinations that no model of the reference declares
+raise too; no arm is served by another one.  The reference's sharding
+constraints are no-ops on one device and are dropped.
 """
 from __future__ import annotations
 
@@ -40,8 +47,8 @@ from repro_torch.kernels import ops
 
 _ACT = {None: lambda x: x, "elu": F.elu, "relu": F.relu}
 
-# arms outside the slice -> the ROADMAP Queue 1 item that ports them
-_NA_KIND_ITEM = {"mean": 8, "instance": 9, "gcn": 10}
+# NA kinds of later slices -> the ROADMAP Queue 1 item that ports them
+_NA_KIND_ITEM = {"instance": 9, "gcn": 10}
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:
@@ -50,9 +57,51 @@ def not_ported(what: str, item: int) -> NotImplementedError:
         f"{item})")
 
 
+def no_such_arm(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: no model of the reference declares this combination, so "
+        "repro_torch has no arm for it")
+
+
+def _fp_kinds(plan: StagePlan):
+    return [(lp.fp.kind, lp.fp.heads) for lp in plan.layers]
+
+
+def _check_han_arms(plan: StagePlan) -> None:
+    if plan.na.layout != "stacked" or not plan.sa.stacked:
+        raise not_ported(f"the {plan.na.layout!r} GAT layout", 6)
+    if plan.sa.kind != "attention":
+        raise no_such_arm(f"SA kind {plan.sa.kind!r} after GAT NA")
+    fp_kinds = _fp_kinds(plan)
+    if fp_kinds != [("per_type", True)] + [("dense", True)] * (
+            plan.n_layers - 1) or plan.layers[0].handoff != "target":
+        raise no_such_arm(f"GAT NA with FP kinds {fp_kinds} and handoff "
+                          f"{plan.layers[0].handoff!r}")
+    if plan.head.kind != "linear":
+        raise no_such_arm(f"head kind {plan.head.kind!r} after GAT NA")
+
+
+def _check_rgcn_arms(plan: StagePlan) -> None:
+    if plan.na.layout not in ("padded", "bucketed", "csr"):
+        raise no_such_arm(f"mean NA on the {plan.na.layout!r} layout")
+    if plan.na.activation is not None:
+        raise no_such_arm(f"mean NA with activation {plan.na.activation!r}")
+    if plan.sa.kind != "rel_sum" or plan.sa.fuse_epilogue:
+        raise no_such_arm(f"SA kind {plan.sa.kind!r} (fuse_epilogue="
+                          f"{plan.sa.fuse_epilogue}) after mean NA")
+    fp_kinds = _fp_kinds(plan)
+    if fp_kinds != [("per_type", False)] + [("identity", False)] * (
+            plan.n_layers - 1) or plan.layers[0].handoff != "all":
+        raise no_such_arm(f"mean NA with FP kinds {fp_kinds} and handoff "
+                          f"{plan.layers[0].handoff!r}")
+    if plan.head.kind != "select_linear" or plan.head.target != plan.target:
+        raise no_such_arm(f"head {plan.head} after mean NA")
+
+
 def check_ported(plan: StagePlan) -> None:
-    """Raise for any plan arm outside the ported slice, so that no arm is
-    silently served by another one."""
+    """Raise for any plan outside the ported slices (HAN's and RGCN's
+    combinations of arms), so that no arm is silently served by another
+    one."""
     if plan.partition is not None:
         raise not_ported("graph-partitioned execution", 12)
     if plan.sample is not None:
@@ -61,20 +110,15 @@ def check_ported(plan: StagePlan) -> None:
         raise not_ported("hot-feature residency", 11)
     if plan.schedule is not None:
         raise not_ported("the async stage-graph schedule", 14)
-    if plan.na.kind != "gat":
-        raise not_ported(f"NA kind {plan.na.kind!r}",
-                         _NA_KIND_ITEM.get(plan.na.kind, 6))
-    if plan.na.layout != "stacked" or not plan.sa.stacked:
-        raise not_ported(f"the {plan.na.layout!r} GAT layout", 6)
-    if plan.sa.kind != "attention":
-        raise not_ported(f"SA kind {plan.sa.kind!r}", 8)
-    fp_kinds = [(lp.fp.kind, lp.fp.heads) for lp in plan.layers]
-    if fp_kinds != [("per_type", True)] + [("dense", True)] * (
-            plan.n_layers - 1) or plan.layers[0].handoff != "target":
-        raise not_ported(f"FP kinds {fp_kinds} with handoff "
-                         f"{plan.layers[0].handoff!r}", 8)
-    if plan.head.kind != "linear":
-        raise not_ported(f"head kind {plan.head.kind!r}", 9)
+    kind = plan.na.kind
+    if kind in _NA_KIND_ITEM:
+        raise not_ported(f"NA kind {kind!r}", _NA_KIND_ITEM[kind])
+    if kind == "gat":
+        _check_han_arms(plan)
+    elif kind == "mean":
+        _check_rgcn_arms(plan)
+    else:
+        raise ValueError(f"unknown NA kind {kind!r}")
 
 
 class StageGraphExecutor:
@@ -104,16 +148,25 @@ class StageGraphExecutor:
         d = cfg.hidden
         params: Dict = {
             "fp": stages.init_feature_projection(gen, batch["feat_dims"], d)}
-        params.update(self._init_na_sa(gen))
+        params.update(self._init_na_sa(gen, batch))
         params["cls"] = torch.randn((d, cfg.n_classes),
                                     generator=gen) / math.sqrt(d)
         return params
 
-    def _init_na_sa(self, gen: torch.Generator) -> Dict:
+    def _init_na_sa(self, gen: torch.Generator, batch: Dict) -> Dict:
         """The NA/SA block shared by layer 0 and every hidden layer: the
-        stacked per-metapath GAT vectors and the semantic attention."""
+        stacked per-metapath GAT vectors and the semantic attention (HAN),
+        or per-relation ``w_rel`` keyed by the relation tuples and per-type
+        ``w_self`` (RGCN)."""
         cfg = self.cfg
         d = cfg.hidden
+
+        def square():
+            return torch.randn((d, d), generator=gen) / math.sqrt(d)
+
+        if self.plan.na.kind == "mean":
+            return {"w_rel": {key: square() for key in sorted(batch["rels"])},
+                    "w_self": {t: square() for t in sorted(batch["counts"])}}
         gat = [stages.init_gat(gen, cfg.n_heads, d // cfg.n_heads)
                for _ in self.plan.metapaths]
         return {
@@ -123,11 +176,15 @@ class StageGraphExecutor:
         }
 
     def _init_hidden_layer(self, gen: torch.Generator, batch: Dict) -> Dict:
-        """Params for one layer >= 1: the square [D, D] re-projection of the
-        carried target table plus a fresh NA/SA block."""
+        """Params for one layer >= 1: HAN's square [D, D] re-projection of
+        the carried target table (RGCN's hidden FP is the identity: its
+        ``w_rel``/``w_self`` are the layer's transform) plus a fresh NA/SA
+        block."""
         d = self.cfg.hidden
-        p: Dict = {"fp": torch.randn((d, d), generator=gen) / math.sqrt(d)}
-        p.update(self._init_na_sa(gen))
+        p: Dict = {}
+        if self.plan.na.kind == "gat":
+            p["fp"] = torch.randn((d, d), generator=gen) / math.sqrt(d)
+        p.update(self._init_na_sa(gen, batch))
         return p
 
     def _layer_params(self, params: Dict, l: int) -> Dict:
@@ -136,28 +193,42 @@ class StageGraphExecutor:
     # ------------------------------------------------------------------
     # Stage 2: Feature Projection
     # ------------------------------------------------------------------
-    def fp(self, params: Dict, batch: Dict) -> torch.Tensor:
-        """Layer 0: per-type projection of the raw features; the target
-        type's table goes on as ``[N, H, Dh]``."""
+    def fp(self, params: Dict, batch: Dict):
+        """Layer 0: per-type projection of the raw features.  With
+        ``fp.heads`` only the target type's table goes on, as
+        ``[N, H, Dh]``; otherwise every type's ``[N_t, D]`` table."""
         h = stages.feature_projection(params["fp"], batch["feats"])
-        ht = h[self.plan.target]
-        return ht.reshape(ht.shape[0], self.cfg.n_heads, -1)
+        if self.plan.fp.heads:
+            ht = h[self.plan.target]
+            return ht.reshape(ht.shape[0], self.cfg.n_heads, -1)
+        return h
 
-    def _fp_hidden(self, p_l: Dict, state: Dict) -> torch.Tensor:
-        """Layers >= 1: a dense [D, D] re-projection of the carried target
-        table, reshaped to heads."""
+    def _fp_hidden(self, lp, p_l: Dict, state: Dict):
+        """Layers >= 1: ``identity`` passes the carried tables through
+        (RGCN: the relation weights are the layer's transform); ``dense`` is
+        a [D, D] re-projection of the carried target table, reshaped to
+        heads when ``fp.heads``."""
+        if lp.fp.kind == "identity":
+            return state
         h = state[self.plan.target] @ p_l["fp"]
-        return h.reshape(h.shape[0], self.cfg.n_heads, -1)
+        if lp.fp.heads:
+            return h.reshape(h.shape[0], self.cfg.n_heads, -1)
+        return h
 
-    def _handoff(self, out: torch.Tensor) -> Dict:
-        """The ``target`` handoff: the metapath graphs are target->target,
-        so the next layer carries only this layer's SA output."""
+    def _handoff(self, lp, out) -> Dict:
+        """Package one layer's SA output as the next layer's state: ``all``
+        (rel_sum already returned every type's table) or ``target`` (the
+        metapath graphs are target->target, so only this layer's output)."""
+        if lp.handoff == "all":
+            return out
         return {self.plan.target: out}
 
     # ------------------------------------------------------------------
     # Stage 3: Neighbor Aggregation
     # ------------------------------------------------------------------
     def na(self, params: Dict, batch: Dict, h):
+        if self.plan.na.kind == "mean":
+            return self._na_mean(params, batch, h)
         return self._na_gat(params, batch, h)  # check_ported: gat/stacked
 
     def _na_gat(self, params: Dict, batch: Dict, h: torch.Tensor):
@@ -186,11 +257,54 @@ class StageGraphExecutor:
             use_pallas=self.plan.na.use_pallas)
         return z4.reshape(z4.shape[0], z4.shape[1], -1), wp
 
+    def _na_mean(self, params: Dict, batch: Dict, h: Dict):
+        """RGCN's NA: per relation (sorted keys), the mean of the source
+        type's rows over the incoming neighbours, projected by ``w_rel``.
+        With ``na.use_pallas`` the padded and bucketed layouts run the
+        ``segment_spmm`` kernel; ``csr`` is the plain segment mean."""
+        plan = self.plan
+        # "__h__" rides along for the self-loop term in SA (rel_sum)
+        out: Dict = {"__h__": h}
+        agg_fn = None
+        if plan.na.use_pallas and plan.na.layout != "csr":
+            agg_fn = functools.partial(ops.segment_spmm, mean=True,
+                                       use_pallas=True)
+        for key in sorted(batch["rels"]):
+            s, _, d = key
+            rel = batch["rels"][key]
+            if plan.na.layout == "csr":
+                agg = stages.mean_aggregate_csr(h[s], rel[0], rel[1],
+                                                h[d].shape[0])
+            elif plan.na.layout == "bucketed":
+                agg = stages.mean_aggregate_bucketed(h[s], rel, h[d].shape[0],
+                                                     agg_fn=agg_fn)
+            else:  # padded
+                agg = (agg_fn or stages.mean_aggregate_padded)(h[s], rel[0],
+                                                               rel[1])
+            out["|".join(key)] = agg @ params["w_rel"][key]
+        return out
+
     # ------------------------------------------------------------------
     # Stage 4: Semantic Aggregation
     # ------------------------------------------------------------------
+    def _rel_sum(self, params: Dict, h_own: Dict, z: Dict) -> Dict:
+        """RGCN's SA: per type, the relation aggregates into that type
+        summed in relation order (Reduce) onto the ``w_self`` self-loop,
+        then relu.  ``z`` is the NA output keyed by ``"s|r|d"``."""
+        h_new: Dict = {}
+        for t in sorted(h_own):
+            acc = None
+            for key, v in z.items():
+                if key != "__h__" and key.split("|")[2] == t:
+                    acc = v if acc is None else acc + v  # Reduce (sum)
+            h_self = h_own[t] @ params["w_self"][t]
+            h_new[t] = F.relu(h_self if acc is None else h_self + acc)
+        return h_new
+
     def sa(self, params: Dict, batch: Dict, z):
         plan = self.plan
+        if plan.sa.kind == "rel_sum":
+            return self._rel_sum(params, z["__h__"], z)
         row_mask = batch.get("row_mask")
         if isinstance(z, tuple):  # fused NA→SA epilogue: (z, pass-1 scores)
             z_stack, wp = z
@@ -213,19 +327,22 @@ class StageGraphExecutor:
     # head + forward
     # ------------------------------------------------------------------
     def head(self, params: Dict, z, batch: Dict = None) -> torch.Tensor:
-        return z @ params[self.plan.head.param]
+        head = self.plan.head
+        if head.kind == "select_linear":
+            return z[head.target] @ params[head.param]
+        return z @ params[head.param]
 
     def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
         """The L-layer loop: layer 0 reads the prepared batch, hidden
         layers the previous handoff."""
         state = out = None
-        for l in range(self.plan.n_layers):
+        for l, lp in enumerate(self.plan.layers):
             p_l = self._layer_params(params, l)
             h = (self.fp(params, batch) if l == 0
-                 else self._fp_hidden(p_l, state))
+                 else self._fp_hidden(lp, p_l, state))
             z = self.na(p_l, batch, h)
             out = self.sa(p_l, batch, z)
-            state = self._handoff(out)
+            state = self._handoff(lp, out)
         return self.head(params, out, batch)
 
 

@@ -1,5 +1,5 @@
 """The paper's HGNN execution stages in PyTorch (port of
-``repro/core/stages.py:55-200``).
+``repro/core/stages.py:55-200`` and ``:226-317``).
 
 Stage 2 — Feature Projection (FP): type-specific dense matmul (DM-Type).
 Stage 3 — Neighbor Aggregation (NA): graph-topology gather + reduce
@@ -7,8 +7,8 @@ Stage 3 — Neighbor Aggregation (NA): graph-topology gather + reduce
 Stage 4 — Semantic Aggregation (SA): :mod:`repro_torch.core.semantics`.
 
 The reference wraps these in ``shard(...)`` constraints for its device
-mesh; on one device those are no-ops, so the port drops them (and the
-``*_sharded`` variants are the plain functions).  Parameter init draws the
+mesh; on one device those are no-ops, so the port drops them and calls
+the plain functions.  Parameter init draws the
 reference's shapes and scales from a ``torch.Generator`` on the CPU; the
 numbers differ from ``jax.random``'s, so parity tests carry the
 reference's own parameters across through ``repro_torch.interop``.
@@ -16,8 +16,9 @@ reference's own parameters across through ``repro_torch.interop``.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -97,3 +98,56 @@ def gat_aggregate_padded_stacked(
         gat_aggregate_padded({k: v[i] for k, v in p_stacked.items()}, h, h,
                              nbr[i], mask[i])
         for i in range(nbr.shape[0])])
+
+
+def mean_aggregate_padded(h_src: torch.Tensor, nbr: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Mean NA (RGCN). h_src [M, D] -> [N, D]."""
+    s = (h_src[nbr.long()] * mask[..., None]).sum(dim=1)  # [N, K, D] gather
+    d = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
+    return s / d
+
+
+def mean_aggregate_bucketed(
+    h_src: torch.Tensor,  # [M, D]
+    buckets: Sequence,  # (row_ids [n_b], nbr [n_b, K_b], mask) per bucket
+    n_rows: int,
+    agg_fn: Optional[Callable] = None,
+) -> torch.Tensor:
+    """Mean NA over a degree-bucketed layout: each bucket runs the padded
+    mean at its own degree cap ``K_b`` and is copied back to node order
+    through ``row_ids``; ``agg_fn`` swaps in the ``segment_spmm`` kernel.
+
+    The reference scatters with ``out.at[row_ids].set``, which drops
+    out-of-range ids; ``index_copy_`` raises on them instead.  Full-graph
+    ``row_ids`` partition ``[0, n_rows)`` exactly, so none is out of range
+    here (the sampled slice's pad ids are ROADMAP Queue 3 check (a))."""
+    base = agg_fn or mean_aggregate_padded
+    out = torch.zeros((n_rows, h_src.shape[-1]), dtype=h_src.dtype,
+                      device=h_src.device)
+    for row_ids, nbr, mask in buckets:
+        out.index_copy_(0, row_ids.long(), base(h_src, nbr, mask))
+    return out
+
+
+def mean_aggregate_csr(h_src: torch.Tensor, seg: torch.Tensor,
+                       idx: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Mean NA over a flat edge list (the DGL-faithful baseline):
+    ``jax.ops.segment_sum`` becomes ``index_add_``.  On a CUDA tensor
+    ``index_add_`` adds with atomics, so this arm is not bitwise
+    reproducible from run to run there (ROADMAP Queue 3)."""
+    seg = seg.long()
+    s = torch.zeros((n_nodes, h_src.shape[-1]), dtype=h_src.dtype,
+                    device=h_src.device).index_add_(0, seg, h_src[idx.long()])
+    d = torch.zeros((n_nodes,), dtype=h_src.dtype,
+                    device=h_src.device).index_add_(
+        0, seg, torch.ones_like(seg, dtype=h_src.dtype))
+    return s / torch.clamp(d[:, None], min=1.0)
+
+
+def csr_to_edges(indptr: np.ndarray,
+                 indices: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side: CSR -> (segment_ids, indices) flat edge list."""
+    degrees = np.diff(indptr)
+    seg = np.repeat(np.arange(len(degrees), dtype=np.int32), degrees)
+    return seg, indices.astype(np.int32)

@@ -41,6 +41,8 @@ SIGNATURES: Dict[str, tuple] = {
     "gat_na_rows_per_block": ([], _I),
     "gat_na_max_features": ([], _I),
     "semantic_combine_launch": ([_P, _P, _P, _I, _L, _P], _I),
+    "segment_spmm_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "fused_fp_na_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -120,6 +122,15 @@ def library() -> ctypes.CDLL:
         fn.restype = restype
     _lib = lib
     return lib
+
+
+def device_of(what: str, tensors) -> "torch.device":
+    """The one device that all of a kernel's input tensors lie on."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{what}: inputs on several devices "
+                         f"{sorted(map(str, devs))}")
+    return devs.pop()
 
 
 def check(err: int, what: str) -> None:

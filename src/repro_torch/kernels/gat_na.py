@@ -90,13 +90,6 @@ def gat_na_emulate(p: Dict[str, torch.Tensor], h_dst, h_src, nbr, mask,
     return z, partial.sum(-1) / n
 
 
-def _device(tensors) -> torch.device:
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError("gat_na: inputs on several devices "
-                         f"{sorted(map(str, devs))}")
-    return devs.pop()
-
 
 def check_kernel_args(p, h_dst, h_src, nbr, mask, sem=None) -> None:
     """Raise on what the CUDA kernel does not take (stacked form)."""
@@ -191,7 +184,8 @@ def gat_na(p: Dict[str, torch.Tensor], h_dst: torch.Tensor,
         raise ValueError(f"gat_na: takes the stacked form nbr/mask "
                          f"[S, N, K], got nbr {tuple(nbr.shape)}")
     sem_t = tuple(sem.values()) if sem is not None else ()
-    dev = _device((h_dst, h_src, nbr, mask, *p.values(), *sem_t))
+    dev = build.device_of("gat_na", (h_dst, h_src, nbr, mask, *p.values(),
+                                     *sem_t))
     if dev.type == "cpu":
         return gat_na_plain(p, h_dst, h_src, nbr, mask, sem)
     if dev.type != "cuda":

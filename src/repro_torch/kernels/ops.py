@@ -13,10 +13,10 @@ Dispatch policy:
   There is no fallback from a CUDA tensor to the plain version.
 
 The name ``use_pallas`` is the reference's; here it means "hand-written
-kernels".  The other wrappers of the reference (``segment_spmm``,
-``fused_fp_na``, ``cached_gather``, ``semantic_attention``,
-``flash_attention``, ``decode_attention``, the unstacked
-``gat_aggregate``) serve paths that are not ported yet (ROADMAP Queue 2).
+kernels".  The other wrappers of the reference (``cached_gather``,
+``semantic_attention``, ``flash_attention``, ``decode_attention``, the
+unstacked ``gat_aggregate``) serve paths that are not ported yet (ROADMAP
+Queue 2).
 """
 from __future__ import annotations
 
@@ -24,9 +24,29 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import fused_fp_na as _ffn
 from repro_torch.kernels import gat_na as _gat
 from repro_torch.kernels import ref
+from repro_torch.kernels import segment_spmm as _spmm
 from repro_torch.kernels import semantic_attn as _sem
+
+
+def segment_spmm(h_src, nbr, mask, mean: bool = True,
+                 use_pallas: bool = False) -> torch.Tensor:
+    """Padded-neighbour sum/mean aggregation (RGCN's mean NA):
+    ``h_src [M, D]``, ``nbr``/``mask`` ``[N, K]`` -> ``[N, D]``."""
+    if use_pallas:
+        return _spmm.segment_spmm(h_src, nbr, mask, mean=mean)
+    return ref.segment_spmm(h_src, nbr, mask, mean=mean)
+
+
+def fused_fp_na(x_src, w, nbr, mask, mean: bool = True,
+                use_pallas: bool = False) -> torch.Tensor:
+    """Fused FP + NA: ``mean_k(x[nbr]) @ W`` with the projection in the
+    kernel body: ``x [M, F]``, ``W [F, D]`` -> ``[N, D]``."""
+    if use_pallas:
+        return _ffn.fused_fp_na(x_src, w, nbr, mask, mean=mean)
+    return ref.fused_fp_na(x_src, w, nbr, mask, mean=mean)
 
 
 def gat_aggregate_stacked(p_stacked: Dict, h_dst, h_src, nbr, mask,
@@ -60,10 +80,14 @@ def reset_launch_counts() -> None:
     _gat.gat_na.launches = 0
     _gat.gat_na.fused_launches = 0
     _sem.semantic_combine.launches = 0
+    _spmm.segment_spmm.launches = 0
+    _ffn.fused_fp_na.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """Every kernel's launch count, by name."""
     return {"gat_na": _gat.gat_na.launches,
             "gat_na_fused_sa": _gat.gat_na.fused_launches,
-            "semantic_combine": _sem.semantic_combine.launches}
+            "semantic_combine": _sem.semantic_combine.launches,
+            "segment_spmm": _spmm.segment_spmm.launches,
+            "fused_fp_na": _ffn.fused_fp_na.launches}

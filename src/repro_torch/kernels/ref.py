@@ -16,6 +16,36 @@ import torch
 _NEG = -1e9
 
 
+def segment_spmm(
+    h_src: torch.Tensor,  # [M, D]
+    nbr: torch.Tensor,  # [N, K] int
+    mask: torch.Tensor,  # [N, K] float weights (0 = no neighbour)
+    mean: bool = True,
+) -> torch.Tensor:
+    """Padded-neighbour sum/mean aggregation: ``out[n] = sum_k mask[n, k] *
+    h_src[nbr[n, k]]``, divided by ``max(sum_k mask[n, k], 1)`` when
+    ``mean``.  ``mask`` is a float weight, not only {0, 1}; an all-zero row
+    comes out exactly 0.  Returns ``[N, D]``."""
+    hn = h_src[nbr.long()]  # [N, K, D]
+    s = (hn * mask[..., None].to(h_src.dtype)).sum(dim=1)
+    if mean:
+        d = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
+        s = s / d.to(h_src.dtype)
+    return s
+
+
+def fused_fp_na(
+    x_src: torch.Tensor,  # [M, F] raw features
+    w: torch.Tensor,  # [F, D] projection
+    nbr: torch.Tensor,  # [N, K]
+    mask: torch.Tensor,  # [N, K]
+    mean: bool = True,
+) -> torch.Tensor:
+    """Fused Feature Projection + Neighbour Aggregation by linearity:
+    ``mean_k(x[nbr]) @ W == mean_k(x[nbr] @ W)``.  Returns ``[N, D]``."""
+    return segment_spmm(x_src, nbr, mask, mean=mean) @ w
+
+
 def gat_na(
     p: Dict[str, torch.Tensor],  # a_dst/a_src [H, Dh] ([S, H, Dh] stacked)
     h_dst: torch.Tensor,  # [N, H, Dh]

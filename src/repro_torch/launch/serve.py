@@ -3,11 +3,14 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --hgnn han \\
       --dataset imdb --use-pallas --fuse-na-sa [--layers L] [--iters N]
+  PYTHONPATH=src python -m repro_torch.launch.serve --hgnn rgcn \\
+      --dataset imdb --use-pallas [--degree-buckets 3] [--layers L]
 
 runs on the CUDA device; ``--device cpu`` runs on the CPU (the kernels'
 plain versions).  It prints the device, then the reference's line
 
   han/imdb [na=gat/stacked +fused-sa] logits (4278, 8) on single-device: ... ms/iter
+  rgcn/imdb [na=mean/padded] logits (4278, 8) on single-device: ... ms/iter
 
 with the time per forward on the host clock, after one warm-up forward,
 synchronised with the device.  The reference's device mesh, sampled
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import time
+import warnings
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -44,6 +48,11 @@ def build_hgnn_infer(cfg: HGNNConfig, hg, device: DeviceLike = None,
     dev = resolve_device(device)
     model = get_model(cfg)
     plan = model.plan()
+    if cfg.fuse_na_sa and not plan.sa.fuse_epilogue:
+        warnings.warn(
+            f"fuse_na_sa requested but {plan.model}'s NA layout "
+            f"({plan.na.layout!r}) does not support the NA→SA epilogue "
+            "(stacked only); running two-pass SA", stacklevel=2)
     batch = model.prepare(hg, dev)
     if gen is None:
         gen = torch.Generator().manual_seed(cfg.seed)
@@ -62,8 +71,9 @@ def run_hgnn(args) -> None:
 
     dev = resolve_device(args.device)
     cfg = HGNNConfig(model=args.hgnn, dataset=args.dataset, fused=True,
-                     use_pallas=args.use_pallas, fuse_na_sa=args.fuse_na_sa,
-                     layers=args.layers)
+                     use_pallas=args.use_pallas,
+                     degree_buckets=args.degree_buckets,
+                     fuse_na_sa=args.fuse_na_sa, layers=args.layers)
     hg = make_dataset(args.dataset)
     built = build_hgnn_infer(cfg, hg, dev)
     engine = HGNNInferEngine(built.executor, built.params, built.batch,
@@ -91,15 +101,19 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--hgnn", required=True,
                     choices=["han", "rgcn", "magnn", "gcn"],
-                    help="HGNN model (HAN is ported; the others raise)")
+                    help="HGNN model (HAN and RGCN are ported; the others "
+                         "raise)")
     ap.add_argument("--dataset", default="imdb",
                     choices=["imdb", "acm", "dblp", "reddit"])
     ap.add_argument("--use-pallas", action="store_true",
                     help="hand-written CUDA kernels (gat_na, "
-                         "semantic_combine) on the hot loop")
+                         "semantic_combine, segment_spmm) on the hot loop")
     ap.add_argument("--fuse-na-sa", action="store_true",
                     help="fused NA→SA epilogue: SA pass-1 scores accumulate "
                          "inside the NA kernel (stacked layout)")
+    ap.add_argument("--degree-buckets", type=int, default=0,
+                    help="degree-bucketed padded NA layout with that many "
+                         "buckets (RGCN relations)")
     ap.add_argument("--layers", type=int, default=1,
                     help="stack that many FP->NA->SA layers")
     ap.add_argument("--iters", type=int, default=3)

@@ -123,7 +123,8 @@ def test_wrapper_on_cpu_runs_plain_and_counts_nothing(shape):
     zp, wp = tgat.gat_na_plain(p, hd, hs, nbr, mask, sem)
     assert torch.equal(z, zp) and torch.equal(w, wp)
     assert ops.launch_counts() == {"gat_na": 0, "gat_na_fused_sa": 0,
-                                   "semantic_combine": 0}
+                                   "semantic_combine": 0, "segment_spmm": 0,
+                                   "fused_fp_na": 0}
 
 
 def test_wrapper_takes_only_the_stacked_form():

@@ -11,14 +11,24 @@ Tolerances: the kernel's online softmax rescales per slot where the plain
 version normalises once, so z agrees to atol = rtol = 1e-5; w sums the
 row scores in another order (atol = rtol = 1e-5 at these row counts).  The
 combine kernel rounds as its plain version does, so it is held bitwise.
+``segment_spmm`` adds the live slots in slot order where the plain version
+sums the ``[N, K, D]`` product in another order (atol = rtol = 1e-5), and
+it is held bitwise against its emulation, which rounds step by step as the
+kernel does.  ``fused_fp_na`` accumulates the product over F in order with
+FMA where the plain version leaves the order to the matmul, so its error
+grows with F and with the size of the terms: rtol = 1e-5 and an atol of
+1e-5 times the largest |output| (at F = 3066 with unit-normal features and
+no mean, 2.9e-5 of outputs up to about 30 on the H100).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import fused_fp_na as tffn
 from repro_torch.kernels import gat_na as tgat
 from repro_torch.kernels import ops
+from repro_torch.kernels import segment_spmm as tspmm
 from repro_torch.kernels import semantic_attn as tsem
 
 pytestmark = pytest.mark.gpu
@@ -135,3 +145,92 @@ def test_semantic_combine_kernel_is_bitwise_plain(cuda, p, n, d, offset):
     torch.cuda.synchronize()
     assert tsem.semantic_combine.launches == before + 1
     assert torch.equal(got, tsem.semantic_combine_plain(z, beta))
+
+
+def _spmm_case(seed, n, m, k, d, weighted, device):
+    """Rows 0 and every 7th have no live slot; masked slots name rows far
+    past the table, which the kernel must never read."""
+    rng = np.random.default_rng(seed)
+    live = rng.random((n, k)) < 0.5
+    mask = (rng.random((n, k)) * 2.0 if weighted else np.ones((n, k)))
+    mask = (mask * live).astype(np.float32)
+    mask[::7] = 0.0
+    nbr = rng.integers(0, m, (n, k))
+    nbr[mask == 0] = 1 << 30
+    return (torch.as_tensor(rng.standard_normal((m, d)), dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(nbr, dtype=torch.int32, device=device),
+            torch.as_tensor(mask, device=device))
+
+
+SPMM_SHAPES = [  # (N, M, K, D)
+    (4278, 2081, 64, 64),  # an RGCN/imdb relation
+    (37, 50, 9, 64),  # rows not a multiple of a block
+    (100, 80, 70, 20),  # K spans three ballots; D under one column group
+    (33, 10, 1, 1),  # K = 1, D = 1
+    (50, 40, 12, 130),  # three 64-column groups, the last of 2
+]
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("mean", [True, False])
+@pytest.mark.parametrize("shape", SPMM_SHAPES)
+def test_segment_spmm_kernel_matches_plain_and_emulation(cuda, shape, mean,
+                                                          weighted):
+    h, nbr, mask = _spmm_case(6, *shape, weighted, cuda)
+    before = tspmm.segment_spmm.launches
+    got = tspmm.segment_spmm(h, nbr, mask, mean=mean)
+    torch.cuda.synchronize()
+    assert tspmm.segment_spmm.launches == before + 1
+    emu = tspmm.segment_spmm_emulate(h, nbr, mask, mean=mean)
+    assert torch.equal(got, emu)  # same slot order, same roundings
+    safe = torch.where(mask != 0, nbr, 0)  # the plain gather reads them all
+    torch.testing.assert_close(
+        got, tspmm.segment_spmm_plain(h, safe, mask, mean=mean), **TOL)
+    assert torch.all(got[::7] == 0)
+    assert torch.equal(got, tspmm.segment_spmm(h, nbr, mask, mean=mean))
+
+
+FFN_SHAPES = [  # (N, M, K, F, D); the kernel takes D = 64 only
+    (2081, 4278, 64, 3066, 64),  # RGCN/imdb (M, md, D) at full width
+    (37, 50, 9, 70, 64),  # rows and F not multiples of a block
+    (20, 30, 1, 64, 64),  # K = 1, F one whole tile
+    (33, 40, 40, 130, 64),  # K spans two ballots, three F-tiles
+    (17, 25, 70, 100, 64),  # K spans three ballots
+    (9, 12, 6, 5, 64),  # F below one tile
+]
+
+
+@pytest.mark.parametrize("mean", [True, False])
+@pytest.mark.parametrize("shape", FFN_SHAPES)
+def test_fused_fp_na_kernel_matches_plain(cuda, shape, mean):
+    n, m, k, f, d = shape
+    x, nbr, mask = _spmm_case(7, n, m, k, f, True, cuda)
+    rng = np.random.default_rng(8)
+    w = torch.as_tensor(rng.standard_normal((f, d)) / np.sqrt(f),
+                        dtype=torch.float32, device=cuda)
+    before = tffn.fused_fp_na.launches
+    got = tffn.fused_fp_na(x, w, nbr, mask, mean=mean)
+    torch.cuda.synchronize()
+    assert tffn.fused_fp_na.launches == before + 1
+    safe = torch.where(mask != 0, nbr, 0)
+    want = tffn.fused_fp_na_plain(x, w, safe, mask, mean=mean)
+    tol = dict(rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    torch.testing.assert_close(got, want, **tol)
+    assert torch.all(got[::7] == 0)
+    assert torch.equal(got, tffn.fused_fp_na(x, w, nbr, mask, mean=mean))
+    if f <= 130:  # the emulation loops over F on the host
+        torch.testing.assert_close(
+            got, tffn.fused_fp_na_emulate(x, w, nbr, mask, mean=mean), **tol)
+
+
+def test_new_kernels_raise_instead_of_falling_back(cuda):
+    h, nbr, mask = _spmm_case(9, 20, 10, 4, 8, False, cuda)
+    before = (tspmm.segment_spmm.launches, tffn.fused_fp_na.launches)
+    with pytest.raises(ValueError, match="int32"):
+        ops.segment_spmm(h, nbr.long(), mask, use_pallas=True)
+    with pytest.raises(RuntimeError, match="invalid argument"):  # D != 64
+        ops.fused_fp_na(h, torch.zeros(8, 32, device=cuda), nbr, mask,
+                        use_pallas=True)
+    assert (tspmm.segment_spmm.launches,
+            tffn.fused_fp_na.launches) == before
