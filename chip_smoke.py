@@ -11,7 +11,11 @@ HAN full-graph inference on synthetic IMDB (hidden 64, 8 heads, K = 64,
 4278 target rows) for 1 and 2 layers with the fused NA→SA epilogue on and
 off, and RGCN full-graph inference on synthetic IMDB (hidden 64, K = 64,
 every relation) for 1 and 2 layers on the padded and the 3-bucket layouts,
-plus one RGCN forward on synthetic DBLP — checks the logits and the
+plus one RGCN forward on synthetic DBLP, and MAGNN full-graph inference on
+synthetic IMDB (hidden 64, 8 heads, 16 instances a target, metapaths MDM
+and MAM) for 1 and 2 layers with and without hot-feature residency (256
+rows a type), plus HAN and RGCN with residency — checks the logits (the
+kernel arm against the plain arm, cached against uncached bitwise) and the
 kernels' launch counts, and times every kernel beside its bound.  It
 imports nothing of jax or of the JAX package ``repro``.
 
@@ -28,6 +32,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -43,6 +48,10 @@ TOL_SPMM = dict(atol=1e-5, rtol=1e-5)  # slot order vs the plain sum's order
 # fused_fp_na: F = 3066 products accumulated in order with FMA, against the
 # plain aggregate-then-matmul and the executor's matmul-then-aggregate
 TOL_FFN = dict(atol=1e-5, rtol=1e-5)
+# semantic_scores: the zW products with FMA in feature order, the row
+# scores summed per block then over blocks, against the matmul and mean
+TOL_SCORES = dict(atol=1e-5, rtol=1e-5)
+CACHE_ROWS = 256  # hot rows a node type on the residency paths
 
 failures: list = []
 
@@ -365,6 +374,118 @@ def rgcn_kernels_vs_plain(built, results: dict):
     return rels, (x, w, nbr, mask)
 
 
+def gather_work(table, hot, idx):
+    """Bytes of ``cached_gather`` on these inputs: the output and the
+    indices once, the hot ids once, and each table row that an index names
+    (directly or through its cache slot) once; it computes nothing."""
+    import torch
+
+    n, d = table.shape
+    v = idx.long().reshape(-1)
+    rows = torch.where(v >= n, hot.long()[(v - n).clamp(0, hot.numel() - 1)],
+                       v)
+    n_bytes = idx.numel() * 4 * (1 + d) + hot.numel() * 4
+    n_bytes += int(rows.unique().numel()) * d * 4
+    return n_bytes, 0
+
+
+def scores_work(z, w):
+    """Bytes and operations of ``semantic_scores``: z, W, b, q read once,
+    w written once; per row ``zW + b`` (2*D*Hs), tanh, the q dot (3*Hs),
+    and the mean."""
+    p, n, d = z.shape
+    hs = w.shape[1]
+    n_bytes = (z.numel() + d * hs + 2 * hs + p) * 4
+    return n_bytes, p * n * (2 * d * hs + 3 * hs + 1)
+
+
+def magnn_kernels_vs_plain(built, results: dict):
+    """Phase 2 for MAGNN/imdb with residency: ``cached_gather`` at each of
+    the six instance positions of a layer, bitwise against its plain
+    version and its emulation; the unstacked ``gat_na`` at both metapaths
+    against plain (all-masked rows exactly 0); ``semantic_scores`` on the
+    stacked NA output against plain and against a second run.  Returns the
+    timing inputs: the six gathers ``[(tag, table, hot, idx)]``, the two
+    ``gat_na`` calls ``{metapath: args}`` and ``(z, W, b, q)``."""
+    import torch
+    from repro_torch.core import stages
+    from repro_torch.kernels import feature_cache as tfc
+    from repro_torch.kernels import gat_na as tgat
+    from repro_torch.kernels import semantic_attn as tsem
+
+    ex, params, batch, plan = (built.executor, built.params, built.batch,
+                               built.plan)
+    hot = batch["residency"]["hot"]
+    heads = ex.cfg.n_heads
+    gathers, gat_args, errs, gat_errs = [], {}, [0.0], []
+    with torch.inference_mode():
+        h = ex.fp(params, batch)  # every type's [N_t, 64]
+        for i_path, ((nodes, mask), types) in enumerate(
+                zip(batch["instances"], plan.metapaths)):
+            mp_tag = "".join(types)
+            n, i, l = nodes.shape
+            rows = []
+            for j, ty in enumerate(types):
+                table, idx = h[ty], nodes[:, :, j]
+                tag = f"{mp_tag}[{j}]={ty}"
+                gathers.append((tag, table, hot[ty], idx))
+                out = tfc.cached_gather(table, hot[ty], idx)
+                want = tfc.cached_gather_plain(table, hot[ty], idx)
+                torch.cuda.synchronize()
+                errs.append(max_err(out, want))
+                check(torch.equal(out, want) and torch.equal(
+                    out, tfc.cached_gather_emulate(table, hot[ty], idx)),
+                    f"cached_gather {tag}: table {tuple(table.shape)}, C "
+                    f"{hot[ty].numel()}, idx {tuple(idx.shape)} strides "
+                    f"{idx.stride()}, {int((idx >= table.shape[0]).sum())} "
+                    f"of {idx.numel()} indices hot: bitwise equal to plain "
+                    f"and to its emulation")
+                rows.append(out)
+            h_path = torch.stack(rows, dim=2).reshape(n, i, l, heads, -1)
+            flat = stages.rotate_encoder(h_path).reshape(n * i, heads, -1)
+            nbr = torch.arange(n * i, dtype=torch.int32,
+                               device=flat.device).reshape(n, i)
+            h_tgt = h[plan.target].reshape(-1, heads, flat.shape[-1])
+            args = (params["att"][i_path], h_tgt, flat, nbr, mask)
+            gat_args[mp_tag] = args
+            out = tgat.gat_na(*args)
+            want = tgat.gat_na_plain(*args)
+            torch.cuda.synchronize()
+            gat_errs.append(max_err(out, want))
+            dead = mask.sum(dim=1) == 0
+            check(close(out, want, **TOL_Z),
+                  f"gat_na unstacked {mp_tag}: h_src {tuple(flat.shape)}, "
+                  f"nbr {tuple(nbr.shape)}, {int((mask != 0).sum())} live "
+                  f"instances: vs plain max |err| {gat_errs[-1]:.3e} (tol "
+                  f"{TOL_Z})")
+            check(bool((out[dead] == 0).all()),
+                  f"gat_na unstacked {mp_tag}: the {int(dead.sum())} rows "
+                  f"with no live instance come out exactly 0")
+        results["gat_na_unstacked"] = {"max_abs_err": max(gat_errs),
+                                       "tolerance": TOL_Z}
+        results["cached_gather"] = {"max_abs_err": max(errs),
+                                    "tolerance": "bitwise"}
+
+        sem = params["sem"]
+        z = torch.stack(ex.na(params, batch, h))  # [2, 4278, 64]
+        sa = (z, sem["W"], sem["b"], sem["q"])
+        w = tsem.semantic_scores(*sa)
+        want = tsem.semantic_scores_plain(*sa)
+        torch.cuda.synchronize()
+        err = max_err(w, want)
+        check(close(w, want, **TOL_SCORES),
+              f"semantic_scores z {tuple(z.shape)} W {tuple(sem['W'].shape)}"
+              f": {w.tolist()} vs plain {want.tolist()}, max |err| "
+              f"{err:.3e} (tol {TOL_SCORES})")
+        check(close(w, tsem.semantic_scores_emulate(*sa), **TOL_SCORES),
+              "semantic_scores vs its emulation")
+        check(torch.equal(w, tsem.semantic_scores(*sa)),
+              "semantic_scores: two runs give the same bits")
+        results["semantic_scores"] = {"max_abs_err": err,
+                                      "tolerance": TOL_SCORES}
+    return gathers, gat_args, sa
+
+
 def drive_variant(cfg, hg, dev, tag: str, per_forward, cpu_check: bool,
                   forward_ms: dict, profiles: dict) -> dict:
     """Drive one configuration through ``build_hgnn_infer`` +
@@ -373,7 +494,7 @@ def drive_variant(cfg, hg, dev, tag: str, per_forward, cpu_check: bool,
     (kernel -> launches a forward; the rest 0) times ITERS; logits finite
     and of the target's shape; against the plain arm on the card and, with
     ``cpu_check``, on the CPU; then walls and a profile.  Returns the
-    counts."""
+    counts and the logits."""
     import torch
     from repro_torch.core.models import get_model
     from repro_torch.kernels import ops
@@ -416,7 +537,7 @@ def drive_variant(cfg, hg, dev, tag: str, per_forward, cpu_check: bool,
     print(f"  {tag}: forward {forward_ms[tag]:.4f} ms/iter wall "
           f"(plain arm {forward_ms[tag + ' plain']:.4f} ms/iter)", flush=True)
     profiles[tag] = profile_forward(engine, tag)
-    return counts
+    return counts, logits
 
 
 def segment_spmm_launches(layers: int):
@@ -443,7 +564,7 @@ def rgcn_dblp(dev, forward_ms: dict, profiles: dict) -> int:
                      use_pallas=True)
     return drive_variant(cfg, hg, dev, "rgcn/dblp L=1 padded",
                          segment_spmm_launches(1), False, forward_ms,
-                         profiles)["segment_spmm"]
+                         profiles)[0]["segment_spmm"]
 
 
 def main() -> None:
@@ -462,6 +583,7 @@ def main() -> None:
     from repro_torch.core.models import get_model  # noqa: F401
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import feature_cache as tfc
     from repro_torch.kernels import fused_fp_na as tffn
     from repro_torch.kernels import gat_na as tgat
     from repro_torch.kernels import segment_spmm as tspmm
@@ -566,37 +688,52 @@ def main() -> None:
         hg, dev)
     spmm_rels, ffn_args = rgcn_kernels_vs_plain(rgcn_built, results)
 
+    print("phase 2c: cached_gather, the unstacked gat_na and semantic_scores "
+          f"at the MAGNN/imdb shapes (cache_rows={CACHE_ROWS})")
+    magnn_built = build_hgnn_infer(
+        HGNNConfig(model="magnn", dataset="imdb", use_pallas=True,
+                   cache_rows=CACHE_ROWS), hg, dev)
+    gathers, gat_args, sa_args = magnn_kernels_vs_plain(magnn_built, results)
+
     # ---------------- phase 3: the main paths ----------------
     print("phase 3: HAN/imdb full-graph inference through the entry points")
     main_counts = {"gat_na": 0, "gat_na_fused_sa": 0, "semantic_combine": 0,
-                   "segment_spmm": 0, "fused_fp_na": 0}
-    forward_ms, profiles = {}, {}
+                   "segment_spmm": 0, "fused_fp_na": 0, "cached_gather": 0,
+                   "gat_na_unstacked": 0, "semantic_scores": 0}
+    forward_ms, profiles, logits_of = {}, {}, {}
+
+    def add_counts(counts):  # a HAN or RGCN variant's launches
+        fused = counts["gat_na_fused_sa"]
+        main_counts["gat_na"] += counts["gat_na"] - fused
+        for name in ("gat_na_fused_sa", "semantic_combine", "segment_spmm"):
+            main_counts[name] += counts[name]
+
+    def han_launches(layers, fuse):
+        return lambda batch: {"gat_na": layers,
+                              "gat_na_fused_sa": layers if fuse else 0,
+                              "semantic_combine": layers if fuse else 0}
+
     for layers in (1, 2):
         for fuse in (True, False):
-            counts = drive_variant(
-                cfg1.replace(layers=layers, fuse_na_sa=fuse), hg, dev,
-                f"L={layers} fuse_na_sa={fuse}",
-                lambda batch: {"gat_na": layers,
-                               "gat_na_fused_sa": layers if fuse else 0,
-                               "semantic_combine": layers if fuse else 0},
-                layers == 1 and fuse, forward_ms, profiles)
-            fused = counts["gat_na_fused_sa"]
-            main_counts["gat_na"] += counts["gat_na"] - fused
-            main_counts["gat_na_fused_sa"] += fused
-            main_counts["semantic_combine"] += counts["semantic_combine"]
+            tag = f"L={layers} fuse_na_sa={fuse}"
+            counts, logits_of[tag] = drive_variant(
+                cfg1.replace(layers=layers, fuse_na_sa=fuse), hg, dev, tag,
+                han_launches(layers, fuse), layers == 1 and fuse,
+                forward_ms, profiles)
+            add_counts(counts)
 
     print("phase 3b: RGCN/imdb full-graph inference through the entry points")
     cfg_r = HGNNConfig(model="rgcn", dataset="imdb", fused=True,
                        use_pallas=True)
     for layers in (1, 2):
         for buckets in (0, 3):
-            counts = drive_variant(
+            tag = (f"rgcn L={layers} "
+                   f"{f'bucketed {buckets}' if buckets else 'padded'}")
+            counts, logits_of[tag] = drive_variant(
                 cfg_r.replace(layers=layers, degree_buckets=buckets), hg, dev,
-                f"rgcn L={layers} "
-                f"{f'bucketed {buckets}' if buckets else 'padded'}",
-                segment_spmm_launches(layers), layers == 1 and not buckets,
-                forward_ms, profiles)
-            main_counts["segment_spmm"] += counts["segment_spmm"]
+                tag, segment_spmm_launches(layers),
+                layers == 1 and not buckets, forward_ms, profiles)
+            add_counts(counts)
     print("phase 3c: RGCN/dblp")
     main_counts["segment_spmm"] += rgcn_dblp(dev, forward_ms, profiles)
     print("phase 3d: fused FP + NA through its entry point ops.fused_fp_na "
@@ -610,6 +747,75 @@ def main() -> None:
     check(counts == dict(dict.fromkeys(counts, 0), fused_fp_na=ITERS),
           f"ops.fused_fp_na: launches {counts} over {ITERS} calls")
     main_counts["fused_fp_na"] += counts["fused_fp_na"]
+
+    print("phase 3e: MAGNN/imdb full-graph inference through the entry "
+          "points, without and with residency")
+    cfg_m = HGNNConfig(model="magnn", dataset="imdb", use_pallas=True)
+    for layers in (1, 2):
+        for c in (0, CACHE_ROWS):
+            tag = f"magnn L={layers} cache_rows={c}"
+            counts, logits_of[tag] = drive_variant(
+                cfg_m.replace(layers=layers, cache_rows=c), hg, dev, tag,
+                lambda batch: {"gat_na": 2 * layers,
+                               "cached_gather": 6 * layers if c else 0},
+                layers == 1 and c == 0, forward_ms, profiles)
+            main_counts["gat_na_unstacked"] += counts["gat_na"]
+            main_counts["cached_gather"] += counts["cached_gather"]
+        check(torch.equal(logits_of[f"magnn L={layers} cache_rows=0"],
+                          logits_of[tag]),
+              f"magnn L={layers}: cached logits bitwise equal to uncached")
+
+    print("phase 3f: HAN and RGCN with residency "
+          f"(cache_rows={CACHE_ROWS}) against their uncached runs")
+    for base_tag, cfg, per_forward in (
+            ("L=1 fuse_na_sa=True", cfg1, han_launches(1, True)),
+            ("rgcn L=1 padded", cfg_r, segment_spmm_launches(1)),
+            ("rgcn L=1 bucketed 3", cfg_r.replace(degree_buckets=3),
+             segment_spmm_launches(1))):
+        tag = f"{base_tag} cache_rows={CACHE_ROWS}"
+        counts, logits_of[tag] = drive_variant(
+            cfg.replace(cache_rows=CACHE_ROWS), hg, dev, tag, per_forward,
+            False, forward_ms, profiles)
+        check(torch.equal(logits_of[tag], logits_of[base_tag]),
+              f"{tag}: logits bitwise equal to the uncached run")
+        add_counts(counts)
+
+    # the csr arm sums with index_add_, which adds with atomics on the
+    # card (ROADMAP Queue 3 check (d)): held by tolerance, not bitwise
+    cfg_csr = HGNNConfig(model="rgcn", dataset="imdb", fused=False)
+    with torch.inference_mode():
+        csr_runs = {}
+        for c in (0, CACHE_ROWS):
+            b = build_hgnn_infer(cfg_csr.replace(cache_rows=c), hg, dev)
+            csr_runs[c] = [b.fn(b.params, b.batch) for _ in range(2)]
+        torch.cuda.synchronize()
+    err = max_err(csr_runs[0][0], csr_runs[CACHE_ROWS][0])
+    check(close(csr_runs[0][0], csr_runs[CACHE_ROWS][0], **TOL_LOGITS),
+          f"rgcn L=1 csr cache_rows={CACHE_ROWS}: logits vs the uncached run "
+          f"max |err| {err:.3e} (tol {TOL_LOGITS}; two uncached runs "
+          f"bitwise equal: {torch.equal(*csr_runs[0])})")
+
+    print("phase 3g: both SA passes through their entry point "
+          "ops.semantic_attention (no executor path reaches it)")
+    with torch.inference_mode():
+        plain_sa = ops.semantic_attention(*sa_args, use_pallas=False)
+        ops.reset_launch_counts()
+        for _ in range(ITERS):
+            got_sa = ops.semantic_attention(*sa_args, use_pallas=True)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts == dict(dict.fromkeys(counts, 0), semantic_scores=ITERS,
+                         semantic_combine=ITERS),
+          f"ops.semantic_attention: launches {counts} over {ITERS} calls")
+    err = max_err(got_sa, plain_sa)
+    check(close(got_sa, plain_sa, **TOL_LOGITS),
+          f"ops.semantic_attention kernel arm vs plain arm: max |err| "
+          f"{err:.3e} (tol {TOL_LOGITS})")
+    main_counts["semantic_scores"] += counts["semantic_scores"]
+    main_counts["semantic_combine"] += counts["semantic_combine"]
+    profiles["ops.semantic_attention"] = profile_forward(
+        types.SimpleNamespace(infer=lambda: ops.semantic_attention(
+            *sa_args, use_pallas=True)), "ops.semantic_attention")
 
     # ---------------- phase 4: timing ----------------
     print("phase 4: kernel times (CUDA events, median; cold = L2 flushed)")
@@ -683,16 +889,82 @@ def main() -> None:
             lambda: tffn.fused_fp_na_plain(x, w, f_nbr, f_mask),
             lambda: torch.sparse.mm(f_csr, x) @ w,
             spmm_work(x.shape[1], f_nbr, f_mask, w.shape[1])[:2])
+
+        # MAGNN/imdb: each of a layer's six cached gathers and two unstacked
+        # gat_na launches on its own, then each layer's launches together
+        # (the kernels line's entries); the library call gathers from the
+        # pool built beforehand
+        pools = [torch.cat([t, t.index_select(0, hh)])
+                 for _, t, hh, _ in gathers]
+        magnn_per_launch = {}
+        singles = [(f"cached_gather {tag}",
+                    lambda t=t, hh=hh, idx=idx: tfc.cached_gather(t, hh, idx),
+                    lambda t=t, hh=hh, idx=idx: tfc.cached_gather_plain(
+                        t, hh, idx),
+                    lambda pool=pool, idx=idx: pool[idx],
+                    gather_work(t, hh, idx))
+                   for (tag, t, hh, idx), pool in zip(gathers, pools)]
+        singles += [(f"gat_na unstacked {mp_tag}",
+                     lambda a=a: tgat.gat_na(*a),
+                     lambda a=a: tgat.gat_na_plain(*a), None,
+                     gat_na_work(a[1], a[2], a[3][None], a[4][None], 0)[:2])
+                    for mp_tag, a in gat_args.items()]
+        for tag, kern, plain, lib, (n_bytes, n_ops) in singles:
+            ms, warm_ms = time_ms(kern, 50, flush), time_ms(kern, 50)
+            plain_ms = time_ms(plain, 20, flush)
+            lib_ms = time_ms(lib, 50, flush) if lib is not None else None
+            b_ms, b_by = bound(n_bytes, n_ops)
+            magnn_per_launch[tag] = {
+                "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "bytes": n_bytes, "operations": n_ops}
+            print(f"  {tag}: {ms:.5f} ms cold, {warm_ms:.5f} ms warm (plain "
+                  f"{plain_ms:.5f} ms, bound {b_ms:.5f} ms by {b_by}, "
+                  f"library {'n/a' if lib_ms is None else f'{lib_ms:.5f} ms'})")
+
+        def layer_of(fns):
+            def run():
+                for fn in fns:
+                    fn()
+            return run
+
+        def summed(works):
+            return (sum(wk[0] for wk in works), sum(wk[1] for wk in works))
+
+        n_g = len(gathers)
+        timed["cached_gather"] = (
+            layer_of([g[1] for g in singles[:n_g]]),
+            layer_of([g[2] for g in singles[:n_g]]),
+            layer_of([g[3] for g in singles[:n_g]]),
+            summed([g[4] for g in singles[:n_g]]))
+        timed["gat_na_unstacked"] = (
+            layer_of([g[1] for g in singles[n_g:]]),
+            layer_of([g[2] for g in singles[n_g:]]), None,
+            summed([g[4] for g in singles[n_g:]]))
+        timed["semantic_scores"] = (
+            lambda: tsem.semantic_scores(*sa_args),
+            lambda: tsem.semantic_scores_plain(*sa_args), None,
+            scores_work(sa_args[0], sa_args[1]))
         shapes = {
             "segment_spmm": "one RGCN/imdb layer: 4 launches, one per "
                             "relation, K=64, D=64",
             "fused_fp_na": f"RGCN/imdb M|md|D: x {tuple(x.shape)}, W "
                            f"{tuple(w.shape)}, nbr/mask {tuple(f_nbr.shape)}",
+            "cached_gather": f"one MAGNN/imdb layer: {n_g} launches, one per "
+                             f"instance position, C={CACHE_ROWS}, idx "
+                             f"{tuple(gathers[0][3].shape)} strided, D=64",
+            "gat_na_unstacked": "one MAGNN/imdb layer: 2 launches (MDM, MAM), "
+                                "nbr = arange [4278, 16], h_src = encoded "
+                                "instances [68448, 8, 8]",
+            "semantic_scores": f"z {tuple(sa_args[0].shape)}, W "
+                               f"{tuple(sa_args[1].shape)}",
         }
         library = {"semantic_combine": "torch.einsum",
                    "segment_spmm": "torch.sparse.mm (CSR of mask/deg, one "
                                    "call per relation)",
-                   "fused_fp_na": "torch.sparse.mm then @ W (two calls)"}
+                   "fused_fp_na": "torch.sparse.mm then @ W (two calls)",
+                   "cached_gather": "pool[idx] on the pre-built pool (one "
+                                    "call per launch)"}
         kernels = []
         source = {"gat_na": "src/repro_torch/kernels/csrc/gat_na.cu",
                   "gat_na_fused_sa": "src/repro_torch/kernels/csrc/gat_na.cu",
@@ -700,13 +972,22 @@ def main() -> None:
                       "src/repro_torch/kernels/csrc/semantic_combine.cu",
                   "segment_spmm":
                       "src/repro_torch/kernels/csrc/segment_spmm.cu",
-                  "fused_fp_na": "src/repro_torch/kernels/csrc/fused_fp_na.cu"}
+                  "fused_fp_na": "src/repro_torch/kernels/csrc/fused_fp_na.cu",
+                  "cached_gather":
+                      "src/repro_torch/kernels/csrc/feature_cache.cu",
+                  "gat_na_unstacked": "src/repro_torch/kernels/csrc/gat_na.cu",
+                  "semantic_scores":
+                      "src/repro_torch/kernels/csrc/semantic_scores.cu"}
         replaces = {"gat_na": "src/repro/kernels/gat_na.py:225",
                     "gat_na_fused_sa": "src/repro/kernels/gat_na.py:225",
                     "semantic_combine":
                         "src/repro/kernels/semantic_attn.py:153",
                     "segment_spmm": "src/repro/kernels/segment_spmm.py:93",
-                    "fused_fp_na": "src/repro/kernels/fused_fp_na.py:91"}
+                    "fused_fp_na": "src/repro/kernels/fused_fp_na.py:91",
+                    "cached_gather": "src/repro/kernels/feature_cache.py:34",
+                    "gat_na_unstacked": "src/repro/kernels/gat_na.py:225",
+                    "semantic_scores":
+                        "src/repro/kernels/semantic_attn.py:100"}
         for name, (kern, plain, lib, (n_bytes, n_ops)) in timed.items():
             ms = time_ms(kern, 50, flush)
             plain_ms = time_ms(plain, 20, flush)
@@ -740,6 +1021,7 @@ def main() -> None:
     print(f"clocks.sm, clocks.max.sm, power.draw, temperature: {clocks}")
     print(json.dumps({"forward_ms_per_iter": forward_ms,
                       "segment_spmm_per_relation": per_relation,
+                      "magnn_per_launch": magnn_per_launch,
                       "profiles": profiles}))
     if failures:
         print(f"FAILED: {failures}", file=sys.stderr)

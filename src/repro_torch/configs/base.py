@@ -42,7 +42,8 @@ class HGNNConfig:
     # Request-path sampled serving (>= 1); not ported yet.
     fanout: int = 0
     sample_ladder: Tuple[Tuple[int, int], ...] = ()
-    # Hot-feature residency (>= 1); not ported yet.
+    # Hot-feature residency (>= 1): hot rows kept per node type (one
+    # device; the partitioned and serving parts are not ported yet).
     cache_rows: int = 0
     # Async stage-graph schedule (>= 1); not ported yet.
     overlap: int = 0

@@ -11,15 +11,15 @@ Execution is a :class:`StagePlan` run by the stage-graph executor
 (:mod:`repro_torch.core.pipeline`): NA layout ``csr`` (baseline),
 ``padded`` (``cfg.fused``), or ``bucketed`` (``cfg.degree_buckets > 1``);
 ``cfg.use_pallas`` runs the hand-written ``segment_spmm`` kernel on the
-padded and bucketed layouts.  The partitioned, sampled, residency and
-overlap modes raise ``NotImplementedError`` naming their ROADMAP item.
+padded and bucketed layouts; ``cfg.cache_rows`` turns on single-device
+hot-feature residency.  The partitioned, sampled and overlap modes raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.configs.base import HGNNConfig
 from repro_torch.core import metapath as mp
@@ -27,7 +27,7 @@ from repro_torch.core import stages
 from repro_torch.core.hgraph import HeteroGraph
 from repro_torch.core.pipeline import PlannedModel, not_ported
 from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
-                                   SASpec, StagePlan)
+                                   ResidencySpec, SASpec, StagePlan)
 from repro_torch.data.synthetic import DATASET_TARGET
 from repro_torch.interop import resolve_device
 
@@ -50,11 +50,11 @@ class RGCN(PlannedModel):
             raise not_ported("graph-partitioned execution (partitions)", 12)
         if cfg.fanout >= 1:
             raise not_ported("request-path sampled serving (fanout)", 13)
-        if cfg.cache_rows >= 1:
-            raise not_ported("hot-feature residency (cache_rows)", 11)
         if cfg.overlap >= 1:
             raise not_ported("the async stage-graph schedule (overlap)", 14)
         na = NASpec(kind="mean", layout=layout, use_pallas=cfg.use_pallas)
+        residency = (ResidencySpec(cache_rows=cfg.cache_rows)
+                     if cfg.cache_rows >= 1 else None)
         # rel_sum SA updates EVERY node type (handoff="all"); hidden layers
         # need no FP — the per-layer w_rel / w_self matmuls inside NA/SA are
         # the layer's linear transform (h' = relu(W_0 h + sum mean(h_s) W_r))
@@ -65,15 +65,17 @@ class RGCN(PlannedModel):
                 LayerPlan(
                     fp=(FPSpec(kind="per_type", sharded=True) if l == 0
                         else FPSpec(kind="identity")),
-                    na=na, sa=SASpec(kind="rel_sum"), handoff="all")
+                    na=na, sa=SASpec(kind="rel_sum"), handoff="all",
+                    residency=residency)
                 for l in range(cfg.layers)),
             head=HeadSpec(kind="select_linear", target=self.target),
         )
 
     # ---------------- Stage 1: Relation Walk (host) ----------------
     def prepare(self, hg: HeteroGraph, device=None) -> Dict:
-        """Build the per-relation incoming-neighbour tables on the host and
-        place the batch on ``device`` (default: the CUDA device).  One
+        """Build the per-relation incoming-neighbour tables on the host,
+        apply residency to them, and place the batch on ``device``
+        (default: the CUDA device).  One
         ``np.random.default_rng(cfg.seed)`` runs over the sorted relation
         keys, as in the reference, so rows over the degree cap draw the
         same neighbours and every table is byte-equal to the reference's:
@@ -83,12 +85,8 @@ class RGCN(PlannedModel):
         dev = resolve_device(device)
         rng = np.random.default_rng(cfg.seed)
         self.rel_keys = sorted(hg.relations.keys())
-
-        def t(a):
-            return torch.as_tensor(a, device=dev)
-
         batch: Dict = {
-            "feats": {ty: t(f) for ty, f in hg.features.items()},
+            "feats": dict(hg.features),
             "counts": dict(hg.node_counts),
             "feat_dims": {ty: hg.feat_dim(ty) for ty in hg.features},
             "rels": {},
@@ -99,7 +97,7 @@ class RGCN(PlannedModel):
             adj_in = hg.relations[key].T.tocsr()
             if not cfg.fused:
                 seg, idx = stages.csr_to_edges(adj_in.indptr, adj_in.indices)
-                batch["rels"][key] = (t(seg), t(idx))
+                batch["rels"][key] = (seg, idx)
                 continue
             nbr = np.zeros((adj_in.shape[0], cfg.max_degree), np.int32)
             mask = np.zeros((adj_in.shape[0], cfg.max_degree), np.float32)
@@ -116,8 +114,8 @@ class RGCN(PlannedModel):
                 bk = mp.bucket_padded(mp.PaddedSubgraph(nbr, mask, [s, d]),
                                       cfg.degree_buckets)
                 batch["rels"][key] = [
-                    (t(bk.row_ids[i]), t(bk.nbr[i]), t(bk.mask[i]))
+                    (bk.row_ids[i], bk.nbr[i], bk.mask[i])
                     for i in range(bk.n_buckets)]
             else:
-                batch["rels"][key] = (t(nbr), t(mask))
-        return batch
+                batch["rels"][key] = (nbr, mask)
+        return self._finalize(batch, dev)

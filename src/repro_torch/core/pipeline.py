@@ -9,28 +9,38 @@ parameters live at the root of the parameter dict and hidden layers under
 so the reference's own parameters carry across unchanged
 (``repro_torch.interop.params_from_numpy``).
 
-Ported arms — HAN (slice 1) and RGCN (slice 2) full-graph inference:
+Ported arms — HAN (slice 1), RGCN (slice 2) and MAGNN (slice 3)
+full-graph inference, each with single-device hot-feature residency:
 
 * FP ``per_type`` (layer 0; reshaped to heads when ``fp.heads``), the
   ``dense`` re-projection of HAN's hidden layers with the ``target``
-  handoff, and the ``identity`` FP of RGCN's hidden layers with the
-  ``all`` handoff;
+  handoff, the ``identity`` FP of RGCN's hidden layers with the ``all``
+  handoff, and MAGNN's ``per_type`` hidden FP over the carried tables with
+  the ``target+carry`` handoff;
 * NA ``gat`` on the ``stacked`` ``[P, N, K]`` layout — plain, or ONE
   ``gat_na`` kernel launch for the whole stack (``na.use_pallas``), or that
   launch with the fused NA→SA epilogue (``sa.fuse_epilogue``);
 * NA ``mean`` per relation on the ``padded``, ``bucketed`` and ``csr``
   layouts — with ``na.use_pallas`` the padded and bucketed arms launch the
   ``segment_spmm`` kernel (one launch per relation, per bucket);
-* SA ``attention`` on the stack, or, after the fused epilogue, the O(P)
-  softmax plus the ``semantic_combine`` kernel (with the reference's
-  closed-form ``row_mask`` correction for padded rows); SA ``rel_sum``;
+* NA ``instance`` on the ``instances`` layout (MAGNN): per metapath the
+  positions' rows gathered, rotation-encoded and attended — plain, or one
+  unstacked ``gat_na`` launch over the encoded instances;
+* residency (``plan.residency``): the NA gathers read a pool extended by
+  the cache section of the hot rows (``_res_pool``), and MAGNN's hot
+  instance positions go through the ``cached_gather`` kernel;
+* SA ``attention`` on the stack or on MAGNN's list, or, after the fused
+  epilogue, the O(P) softmax plus the ``semantic_combine`` kernel (with
+  the reference's closed-form ``row_mask`` correction for padded rows); SA
+  ``rel_sum``;
 * the ``linear`` and ``select_linear`` heads.
 
-:func:`check_ported` accepts exactly HAN's and RGCN's combinations of these
-arms.  Arms of later slices raise ``NotImplementedError`` naming their
-ROADMAP item, and combinations that no model of the reference declares
-raise too; no arm is served by another one.  The reference's sharding
-constraints are no-ops on one device and are dropped.
+:func:`check_ported` accepts exactly HAN's, RGCN's and MAGNN's
+combinations of these arms.  Arms of later slices raise
+``NotImplementedError`` naming their ROADMAP item, and combinations that
+no model of the reference declares raise too; no arm is served by another
+one.  The reference's sharding constraints are no-ops on one device and
+are dropped.
 """
 from __future__ import annotations
 
@@ -38,17 +48,18 @@ import functools
 import math
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import semantics, stages
+from repro_torch.core import residency, semantics, stages
 from repro_torch.core.plan import StagePlan
 from repro_torch.kernels import ops
 
 _ACT = {None: lambda x: x, "elu": F.elu, "relu": F.relu}
 
 # NA kinds of later slices -> the ROADMAP Queue 1 item that ports them
-_NA_KIND_ITEM = {"instance": 9, "gcn": 10}
+_NA_KIND_ITEM = {"gcn": 10}
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:
@@ -98,16 +109,33 @@ def _check_rgcn_arms(plan: StagePlan) -> None:
         raise no_such_arm(f"head {plan.head} after mean NA")
 
 
+def _check_magnn_arms(plan: StagePlan) -> None:
+    if plan.na.layout != "instances" or plan.na.activation != "elu":
+        raise no_such_arm(f"instance NA on the {plan.na.layout!r} layout "
+                          f"with activation {plan.na.activation!r}")
+    if plan.sa.kind != "attention" or plan.sa.stacked \
+            or plan.sa.fuse_epilogue:
+        raise no_such_arm(f"SA {plan.sa} after instance NA")
+    fp_kinds = _fp_kinds(plan)
+    if fp_kinds != [("per_type", False)] * plan.n_layers \
+            or plan.layers[0].handoff != "target+carry":
+        raise no_such_arm(f"instance NA with FP kinds {fp_kinds} and handoff "
+                          f"{plan.layers[0].handoff!r}")
+    if plan.head.kind != "linear":
+        raise no_such_arm(f"head kind {plan.head.kind!r} after instance NA")
+
+
 def check_ported(plan: StagePlan) -> None:
-    """Raise for any plan outside the ported slices (HAN's and RGCN's
-    combinations of arms), so that no arm is silently served by another
-    one."""
+    """Raise for any plan outside the ported slices (HAN's, RGCN's and
+    MAGNN's combinations of arms, each with or without single-device
+    residency), so that no arm is silently served by another one."""
     if plan.partition is not None:
-        raise not_ported("graph-partitioned execution", 12)
+        raise not_ported(
+            "graph-partitioned execution" + (
+                " with hot-feature residency (partition_overlay)"
+                if plan.residency is not None else ""), 12)
     if plan.sample is not None:
         raise not_ported("request-path sampled serving", 13)
-    if plan.residency is not None:
-        raise not_ported("hot-feature residency", 11)
     if plan.schedule is not None:
         raise not_ported("the async stage-graph schedule", 14)
     kind = plan.na.kind
@@ -117,6 +145,8 @@ def check_ported(plan: StagePlan) -> None:
         _check_han_arms(plan)
     elif kind == "mean":
         _check_rgcn_arms(plan)
+    elif kind == "instance":
+        _check_magnn_arms(plan)
     else:
         raise ValueError(f"unknown NA kind {kind!r}")
 
@@ -156,6 +186,7 @@ class StageGraphExecutor:
     def _init_na_sa(self, gen: torch.Generator, batch: Dict) -> Dict:
         """The NA/SA block shared by layer 0 and every hidden layer: the
         stacked per-metapath GAT vectors and the semantic attention (HAN),
+        per-metapath instance attention and the semantic attention (MAGNN),
         or per-relation ``w_rel`` keyed by the relation tuples and per-type
         ``w_self`` (RGCN)."""
         cfg = self.cfg
@@ -167,23 +198,33 @@ class StageGraphExecutor:
         if self.plan.na.kind == "mean":
             return {"w_rel": {key: square() for key in sorted(batch["rels"])},
                     "w_self": {t: square() for t in sorted(batch["counts"])}}
+        sem = semantics.init_semantic_attention(gen, d, cfg.attn_hidden)
+        if self.plan.na.kind == "instance":
+            return {"att": [stages.init_instance_attention(
+                gen, cfg.n_heads, d // cfg.n_heads)
+                for _ in self.plan.metapaths], "sem": sem}
         gat = [stages.init_gat(gen, cfg.n_heads, d // cfg.n_heads)
                for _ in self.plan.metapaths]
         return {
             # one stacked param set -> ONE kernel launch for the stack
             "gat": {k: torch.stack([g[k] for g in gat]) for k in gat[0]},
-            "sem": semantics.init_semantic_attention(gen, d, cfg.attn_hidden),
+            "sem": sem,
         }
 
     def _init_hidden_layer(self, gen: torch.Generator, batch: Dict) -> Dict:
         """Params for one layer >= 1: HAN's square [D, D] re-projection of
-        the carried target table (RGCN's hidden FP is the identity: its
-        ``w_rel``/``w_self`` are the layer's transform) plus a fresh NA/SA
-        block."""
+        the carried target table, MAGNN's one per carried type and the
+        target (RGCN's hidden FP is the identity: its ``w_rel``/``w_self``
+        are the layer's transform) plus a fresh NA/SA block."""
+        plan = self.plan
         d = self.cfg.hidden
         p: Dict = {}
-        if self.plan.na.kind == "gat":
+        if plan.na.kind == "gat":
             p["fp"] = torch.randn((d, d), generator=gen) / math.sqrt(d)
+        elif plan.na.kind == "instance":
+            types = sorted(set(plan.layers[0].carry) | {plan.target})
+            p["fp"] = {t: torch.randn((d, d), generator=gen) / math.sqrt(d)
+                       for t in types}
         p.update(self._init_na_sa(gen, batch))
         return p
 
@@ -205,30 +246,52 @@ class StageGraphExecutor:
 
     def _fp_hidden(self, lp, p_l: Dict, state: Dict):
         """Layers >= 1: ``identity`` passes the carried tables through
-        (RGCN: the relation weights are the layer's transform); ``dense`` is
-        a [D, D] re-projection of the carried target table, reshaped to
-        heads when ``fp.heads``."""
+        (RGCN: the relation weights are the layer's transform); ``per_type``
+        re-projects every carried table (MAGNN); ``dense`` is a [D, D]
+        re-projection of the carried target table, reshaped to heads when
+        ``fp.heads``."""
         if lp.fp.kind == "identity":
             return state
+        if lp.fp.kind == "per_type":
+            return stages.feature_projection(p_l["fp"], state)
         h = state[self.plan.target] @ p_l["fp"]
         if lp.fp.heads:
             return h.reshape(h.shape[0], self.cfg.n_heads, -1)
         return h
 
-    def _handoff(self, lp, out) -> Dict:
-        """Package one layer's SA output as the next layer's state: ``all``
-        (rel_sum already returned every type's table) or ``target`` (the
-        metapath graphs are target->target, so only this layer's output)."""
+    def _handoff(self, lp, h, out) -> Dict:
+        """Package one layer's outputs as the next layer's state: ``all``
+        (rel_sum already returned every type's table), ``target`` (the
+        metapath graphs are target->target, so only this layer's SA output)
+        or ``target+carry`` (MAGNN: the SA output plus this layer's FP
+        output ``h`` for the carried types)."""
         if lp.handoff == "all":
             return out
-        return {self.plan.target: out}
+        state = {self.plan.target: out}
+        if lp.handoff == "target+carry":
+            for ty in lp.carry:
+                state[ty] = h[ty]
+        return state
 
     # ------------------------------------------------------------------
     # Stage 3: Neighbor Aggregation
     # ------------------------------------------------------------------
+    def _res_pool(self, batch: Dict, t: str, x: torch.Tensor):
+        """Residency arm: extend type ``t``'s source pool with the cache
+        section — bitwise copies of the hot rows, which the remapped index
+        tables address.  The hot sets are layer-invariant, so every layer
+        reuses the same resident rows.  Uncached batches pass through."""
+        res = batch.get("residency")
+        if res is None or t not in res["hot"]:
+            return x
+        return torch.cat([x, x.index_select(0, res["hot"][t])])
+
     def na(self, params: Dict, batch: Dict, h):
-        if self.plan.na.kind == "mean":
+        kind = self.plan.na.kind
+        if kind == "mean":
             return self._na_mean(params, batch, h)
+        if kind == "instance":
+            return self._na_instance(params, batch, h)
         return self._na_gat(params, batch, h)  # check_ported: gat/stacked
 
     def _na_gat(self, params: Dict, batch: Dict, h: torch.Tensor):
@@ -241,7 +304,8 @@ class StageGraphExecutor:
                                            use_pallas=True)
         z = stages.gat_aggregate_padded_stacked(
             params["gat"], h, batch["nbr"], batch["mask"],
-            stacked_fn=stacked_fn)
+            stacked_fn=stacked_fn,
+            h_src=self._res_pool(batch, plan.target, h))
         z = _ACT[plan.na.activation](z)
         return z.reshape(z.shape[0], z.shape[1], -1)  # [P, N, D]
 
@@ -253,7 +317,8 @@ class StageGraphExecutor:
             raise ValueError("sa.fuse_epilogue requires na.activation='elu' "
                              f"(got {self.plan.na.activation!r})")
         z4, wp = ops.gat_aggregate_stacked_fused_sa(
-            params["gat"], h, h, batch["nbr"], batch["mask"], params["sem"],
+            params["gat"], h, self._res_pool(batch, self.plan.target, h),
+            batch["nbr"], batch["mask"], params["sem"],
             use_pallas=self.plan.na.use_pallas)
         return z4.reshape(z4.shape[0], z4.shape[1], -1), wp
 
@@ -272,17 +337,61 @@ class StageGraphExecutor:
         for key in sorted(batch["rels"]):
             s, _, d = key
             rel = batch["rels"][key]
+            pool = self._res_pool(batch, s, h[s])
             if plan.na.layout == "csr":
-                agg = stages.mean_aggregate_csr(h[s], rel[0], rel[1],
+                agg = stages.mean_aggregate_csr(pool, rel[0], rel[1],
                                                 h[d].shape[0])
             elif plan.na.layout == "bucketed":
-                agg = stages.mean_aggregate_bucketed(h[s], rel, h[d].shape[0],
+                agg = stages.mean_aggregate_bucketed(pool, rel, h[d].shape[0],
                                                      agg_fn=agg_fn)
             else:  # padded
-                agg = (agg_fn or stages.mean_aggregate_padded)(h[s], rel[0],
+                agg = (agg_fn or stages.mean_aggregate_padded)(pool, rel[0],
                                                                rel[1])
             out["|".join(key)] = agg @ params["w_rel"][key]
         return out
+
+    def _na_instance_one(self, params: Dict, batch: Dict, h: Dict,
+                         i_path: int) -> torch.Tensor:
+        """One metapath's instance-attention NA (MAGNN): gather each path
+        position's projected rows — through the ``cached_gather`` kernel
+        where the position's type is hot, whichever arm runs, since the
+        remapped ids address the cache section — encode the instances by
+        rotation, attend over them per target.  The kernel arm is the
+        unstacked ``gat_na`` with the encoded instances as the source pool
+        and an ``arange`` neighbour grid."""
+        plan, cfg = self.plan, self.cfg
+        heads = cfg.n_heads
+        res = batch.get("residency")
+        hot = res["hot"] if res is not None else {}
+        p_i = params["att"][i_path]
+        nodes, mask = batch["instances"][i_path]
+        types = plan.metapaths[i_path]
+        n, i, l = nodes.shape
+
+        def gather(j):
+            ty = types[j]
+            if ty in hot:
+                return ops.cached_gather(h[ty], hot[ty], nodes[:, :, j],
+                                         use_pallas=plan.na.use_pallas)
+            return h[ty][nodes[:, :, j].long()]
+
+        h_path = torch.stack([gather(j) for j in range(l)], dim=2)
+        h_path = h_path.reshape(n, i, l, heads, -1)  # [N, I, L, H, Dh]
+        enc = stages.rotate_encoder(h_path)  # [N, I, H, Dh]
+        h_tgt = h[plan.target].reshape(-1, heads, h_path.shape[-1])
+        if plan.na.use_pallas:
+            flat = enc.reshape(n * i, heads, enc.shape[-1])
+            nbr_inst = torch.arange(n * i, dtype=torch.int32,
+                                    device=flat.device).reshape(n, i)
+            z = ops.gat_aggregate(p_i, h_tgt, flat, nbr_inst, mask,
+                                  use_pallas=True)
+        else:
+            z = stages.instance_aggregate(p_i, h_tgt, enc, mask)
+        return _ACT[plan.na.activation](z).reshape(n, -1)  # [N, D]
+
+    def _na_instance(self, params: Dict, batch: Dict, h: Dict):
+        return [self._na_instance_one(params, batch, h, i)
+                for i in range(len(self.plan.metapaths))]
 
     # ------------------------------------------------------------------
     # Stage 4: Semantic Aggregation
@@ -321,6 +430,9 @@ class StageGraphExecutor:
             # pass 2 (combine) is the only remaining full read of z
             return ops.semantic_combine(z_stack, beta,
                                       use_pallas=plan.na.use_pallas)
+        if not plan.sa.stacked:  # MAGNN: a list of per-metapath [N, D]
+            return semantics.semantic_attention_list(params["sem"], z,
+                                                     row_mask)
         return semantics.semantic_attention(params["sem"], z, row_mask)
 
     # ------------------------------------------------------------------
@@ -342,16 +454,20 @@ class StageGraphExecutor:
                  else self._fp_hidden(lp, p_l, state))
             z = self.na(p_l, batch, h)
             out = self.sa(p_l, batch, z)
-            state = self._handoff(lp, out)
+            state = self._handoff(lp, h, out)
         return self.head(params, out, batch)
 
 
 def _to_device(tree, device):
+    """A tree of dicts, lists and tuples with every array (numpy or torch)
+    placed on ``device`` as a tensor; Python scalars stay as they are."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    if isinstance(tree, (np.ndarray, torch.Tensor)):
+        return torch.as_tensor(tree, device=device)
+    return tree
 
 
 class PlannedModel:
@@ -374,6 +490,18 @@ class PlannedModel:
 
     def prepare(self, hg, device=None) -> Dict:
         raise NotImplementedError
+
+    def _finalize(self, batch: Dict, device) -> Dict:
+        """End-of-``prepare`` hook (port of the single-device part of the
+        reference's ``_maybe_partition``): with ``plan.residency``, count
+        the references of the host index tables, pick the hot sets and
+        remap the tables into the cache-extended pool; then place the
+        batch on ``device``, once."""
+        plan = self.plan()
+        if plan.residency is not None:
+            batch = residency.apply(plan, batch,
+                                    residency.build_tables(plan, batch))
+        return _to_device(batch, device)
 
     def init(self, gen: torch.Generator, batch: Dict) -> Dict:
         return self.executor.init(gen, batch)

@@ -8,8 +8,8 @@ their ``__post_init__`` checks are the reference's.  The reference's
 sharding rule tables (``batch_specs`` / ``param_specs`` and the mesh axis
 names) are dropped: the port runs on one device, where they are no-ops.
 
-The executor of the port serves the arms of the first slice (HAN, stacked
-GAT NA, attention SA); a plan that names another arm raises
+The executor of the port serves the arms of HAN, RGCN and MAGNN
+(``pipeline.check_ported``); a plan that names another arm raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -77,7 +77,9 @@ class SampleSpec:
 
 @dataclass(frozen=True)
 class ResidencySpec:
-    """Hot-feature residency (not ported yet: Queue 1 item 11)."""
+    """Hot-feature residency: ``cache_rows`` hot rows per node type in a
+    cache section of the gather pool (one device; ``pin_targets`` is the
+    serving cache's, not ported yet: Queue 1 item 13)."""
 
     cache_rows: int
     pin_targets: bool = True

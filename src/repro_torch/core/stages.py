@@ -1,5 +1,5 @@
 """The paper's HGNN execution stages in PyTorch (port of
-``repro/core/stages.py:55-200`` and ``:226-317``).
+``repro/core/stages.py:55-200``, ``:226-317`` and ``:325-364``).
 
 Stage 2 — Feature Projection (FP): type-specific dense matmul (DM-Type).
 Stage 3 — Neighbor Aggregation (NA): graph-topology gather + reduce
@@ -86,18 +86,67 @@ def gat_aggregate_padded_stacked(
     nbr: torch.Tensor,  # [P, N, K] stacked per-metapath subgraphs
     mask: torch.Tensor,
     stacked_fn: Optional[Callable] = None,
+    h_src: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Inter-subgraph-parallel NA over stacked padded subgraphs, gathering
-    from the destination table ``h``: the plain body looped over the stack
-    (the reference's vmap), or ``stacked_fn`` consuming the whole
-    ``[P, N, K]`` stack in one call — the kernel path, ONE launch per
-    stack."""
+    """Inter-subgraph-parallel NA over stacked padded subgraphs: the plain
+    body looped over the stack (the reference's vmap), or ``stacked_fn``
+    consuming the whole ``[P, N, K]`` stack in one call — the kernel path,
+    ONE launch per stack.  ``h_src`` swaps the gather pool (default: the
+    destination table ``h``; the residency arm passes the cache-extended
+    pool)."""
+    h_src = h if h_src is None else h_src
     if stacked_fn is not None:
-        return stacked_fn(p_stacked, h, h, nbr, mask)
+        return stacked_fn(p_stacked, h, h_src, nbr, mask)
     return torch.stack([
-        gat_aggregate_padded({k: v[i] for k, v in p_stacked.items()}, h, h,
-                             nbr[i], mask[i])
+        gat_aggregate_padded({k: v[i] for k, v in p_stacked.items()}, h,
+                             h_src, nbr[i], mask[i])
         for i in range(nbr.shape[0])])
+
+
+# ---------------------------------------------------------------------------
+# Instance aggregation (MAGNN intra-metapath)
+# ---------------------------------------------------------------------------
+
+
+def init_instance_attention(gen: torch.Generator, n_heads: int,
+                            head_dim: int) -> Dict[str, torch.Tensor]:
+    return init_gat(gen, n_heads, head_dim)
+
+
+def rotate_encoder(h_path: torch.Tensor) -> torch.Tensor:
+    """MAGNN's relational rotation (RotatE-style) instance encoder.
+
+    ``h_path``: [N, I, L, H, Dh] projected features along each instance.
+    Treats the feature pairs (even, odd) as complex numbers, composes the
+    positions by cumulative rotation along the path, averages, and
+    interleaves the pairs back.  The mean when L == 1."""
+    n, i, l, h, dh = h_path.shape
+    re, im = h_path[..., 0::2], h_path[..., 1::2]
+    acc_re, acc_im = re[:, :, 0], im[:, :, 0]
+    out_re, out_im = acc_re, acc_im
+    for pos in range(1, l):
+        r, s = re[:, :, pos], im[:, :, pos]
+        acc_re, acc_im = acc_re * r - acc_im * s, acc_re * s + acc_im * r
+        out_re = out_re + acc_re
+        out_im = out_im + acc_im
+    return torch.stack([out_re / l, out_im / l], dim=-1).reshape(n, i, h, dh)
+
+
+def instance_aggregate(
+    p: Dict[str, torch.Tensor],
+    h_tgt: torch.Tensor,  # [N, H, Dh]
+    enc: torch.Tensor,  # [N, I, H, Dh] encoded instances
+    mask: torch.Tensor,  # [N, I]
+) -> torch.Tensor:
+    """Attention over metapath instances per target node -> [N, H, Dh]."""
+    e_t = (h_tgt * p["a_dst"]).sum(-1)  # [N, H]
+    e_i = (enc * p["a_src"]).sum(-1)  # [N, I, H]
+    e = _leaky_relu(e_t[:, None, :] + e_i)
+    e = torch.where(mask[..., None] > 0, e, torch.full_like(e, -1e9))
+    e = e - e.amax(dim=1, keepdim=True)
+    w = torch.exp(e) * mask[..., None]
+    alpha = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-9)
+    return torch.einsum("nih,nihd->nhd", alpha, enc)
 
 
 def mean_aggregate_padded(h_src: torch.Tensor, nbr: torch.Tensor,

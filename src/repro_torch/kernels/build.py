@@ -43,6 +43,8 @@ SIGNATURES: Dict[str, tuple] = {
     "semantic_combine_launch": ([_P, _P, _P, _I, _L, _P], _I),
     "segment_spmm_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "fused_fp_na_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    "cached_gather_launch": ([_P] * 4 + [_I] * 3 + [_L] * 4 + [_I, _P], _I),
+    "semantic_scores_launch": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

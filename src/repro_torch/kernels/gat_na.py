@@ -20,7 +20,10 @@ both, and ``streaming.chunk_schedule`` is not needed.
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version (:func:`gat_na_plain`, from ``kernels/ref.py``); a CUDA tensor
 launches the kernel or raises.  ``gat_na.launches`` counts the launches
-(``gat_na.fused_launches`` the ones with the epilogue).
+(``gat_na.fused_launches`` the ones with the epilogue).  The unstacked
+call form (``nbr``/``mask`` ``[N, K]``, ``a_dst``/``a_src`` ``[H, Dh]``,
+MAGNN's instance attention) is lifted to the stacked one with S = 1, as
+the reference's ``_normalize`` does (``gat_na.py:217-222``).
 :func:`gat_na_emulate` replays the kernel's own algorithm (slot order,
 online softmax, block-ordered score sum) in PyTorch, so the CPU tests
 check the design, not only the contract.
@@ -39,6 +42,22 @@ ROWS_PER_BLOCK = 16
 MAX_FEATURES = 256
 
 
+def _lift(p: Dict[str, torch.Tensor], nbr, mask):
+    """``(p, nbr, mask, stacked)`` in the stacked form: the unstacked call
+    form ``[N, K]`` gains a metapath dim of 1."""
+    if nbr.dim() == 2:
+        return {k: v[None] for k, v in p.items()}, nbr[None], mask[None], False
+    return p, nbr, mask, True
+
+
+def _unlift(out, stacked: bool):
+    if stacked:
+        return out
+    if isinstance(out, tuple):  # (z, w) of the epilogue
+        return out[0][0], out[1][0]
+    return out[0]
+
+
 def gat_na_plain(p: Dict[str, torch.Tensor], h_dst, h_src, nbr, mask,
                  sem: Optional[Dict[str, torch.Tensor]] = None):
     """The plain PyTorch version of :func:`gat_na`, same contract."""
@@ -55,8 +74,9 @@ def gat_na_emulate(p: Dict[str, torch.Tensor], h_dst, h_src, nbr, mask,
     j = 0..K-1 in order, masked ones skipped, an online softmax per head
     (running max from -1e9, denominator, rescaled accumulator), the
     ``max(denom, 1e-9)`` finish, and with ``sem`` the row scores summed per
-    block of ``ROWS_PER_BLOCK`` rows, then over blocks, then / N.  Stacked
-    form only (``nbr [S, N, K]``)."""
+    block of ``ROWS_PER_BLOCK`` rows, then over blocks, then / N.  Either
+    call form."""
+    p, nbr, mask, stacked = _lift(p, nbr, mask)
     s_dim, n, k = nbr.shape
     idx = nbr.long()
     e_dst = (h_dst[None] * p["a_dst"][:, None]).sum(-1)  # [S, N, H]
@@ -79,7 +99,7 @@ def gat_na_emulate(p: Dict[str, torch.Tensor], h_dst, h_src, nbr, mask,
         m = torch.where(live, m_new, m)
     out = acc / torch.clamp(den, min=1e-9)[..., None]
     if sem is None:
-        return out
+        return _unlift(out, stacked)
     z = torch.nn.functional.elu(out)
     score = torch.tanh(z.reshape(s_dim, n, -1) @ sem["W"] + sem["b"])
     score = (score * sem["q"]).sum(-1)  # [S, N] one score a row
@@ -87,15 +107,16 @@ def gat_na_emulate(p: Dict[str, torch.Tensor], h_dst, h_src, nbr, mask,
     score = torch.nn.functional.pad(score,
                                     (0, n_blocks * ROWS_PER_BLOCK - n))
     partial = score.reshape(s_dim, n_blocks, ROWS_PER_BLOCK).sum(-1)
-    return z, partial.sum(-1) / n
-
+    return _unlift((z, partial.sum(-1) / n), stacked)
 
 
 def check_kernel_args(p, h_dst, h_src, nbr, mask, sem=None) -> None:
-    """Raise on what the CUDA kernel does not take (stacked form)."""
-    if nbr.dim() != 3 or mask.shape != nbr.shape:
-        raise ValueError(f"gat_na: nbr/mask must be [S, N, K] of one shape, "
-                         f"got {tuple(nbr.shape)} / {tuple(mask.shape)}")
+    """Raise on what the CUDA kernel does not take (either call form)."""
+    if nbr.dim() not in (2, 3) or mask.shape != nbr.shape:
+        raise ValueError(f"gat_na: nbr/mask must be [S, N, K] or [N, K] of "
+                         f"one shape, got {tuple(nbr.shape)} / "
+                         f"{tuple(mask.shape)}")
+    p, nbr, mask, _ = _lift(p, nbr, mask)
     s_dim, n, k = nbr.shape
     if h_dst.dim() != 3 or h_src.dim() != 3:
         raise ValueError("gat_na: h_dst/h_src must be [rows, H, Dh]")
@@ -178,19 +199,21 @@ def gat_na(p: Dict[str, torch.Tensor], h_dst: torch.Tensor,
     ``h_src [M, H, Dh]``, ``nbr``/``mask`` ``[S, N, K]``.  Returns
     ``[S, N, H, Dh]``; with ``sem`` (``W [H*Dh, Hs]``, ``b``, ``q [Hs]``)
     returns ``(z, w [S])`` with ``z = elu(out)`` and
-    ``w_s = mean_n q·tanh(z_s W + b)``.
+    ``w_s = mean_n q·tanh(z_s W + b)``.  The unstacked form (``[H, Dh]``
+    params, ``[N, K]`` tables) returns ``[N, H, Dh]`` (``(z, w)`` with a
+    scalar ``w``).
     """
-    if nbr.dim() != 3:
-        raise ValueError(f"gat_na: takes the stacked form nbr/mask "
-                         f"[S, N, K], got nbr {tuple(nbr.shape)}")
+    if nbr.dim() not in (2, 3):
+        raise ValueError(f"gat_na: takes nbr/mask [S, N, K] or [N, K], "
+                         f"got nbr {tuple(nbr.shape)}")
     sem_t = tuple(sem.values()) if sem is not None else ()
     dev = build.device_of("gat_na", (h_dst, h_src, nbr, mask, *p.values(),
                                      *sem_t))
-    if dev.type == "cpu":
-        return gat_na_plain(p, h_dst, h_src, nbr, mask, sem)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"gat_na: no kernel for device {dev}")
-    return _launch(p, h_dst, h_src, nbr, mask, sem)
+    p, nbr, mask, stacked = _lift(p, nbr, mask)
+    run = gat_na_plain if dev.type == "cpu" else _launch
+    return _unlift(run(p, h_dst, h_src, nbr, mask, sem), stacked)
 
 
 gat_na.launches = 0

@@ -1,5 +1,5 @@
 """Public kernel entry points of the executor (port of the HGNN part of
-``repro/kernels/ops.py:104-139``).
+``repro/kernels/ops.py:30-139``).
 
 Dispatch policy:
 
@@ -13,10 +13,9 @@ Dispatch policy:
   There is no fallback from a CUDA tensor to the plain version.
 
 The name ``use_pallas`` is the reference's; here it means "hand-written
-kernels".  The other wrappers of the reference (``cached_gather``,
-``semantic_attention``, ``flash_attention``, ``decode_attention``, the
-unstacked ``gat_aggregate``) serve paths that are not ported yet (ROADMAP
-Queue 2).
+kernels".  The reference's ``flash_attention`` and ``decode_attention``
+serve the LM substrate, which is not ported yet (ROADMAP Queue 2 items 7
+and 8).
 """
 from __future__ import annotations
 
@@ -24,6 +23,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import feature_cache as _fc
 from repro_torch.kernels import fused_fp_na as _ffn
 from repro_torch.kernels import gat_na as _gat
 from repro_torch.kernels import ref
@@ -47,6 +47,32 @@ def fused_fp_na(x_src, w, nbr, mask, mean: bool = True,
     if use_pallas:
         return _ffn.fused_fp_na(x_src, w, nbr, mask, mean=mean)
     return ref.fused_fp_na(x_src, w, nbr, mask, mean=mean)
+
+
+def semantic_attention(z, w, b, q, use_pallas: bool = False) -> torch.Tensor:
+    """Both SA passes over the stacked ``[P, N, D]`` input: the scores
+    kernel, the softmax over ``P``, the combine kernel."""
+    if use_pallas:
+        return _sem.semantic_attention(z, w, b, q)
+    return ref.semantic_attention(z, w, b, q)
+
+
+def cached_gather(table, hot, idx, use_pallas: bool = False) -> torch.Tensor:
+    """Hot-row cache gather (``core/residency.py``): the rows of the
+    extended pool ``concat(table, table[hot])``; indices ``>= len(table)``
+    hit the cache section."""
+    if use_pallas:
+        return _fc.cached_gather(table, hot, idx)
+    return ref.cached_gather(table, hot, idx)
+
+
+def gat_aggregate(p: Dict, h_dst, h_src, nbr, mask,
+                  use_pallas: bool = False) -> torch.Tensor:
+    """Unstacked GAT NA: ``nbr/mask [N, K]``, params ``[H, Dh]`` ->
+    ``[N, H, Dh]`` (MAGNN's instance attention, one launch a metapath)."""
+    if use_pallas:
+        return _gat.gat_na(p, h_dst, h_src, nbr, mask)
+    return ref.gat_na(p, h_dst, h_src, nbr, mask)
 
 
 def gat_aggregate_stacked(p_stacked: Dict, h_dst, h_src, nbr, mask,
@@ -82,6 +108,8 @@ def reset_launch_counts() -> None:
     _sem.semantic_combine.launches = 0
     _spmm.segment_spmm.launches = 0
     _ffn.fused_fp_na.launches = 0
+    _fc.cached_gather.launches = 0
+    _sem.semantic_scores.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -90,4 +118,6 @@ def launch_counts() -> Dict[str, int]:
             "gat_na_fused_sa": _gat.gat_na.fused_launches,
             "semantic_combine": _sem.semantic_combine.launches,
             "segment_spmm": _spmm.segment_spmm.launches,
-            "fused_fp_na": _ffn.fused_fp_na.launches}
+            "fused_fp_na": _ffn.fused_fp_na.launches,
+            "cached_gather": _fc.cached_gather.launches,
+            "semantic_scores": _sem.semantic_scores.launches}

@@ -46,6 +46,17 @@ def fused_fp_na(
     return segment_spmm(x_src, nbr, mask, mean=mean) @ w
 
 
+def cached_gather(
+    table: torch.Tensor,  # [N, D]
+    hot: torch.Tensor,  # [C] int hot row ids
+    idx: torch.Tensor,  # [...] int indices into the extended pool [0, N+C)
+) -> torch.Tensor:
+    """Hot-row cache gather: the extended pool is the table with the hot
+    rows' bitwise copies appended.  Returns ``idx.shape + (D,)``."""
+    pool = torch.cat([table, table[hot.long()]])
+    return pool[idx.long()]
+
+
 def gat_na(
     p: Dict[str, torch.Tensor],  # a_dst/a_src [H, Dh] ([S, H, Dh] stacked)
     h_dst: torch.Tensor,  # [N, H, Dh]
@@ -94,8 +105,13 @@ def semantic_combine(z: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def semantic_scores(z, w, b, q) -> torch.Tensor:
+    """SA pass 1: ``w_p = mean_n q·tanh(z_p,n W + b)`` over ``z [P, N, D]``
+    -> ``[P]``."""
+    return (torch.tanh(z @ w + b) @ q).mean(dim=1)
+
+
 def semantic_attention(z, w, b, q) -> torch.Tensor:
     """HAN semantic attention over the stacked ``[P, N, D]`` input."""
-    s = torch.tanh(z @ w + b)  # [P, N, Hs]
-    wp = (s @ q).mean(dim=1)  # [P]
-    return semantic_combine(z, torch.softmax(wp, dim=0))
+    return semantic_combine(z, torch.softmax(semantic_scores(z, w, b, q),
+                                             dim=0))

@@ -5,16 +5,24 @@
       --dataset imdb --use-pallas --fuse-na-sa [--layers L] [--iters N]
   PYTHONPATH=src python -m repro_torch.launch.serve --hgnn rgcn \\
       --dataset imdb --use-pallas [--degree-buckets 3] [--layers L]
+  PYTHONPATH=src python -m repro_torch.launch.serve --hgnn magnn \\
+      --dataset imdb --use-pallas [--cache-rows 256] [--layers L]
 
 runs on the CUDA device; ``--device cpu`` runs on the CPU (the kernels'
-plain versions).  It prints the device, then the reference's line
+plain versions).  ``--cache-rows C`` turns on hot-feature residency for
+any of the three models.  It prints the device, then the reference's line
 
   han/imdb [na=gat/stacked +fused-sa] logits (4278, 8) on single-device: ... ms/iter
   rgcn/imdb [na=mean/padded] logits (4278, 8) on single-device: ... ms/iter
+  magnn/imdb [na=instance/instances] logits (4278, 8) on single-device: ... ms/iter
 
 with the time per forward on the host clock, after one warm-up forward,
-synchronised with the device.  The reference's device mesh, sampled
-serving, characterization and LM serving are not ported yet.
+synchronised with the device, and with residency the reference's counters
+
+  residency: cache_rows=... hits=... misses=... rows=... hit_rate=...
+
+The reference's device mesh, graph partitioning, sampled serving, the
+overlap schedule, characterization and LM serving are not ported yet.
 """
 from __future__ import annotations
 
@@ -73,7 +81,8 @@ def run_hgnn(args) -> None:
     cfg = HGNNConfig(model=args.hgnn, dataset=args.dataset, fused=True,
                      use_pallas=args.use_pallas,
                      degree_buckets=args.degree_buckets,
-                     fuse_na_sa=args.fuse_na_sa, layers=args.layers)
+                     fuse_na_sa=args.fuse_na_sa, layers=args.layers,
+                     cache_rows=args.cache_rows)
     hg = make_dataset(args.dataset)
     built = build_hgnn_infer(cfg, hg, dev)
     engine = HGNNInferEngine(built.executor, built.params, built.batch,
@@ -95,25 +104,35 @@ def run_hgnn(args) -> None:
           f"{f' x{n_l}layers' if n_l > 1 else ''}] "
           f"logits {tuple(logits.shape)} on single-device: "
           f"{dt*1e3:.2f} ms/iter")
+    res = built.batch.get("residency")
+    if res is not None:
+        ct = res["counters"]
+        print(f"  residency: cache_rows={ct['cache_rows']} "
+              f"hits={ct['hits']} misses={ct['misses']} rows={ct['rows']} "
+              f"hit_rate={ct['hits'] / max(ct['rows'], 1):.3f}")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--hgnn", required=True,
                     choices=["han", "rgcn", "magnn", "gcn"],
-                    help="HGNN model (HAN and RGCN are ported; the others "
-                         "raise)")
+                    help="HGNN model (HAN, RGCN and MAGNN are ported; GCN "
+                         "raises)")
     ap.add_argument("--dataset", default="imdb",
                     choices=["imdb", "acm", "dblp", "reddit"])
     ap.add_argument("--use-pallas", action="store_true",
                     help="hand-written CUDA kernels (gat_na, "
-                         "semantic_combine, segment_spmm) on the hot loop")
+                         "semantic_combine, segment_spmm, cached_gather) on "
+                         "the hot loop")
     ap.add_argument("--fuse-na-sa", action="store_true",
                     help="fused NA→SA epilogue: SA pass-1 scores accumulate "
                          "inside the NA kernel (stacked layout)")
     ap.add_argument("--degree-buckets", type=int, default=0,
                     help="degree-bucketed padded NA layout with that many "
                          "buckets (RGCN relations)")
+    ap.add_argument("--cache-rows", type=int, default=0,
+                    help="hot-feature residency: keep that many hot rows per "
+                         "node type in a cache section of the gather pool")
     ap.add_argument("--layers", type=int, default=1,
                     help="stack that many FP->NA->SA layers")
     ap.add_argument("--iters", type=int, default=3)

@@ -2,6 +2,10 @@
 ``core/stages.py``) against the reference: the JAX oracles and the Pallas
 kernel run in interpret mode, as ``tests/test_gat_na.py`` runs it.
 
+Both call forms are covered: the stacked ``[S, N, K]`` one (HAN) and the
+unstacked ``[N, K]`` one (MAGNN's instance attention over an ``arange``
+grid), which the wrapper lifts to S = 1.
+
 Tolerance: atol = rtol = 1e-5 in fp32.  Both sides compute the same
 softmax; the Pallas kernel reduces in tile order and the torch version
 over the whole row, which moves the last bits only.  The CUDA kernel
@@ -12,6 +16,7 @@ import pytest
 import torch
 
 from repro.core import stages as ref_stages
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.gat_na import gat_na as pallas_gat_na
 from repro_torch.core import stages
@@ -122,18 +127,27 @@ def test_wrapper_on_cpu_runs_plain_and_counts_nothing(shape):
     assert torch.equal(got, tgat.gat_na_plain(p, hd, hs, nbr, mask))
     zp, wp = tgat.gat_na_plain(p, hd, hs, nbr, mask, sem)
     assert torch.equal(z, zp) and torch.equal(w, wp)
-    assert ops.launch_counts() == {"gat_na": 0, "gat_na_fused_sa": 0,
-                                   "semantic_combine": 0, "segment_spmm": 0,
-                                   "fused_fp_na": 0}
+    counts = ops.launch_counts()
+    assert counts["gat_na"] == counts["gat_na_fused_sa"] == 0
+    assert set(counts.values()) == {0}
 
 
 def test_wrapper_takes_only_the_stacked_form():
+    """The stacked form is the only form the kernel runs: the unstacked
+    ``[N, K]`` form is lifted to it (S = 1) and comes back unlifted, with
+    the same bits; a table of any other rank is refused."""
     c = _case(3, 1, 40, 30, 6, 4, 4)
     p, hd, hs, nbr, mask, sem = _torch(c)
     p1 = {k: v[0] for k, v in p.items()}
+    assert torch.equal(tgat.gat_na(p1, hd, hs, nbr[0], mask[0]),
+                       tgat.gat_na(p, hd, hs, nbr, mask)[0])
+    z1, w1 = tgat.gat_na(p1, hd, hs, nbr[0], mask[0], sem=sem)
+    z, w = tgat.gat_na(p, hd, hs, nbr, mask, sem=sem)
+    assert torch.equal(z1, z[0]) and torch.equal(w1, w[0])
+    assert w1.shape == ()
     for kw in ({}, {"sem": sem}):
-        with pytest.raises(ValueError, match="stacked form"):
-            tgat.gat_na(p1, hd, hs, nbr[0], mask[0], **kw)
+        with pytest.raises(ValueError, match="\\[S, N, K\\] or \\[N, K\\]"):
+            tgat.gat_na(p1, hd, hs, nbr[0, 0], mask[0, 0], **kw)
 
 
 def test_wrapper_rejects_mixed_and_unknown_devices():
@@ -223,3 +237,116 @@ def test_stages_gat_aggregate_matches_jax_stages(shape):
         stages.gat_aggregate_padded_stacked(p, hd, nbr_self, mask).numpy(),
         np.asarray(ref_stages.gat_aggregate_padded_stacked(
             jp, jhd, jnbr_self, jmask)), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the unstacked call form (MAGNN's instance attention)
+# ---------------------------------------------------------------------------
+
+
+def _unstacked(c):
+    """Metapath 0 of a stacked case, in the ``[N, K]`` / ``[H, Dh]`` form."""
+    p, hd, hs, nbr, mask, sem = _torch(c)
+    jp, jhd, jhs, jnbr, jmask, jsem = _jax(c)
+    return ({k: v[0] for k, v in p.items()}, hd, hs, nbr[0], mask[0], sem,
+            {k: v[0] for k, v in jp.items()}, jhd, jhs, jnbr[0], jmask[0],
+            jsem)
+
+
+def _arange_case(seed, n, i, h, dh):
+    """MAGNN's kernel-arm inputs: the encoded instances ``[n*i, H, Dh]`` as
+    the source pool, an ``arange`` neighbour grid, and rows 0, 5 and n-1
+    with no live instance."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    c = {"h_dst": rng.standard_normal((n, h, dh)).astype(f32),
+         "h_src": rng.standard_normal((n * i, h, dh)).astype(f32),
+         "nbr": np.arange(n * i, dtype=np.int32).reshape(1, n, i),
+         "mask": (rng.random((1, n, i)) < 0.5).astype(f32),
+         "a_dst": (rng.standard_normal((1, h, dh)) * 0.3).astype(f32),
+         "a_src": (rng.standard_normal((1, h, dh)) * 0.3).astype(f32),
+         "W": np.zeros((h * dh, 4), f32), "b": np.zeros(4, f32),
+         "q": np.zeros(4, f32)}
+    c["mask"][0, [0, 5, n - 1]] = 0.0
+    return c
+
+
+UNSTACKED = [("random", (9, 1, 150, 130, 9, 4, 8)),
+             ("random", (10, 1, 45, 60, 33, 8, 8)),
+             ("arange", (11, 70, 16, 8, 8)),
+             ("arange", (12, 33, 4, 4, 4))]
+
+
+def _unstacked_case(kind, args):
+    c = _case(*args) if kind == "random" else _arange_case(*args)
+    return c, _unstacked(c)
+
+
+@pytest.mark.parametrize("kind,args", UNSTACKED)
+def test_unstacked_form_matches_jax_ref_and_pallas(kind, args):
+    c, (p, hd, hs, nbr, mask, _, jp, jhd, jhs, jnbr, jmask, _) = \
+        _unstacked_case(kind, args)
+    want = np.asarray(jref.gat_na(jp, jhd, jhs, jnbr, jmask))
+    pallas = np.asarray(pallas_gat_na(jp, jhd, jhs, jnbr, jmask,
+                                      interpret=True))
+    assert want.shape == (hd.shape[0],) + tuple(hd.shape[1:])
+    dead = np.where(c["mask"][0].sum(-1) == 0)[0]
+    assert len(dead) >= 2
+    for got in (ref.gat_na(p, hd, hs, nbr, mask),
+                tgat.gat_na(p, hd, hs, nbr, mask),
+                tgat.gat_na_emulate(p, hd, hs, nbr, mask),
+                ops.gat_aggregate(p, hd, hs, nbr, mask, use_pallas=True),
+                ops.gat_aggregate(p, hd, hs, nbr, mask, use_pallas=False)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        np.testing.assert_allclose(got.numpy(), pallas, **TOL)
+        assert np.all(got.numpy()[dead] == 0.0)  # exactly 0, never NaN
+
+
+@pytest.mark.parametrize("kind,args", UNSTACKED[:3])
+def test_unstacked_fused_form_matches_jax_ref_and_pallas(kind, args):
+    c, (p, hd, hs, nbr, mask, sem, jp, jhd, jhs, jnbr, jmask, jsem) = \
+        _unstacked_case(kind, args)
+    if kind == "arange":
+        sem = {k: torch.full_like(v, 0.1) for k, v in sem.items()}
+        jsem = {k: jnp.asarray(v.numpy()) for k, v in sem.items()}
+    jz, jw = pallas_gat_na(jp, jhd, jhs, jnbr, jmask, interpret=True,
+                           sem=jsem)
+    for z, w in (tgat.gat_na(p, hd, hs, nbr, mask, sem=sem),
+                 tgat.gat_na_emulate(p, hd, hs, nbr, mask, sem=sem)):
+        assert w.shape == ()
+        np.testing.assert_allclose(z.numpy(), np.asarray(jz), **TOL)
+        np.testing.assert_allclose(w.numpy(), np.asarray(jw), **TOL)
+
+
+def test_ops_gat_aggregate_matches_the_jax_ops_wrapper():
+    _, (p, hd, hs, nbr, mask, _, jp, jhd, jhs, jnbr, jmask, _) = \
+        _unstacked_case(*UNSTACKED[2])
+    ops.reset_launch_counts()
+    for use_pallas in (False, True):
+        want = np.asarray(jops.gat_aggregate(jp, jhd, jhs, jnbr, jmask,
+                                             use_pallas=use_pallas))
+        got = ops.gat_aggregate(p, hd, hs, nbr, mask, use_pallas=use_pallas)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert ops.launch_counts()["gat_na"] == 0  # CPU: the plain version
+
+
+def test_kernel_args_accept_the_magnn_shapes():
+    """MAGNN/imdb's MAM launch: 4278 targets, 16 instances each, the
+    encoded instances [68448, 8, 8] as the source pool."""
+    n, i, h, dh = 4278, 16, 8, 8
+    tgat.check_kernel_args(
+        {"a_dst": torch.empty((h, dh), device="meta"),
+         "a_src": torch.empty((h, dh), device="meta")},
+        torch.empty((n, h, dh), device="meta"),
+        torch.empty((n * i, h, dh), device="meta"),
+        torch.empty((n, i), dtype=torch.int32, device="meta"),
+        torch.empty((n, i), device="meta"))
+    with pytest.raises(ValueError, match="a_dst"):
+        tgat.check_kernel_args(
+            {"a_dst": torch.empty((2, h, dh), device="meta"),
+             "a_src": torch.empty((2, h, dh), device="meta")},
+            torch.empty((n, h, dh), device="meta"),
+            torch.empty((n * i, h, dh), device="meta"),
+            torch.empty((n, i), dtype=torch.int32, device="meta"),
+            torch.empty((n, i), device="meta"))

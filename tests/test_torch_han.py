@@ -153,10 +153,10 @@ def test_entry_points_need_a_device_without_cuda(tiny_hg, monkeypatch):
     (dict(degree_buckets=3), "item 6"),
     (dict(partitions=2), "item 12"),
     (dict(fanout=4), "item 13"),
-    (dict(cache_rows=8), "item 11"),
+    (dict(cache_rows=8, partitions=2), "item 12"),
     (dict(overlap=2), "item 14"),
     (dict(model="rgcn", partitions=2), "item 12"),
-    (dict(model="magnn"), "item 9"),
+    (dict(model="magnn", fanout=4), "item 13"),
     (dict(model="gcn"), "item 10"),
 ])
 def test_arms_outside_the_slice_raise(kw, item):

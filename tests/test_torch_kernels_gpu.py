@@ -19,12 +19,18 @@ FMA where the plain version leaves the order to the matmul, so its error
 grows with F and with the size of the terms: rtol = 1e-5 and an atol of
 1e-5 times the largest |output| (at F = 3066 with unit-normal features and
 no mean, 2.9e-5 of outputs up to about 30 on the H100).
+``cached_gather`` moves rows and computes nothing: bitwise against its
+plain version and its emulation.  ``semantic_scores`` sums the zW products
+with FMA in feature order and the row scores per block, then over blocks,
+where the plain version leaves both orders to the matmul and the mean:
+atol = rtol = 1e-5, and bitwise against a second run.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import feature_cache as tfc
 from repro_torch.kernels import fused_fp_na as tffn
 from repro_torch.kernels import gat_na as tgat
 from repro_torch.kernels import ops
@@ -234,3 +240,159 @@ def test_new_kernels_raise_instead_of_falling_back(cuda):
                         use_pallas=True)
     assert (tspmm.segment_spmm.launches,
             tffn.fused_fp_na.launches) == before
+
+
+def _gather_case(seed, n, d, c, shape, where, device):
+    rng = np.random.default_rng(seed)
+    lo, hi = {"hot": (n, n + c), "cold": (0, n), "mixed": (0, n + c)}[where]
+    return (torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(rng.permutation(n)[:c], dtype=torch.int32,
+                            device=device),
+            torch.as_tensor(rng.integers(lo, hi, shape), dtype=torch.int32,
+                            device=device))
+
+
+GATHER_CASES = [  # (N, D, C, idx shape, where)
+    (4278, 64, 256, (4278, 16), "mixed"),  # a MAGNN/imdb position
+    (50, 16, 1, (37, 4), "mixed"),  # C = 1
+    (40, 8, 6, (129,), "hot"),  # every index hot, 1-D, a ragged block
+    (40, 8, 6, (20, 7), "cold"),  # every index cold
+    (25, 3, 4, (11, 5), "mixed"),  # D not a multiple of 4: scalar copies
+    (30, 70, 5, (9, 9), "mixed"),  # D = 70: a ragged float4 tail
+]
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_cached_gather_kernel_is_bitwise_plain(cuda, case):
+    table, hot, idx = _gather_case(10, *case, cuda)
+    before = tfc.cached_gather.launches
+    got = tfc.cached_gather(table, hot, idx)
+    torch.cuda.synchronize()
+    assert tfc.cached_gather.launches == before + 1
+    assert torch.equal(got, tfc.cached_gather_plain(table, hot, idx))
+    assert torch.equal(got, tfc.cached_gather_emulate(table, hot, idx))
+
+
+def test_cached_gather_kernel_reads_strided_positions(cuda):
+    """The three positions of a MAGNN instance table ``[N, I, 3]``, each a
+    view with a column stride of 3, and an offset view of the table's
+    storage (16-byte copies off)."""
+    table, hot, _ = _gather_case(11, 300, 64, 32, (1,), "mixed", cuda)
+    rng = np.random.default_rng(12)
+    nodes = torch.as_tensor(rng.integers(0, 332, (70, 16, 3)),
+                            dtype=torch.int32, device=cuda)
+    for j in range(3):
+        view = nodes[:, :, j]
+        assert not view.is_contiguous()
+        assert torch.equal(tfc.cached_gather(table, hot, view),
+                           tfc.cached_gather_plain(table, hot, view))
+    flat = torch.zeros(300 * 64 + 1, device=cuda)
+    shifted = flat[1:].view(300, 64)
+    shifted.copy_(table)
+    idx = nodes[:, :, 1]
+    assert torch.equal(tfc.cached_gather(shifted, hot, idx),
+                       tfc.cached_gather_plain(table, hot, idx))
+
+
+def test_cached_gather_kernel_clamps_out_of_range_indices(cuda):
+    table, hot, _ = _gather_case(13, 10, 4, 3, (1,), "mixed", cuda)
+    idx = torch.tensor([-4, 0, 9, 10, 12, 13, 1 << 30], dtype=torch.int32,
+                       device=cuda)
+    got = tfc.cached_gather(table, hot, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tfc.cached_gather_emulate(table, hot, idx))
+
+
+def _scores_case(seed, p, n, d, hs, device):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    return (t(rng.standard_normal((p, n, d))),
+            t(rng.standard_normal((d, hs)) / np.sqrt(d)),
+            t(rng.standard_normal(hs) * 0.1),
+            t(rng.standard_normal(hs) / np.sqrt(hs)))
+
+
+SCORES_SHAPES = [  # (P, N, D, Hs)
+    (2, 4278, 64, 128),  # MAGNN/HAN SA at full width
+    (1, 65, 64, 128),  # one metapath; one row past a block
+    (3, 37, 16, 33),  # under one block; Hs not a multiple of 32
+    (2, 200, 100, 7),  # D over 32 lanes twice plus a tail
+    (1, 40, 8, 256),  # the widest Hs the kernel takes
+]
+
+
+@pytest.mark.parametrize("shape", SCORES_SHAPES)
+def test_semantic_scores_kernel_matches_plain_and_emulation(cuda, shape):
+    z, w, b, q = _scores_case(14, *shape, cuda)
+    before = tsem.semantic_scores.launches
+    got = tsem.semantic_scores(z, w, b, q)
+    torch.cuda.synchronize()
+    assert tsem.semantic_scores.launches == before + 1
+    assert got.shape == (shape[0],)
+    torch.testing.assert_close(got, tsem.semantic_scores_plain(z, w, b, q),
+                               **TOL)
+    torch.testing.assert_close(got, tsem.semantic_scores_emulate(z, w, b, q),
+                               **TOL)
+    assert torch.equal(got, tsem.semantic_scores(z, w, b, q))  # no atomics
+
+
+def test_semantic_attention_kernel_arm_matches_plain(cuda):
+    z, w, b, q = _scores_case(15, 2, 4278, 64, 128, cuda)
+    before = (tsem.semantic_scores.launches, tsem.semantic_combine.launches)
+    got = ops.semantic_attention(z, w, b, q, use_pallas=True)
+    torch.cuda.synchronize()
+    assert (tsem.semantic_scores.launches,
+            tsem.semantic_combine.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(
+        got, ops.semantic_attention(z, w, b, q, use_pallas=False), **TOL)
+
+
+@pytest.mark.parametrize("n,i,h,dh", [(4278, 16, 8, 8), (37, 5, 4, 8),
+                                      (20, 3, 2, 16)])
+def test_gat_na_unstacked_kernel_matches_plain(cuda, n, i, h, dh):
+    """MAGNN's call: the encoded instances as the source pool, an
+    ``arange`` grid, every seventh row with no live instance."""
+    rng = np.random.default_rng(16)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+
+    p = {"a_dst": t(rng.standard_normal((h, dh)) * 0.3),
+         "a_src": t(rng.standard_normal((h, dh)) * 0.3)}
+    h_dst, h_src = (t(rng.standard_normal((n, h, dh))),
+                    t(rng.standard_normal((n * i, h, dh))))
+    nbr = torch.arange(n * i, dtype=torch.int32, device=cuda).reshape(n, i)
+    mask = (rng.random((n, i)) < 0.4).astype(np.float32)
+    mask[::7] = 0.0
+    mask = t(mask)
+    before = tgat.gat_na.launches
+    got = ops.gat_aggregate(p, h_dst, h_src, nbr, mask, use_pallas=True)
+    torch.cuda.synchronize()
+    assert tgat.gat_na.launches == before + 1
+    assert got.shape == (n, h, dh)
+    torch.testing.assert_close(
+        got, ops.gat_aggregate(p, h_dst, h_src, nbr, mask), **TOL)
+    torch.testing.assert_close(
+        got, tgat.gat_na_emulate(p, h_dst, h_src, nbr, mask), **TOL)
+    assert torch.all(got[::7] == 0)
+
+
+def test_slice3_kernels_raise_instead_of_falling_back(cuda):
+    table, hot, idx = _gather_case(17, 20, 8, 3, (5, 2), "mixed", cuda)
+    z, w, b, q = _scores_case(18, 2, 30, 16, 8, cuda)
+    before = (tfc.cached_gather.launches, tsem.semantic_scores.launches)
+    with pytest.raises(ValueError, match="int32"):
+        ops.cached_gather(table, hot, idx.long(), use_pallas=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.cached_gather(table.t(), hot, idx, use_pallas=True)
+    with pytest.raises(ValueError, match="float32"):
+        ops.semantic_attention(z.double(), w, b, q, use_pallas=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.semantic_attention(z.transpose(1, 2).contiguous().transpose(
+            1, 2), w, b, q, use_pallas=True)
+    assert (tfc.cached_gather.launches,
+            tsem.semantic_scores.launches) == before

@@ -129,3 +129,108 @@ def test_wrapper_rejects_split_and_unknown_devices():
     with pytest.raises(ValueError, match="no kernel"):
         tsem.semantic_combine(torch.zeros(2, 3, 4, device="meta"),
                               torch.zeros(2, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# SA pass 1: semantic_scores, and both passes through ops.semantic_attention
+# ---------------------------------------------------------------------------
+
+
+def _jax_scores(c):
+    jz, jw, jb, jq = _j(c, "z", "W", "b", "q")
+    return np.asarray(jnp.mean(jnp.tanh(jz @ jw + jb) @ jq, axis=1))
+
+
+@pytest.mark.parametrize("p,n,d,block_n,budget", [
+    (2, 300, 64, 128, None),  # resident, N not a multiple of block_n
+    (3, 77, 16, 32, None),  # resident, a ragged last tile
+    (2, 300, 64, 128, 4096),  # streaming: z over the VMEM budget
+    (1, 45, 8, 16, 256),  # streaming, one metapath, tail-aligned chunk
+])
+def test_plain_and_emulated_scores_match_jax_and_pallas(p, n, d, block_n,
+                                                        budget):
+    c = _case(p * 1000 + n, p, n, d)
+    z, w, b, q = _t(c, "z", "W", "b", "q")
+    jz, jw, jb, jq = _j(c, "z", "W", "b", "q")
+    kw = {} if budget is None else {"vmem_budget": budget}
+    pallas = np.asarray(jsem.semantic_scores(jz, jw, jb, jq,
+                                             block_n=block_n, interpret=True,
+                                             **kw))
+    want = _jax_scores(c)
+    np.testing.assert_allclose(pallas, want, **TOL)
+    for got in (ref.semantic_scores(z, w, b, q),
+                tsem.semantic_scores_emulate(z, w, b, q),
+                tsem.semantic_scores(z, w, b, q)):
+        assert got.shape == (p,)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        np.testing.assert_allclose(got.numpy(), pallas, **TOL)
+
+
+def test_emulated_scores_sum_blocks_in_order():
+    """Rows past N add nothing, and the emulation walks whole blocks of
+    ``ROWS_PER_BLOCK`` rows: N = 1 and N = 2 blocks + 1 row."""
+    for n in (1, 2 * tsem.ROWS_PER_BLOCK + 1):
+        c = _case(n, 2, n, 8)
+        z, w, b, q = _t(c, "z", "W", "b", "q")
+        np.testing.assert_allclose(
+            tsem.semantic_scores_emulate(z, w, b, q).numpy(), _jax_scores(c),
+            **TOL)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("p,n,d", [(2, 300, 64), (3, 77, 16)])
+def test_ops_semantic_attention_matches_jax_ops(p, n, d, use_pallas):
+    c = _case(p + 7 * n, p, n, d)
+    z, w, b, q = _t(c, "z", "W", "b", "q")
+    jz, jw, jb, jq = _j(c, "z", "W", "b", "q")
+    want = np.asarray(jops.semantic_attention(
+        jz, jw, jb, jq, use_pallas=use_pallas, interpret=use_pallas))
+    ops.reset_launch_counts()
+    got = ops.semantic_attention(z, w, b, q, use_pallas=use_pallas)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert torch.equal(got, ref.semantic_attention(z, w, b, q))
+    assert set(ops.launch_counts().values()) == {0}  # CPU: plain versions
+
+
+def _scores_meta(**over):
+    """Meta tensors at MAGNN/imdb's SA shapes."""
+    a = dict(z=torch.empty((2, 4278, 64), device="meta"),
+             w=torch.empty((64, 128), device="meta"),
+             b=torch.empty((128,), device="meta"),
+             q=torch.empty((128,), device="meta"))
+    a.update(over)
+    return a
+
+
+def test_scores_args_accept_the_main_path_shapes():
+    tsem.check_scores_args(**_scores_meta())
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(w=torch.empty((32, 128), device="meta")), "W \\[D, Hs\\]"),
+    (dict(q=torch.empty((127,), device="meta")), "q \\[Hs\\]"),
+    (dict(z=torch.empty((2, 0, 64), device="meta")), "empty"),
+    (dict(w=torch.empty((64, 257), device="meta"),
+          b=torch.empty((257,), device="meta"),
+          q=torch.empty((257,), device="meta")), "Hs <= 256"),
+    (dict(z=torch.empty((2, 4278, 256), device="meta"),
+          w=torch.empty((256, 256), device="meta"),
+          b=torch.empty((256,), device="meta"),
+          q=torch.empty((256,), device="meta")), "shared memory"),
+    (dict(z=torch.empty((2, 4278, 64), dtype=torch.float64, device="meta")),
+     "float32"),
+    (dict(z=torch.empty((2, 64, 4278), device="meta").transpose(1, 2)),
+     "contiguous"),
+])
+def test_scores_args_reject_what_the_kernel_does_not_take(over, match):
+    with pytest.raises(ValueError, match=match):
+        tsem.check_scores_args(**_scores_meta(**over))
+
+
+def test_scores_wrapper_rejects_mixed_and_unknown_devices():
+    a = _scores_meta()
+    cpu = {k: torch.zeros(v.shape) for k, v in a.items()}
+    with pytest.raises(ValueError, match="several devices"):
+        tsem.semantic_scores(cpu["z"], a["w"], cpu["b"], cpu["q"])
+    with pytest.raises(ValueError, match="no kernel"):
+        tsem.semantic_scores(**a)
