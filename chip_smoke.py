@@ -14,10 +14,15 @@ every relation) for 1 and 2 layers on the padded and the 3-bucket layouts,
 plus one RGCN forward on synthetic DBLP, and MAGNN full-graph inference on
 synthetic IMDB (hidden 64, 8 heads, 16 instances a target, metapaths MDM
 and MAM) for 1 and 2 layers with and without hot-feature residency (256
-rows a type), plus HAN and RGCN with residency — checks the logits (the
-kernel arm against the plain arm, cached against uncached bitwise) and the
-kernels' launch counts, and times every kernel beside its bound.  It
-imports nothing of jax or of the JAX package ``repro``.
+rows a type), plus HAN and RGCN with residency — and LM serving of
+granite-8b: the prefill and decode kernels against their plain versions at
+the granite and h2o-danube shapes, granite at full width and 2 layers in
+fp32 (kernel arm against plain arm, teacher-forced), and the full 36-layer
+bf16 granite through ``ServeEngine.generate`` (4 prompts of 2048 tokens,
+32 greedy tokens each, twice).  It checks the logits (the kernel arm
+against the plain arm, cached against uncached bitwise) and the kernels'
+launch counts, and times every kernel beside its bound.  It imports
+nothing of jax or of the JAX package ``repro``.
 
 Output: progress lines, then the card's name and power limit as
 ``nvidia-smi`` prints them, a ``{"kernels": [...]}`` JSON line, and as the
@@ -136,13 +141,14 @@ def wall_ms(engine, reps: int = 20) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def profile_forward(engine, tag: str, reps: int = 10) -> dict:
+def profile_forward(engine, tag: str, reps: int = 10, warmup: int = 3
+                    ) -> dict:
     """Device time by kernel over ``reps`` forwards (torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warmup):
         engine.infer()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -181,9 +187,9 @@ def to_device(tree, device):
     return tree.to(device) if torch.is_tensor(tree) else tree
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, peak_flops: float = PEAK_FP32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
+    t_ops = n_ops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -567,6 +573,353 @@ def rgcn_dblp(dev, forward_ms: dict, profiles: dict) -> int:
                          profiles)[0]["segment_spmm"]
 
 
+# LM serving (granite-8b): its two kernels, the 2-layer full-width arm
+# check, the 36-layer serve, and their timing
+GRANITE = "granite-8b"
+LM_PROMPT, LM_NEW, LM_SLOTS = 2048, 32, 4  # the served wave
+TOL_ATTN = {"float32": dict(atol=2e-4, rtol=2e-4),  # tests/test_kernels.py
+            "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+# a bf16 output against the fp32 computation cast to bf16: one bf16 ulp
+# (at most 2^-7 of the value) apart where the two fp32 sums round apart
+TOL_BF16_OUT = dict(atol=1e-3, rtol=8e-3)
+TOL_LM = dict(atol=1e-4, rtol=1e-4)  # 2 layers fp32: kernel vs plain arm
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+
+
+def attn_inputs(gen, b, s, h, kvh, dh, dtype, decode=False):
+    """q, k, v drawn on the card: ``N(0, 1)``, the scale of RoPE'd
+    projections of RMS-normed activations."""
+    import torch
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+
+    q = draw(b, h, dh) if decode else draw(b, s, h, dh)
+    return q, draw(b, s, kvh, dh), draw(b, s, kvh, dh)
+
+
+def flash_work(q, k, causal: bool, window: int):
+    """Bytes (q, k, v read once, out written once) and operations (a dot
+    and a multiply-add per head dim per live pair: 4 Dh) of one call."""
+    b, s, h, dh = q.shape
+    rows = range(s)
+    lo = [max(0, i - window + 1) if window else 0 for i in rows]
+    hi = [i + 1 if causal else s for i in rows]
+    pairs = sum(max(0, e - a) for a, e in zip(lo, hi))
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return n_bytes, 4 * b * h * dh * pairs
+
+
+def decode_work(q, k, kv_len):
+    """Bytes of the live cache rows (k and v), q, out and kv_len, and the
+    operations (4 Dh a head a live row) of one call."""
+    b, h, dh = q.shape
+    live = int(kv_len.clamp(max=k.shape[1]).sum())
+    n_bytes = ((2 * live * k.shape[2] * dh + 2 * q.numel()) * q.element_size()
+               + 4 * b)
+    return n_bytes, 4 * live * h * dh
+
+
+def lm_kernels_vs_plain(dev) -> dict:
+    """Both kernels against their plain versions at the main path's
+    shapes, and twice on the same input for the same bits.  A bf16 case is
+    held twice: against the plain version on the same bf16 inputs at the
+    reference's bf16 tolerance, and against the plain version on the fp32
+    upcasts, cast to bf16, at the rounding of a bf16 output (the kernels
+    compute in fp32, so that reference is exact for bf16 inputs)."""
+    import torch
+    from repro_torch.kernels import decode_attention as tdec
+    from repro_torch.kernels import flash_attention as tflash
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = {}
+
+    def hold(name, tag, dt, fn, plain, args, again):
+        got = fn(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(close(got.float(), want.float(), **TOL_ATTN[dt]),
+              f"{name} {tag} vs plain: max |err| {err:.3e} "
+              f"(tol {TOL_ATTN[dt]})")
+        rec = {"case": tag, "max_abs_err": err}
+        if dt == "bfloat16":
+            up = [a.float() if a.is_floating_point() else a for a in args]
+            exact = plain(*up).to(got.dtype)
+            err_up = max_err(got, exact)
+            check(close(got.float(), exact.float(), **TOL_BF16_OUT),
+                  f"{name} {tag} vs plain on the fp32 upcasts, cast to "
+                  f"bf16: max |err| {err_up:.3e} (tol {TOL_BF16_OUT})")
+            rec["vs_fp32_plain_max_abs_err"] = err_up
+            del exact
+        check(torch.equal(got, again()),
+              f"{name} {tag}: two runs give the same bits")
+        out.setdefault(name, {"max_abs_err": err, "tolerance": TOL_ATTN[dt],
+                              "checked": []})
+        out[name]["checked"].append(rec)
+
+    cases = [  # (tag, B, S, H, KVH, Dh, causal, window, dtype)
+        ("granite prefill bf16", 4, 2048, 32, 8, 128, True, 0, "bfloat16"),
+        ("granite prefill fp32", 1, 2048, 32, 8, 128, True, 0, "float32"),
+        ("danube window 4096 bf16", 1, 4608, 32, 8, 120, True, 4096,
+         "bfloat16"),
+        ("danube window 4096 fp32", 1, 4608, 32, 8, 120, True, 4096,
+         "float32"),
+        ("granite tail S=2000 fp32", 1, 2000, 32, 8, 128, True, 0,
+         "float32"),
+    ]
+    with torch.inference_mode():
+        for tag, b, s, h, kvh, dh, causal, window, dt in cases:
+            q, k, v = attn_inputs(gen, b, s, h, kvh, dh, getattr(torch, dt))
+
+            def flash(q, k, v, fn=tflash.flash_attention):
+                return fn(q, k, v, causal=causal, window=window)
+
+            def flash_plain(q, k, v):
+                return flash(q, k, v, fn=tflash.flash_attention_plain)
+
+            hold("flash_attention", f"{tag} {tuple(q.shape)}", dt, flash,
+                 flash_plain, (q, k, v), lambda: flash(q, k, v))
+            del q, k, v
+        for dt in ("bfloat16", "float32"):
+            q, k, v = attn_inputs(gen, 4, 2080, 32, 8, 128,
+                                  getattr(torch, dt), decode=True)
+            kv_len = torch.tensor([1, 1000, 2049, 2080], dtype=torch.int32,
+                                  device=dev)
+            hold("decode_attention",
+                 f"granite {dt} q {tuple(q.shape)} cache {tuple(k.shape)} "
+                 f"kv_len {kv_len.tolist()}", dt, tdec.decode_attention,
+                 tdec.decode_attention_plain, (q, k, v, kv_len),
+                 lambda: tdec.decode_attention(q, k, v, kv_len))
+    return out
+
+
+def teacher_forced(tf, params, cfg, prompts, feed, max_len):
+    """Prefill on ``prompts [B, T0]``, then one decode step per column of
+    ``feed [B, N]``: the ``1 + N`` steps' logits ``[1 + N, B, V]``, fp32."""
+    import torch
+
+    t0 = prompts.shape[1]
+    with torch.inference_mode():
+        lg, pf = tf.lm_prefill(params, cfg, prompts)
+        caches = tf.graft_prefill_caches(
+            cfg, tf.init_kv_caches(cfg, prompts.shape[0], max_len,
+                                   prompts.device), pf, t0)
+        del pf
+        steps = [lg[:, 0].float()]
+        for i in range(feed.shape[1]):
+            lg, caches = tf.lm_decode_step(params, cfg, feed[:, i:i + 1],
+                                           caches, t0 + i)
+            steps.append(lg[:, 0].float())
+    return torch.stack(steps)
+
+
+def granite_two_layers(dev, ops) -> dict:
+    """granite-8b at full width, 2 layers, fp32: the kernel arm against the
+    plain arm on the same weights, prefill of 2 x 1536 tokens then 8 decode
+    steps teacher-forced on the same tokens."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.nn import transformer as tf
+
+    cfg = get_config(GRANITE).replace(n_layers=2, dtype="float32",
+                                      param_dtype="float32")
+    params = tf.init_lm_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    rng = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 1536 + 8), generator=rng,
+                         device=dev)
+    prompts, forced = toks[:, :1536], toks[:, 1536:]  # 8 decode steps
+    plain = teacher_forced(tf, params, cfg, prompts, forced, 1544)
+    ops.reset_launch_counts()
+    kern = teacher_forced(tf, params, cfg.replace(use_pallas=True), prompts,
+                          forced, 1544)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts == dict(dict.fromkeys(counts, 0), flash_attention=2,
+                         decode_attention=2 * 8),
+          f"granite 2-layer fp32 kernel arm: launches {counts} (want 2 "
+          f"flash_attention, 16 decode_attention)")
+    err = max_err(kern, plain)
+    check(bool(torch.isfinite(kern).all()) and close(kern, plain, **TOL_LM),
+          f"granite 2-layer fp32 (d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, Dh {cfg.resolved_head_dim}, prefill "
+          f"2x1536 + 8 teacher-forced steps): logits kernel arm vs "
+          f"plain arm max |err| {err:.3e} of max |logit| "
+          f"{float(plain.abs().max()):.3f} (tol {TOL_LM})")
+    del params
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "tolerance": TOL_LM, "launches": counts}
+
+
+def granite_serve(dev, ops, profiles: dict) -> dict:
+    """granite-8b, full config (36 layers, bf16), through
+    ``ServeEngine.generate``: 4 requests of 2048-token prompts and 32 greedy
+    tokens, twice; exact launch counts; the plain arm teacher-forced on the
+    kernel arm's tokens (its largest logit difference is recorded, not
+    gated)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.nn import transformer as tf
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(GRANITE).replace(use_pallas=True)
+    t0 = time.perf_counter()
+    params = tf.init_lm_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    torch.cuda.synchronize()
+    n_params = tf.param_count(params)
+    print(f"  granite-8b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, Dh {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}: {n_params} "
+          f"parameters drawn on the card in {time.perf_counter() - t0:.2f} "
+          f"s; memory allocated "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+               for _ in range(LM_SLOTS)]
+    max_len = LM_PROMPT + LM_NEW
+    engine = ServeEngine(cfg, params, batch_slots=LM_SLOTS, max_len=max_len)
+    runs, counts = [], []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        done = engine.generate([Request(prompt=p, max_tokens=LM_NEW)
+                                for p in prompts])
+        torch.cuda.synchronize()
+        counts.append(ops.launch_counts())
+        runs.append([r.out_tokens for r in done])
+    steps = LM_NEW - 1
+    for i, c in enumerate(counts):
+        check(c == dict(dict.fromkeys(c, 0), flash_attention=cfg.n_layers,
+                        decode_attention=cfg.n_layers * steps),
+              f"granite serve run {i}: launches {c} (want {cfg.n_layers} "
+              f"flash_attention a prefill, {cfg.n_layers} decode_attention "
+              f"a step x {steps} steps)")
+    toks = runs[0]
+    check(all(len(t) == LM_NEW and all(0 <= x < cfg.vocab for x in t)
+              for t in toks),
+          f"granite serve: {LM_SLOTS} x {LM_NEW} token ids in [0, "
+          f"{cfg.vocab})")
+    check(runs[1] == toks, "granite serve: the same tokens on a second run")
+    timings = engine.timings[-1]
+    prefill_ms = timings["prefill_s"] * 1e3
+    decode_ms = timings["decode_s"] * 1e3 / max(timings["decode_steps"], 1)
+    n_tok = LM_SLOTS * LM_NEW
+    wall = timings["prefill_s"] + timings["decode_s"]
+    print(f"  granite serve (run 2): prefill {LM_SLOTS}x{LM_PROMPT} "
+          f"{prefill_ms:.2f} ms to the first token; decode "
+          f"{decode_ms:.3f} ms a token (one step of {LM_SLOTS} slots); "
+          f"{n_tok} tokens "
+          f"in {wall:.3f} s ({n_tok / wall:.1f} tok/s); run 1: prefill "
+          f"{engine.timings[0]['prefill_s'] * 1e3:.2f} ms, decode "
+          f"{engine.timings[0]['decode_s'] * 1e3 / steps:.3f} ms a step")
+    print(f"  tokens req0: {toks[0]}")
+
+    # logits: the kernel arm replayed teacher-forced on its own tokens (the
+    # engine's computation, so its argmax must give the engine's tokens),
+    # then the plain arm on the same tokens
+    tp = torch.as_tensor(np.stack(prompts), device=dev)
+    tt = torch.as_tensor(toks, device=dev)
+    kern = teacher_forced(tf, params, cfg, tp, tt[:, :-1], max_len)
+    check(bool(torch.isfinite(kern).all()),
+          f"granite serve: all {tuple(kern.shape)} logits finite")
+    check(torch.equal(kern.argmax(dim=-1).T, tt),
+          "granite serve: the kernel arm's teacher-forced argmax gives the "
+          "engine's tokens")
+    plain = teacher_forced(tf, params, cfg.replace(use_pallas=False), tp,
+                           tt[:, :-1], max_len)
+    err = max_err(kern, plain)
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f"  granite serve: logits kernel arm vs plain arm (teacher-forced, "
+          f"bf16, recorded, not gated): max |err| {err:.4e} of max |logit| "
+          f"{float(plain.abs().max()):.3f}; argmax agreement {agree:.4f}")
+    del kern, plain
+    profiles["granite serve"] = profile_forward(
+        types.SimpleNamespace(infer=lambda: engine.generate(
+            [Request(prompt=p, max_tokens=LM_NEW) for p in prompts])),
+        "granite serve (one generate)", reps=1, warmup=0)
+    return {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "tokens_per_s": n_tok / wall, "tokens": n_tok,
+            "run1": engine.timings[0], "run2": timings,
+            "logits_plain_vs_kernel_max_abs_err": err,
+            "argmax_agreement": agree, "launches": counts[0],
+            "params": n_params}
+
+
+def lm_kernel_times(dev, flush, results: dict, main_counts: dict) -> list:
+    """Both kernels timed cold and warm at the granite shapes, beside their
+    bound, their plain version and SDPA (the yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as tdec
+    from repro_torch.kernels import flash_attention as tflash
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    entries = []
+    with torch.inference_mode():
+        q, k, v = attn_inputs(gen, 4, 2048, 32, 8, 128, torch.bfloat16)
+        n_bytes, n_ops = flash_work(q, k, True, 0)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+        err = max_err(sdpa().transpose(1, 2), tflash.flash_attention(q, k, v))
+        print(f"  SDPA vs flash_attention at the granite prefill: max |err| "
+              f"{err:.3e}")
+        timed = [("flash_attention",
+                  lambda: tflash.flash_attention(q, k, v),
+                  lambda: tflash.flash_attention_plain(q, k, v), sdpa,
+                  n_bytes, n_ops,
+                  "granite prefill: q [4, 2048, 32, 128], k/v [4, 2048, 8, "
+                  "128], causal, bf16",
+                  "F.scaled_dot_product_attention(is_causal=True, "
+                  "enable_gqa=True)",
+                  "src/repro/kernels/flash_attention.py:83")]
+        dq, dk, dv = attn_inputs(gen, 4, 2080, 32, 8, 128, torch.bfloat16,
+                                 decode=True)
+        kv_len = torch.tensor([1, 1000, 2049, 2080], dtype=torch.int32,
+                              device=dev)
+        live = torch.arange(dk.shape[1], device=dev)[None, :] < kv_len[:, None]
+        mask = live[:, None, None, :]
+        sdpa_dec = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            dq[:, :, None], dk.transpose(1, 2), dv.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+        err = max_err(sdpa_dec()[:, :, 0],
+                      tdec.decode_attention(dq, dk, dv, kv_len))
+        print(f"  SDPA vs decode_attention at the granite decode: max |err| "
+              f"{err:.3e}")
+        n_bytes, n_ops = decode_work(dq, dk, kv_len)
+        timed.append(("decode_attention",
+                      lambda: tdec.decode_attention(dq, dk, dv, kv_len),
+                      lambda: tdec.decode_attention_plain(dq, dk, dv, kv_len),
+                      sdpa_dec, n_bytes, n_ops,
+                      "granite decode: q [4, 32, 128], cache [4, 2080, 8, "
+                      "128], kv_len (1, 1000, 2049, 2080), bf16",
+                      "F.scaled_dot_product_attention(attn_mask=kv_len "
+                      "mask, enable_gqa=True)",
+                      "src/repro/kernels/decode_attention.py:72"))
+        for (name, kern, plain, lib, n_bytes, n_ops, shape, lib_name,
+             replaces) in timed:
+            ms = time_ms(kern, 20, flush)
+            warm_ms = time_ms(kern, 20)
+            plain_ms = time_ms(plain, 5, flush)
+            lib_ms = time_ms(lib, 20, flush)
+            b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_FLOPS)
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces, "launches": main_counts[name],
+                **results[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                "warm_ms": warm_ms, "bytes": n_bytes, "operations": n_ops,
+                "shape": shape, "library": lib_name,
+                "peak": "989 TFLOP/s bf16 dense, 3.35 TB/s"})
+            print(f"  {name}: {ms:.5f} ms cold, {warm_ms:.5f} ms warm "
+                  f"(plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms by {b_by}, "
+                  f"SDPA {lib_ms:.5f} ms)")
+    return entries
+
+
 def main() -> None:
     import torch
 
@@ -589,7 +942,9 @@ def main() -> None:
     from repro_torch.kernels import segment_spmm as tspmm
     from repro_torch.kernels import semantic_attn as tsem
     from repro_torch.launch.serve import build_hgnn_infer
+    from repro_torch.nn import transformer  # noqa: F401
     from repro_torch.serve.engine import HGNNInferEngine  # noqa: F401
+    from repro_torch.serve.engine import ServeEngine  # noqa: F401
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -1014,6 +1369,24 @@ def main() -> None:
             check(main_counts[name] > 0,
                   f"{name} launched {main_counts[name]} times on the main path")
 
+    # ---------------- phase 5: LM serving (granite-8b) ----------------
+    print("phase 5: flash_attention and decode_attention against their "
+          "plain versions (granite-8b and h2o-danube-3-4b shapes)")
+    lm_results = lm_kernels_vs_plain(dev)
+    print("phase 5b: granite-8b at full width, 2 layers, fp32: the kernel "
+          "arm against the plain arm")
+    two_layers = granite_two_layers(dev, ops)
+    print("phase 5c: granite-8b, 36 layers, bf16, through "
+          "ServeEngine.generate")
+    serve = granite_serve(dev, ops, profiles)
+    lm_counts = {name: serve["launches"][name]
+                 for name in ("flash_attention", "decode_attention")}
+    for name, n in lm_counts.items():
+        check(n > 0, f"{name} launched {n} times on the main path")
+    print("phase 5d: LM kernel times (CUDA events, median; cold = L2 "
+          "flushed)")
+    kernels += lm_kernel_times(dev, flush, lm_results, lm_counts)
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -1022,6 +1395,8 @@ def main() -> None:
     print(json.dumps({"forward_ms_per_iter": forward_ms,
                       "segment_spmm_per_relation": per_relation,
                       "magnn_per_launch": magnn_per_launch,
+                      "lm": {"granite_2_layers_fp32": two_layers,
+                             "granite_serve": serve},
                       "profiles": profiles}))
     if failures:
         print(f"FAILED: {failures}", file=sys.stderr)

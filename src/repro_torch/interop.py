@@ -2,13 +2,17 @@
 device rule.
 
 ``params_from_numpy`` carries a parameter tree made by the reference's own
-``init`` (``fp{t}``, ``cls``, ``gat{a_dst, a_src}`` stacked ``[P, H, Dh]``,
-``sem{W, b, q}``, ``layers[l-1]{fp, gat, sem}``) into the port unchanged, so
-the two packages can run the same model: ``jax.random`` streams cannot be
-reproduced in torch.  ``batch_from_numpy`` does the same for a prepared
+``init`` into the port unchanged, so the two packages can run the same
+model (``jax.random`` streams cannot be reproduced in torch): the HGNN trees
+(``fp{t}``, ``cls``, ``gat{a_dst, a_src}`` stacked ``[P, H, Dh]``, ``sem{W,
+b, q}``, ``layers[l-1]{fp, gat, sem}``) and the LM tree (``embed``,
+``ln_f``, ``lm_head``, ``runs[i]{ln1, attn{wq, wk, wv, wo}, ln2, mlp{...}}``
+stacked ``[L, ...]``).  ``batch_from_numpy`` does the same for a prepared
 batch.  Leaves are copied with ``np.array`` (not ``np.asarray``, whose
 buffer behind a JAX array is read-only) and handed to ``torch.from_numpy``.
-Python scalars (``n_nodes``, ``feat_dims``) stay as they are.
+numpy has no bfloat16 of its own: a leaf whose dtype is named
+``bfloat16`` goes through float32 (exact) into a ``torch.bfloat16``
+tensor.  Python scalars (``n_nodes``, ``feat_dims``) stay as they are.
 """
 from __future__ import annotations
 
@@ -41,7 +45,11 @@ def _tree(x: Any, device: torch.device):
     if x is None or isinstance(x, (bool, int, float, str, np.integer,
                                    np.floating)):
         return x
-    return torch.from_numpy(np.array(x)).to(device)
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_numpy(tree: Any, device: DeviceLike = None):

@@ -34,7 +34,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                        "-Xptxas", "-v"]
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C entry points: name -> (argtypes, restype)
 SIGNATURES: Dict[str, tuple] = {
     "gat_na_launch": ([_P] * 12 + [_I] * 6 + [_P], _I),
@@ -45,6 +46,8 @@ SIGNATURES: Dict[str, tuple] = {
     "fused_fp_na_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "cached_gather_launch": ([_P] * 4 + [_I] * 3 + [_L] * 4 + [_I, _P], _I),
     "semantic_scores_launch": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "flash_attention_launch": ([_P] * 4 + [_I] * 7 + [_F, _I, _P], _I),
+    "decode_attention_launch": ([_P] * 7 + [_I] * 7 + [_F, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

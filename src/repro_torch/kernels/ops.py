@@ -1,5 +1,5 @@
-"""Public kernel entry points of the executor (port of the HGNN part of
-``repro/kernels/ops.py:30-139``).
+"""Public kernel entry points (port of ``repro/kernels/ops.py:30-139``, and
+of the kernel calls of the LM's ``nn/attention.py:288-291, 355-358``).
 
 Dispatch policy:
 
@@ -13,9 +13,9 @@ Dispatch policy:
   There is no fallback from a CUDA tensor to the plain version.
 
 The name ``use_pallas`` is the reference's; here it means "hand-written
-kernels".  The reference's ``flash_attention`` and ``decode_attention``
-serve the LM substrate, which is not ported yet (ROADMAP Queue 2 items 7
-and 8).
+kernels".  ``flash_attention`` and ``decode_attention`` serve the LM's
+prefill and decode (``nn/attention.py``); the reference takes its Pallas
+kernels there only on a TPU backend, which here is the device rule above.
 """
 from __future__ import annotations
 
@@ -23,7 +23,9 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import feature_cache as _fc
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_fp_na as _ffn
 from repro_torch.kernels import gat_na as _gat
 from repro_torch.kernels import ref
@@ -101,6 +103,24 @@ def semantic_combine(z, beta, use_pallas: bool = False) -> torch.Tensor:
     return ref.semantic_combine(z, beta)
 
 
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    use_pallas: bool = False) -> torch.Tensor:
+    """Causal / windowed GQA attention: ``q [B, S, H, Dh]``, ``k, v [B, S,
+    KVH, Dh]`` -> ``[B, S, H, Dh]`` (the LM's prefill)."""
+    if use_pallas:
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return ref.mha_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, kv_len, use_pallas: bool = False
+                     ) -> torch.Tensor:
+    """One-token GQA attention over the first ``kv_len[b]`` cache rows:
+    ``q [B, H, Dh]``, ``k, v [B, S, KVH, Dh]`` -> ``[B, H, Dh]``."""
+    if use_pallas:
+        return _dec.decode_attention(q, k, v, kv_len)
+    return ref.decode_attention(q, k, v, kv_len)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     _gat.gat_na.launches = 0
@@ -110,6 +130,8 @@ def reset_launch_counts() -> None:
     _ffn.fused_fp_na.launches = 0
     _fc.cached_gather.launches = 0
     _sem.semantic_scores.launches = 0
+    _flash.flash_attention.launches = 0
+    _dec.decode_attention.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -120,4 +142,6 @@ def launch_counts() -> Dict[str, int]:
             "segment_spmm": _spmm.segment_spmm.launches,
             "fused_fp_na": _ffn.fused_fp_na.launches,
             "cached_gather": _fc.cached_gather.launches,
-            "semantic_scores": _sem.semantic_scores.launches}
+            "semantic_scores": _sem.semantic_scores.launches,
+            "flash_attention": _flash.flash_attention.launches,
+            "decode_attention": _dec.decode_attention.launches}

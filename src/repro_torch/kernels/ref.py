@@ -5,10 +5,12 @@ Each hand-written kernel in ``kernels/`` has its plain version here with the
 same contract.  The CPU runs these (the wrappers take them for a CPU
 tensor), the tests hold them against the JAX oracles and the Pallas kernels
 in interpret mode, and ``chip_smoke.py`` holds each CUDA kernel against its
-plain version on the card.
+plain version on the card.  The two attention oracles are also the LM's
+plain arm (``nn/attention.py``) at up to 1024 tokens and in decode.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -115,3 +117,51 @@ def semantic_attention(z, w, b, q) -> torch.Tensor:
     """HAN semantic attention over the stacked ``[P, N, D]`` input."""
     return semantic_combine(z, torch.softmax(semantic_scores(z, w, b, q),
                                              dim=0))
+
+
+def _attention_probs(scores: torch.Tensor, dh: int, valid: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Scale, mask with -1e30, softmax in fp32, cast to ``dtype``."""
+    scores = torch.where(valid, scores.float() / math.sqrt(dh), -1e30)
+    return torch.softmax(scores, dim=-1).to(dtype)
+
+
+def mha_attention(
+    q: torch.Tensor,  # [B, S, H, Dh]
+    k: torch.Tensor,  # [B, S, KVH, Dh]
+    v: torch.Tensor,  # [B, S, KVH, Dh]
+    causal: bool = True,
+    window: int = 0,  # 0 = full; else sliding window size
+) -> torch.Tensor:
+    """GQA/MHA attention oracle (fp32 softmax).  The scores are computed in
+    ``q.dtype`` and the probabilities cast back to it before ``p @ v``, as
+    the reference's oracle does."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k)
+    ids = torch.arange(s, device=q.device)
+    m = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        m = m & (ids[:, None] >= ids[None, :])
+    if window:
+        m = m & (ids[:, None] - ids[None, :] < window)
+    p = _attention_probs(scores, dh, m, q.dtype)
+    return torch.einsum("bkgst,btkd->bskgd", p, v).reshape(b, s, h, dh)
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, H, Dh] the new token
+    k: torch.Tensor,  # [B, S, KVH, Dh] cache
+    v: torch.Tensor,  # [B, S, KVH, Dh]
+    kv_len,  # [B] int tensor or int: valid cache length
+) -> torch.Tensor:
+    """One-token GQA attention over the first ``kv_len[b]`` cache rows."""
+    b, h, dh = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, dh)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k)
+    kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1, 1)
+    valid = torch.arange(s, device=q.device)[None, :] < kv_len
+    p = _attention_probs(scores, dh, valid[:, None, None, :], q.dtype)
+    return torch.einsum("bkgt,btkd->bkgd", p, v).reshape(b, h, dh)

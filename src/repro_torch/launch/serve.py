@@ -1,5 +1,10 @@
-"""HGNN inference launcher (port of the full-graph ``--hgnn`` path of
-``repro/launch/serve.py:76-120,228-274``).
+"""Serving launcher (port of ``repro/launch/serve.py``: the LM branch of
+``main``, ``:309-418``, and the full-graph ``--hgnn`` path, ``:76-120,
+228-274``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+      --reduced [--requests N] [--prompt-len T] [--max-tokens M] \
+      [--temperature X] [--slots B] [--use-pallas]
 
   PYTHONPATH=src python -m repro_torch.launch.serve --hgnn han \\
       --dataset imdb --use-pallas --fuse-na-sa [--layers L] [--iters N]
@@ -9,7 +14,16 @@
       --dataset imdb --use-pallas [--cache-rows 256] [--layers L]
 
 runs on the CUDA device; ``--device cpu`` runs on the CPU (the kernels'
-plain versions).  ``--cache-rows C`` turns on hot-feature residency for
+plain versions).  Without ``--hgnn`` it serves the dense LM ``--arch`` (full
+size, or ``--reduced``) through ``ServeEngine`` with random weights from
+seed 0, and prints the reference's ``reqN: [...]`` lines and ``N tokens in
+Xs (Y tok/s)``.  ``--use-pallas`` sets ``ModelConfig.use_pallas`` there:
+prefill through the ``flash_attention`` kernel and decode through
+``decode_attention`` (the reference's flag reaches only its HGNN branch).
+The encdec family exits as the reference does; the other non-dense
+families raise ``NotImplementedError``.
+
+With ``--hgnn``, ``--cache-rows C`` turns on hot-feature residency for
 any of the three models.  It prints the device, then the reference's line
 
   han/imdb [na=gat/stacked +fused-sa] logits (4278, 8) on single-device: ... ms/iter
@@ -22,7 +36,7 @@ synchronised with the device, and with residency the reference's counters
   residency: cache_rows=... hits=... misses=... rows=... hit_rate=...
 
 The reference's device mesh, graph partitioning, sampled serving, the
-overlap schedule, characterization and LM serving are not ported yet.
+overlap schedule and characterization are not ported yet.
 """
 from __future__ import annotations
 
@@ -112,18 +126,60 @@ def run_hgnn(args) -> None:
               f"hit_rate={ct['hits'] / max(ct['rows'], 1):.3f}")
 
 
+def run_lm(args) -> None:
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.nn.transformer import init_lm_params
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    dev = resolve_device(args.device)
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.family == "encdec":
+        raise SystemExit("serve launcher covers decoder-only archs; "
+                         "see examples/serve_decode.py for enc-dec")
+    if args.use_pallas:
+        cfg = cfg.replace(use_pallas=True)
+    params = init_lm_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    engine = ServeEngine(cfg, params, batch_slots=args.slots,
+                         max_len=args.prompt_len + args.max_tokens)
+    rng = np.random.default_rng(0)
+    reqs = [
+        Request(prompt=rng.integers(0, cfg.vocab, args.prompt_len).astype(
+            np.int32), max_tokens=args.max_tokens,
+            temperature=args.temperature)
+        for _ in range(args.requests)
+    ]
+    t0 = time.time()
+    done = engine.generate(reqs)
+    dt = time.time() - t0
+    total_tokens = sum(len(r.out_tokens) for r in done)
+    for i, r in enumerate(done):
+        print(f"req{i}: {r.out_tokens}")
+    print(f"{total_tokens} tokens in {dt:.2f}s "
+          f"({total_tokens/max(dt,1e-9):.1f} tok/s)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--hgnn", required=True,
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--hgnn", default=None,
                     choices=["han", "rgcn", "magnn", "gcn"],
-                    help="HGNN model (HAN, RGCN and MAGNN are ported; GCN "
-                         "raises)")
+                    help="serve an HGNN model instead of an LM (HAN, RGCN "
+                         "and MAGNN are ported; GCN raises)")
     ap.add_argument("--dataset", default="imdb",
                     choices=["imdb", "acm", "dblp", "reddit"])
     ap.add_argument("--use-pallas", action="store_true",
-                    help="hand-written CUDA kernels (gat_na, "
-                         "semantic_combine, segment_spmm, cached_gather) on "
-                         "the hot loop")
+                    help="hand-written CUDA kernels on the hot loop (HGNN: "
+                         "gat_na, semantic_combine, segment_spmm, "
+                         "cached_gather; LM: flash_attention, "
+                         "decode_attention)")
     ap.add_argument("--fuse-na-sa", action="store_true",
                     help="fused NA→SA epilogue: SA pass-1 scores accumulate "
                          "inside the NA kernel (stacked layout)")
@@ -139,7 +195,11 @@ def main() -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions on the CPU)")
-    run_hgnn(ap.parse_args())
+    args = ap.parse_args()
+    if args.hgnn:
+        run_hgnn(args)
+        return
+    run_lm(args)
 
 
 if __name__ == "__main__":

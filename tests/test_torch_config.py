@@ -1,14 +1,18 @@
-"""Port of the HGNN configuration and the stage plans: the port's
-``HGNNConfig`` and plan dataclasses against the reference's, and the
-port's import hygiene (no jax, no ``repro``, no GPU toolchain)."""
+"""Port of the configurations and the stage plans: the port's
+``HGNNConfig``, LM ``ModelConfig`` family, arch registry and plan
+dataclasses against the reference's, and the port's import hygiene (no
+jax, no ``repro``, no GPU toolchain)."""
 import dataclasses
 import subprocess
 import sys
 
 import pytest
 
+from repro.configs import base as ref_base
+from repro.configs import registry as ref_registry
 from repro.configs.base import HGNNConfig as RefConfig
 from repro.core import plan as ref_plan
+from repro_torch.configs import base, registry
 from repro_torch.configs.base import HGNNConfig
 from repro_torch.core import plan
 
@@ -39,6 +43,36 @@ def test_hgnn_config_rejects_fewer_than_one_layer(layers):
         RefConfig(layers=layers)
     with pytest.raises(ValueError):
         HGNNConfig(layers=layers)
+
+
+@pytest.mark.parametrize("name", ["ModelConfig", "MoEConfig", "SSMConfig",
+                                  "ShapeConfig"])
+def test_lm_config_fields_and_defaults_equal(name):
+    assert _fields(getattr(base, name)) == _fields(getattr(ref_base, name))
+
+
+def test_lm_shapes_and_long_context_equal():
+    assert base.SHAPES == {k: base.ShapeConfig(**dataclasses.asdict(v))
+                           for k, v in ref_base.SHAPES.items()}
+    assert base.LONG_CONTEXT_ARCHS == ref_base.LONG_CONTEXT_ARCHS
+    for arch in ref_registry.list_archs():
+        assert base.long_context_supported(registry.get_config(arch)) == \
+            ref_base.long_context_supported(ref_registry.get_config(arch))
+
+
+@pytest.mark.parametrize("arch", ref_registry.list_archs())
+def test_registry_configs_equal_reference(arch):
+    assert registry.list_archs() == ref_registry.list_archs()
+    for get, ref_get in ((registry.get_config, ref_registry.get_config),
+                         (registry.get_reduced, ref_registry.get_reduced)):
+        got, want = get(arch), ref_get(arch)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert got.resolved_head_dim == want.resolved_head_dim
+    kw = dict(n_layers=3, use_pallas=True, dtype="float32")
+    assert dataclasses.asdict(registry.get_config(arch).replace(**kw)) == \
+        dataclasses.asdict(ref_registry.get_config(arch).replace(**kw))
+    with pytest.raises(KeyError):
+        registry.get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("name", [
@@ -84,8 +118,14 @@ def test_port_imports_no_jax_no_reference_no_toolchain():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n"
+        "need = {'repro_torch.nn.transformer', 'repro_torch.nn.attention',\n"
+        "        'repro_torch.kernels.flash_attention',\n"
+        "        'repro_torch.kernels.decode_attention',\n"
+        "        'repro_torch.configs.registry',\n"
+        "        'repro_torch.configs.granite_8b', 'repro_torch.serve.engine'}\n"
+        "assert need <= set(mods), need - set(mods)\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 49

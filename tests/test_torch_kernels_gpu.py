@@ -24,13 +24,21 @@ plain version and its emulation.  ``semantic_scores`` sums the zW products
 with FMA in feature order and the row scores per block, then over blocks,
 where the plain version leaves both orders to the matmul and the mean:
 atol = rtol = 1e-5, and bitwise against a second run.
+``flash_attention`` and ``decode_attention`` are held against the
+attention oracles at the reference's own kernel-test tolerances (2e-4 in
+fp32, 2e-2 in bf16, whose oracle rounds the scores and P to bf16), and
+against their emulations, which run the same tile or split loop in fp32 in
+another summation order: atol = rtol = 1e-5 in fp32; in bf16 both round an
+fp32 result to bf16, which may land one bf16 step apart (2e-2).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import feature_cache as tfc
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import fused_fp_na as tffn
 from repro_torch.kernels import gat_na as tgat
 from repro_torch.kernels import ops
@@ -396,3 +404,105 @@ def test_slice3_kernels_raise_instead_of_falling_back(cuda):
             1, 2), w, b, q, use_pallas=True)
     assert (tfc.cached_gather.launches,
             tsem.semantic_scores.launches) == before
+
+
+ATTN_TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4),
+            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+EMU_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _attn(rng, shape, dtype, device):
+    return torch.as_tensor(rng.standard_normal(shape) * 0.5,
+                           dtype=torch.float32, device=device).to(dtype)
+
+
+FLASH_SHAPES = [  # (B, S, H, KVH, Dh)
+    (1, 100, 4, 4, 20),  # G = 1, S a tail of two tiles, Dh = 20
+    (2, 130, 6, 2, 64),  # G = 3, a 2-row tail tile
+    (1, 256, 8, 2, 120),  # G = 4, Dh = 120 (h2o-danube)
+    (2, 200, 8, 2, 128),  # G = 4, Dh = 128 (granite), a tail
+    (1, 64, 3, 1, 128),  # G = 3, one tile
+]
+FLASH_MODES = [(True, 0), (False, 0), (True, 40), (False, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", FLASH_MODES)
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain_and_emulation(
+        cuda, shape, causal, window, dtype):
+    b, s, h, kvh, dh = shape
+    rng = np.random.default_rng(b * s + h + dh)
+    q = _attn(rng, (b, s, h, dh), dtype, cuda)
+    k = _attn(rng, (b, s, kvh, dh), dtype, cuda)
+    v = _attn(rng, (b, s, kvh, dh), dtype, cuda)
+    before = tflash.flash_attention.launches
+    got = tflash.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    want = tflash.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    emu = tflash.flash_attention_emulate(q, k, v, causal=causal,
+                                         window=window)
+    torch.testing.assert_close(got.float(), emu.float(), **EMU_TOL[dtype])
+    again = tflash.flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(got, again)  # no atomics: the same bits
+
+
+DECODE_CASES = [  # (B, S, H, KVH, Dh, kv_len)
+    (3, 100, 4, 4, 20, [1, 57, 100]),  # G = 1, kv_len 1 and S
+    (2, 300, 6, 2, 64, [300, 129]),  # G = 3, a split boundary + 1
+    (2, 129, 12, 4, 120, [128, 129]),  # G = 3, Dh = 120, S past a split
+    (4, 2080, 32, 8, 128, [1, 1000, 2049, 2080]),  # the granite decode
+    (1, 64, 4, 1, 128, [64]),  # G = 4, one tile
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_attention_kernel_matches_plain_and_emulation(cuda, case,
+                                                             dtype):
+    b, s, h, kvh, dh, lens = case
+    rng = np.random.default_rng(b * s + h + dh)
+    q = _attn(rng, (b, h, dh), dtype, cuda)
+    k = _attn(rng, (b, s, kvh, dh), dtype, cuda)
+    v = _attn(rng, (b, s, kvh, dh), dtype, cuda)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = tdec.decode_attention.launches
+    got = tdec.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert tdec.decode_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = tdec.decode_attention_plain(q, k, v, kv_len)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    emu = tdec.decode_attention_emulate(q, k, v, kv_len)
+    torch.testing.assert_close(got.float(), emu.float(), **EMU_TOL[dtype])
+    assert torch.equal(got, tdec.decode_attention(q, k, v, kv_len))
+    # a row at or past kv_len is never read: NaN there changes nothing
+    kp, vp = k.clone(), v.clone()
+    for i, n in enumerate(lens):
+        kp[i, n:] = float("nan")
+        vp[i, n:] = float("nan")
+    assert torch.equal(tdec.decode_attention(q, kp, vp, kv_len), got)
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 64, 2, 136), device=cuda)
+    before = (tflash.flash_attention.launches,
+              tdec.decode_attention.launches)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q, q, use_pallas=True)
+    kv_len = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.decode_attention(q[:, 0], q, q, kv_len, use_pallas=True)
+    q = torch.zeros((1, 64, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        ops.decode_attention(q[:, 0], q, q, kv_len.long(), use_pallas=True)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.flash_attention(q.half(), q.half(), q.half(), use_pallas=True)
+    assert (tflash.flash_attention.launches,
+            tdec.decode_attention.launches) == before
