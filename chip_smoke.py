@@ -847,9 +847,68 @@ def granite_serve(dev, ops, profiles: dict) -> dict:
             "params": n_params}
 
 
+def sass_counts(lib_path: str):
+    """Tensor-core (``HGMMA``: wgmma; ``HMMA``: mma.sync) and
+    asynchronous-copy (``LDGSTS``; ``.128``: 16 bytes) instructions in the
+    built library's SASS, summed over the instantiations of each attention
+    kernel, by ``cuobjdump -sass``; None where the toolkit has none."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts = {name: {"HGMMA": 0, "HMMA": 0, "LDGSTS": 0, "LDGSTS.128": 0}
+              for name in ("flash_attention_tc_kernel",
+                           "decode_split_kernel")}
+    fn = ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            continue
+        for name, c in counts.items():
+            if name in fn:
+                c["HGMMA"] += "HGMMA" in line
+                c["HMMA"] += "HMMA" in line
+                c["LDGSTS"] += "LDGSTS" in line
+                c["LDGSTS.128"] += bool(re.search(r"LDGSTS[.\w]*\.128\b",
+                                                  line))
+    return counts
+
+
+def attention_instructions() -> dict:
+    """What the bf16 flash kernel issues on the tensor cores (its C entry
+    names it) and the SASS counts that show it, with the decode kernel's
+    16-byte asynchronous copies; a check fails if the SASS lacks them."""
+    from repro_torch.kernels import build
+
+    lib = build.library()
+    instr = lib.flash_attention_bf16_instruction().decode()
+    counts = sass_counts(lib._name)
+    print(f"  flash_attention bf16 kernel: {instr}")
+    if counts is None:
+        print("  SASS not read: no cuobjdump beside nvcc")
+    else:
+        fa, dec = counts["flash_attention_tc_kernel"], counts[
+            "decode_split_kernel"]
+        print(f"  SASS: flash_attention_tc_kernel HGMMA {fa['HGMMA']}, HMMA "
+              f"{fa['HMMA']}, LDGSTS "
+              f"{fa['LDGSTS']} (16-byte {fa['LDGSTS.128']}); "
+              f"decode_split_kernel LDGSTS {dec['LDGSTS']} (16-byte "
+              f"{dec['LDGSTS.128']})")
+        check(fa["HGMMA"] + fa["HMMA"] > 0 and fa["LDGSTS.128"] > 0,
+              "the bf16 flash kernel issues tensor-core MMAs and 16-byte "
+              "LDGSTS")
+        check(dec["LDGSTS.128"] > 0,
+              "the decode split kernel issues 16-byte LDGSTS")
+    return {"flash_bf16_instruction": instr, "sass": counts}
+
+
 def lm_kernel_times(dev, flush, results: dict, main_counts: dict) -> list:
     """Both kernels timed cold and warm at the granite shapes, beside their
-    bound, their plain version and SDPA (the yardstick only)."""
+    bound, their plain version and SDPA (the yardstick only); the flash
+    kernel's fp32 arm on a line of its own."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as tdec
@@ -857,7 +916,20 @@ def lm_kernel_times(dev, flush, results: dict, main_counts: dict) -> list:
 
     gen = torch.Generator(device=dev).manual_seed(16)
     entries = []
+    arms = attention_instructions()
     with torch.inference_mode():
+        q, k, v = attn_inputs(gen, 4, 2048, 32, 8, 128, torch.float32)
+        n_bytes, n_ops = flash_work(q, k, True, 0)
+        fp32_fn = lambda: tflash.flash_attention(q, k, v)  # noqa: E731
+        fp32_ms = time_ms(fp32_fn, 10, flush)
+        fp32_warm_ms = time_ms(fp32_fn, 10)
+        fp32_bound, fp32_by = bound(n_bytes, n_ops)
+        print(f"  flash_attention fp32 arm (FMA kernel), granite prefill "
+              f"fp32: {fp32_ms:.5f} ms cold, {fp32_warm_ms:.5f} ms warm "
+              f"(bound {fp32_bound:.5f} ms by {fp32_by} at 67 TFLOP/s fp32)")
+        arms.update({"fp32_ms": fp32_ms, "fp32_warm_ms": fp32_warm_ms,
+                     "fp32_bound_ms": fp32_bound})
+        del q, k, v
         q, k, v = attn_inputs(gen, 4, 2048, 32, 8, 128, torch.bfloat16)
         n_bytes, n_ops = flash_work(q, k, True, 0)
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -913,7 +985,8 @@ def lm_kernel_times(dev, flush, results: dict, main_counts: dict) -> list:
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                 "warm_ms": warm_ms, "bytes": n_bytes, "operations": n_ops,
                 "shape": shape, "library": lib_name,
-                "peak": "989 TFLOP/s bf16 dense, 3.35 TB/s"})
+                "peak": "989 TFLOP/s bf16 dense, 3.35 TB/s",
+                **(arms if name == "flash_attention" else {})})
             print(f"  {name}: {ms:.5f} ms cold, {warm_ms:.5f} ms warm "
                   f"(plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms by {b_by}, "
                   f"SDPA {lib_ms:.5f} ms)")

@@ -47,6 +47,7 @@ SIGNATURES: Dict[str, tuple] = {
     "cached_gather_launch": ([_P] * 4 + [_I] * 3 + [_L] * 4 + [_I, _P], _I),
     "semantic_scores_launch": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "flash_attention_launch": ([_P] * 4 + [_I] * 7 + [_F, _I, _P], _I),
+    "flash_attention_bf16_instruction": ([], ctypes.c_char_p),
     "decode_attention_launch": ([_P] * 7 + [_I] * 7 + [_F, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }

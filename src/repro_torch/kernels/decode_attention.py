@@ -7,11 +7,14 @@ decode_attention`` (``:72``; body ``_kernel :28``): the new token's query
 ``k, v [B, S, KVH, Dh]`` (query head ``h`` reads KV head ``h // G``), fp32
 arithmetic whatever the input type, output in ``q.dtype``.  The CUDA source
 is ``csrc/decode_attention.cu``; its header says how the kernels work.  In
-short: split-KV — one block per (cache split of :data:`SPLIT_ROWS` rows, KV
-head, batch row) computes the online-softmax partials ``(m, l, acc)`` of
-the group's ``G`` query heads, a split at or past ``kv_len`` returns at
-once, and a second kernel combines the live splits in split order (no
-atomics: the same bits on every run).  ``kv_len`` stays on the device.
+short: split-KV — one warp per (cache split of :data:`SPLIT_ROWS` rows,
+KV head, batch row) computes the online-softmax partials ``(m, l, acc)``
+of the group's query heads (four at a time) over :data:`TILE`-row tiles
+that arrive by ``cp.async`` through a ring of :data:`STAGES` stages of its
+own, a split at or past ``kv_len`` returns at once, and a second kernel
+combines the live splits in split order (no atomics: the same bits on
+every run).  ``kv_len`` stays on
+the device.
 
 What bounds it on an H100: bytes — the live K and V rows.
 
@@ -30,8 +33,9 @@ from repro_torch.kernels import build, ref
 
 decode_attention_plain = ref.decode_attention
 
-SPLIT_ROWS = 128  # cache rows of one split block
-TILE = 64  # cache rows staged a step inside a split (kTile in the source)
+SPLIT_ROWS = 64  # cache rows of one split (a warp; four splits a block)
+TILE = 8  # cache rows of a ring stage: one softmax step (kTile)
+STAGES = 4  # a warp's copy ring (kStages): a split's 8 tiles go round twice
 MAX_HEAD_DIM = 128
 NEG_INF = -1e30
 
@@ -40,9 +44,9 @@ def decode_attention_emulate(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, kv_len) -> torch.Tensor:
     """The CUDA kernels' algorithm in PyTorch, for the CPU tests: for each
     batch row, the splits holding a row below ``kv_len`` (never a row at or
-    past it), each an online softmax over its 64-row tiles in fp32 (``q``
-    scaled before the dot, ``l`` clamped at ``1e-30``), then the partials
-    rescaled to their common max and summed in split order."""
+    past it), each an online softmax over its :data:`TILE`-row tiles in
+    fp32 (``q`` scaled before the dot, ``l`` clamped at ``1e-30``), then
+    the partials rescaled to their common max and summed in split order."""
     b, h, dh = q.shape
     s, kvh = k.shape[1], k.shape[2]
     g = h // kvh

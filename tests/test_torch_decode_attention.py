@@ -59,6 +59,9 @@ def test_plain_and_emulation_match_pallas(b, s, h, kvh, dh, bk, dtype):
     (3, 100, 4, 4, 20, [1, 57, 100]),  # kv_len 1 and S, S not a tile
     (2, 300, 6, 2, 16, [300, 129]),  # three splits, one past a boundary
     (2, 2080, 4, 1, 8, [2049, 2080]),  # the main path's cache length
+    (2, 257, 4, 2, 128, [257, 33]),  # one past a split and past a tile
+    (1, 520, 8, 2, 120, [520]),  # full splits: the ring wraps twice
+    (2, 300, 6, 3, 20, [289, 256]),  # Dh 20, kv_len at a split's end
 ])
 def test_tail_lengths_match_the_oracle(b, s, h, kvh, dh, lens):
     (jq, jk, jv, jl), (q, k, v, kv_len) = _case(s, b, s, h, kvh, dh, lens)

@@ -67,7 +67,8 @@ def test_dtypes_match_pallas(dtype):
 
 
 @pytest.mark.parametrize("s,h,kvh,dh", [(100, 4, 4, 20), (130, 6, 2, 16),
-                                        (65, 3, 1, 8)])
+                                        (65, 3, 1, 8), (65, 2, 1, 128),
+                                        (129, 4, 2, 120)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 40),
                                            (False, 40)])
 def test_tail_lengths_match_the_oracle(s, h, kvh, dh, causal, window):
@@ -118,6 +119,62 @@ def test_fully_masked_tiles_are_skipped_exactly(monkeypatch, s, causal,
     every = tflash.flash_attention_emulate(q, k, v, causal, window)
     assert torch.equal(got, every)
     assert torch.isfinite(got).all()
+
+
+def test_split_hi_lo_carries_sixteen_bits():
+    """The bf16 kernel's P for P·V: ``hi + lo`` is fp32 ``p`` to within
+    2^-16 relative over the range softmax weights take, ``hi`` alone only
+    to 2^-9, and ``p = 0`` (a masked key) splits to exactly 0 + 0."""
+    rng = np.random.default_rng(16)
+    x = np.concatenate([[0.0], rng.uniform(0.0, 30.0, 4095)])
+    p = torch.from_numpy(np.exp(-x).astype(np.float32))
+    hi, lo = tflash.split_hi_lo(p)
+    assert hi.dtype == lo.dtype == torch.float32
+    assert torch.equal(hi, hi.to(torch.bfloat16).float())
+    assert torch.equal(lo, lo.to(torch.bfloat16).float())
+    rel = ((hi + lo) - p).abs() / p
+    assert rel.max() <= 2.0 ** -16
+    assert ((hi - p).abs() / p).max() > 2.0 ** -16  # hi alone is coarser
+    z_hi, z_lo = tflash.split_hi_lo(torch.zeros(3))
+    assert torch.equal(z_hi, torch.zeros(3))
+    assert torch.equal(z_lo, torch.zeros(3))
+
+
+@pytest.mark.parametrize("s,h,kvh,dh", [(129, 4, 2, 128), (65, 2, 1, 120),
+                                        (100, 4, 4, 20)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 40)])
+def test_bf16_arm_matches_the_oracle_and_the_fp32_result(s, h, kvh, dh,
+                                                         causal, window):
+    """The tensor-core kernel's numbers (scale after the dot, in the
+    exponent; P as bf16 hi + lo) on bf16 inputs: within the reference's
+    bf16 tolerance of the JAX
+    oracle, and within a bf16 output's rounding (atol 1e-3, rtol 8e-3, the
+    chip check's) of the fp32 computation on the same values."""
+    (jq, jk, jv), (q, k, v) = _qkv(s * dh, 2, s, h, kvh, dh, "bfloat16")
+    emu = tflash.flash_attention_emulate(q, k, v, causal=causal,
+                                         window=window)
+    assert emu.dtype == torch.bfloat16 and torch.isfinite(emu).all()
+    want = _np(jref.mha_attention(jq, jk, jv, causal=causal, window=window))
+    np.testing.assert_allclose(_np(emu), want, **TOL["bfloat16"])
+    exact = ref.mha_attention(q.float(), k.float(), v.float(), causal=causal,
+                              window=window).to(torch.bfloat16)
+    np.testing.assert_allclose(_np(emu), _np(exact), atol=1e-3, rtol=8e-3)
+
+
+@pytest.mark.parametrize("s,causal,window", [(256, True, 0), (200, True, 40),
+                                             (130, False, 70)])
+def test_fully_masked_tiles_are_skipped_exactly_bf16(monkeypatch, s, causal,
+                                                     window):
+    """The same for the bf16 kernel's numbers: a skipped tile and a visited
+    fully masked tile give the same bits (``alpha = 2^0 = 1``, ``p = 0``
+    splits to 0 + 0)."""
+    _, (q, k, v) = _qkv(s, 1, s, 4, 2, 16, "bfloat16")
+    got = tflash.flash_attention_emulate(q, k, v, causal, window)
+    n_k = -(-s // tflash.BLOCK_K)
+    monkeypatch.setattr(tflash, "kv_tiles",
+                        lambda q0, s_, c, w: range(n_k))  # every tile
+    assert torch.equal(got, tflash.flash_attention_emulate(q, k, v, causal,
+                                                           window))
 
 
 def test_kernel_constraints_raise_on_cpu_checks():

@@ -29,7 +29,9 @@ attention oracles at the reference's own kernel-test tolerances (2e-4 in
 fp32, 2e-2 in bf16, whose oracle rounds the scores and P to bf16), and
 against their emulations, which run the same tile or split loop in fp32 in
 another summation order: atol = rtol = 1e-5 in fp32; in bf16 both round an
-fp32 result to bf16, which may land one bf16 step apart (2e-2).
+fp32 result to bf16, which may land one bf16 step apart (2e-2).  The
+copy widths that the launchers pick from the row alignment give the same
+bits (the arithmetic does not depend on how a row arrived).
 """
 import numpy as np
 import pytest
@@ -425,11 +427,20 @@ FLASH_SHAPES = [  # (B, S, H, KVH, Dh)
     (1, 64, 3, 1, 128),  # G = 3, one tile
 ]
 FLASH_MODES = [(True, 0), (False, 0), (True, 40), (False, 40)]
+# the bf16 kernel's two-stage K ring gone round at least twice (five or more
+# kv tiles), with each copy width (16-byte at Dh % 8 == 0, 4-byte at even
+# Dh, 2-byte at odd Dh) and each padded depth (64, 128)
+FLASH_RING_SHAPES = [  # (B, S, H, KVH, Dh)
+    (1, 321, 8, 2, 128),  # G = 4, S one past a tile
+    (1, 300, 4, 4, 40),  # depth 64, zero-padded
+    (2, 257, 2, 1, 7),  # odd Dh: 2-byte copies, depth 64
+    (1, 330, 4, 2, 100),  # even Dh: 4-byte copies, depth 128
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", FLASH_MODES)
-@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("shape", FLASH_SHAPES + FLASH_RING_SHAPES)
 def test_flash_attention_kernel_matches_plain_and_emulation(
         cuda, shape, causal, window, dtype):
     b, s, h, kvh, dh = shape
@@ -460,10 +471,20 @@ DECODE_CASES = [  # (B, S, H, KVH, Dh, kv_len)
     (4, 2080, 32, 8, 128, [1, 1000, 2049, 2080]),  # the granite decode
     (1, 64, 4, 1, 128, [64]),  # G = 4, one tile
 ]
+# 64-row splits (a warp each) of 8-row tiles through a four-stage ring: a
+# full split goes round the ring twice; kv_len one past a split (257) or a
+# tile (33); each copy width
+DECODE_RING_CASES = [  # (B, S, H, KVH, Dh, kv_len)
+    (2, 600, 8, 2, 128, [257, 600]),  # G = 4, ten splits
+    (1, 530, 4, 1, 40, [530]),  # Dh 40
+    (2, 290, 6, 2, 20, [33, 290]),  # Dh 20: 4-byte copies in bf16
+    (1, 300, 3, 1, 7, [299]),  # odd Dh: 2-byte copies in bf16
+    (2, 520, 16, 2, 64, [520, 513]),  # G = 8: two passes of 4 heads
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("case", DECODE_CASES + DECODE_RING_CASES)
 def test_decode_attention_kernel_matches_plain_and_emulation(cuda, case,
                                                              dtype):
     b, s, h, kvh, dh, lens = case
@@ -488,6 +509,35 @@ def test_decode_attention_kernel_matches_plain_and_emulation(cuda, case,
         kp[i, n:] = float("nan")
         vp[i, n:] = float("nan")
     assert torch.equal(tdec.decode_attention(q, kp, vp, kv_len), got)
+
+
+def _unaligned(t):
+    """``t``'s values in a contiguous tensor whose start is one element
+    past an aligned allocation: no 16- or 4-byte copy fits its rows."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_take_unaligned_rows(cuda, dtype):
+    """Rows that start off a 16-byte boundary take the narrow copies (the
+    launchers pick the copy width from the pointers, not only from Dh)."""
+    rng = np.random.default_rng(16)
+    q = _attn(rng, (1, 300, 8, 128), dtype, cuda)
+    k = _attn(rng, (1, 300, 2, 128), dtype, cuda)
+    v = _attn(rng, (1, 300, 2, 128), dtype, cuda)
+    uq, uk, uv = _unaligned(q), _unaligned(k), _unaligned(v)
+    assert uk.data_ptr() % 16
+    want = tflash.flash_attention(q, k, v)
+    torch.testing.assert_close(tflash.flash_attention(uq, uk, uv).float(),
+                               want.float(), atol=0, rtol=0)
+    kv_len = torch.tensor([290], dtype=torch.int32, device=cuda)
+    want = tdec.decode_attention(q[:, 0], k, v, kv_len)
+    got = tdec.decode_attention(_unaligned(q[:, 0].contiguous()), uk, uv,
+                                kv_len)
+    torch.testing.assert_close(got.float(), want.float(), atol=0, rtol=0)
 
 
 def test_attention_kernels_refuse_what_they_do_not_take(cuda):
