@@ -44,14 +44,16 @@ ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at its 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # TF32 on the tensor cores
 ITERS = 3  # infer() calls per main-path configuration
 TOL_Z = dict(atol=1e-5, rtol=1e-5)  # per-slot online vs one-shot softmax
 TOL_W = dict(atol=1e-4, rtol=1e-4)  # 4278 row scores summed in another order
 TOL_LOGITS = dict(atol=1e-5, rtol=1e-5)  # kernel arm vs plain arm, one card
 TOL_CPU = dict(atol=1e-4, rtol=1e-4)  # card vs CPU: FP sums F=3066 differently
 TOL_SPMM = dict(atol=1e-5, rtol=1e-5)  # slot order vs the plain sum's order
-# fused_fp_na: F = 3066 products accumulated in order with FMA, against the
-# plain aggregate-then-matmul and the executor's matmul-then-aggregate
+# fused_fp_na: F = 3066 products accumulated on the tensor cores in 3xTF32
+# (about fp32's precision), against the plain aggregate-then-matmul and the
+# executor's matmul-then-aggregate
 TOL_FFN = dict(atol=1e-5, rtol=1e-5)
 # semantic_scores: the zW products with FMA in feature order, the row
 # scores summed per block then over blocks, against the matmul and mean
@@ -187,9 +189,13 @@ def to_device(tree, device):
     return tree.to(device) if torch.is_tensor(tree) else tree
 
 
-def bound(n_bytes: float, n_ops: float, peak_flops: float = PEAK_FP32_FLOPS):
+def bound(n_bytes: float, n_ops: float, peak_flops: float = PEAK_FP32_FLOPS,
+          tf32_ops: float = 0.0):
+    """The least time (ms) for the work, and what sets it: the bytes at the
+    memory rate, or the operations at the peak of their type (``n_ops`` at
+    ``peak_flops``, plus ``tf32_ops`` on the tensor cores in TF32)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / peak_flops * 1e3
+    t_ops = (n_ops / peak_flops + tf32_ops / PEAK_TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -223,26 +229,31 @@ def gat_na_work(h_dst, h_src, nbr, mask, hs: int):
     return n_bytes, n_ops, live
 
 
-def spmm_work(n_src_cols: int, nbr, mask, d_out: int = 0):
-    """Bytes and operations of ``segment_spmm`` (``d_out == 0``) or of
-    ``fused_fp_na`` (``d_out = D``, ``n_src_cols = F``) on these inputs:
-    the mask once (4 bytes a slot), the index of each live slot (a dead
-    slot's index is never needed), each source row that a live slot names
-    once, the output once; per live slot a multiply-add per column, the
-    divide per output column; the fused form adds W once and the
-    ``2*N*F*D`` operations of the product."""
+def spmm_work(n_src_cols: int, nbr, mask):
+    """Bytes and operations of ``segment_spmm`` on these inputs: the mask
+    once (4 bytes a slot), the index of each live slot (a dead slot's index
+    is never needed), each source row that a live slot names once, the
+    output once; per live slot a multiply-add per column, the divide per
+    output column."""
     n, k = nbr.shape
     live = mask != 0
     n_live = int(live.sum())
     named = int(nbr[live].unique().numel())
     n_bytes = 4 * n * k + 4 * n_live + named * n_src_cols * 4
     n_ops = 2 * n_live * n_src_cols + n * n_src_cols
-    if d_out:
-        n_bytes += n_src_cols * d_out * 4 + n * d_out * 4
-        n_ops += 2 * n * n_src_cols * d_out
-    else:
-        n_bytes += n * n_src_cols * 4
-    return n_bytes, n_ops, n_live
+    return n_bytes + n * n_src_cols * 4, n_ops, n_live
+
+
+def ffn_work(x, w, nbr, mask):
+    """Bytes, fp32 operations and TF32 tensor-core operations of
+    ``fused_fp_na`` on these inputs: ``segment_spmm``'s reads of the mask,
+    the live indices and the named raw rows, plus W once and the [N, D]
+    output once; the aggregate's multiply-adds in fp32; the product
+    ``2*N*F*D`` three times over (the kernel's 3xTF32 split)."""
+    n, f, d = nbr.shape[0], x.shape[1], w.shape[1]
+    n_bytes, n_ops, _ = spmm_work(f, nbr, mask)
+    n_bytes += f * d * 4 + n * d * 4 - n * f * 4  # out is [N, D], not [N, F]
+    return n_bytes, n_ops, 3 * 2 * n * f * d
 
 
 def bucket_times(h_src, nbr, mask, flush) -> list:
@@ -847,11 +858,17 @@ def granite_serve(dev, ops, profiles: dict) -> dict:
             "params": n_params}
 
 
+SASS_KERNELS = ("flash_attention_tc_kernel", "decode_split_kernel",
+                "fused_fp_na_kernel", "gat_na_kernel")
+
+
 def sass_counts(lib_path: str):
-    """Tensor-core (``HGMMA``: wgmma; ``HMMA``: mma.sync) and
-    asynchronous-copy (``LDGSTS``; ``.128``: 16 bytes) instructions in the
-    built library's SASS, summed over the instantiations of each attention
-    kernel, by ``cuobjdump -sass``; None where the toolkit has none."""
+    """Tensor-core (``HGMMA``: wgmma; ``HMMA``: mma.sync),
+    asynchronous-copy (``LDGSTS``; ``.128``: 16 bytes), 16-byte shared-load
+    (``LDS.128``) and fp32 FMA (``FFMA``) instructions in the built
+    library's SASS, summed over the instantiations of each kernel of
+    ``SASS_KERNELS`` (``gat_na_kernel`` split by its epilogue flag), by
+    ``cuobjdump -sass``; None where the toolkit has none."""
     from repro_torch.kernels import build
 
     tool = Path(build.find_nvcc()).with_name("cuobjdump")
@@ -859,22 +876,56 @@ def sass_counts(lib_path: str):
         return None
     sass = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
                           text=True, timeout=300).stdout
-    counts = {name: {"HGMMA": 0, "HMMA": 0, "LDGSTS": 0, "LDGSTS.128": 0}
-              for name in ("flash_attention_tc_kernel",
-                           "decode_split_kernel")}
-    fn = ""
+    keys = ("HGMMA", "HMMA", "LDGSTS", "LDGSTS.128", "LDS.128", "FFMA")
+    names = [n for n in SASS_KERNELS if n != "gat_na_kernel"]
+    names += ["gat_na_kernel fused", "gat_na_kernel"]
+    counts = {name: dict.fromkeys(keys, 0) for name in names}
+    fn = None
     for line in sass.splitlines():
         if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
+            mangled = line.split("Function :")[1].strip()
+            fn = next((n for n in SASS_KERNELS if n in mangled), None)
+            if fn == "gat_na_kernel" and re.search(r"ILi\dELb1E", mangled):
+                fn = "gat_na_kernel fused"
             continue
-        for name, c in counts.items():
-            if name in fn:
-                c["HGMMA"] += "HGMMA" in line
-                c["HMMA"] += "HMMA" in line
-                c["LDGSTS"] += "LDGSTS" in line
-                c["LDGSTS.128"] += bool(re.search(r"LDGSTS[.\w]*\.128\b",
-                                                  line))
+        if fn is None:
+            continue
+        c = counts[fn]
+        c["HGMMA"] += "HGMMA" in line
+        c["HMMA"] += "HMMA" in line
+        c["LDGSTS"] += "LDGSTS" in line
+        c["LDGSTS.128"] += bool(re.search(r"LDGSTS[.\w]*\.128\b", line))
+        c["LDS.128"] += bool(re.search(r"\bLDS(\.U)?\.128\b", line))
+        c["FFMA"] += bool(re.search(r"\bFFMA\b", line))
     return counts
+
+
+def hgnn_instructions() -> dict:
+    """The SASS of the two HGNN kernels redesigned for Hopper: fused_fp_na's
+    gathers through a cp.async ring (LDGSTS) and its 3xTF32 product on the
+    tensor cores (HMMA), and gat_na's epilogue, whose W arrives by cp.async
+    and whose z is read in 16-byte shared loads; a check fails if the SASS
+    lacks them."""
+    from repro_torch.kernels import build
+
+    counts = sass_counts(build.library()._name)
+    if counts is None:
+        print("  SASS not read: no cuobjdump beside nvcc")
+        return {}
+    ffn, gat = counts["fused_fp_na_kernel"], counts["gat_na_kernel fused"]
+    print(f"  SASS: fused_fp_na_kernel HMMA {ffn['HMMA']}, LDGSTS "
+          f"{ffn['LDGSTS']}; gat_na_kernel<fused> LDGSTS {gat['LDGSTS']} "
+          f"(16-byte {gat['LDGSTS.128']}), LDS.128 {gat['LDS.128']}, FFMA "
+          f"{gat['FFMA']}; gat_na_kernel<unfused> LDGSTS "
+          f"{counts['gat_na_kernel']['LDGSTS']}")
+    check(ffn["HMMA"] > 0 and ffn["LDGSTS"] > 0,
+          "fused_fp_na gathers by cp.async (LDGSTS) and multiplies on the "
+          "tensor cores (HMMA)")
+    check(gat["LDGSTS"] > 0 and gat["LDS.128"] > 0,
+          "gat_na's epilogue copies W by cp.async (LDGSTS) and reads z in "
+          "16-byte shared loads")
+    return {name: counts[name] for name in
+            ("fused_fp_na_kernel", "gat_na_kernel fused", "gat_na_kernel")}
 
 
 def attention_instructions() -> dict:
@@ -1043,6 +1094,7 @@ def main() -> None:
                                 if m else name))
         elif "registers" in line or "spill" in line:
             print(f"    {line.strip()}")
+    hgnn_sass = hgnn_instructions()
 
     # ---------------- phase 2: kernels vs plain versions ----------------
     print("phase 2: kernels against their plain versions (main-path shapes)")
@@ -1316,7 +1368,7 @@ def main() -> None:
             lambda: tffn.fused_fp_na(x, w, f_nbr, f_mask),
             lambda: tffn.fused_fp_na_plain(x, w, f_nbr, f_mask),
             lambda: torch.sparse.mm(f_csr, x) @ w,
-            spmm_work(x.shape[1], f_nbr, f_mask, w.shape[1])[:2])
+            ffn_work(x, w, f_nbr, f_mask))
 
         # MAGNN/imdb: each of a layer's six cached gathers and two unstacked
         # gat_na launches on its own, then each layer's launches together
@@ -1416,12 +1468,14 @@ def main() -> None:
                     "gat_na_unstacked": "src/repro/kernels/gat_na.py:225",
                     "semantic_scores":
                         "src/repro/kernels/semantic_attn.py:100"}
-        for name, (kern, plain, lib, (n_bytes, n_ops)) in timed.items():
+        for name, (kern, plain, lib, work) in timed.items():
             ms = time_ms(kern, 50, flush)
             plain_ms = time_ms(plain, 20, flush)
             lib_ms = time_ms(lib, 50, flush) if lib is not None else None
             warm_ms = time_ms(kern, 50)
-            b_ms, b_by = bound(n_bytes, n_ops)
+            n_bytes, n_ops = work[:2]
+            tf32_ops = work[2] if len(work) > 2 else 0
+            b_ms, b_by = bound(n_bytes, n_ops, tf32_ops=tf32_ops)
             entry = {"name": name, "route": "cuda", "source": source[name],
                      "replaces": replaces[name],
                      "launches": main_counts[name], **results[name],
@@ -1429,6 +1483,8 @@ def main() -> None:
                      "bound_by": b_by, "library_ms": lib_ms,
                      "warm_ms": warm_ms, "bytes": n_bytes,
                      "operations": n_ops}
+            if tf32_ops:
+                entry["tf32_operations"] = tf32_ops
             if name in shapes:
                 entry["shape"] = shapes[name]
             if name in library:
@@ -1466,6 +1522,7 @@ def main() -> None:
         text=True, timeout=60).stdout.strip()
     print(f"clocks.sm, clocks.max.sm, power.draw, temperature: {clocks}")
     print(json.dumps({"forward_ms_per_iter": forward_ms,
+                      "hgnn_sass": hgnn_sass,
                       "segment_spmm_per_relation": per_relation,
                       "magnn_per_launch": magnn_per_launch,
                       "lm": {"granite_2_layers_fp32": two_layers,

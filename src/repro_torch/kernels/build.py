@@ -38,12 +38,15 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # C entry points: name -> (argtypes, restype)
 SIGNATURES: Dict[str, tuple] = {
-    "gat_na_launch": ([_P] * 12 + [_I] * 6 + [_P], _I),
+    "gat_na_launch": ([_P] * 13 + [_I] * 6 + [_P], _I),
     "gat_na_rows_per_block": ([], _I),
     "gat_na_max_features": ([], _I),
+    "gat_na_smem_bytes": ([_I] * 3, _L),
     "semantic_combine_launch": ([_P, _P, _P, _I, _L, _P], _I),
     "segment_spmm_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
-    "fused_fp_na_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    "fused_fp_na_launch": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    "fused_fp_na_slices": ([], _I),
+    "fused_fp_na_rows": ([], _I),
     "cached_gather_launch": ([_P] * 4 + [_I] * 3 + [_L] * 4 + [_I, _P], _I),
     "semantic_scores_launch": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "flash_attention_launch": ([_P] * 4 + [_I] * 7 + [_F, _I, _P], _I),
@@ -55,6 +58,7 @@ SIGNATURES: Dict[str, tuple] = {
 build_log = ""  # ptxas -v output of the last build in this process
 build_seconds = 0.0  # wall time of that build (0 when the library was cached)
 _lib: Optional[ctypes.CDLL] = None
+_scratch: Dict[tuple, "torch.Tensor"] = {}
 
 
 def sources() -> List[Path]:
@@ -137,6 +141,23 @@ def device_of(what: str, tensors) -> "torch.device":
         raise ValueError(f"{what}: inputs on several devices "
                          f"{sorted(map(str, devs))}")
     return devs.pop()
+
+
+def scratch(what: str, numel: int, dtype, device, stream: int
+            ) -> "torch.Tensor":
+    """A buffer of at least ``numel`` elements kept for the launches of
+    ``what`` on one stream, zero when it is allocated.  A kernel that
+    counts in it sets its counters back to 0 before it ends, so the next
+    launch finds them so; launches on one stream run in order, so two
+    never share it at once."""
+    import torch
+
+    key = (what, str(device), stream, dtype)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = torch.zeros(numel, dtype=dtype, device=device)
+        _scratch[key] = buf
+    return buf
 
 
 def check(err: int, what: str) -> None:

@@ -3,19 +3,25 @@
 Replaces the TPU kernel ``src/repro/kernels/gat_na.py::gat_na`` (``:225``;
 ``_tile_update :62``, ``_resident_kernel :144``, ``_streaming_kernel :168``
 and the fused NA→SA epilogue ``_sa_epilogue :109``).  The CUDA source is
-``csrc/gat_na.cu``; its header says how the kernel works.  In short: one
-warp per destination row, the K neighbour slots walked in order with an
-online softmax, every live slot gathering one source row once, and with
-``sem=`` the epilogue ``z = elu(out)``, ``w_s = mean_n q·tanh(z W + b)``
-computed in the kernel body with ``W`` staged in shared memory and the row
-scores reduced in a fixed order (no float atomics).
+``csrc/gat_na.cu``; its header says how the kernel works.  In short: a
+persistent grid whose warps take destination rows from a work counter, the
+K neighbour slots taken 32 at a time with one ballot that compacts the
+live ones, their source rows gathered a batch at a time (every load of a
+batch in flight together) and fed to an online softmax in slot order, and
+with ``sem=`` the epilogue ``z = elu(out)``, ``w_s = mean_n q·tanh(z W +
+b)`` as a register-blocked tile product of a warp's last 4 ``z`` rows and
+``W`` (copied to shared memory by ``cp.async`` once a block), the row
+scores then summed by a second kernel in a fixed order (no float
+atomics).
 
 What bounds it on an H100: bytes — ``nbr``/``mask`` (8 bytes a slot), one
 ``h_src`` row per live slot at most (the 1.1 MB HAN/imdb table stays in the
-50 MB L2), ``h_dst`` once and ``z`` written once.  The TPU kernel's
-resident-versus-streaming split (an 8 MB VMEM budget) has no counterpart:
-the source table is read through L2 by every row, so one kernel covers
-both, and ``streaming.chunk_schedule`` is not needed.
+50 MB L2), ``h_dst`` once and ``z`` written once; at HAN/imdb that is a few
+microseconds, so latency and the per-slot softmax instructions set the
+time.  The TPU kernel's resident-versus-streaming split (an 8 MB VMEM
+budget) has no counterpart: the source table is read through L2 by every
+row, so one kernel covers both, and ``streaming.chunk_schedule`` is not
+needed.
 
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version (:func:`gat_na_plain`, from ``kernels/ref.py``); a CUDA tensor
@@ -36,10 +42,32 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# csrc/gat_na.cu's kRowsPerBlock and kMaxChunks * 32 (the GPU tests hold
-# them equal to the library's gat_na_rows_per_block / gat_na_max_features)
+# csrc/gat_na.cu's kRowsPerBlock (rows a partial of the score sum) and
+# kMaxChunks * 32 (the GPU tests hold them equal to the library's
+# gat_na_rows_per_block / gat_na_max_features)
 ROWS_PER_BLOCK = 16
 MAX_FEATURES = 256
+EPILOGUE_COLS = 128  # the epilogue's columns a pass: 4 a lane
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
+
+
+def smem_bytes(hd: int, hs: int) -> int:
+    """Shared memory of the kernel with the epilogue, as ``csrc/gat_na.cu``'s
+    ``smem_bytes`` reckons it (the GPU tests hold the two equal through the
+    library's ``gat_na_smem_bytes``): slot indices, ``W`` with rows padded
+    to 4, and each warp's 4 ``z`` rows (32 warps a block up to 64 features,
+    else 16)."""
+    warps = 32 if hd <= 64 else 16
+    return 4 * (warps * 32 + hd * (-(-hs // 4) * 4) + warps * hd * 4)
+
+
+def _butterfly(x: torch.Tensor) -> torch.Tensor:
+    """An xor-shuffle sum over the last dim of 32 lanes, as lane 0 ends it:
+    halves added pairwise, 16 then 8, 4, 2, 1 apart."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
 
 
 def _lift(p: Dict[str, torch.Tensor], nbr, mask):
@@ -73,9 +101,12 @@ def gat_na_emulate(p: Dict[str, torch.Tensor], h_dst, h_src, nbr, mask,
     counterpart of running a Pallas kernel in interpret mode): the slots
     j = 0..K-1 in order, masked ones skipped, an online softmax per head
     (running max from -1e9, denominator, rescaled accumulator), the
-    ``max(denom, 1e-9)`` finish, and with ``sem`` the row scores summed per
-    block of ``ROWS_PER_BLOCK`` rows, then over blocks, then / N.  Either
-    call form."""
+    ``max(denom, 1e-9)`` finish (the kernel's batched gathers do not change
+    this arithmetic), and with ``sem`` the kernel's score order: per row,
+    ``q·tanh(zW + b)`` summed over a lane's columns (``128 j + 4 lane + c``)
+    in order, then over the 32 lanes by a butterfly; then the rows in
+    blocks of ``ROWS_PER_BLOCK`` in order, the blocks lane-strided over 32
+    lanes in order, the lanes by a butterfly, / N.  Either call form."""
     p, nbr, mask, stacked = _lift(p, nbr, mask)
     s_dim, n, k = nbr.shape
     idx = nbr.long()
@@ -101,17 +132,40 @@ def gat_na_emulate(p: Dict[str, torch.Tensor], h_dst, h_src, nbr, mask,
     if sem is None:
         return _unlift(out, stacked)
     z = torch.nn.functional.elu(out)
-    score = torch.tanh(z.reshape(s_dim, n, -1) @ sem["W"] + sem["b"])
-    score = (score * sem["q"]).sum(-1)  # [S, N] one score a row
+    hs = sem["W"].shape[1]
+    val = sem["q"] * torch.tanh(z.reshape(s_dim, n, -1) @ sem["W"]
+                                + sem["b"])  # [S, N, Hs]
+    n_cb = -(-hs // EPILOGUE_COLS)
+    val = torch.nn.functional.pad(val, (0, n_cb * EPILOGUE_COLS - hs))
+    val = val.reshape(s_dim, n, n_cb, 32, 4)  # column 128 j + 4 lane + c
+    per_lane = torch.zeros((s_dim, n, 32), dtype=val.dtype,
+                           device=val.device)
+    for j in range(n_cb):  # a lane's columns in order
+        for c in range(4):
+            per_lane = per_lane + val[:, :, j, :, c]
+    score = _butterfly(per_lane)  # [S, N] one score a row
     n_blocks = -(-n // ROWS_PER_BLOCK)
     score = torch.nn.functional.pad(score,
                                     (0, n_blocks * ROWS_PER_BLOCK - n))
-    partial = score.reshape(s_dim, n_blocks, ROWS_PER_BLOCK).sum(-1)
-    return _unlift((z, partial.sum(-1) / n), stacked)
+    score = score.reshape(s_dim, n_blocks, ROWS_PER_BLOCK)
+    partial = torch.zeros((s_dim, n_blocks), dtype=score.dtype,
+                          device=score.device)
+    for r in range(ROWS_PER_BLOCK):  # a block's rows in order
+        partial = partial + score[:, :, r]
+    n_lanes = -(-n_blocks // 32) * 32
+    partial = torch.nn.functional.pad(partial, (0, n_lanes - n_blocks))
+    partial = partial.reshape(s_dim, n_lanes // 32, 32)
+    lanes = torch.zeros((s_dim, 32), dtype=score.dtype, device=score.device)
+    for i in range(partial.shape[1]):  # lane l: blocks l, l + 32, ...
+        lanes = lanes + partial[:, i]
+    return _unlift((z, _butterfly(lanes) / n), stacked)
 
 
 def check_kernel_args(p, h_dst, h_src, nbr, mask, sem=None) -> None:
-    """Raise on what the CUDA kernel does not take (either call form)."""
+    """Raise on what the CUDA kernel does not take (either call form),
+    among it a ``W`` whose epilogue does not fit a block's shared memory
+    (:func:`smem_bytes`: ``Hs`` above 764 at ``H*Dh = 64``, above 160 at
+    256)."""
     if nbr.dim() not in (2, 3) or mask.shape != nbr.shape:
         raise ValueError(f"gat_na: nbr/mask must be [S, N, K] or [N, K] of "
                          f"one shape, got {tuple(nbr.shape)} / "
@@ -144,7 +198,7 @@ def check_kernel_args(p, h_dst, h_src, nbr, mask, sem=None) -> None:
                 or tuple(sem["b"].shape) != (hs,)
                 or tuple(sem["q"].shape) != (hs,)):
             raise ValueError("gat_na: sem needs W [H*Dh, Hs], b [Hs], q [Hs]")
-        if 4 * (n_heads * dh * hs + ROWS_PER_BLOCK) > 232448:
+        if smem_bytes(n_heads * dh, hs) > SMEM_LIMIT:
             raise ValueError("gat_na: W does not fit one block's shared memory")
         tensors.update(W=sem["W"], b=sem["b"], q=sem["q"])
     if nbr.dtype != torch.int32:
@@ -164,23 +218,25 @@ def _launch(p, h_dst, h_src, nbr, mask, sem):
     _, n_heads, dh = h_src.shape
     out = torch.empty((s_dim, n, n_heads, dh), dtype=torch.float32,
                       device=h_dst.device)
-    sem_w = sem_b = sem_q = partial = w = None
+    stream = torch.cuda.current_stream(h_dst.device).cuda_stream
+    sem_w = sem_b = sem_q = score = w = None
     hs = 0
     if sem is not None:
         sem_w, sem_b, sem_q = sem["W"], sem["b"], sem["q"]
         hs = sem_w.shape[1]
-        partial = torch.empty((s_dim, -(-n // ROWS_PER_BLOCK)),
-                              dtype=torch.float32, device=h_dst.device)
+        score = build.scratch("gat_na score", s_dim * n, torch.float32,
+                              h_dst.device, stream)  # one score a row
         w = torch.empty((s_dim,), dtype=torch.float32, device=h_dst.device)
+    # the rows' work counter: 0 between launches (the kernel resets it)
+    work = build.scratch("gat_na work", 1, torch.int32, h_dst.device, stream)
 
     def ptr(t):  # ctypes passes None as a null pointer
         return None if t is None else t.data_ptr()
 
-    stream = torch.cuda.current_stream(h_dst.device).cuda_stream
     err = lib.gat_na_launch(
         h_dst.data_ptr(), h_src.data_ptr(), nbr.data_ptr(), mask.data_ptr(),
         p["a_dst"].data_ptr(), p["a_src"].data_ptr(), ptr(sem_w), ptr(sem_b),
-        ptr(sem_q), out.data_ptr(), ptr(partial), ptr(w),
+        ptr(sem_q), out.data_ptr(), ptr(score), ptr(w), work.data_ptr(),
         s_dim, n, k, n_heads, dh, hs, stream)
     build.check(err, "gat_na")
     gat_na.launches += 1

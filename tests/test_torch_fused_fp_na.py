@@ -38,6 +38,9 @@ CASES = [  # (N, M, K, F, D): F never a multiple of BLOCK_F = 64
     (33, 80, 4, 70, 32),
     (50, 40, 9, 130, 64),  # three F-tiles, the last of 2 columns
     (17, 25, 1, 20, 24),  # K = 1, F below one tile, D not a multiple of 32
+    # 18 F-tiles over SLICES = 8 slices of 3: six slices used, the last
+    # tile partial (3 columns) and two slices empty
+    (21, 30, 5, 1091, 16),
 ]
 
 
@@ -60,9 +63,10 @@ def test_plain_and_emulation_match_jax_ref_and_pallas(case, mean, weighted):
         assert (out[[0, -1]] == 0).all()  # exactly 0, not NaN
 
 
+@pytest.mark.parametrize("case", [(33, 80, 4, 70, 32), (21, 30, 5, 1091, 16)])
 @pytest.mark.parametrize("mean", [True, False])
-def test_emulation_matches_the_streaming_pallas_kernel(mean):
-    x, w, nbr, mask = _case(2, 33, 80, 4, 70, 32, weighted=True)
+def test_emulation_matches_the_streaming_pallas_kernel(mean, case):
+    x, w, nbr, mask = _case(2, *case, weighted=True)
     jx, jw, jn, jm = map(jnp.asarray, (x, w, nbr, mask))
     streaming = np.asarray(pallas_ffn(jx, jw, jn, jm, mean=mean, block_n=16,
                                       block_f=64, block_m=16,
@@ -70,6 +74,31 @@ def test_emulation_matches_the_streaming_pallas_kernel(mean):
     emu = tffn.fused_fp_na_emulate(*map(torch.from_numpy, (x, w, nbr, mask)),
                                    mean=mean)
     np.testing.assert_allclose(emu.numpy(), streaming, **TOL)
+
+
+def test_emulation_sums_the_slices_in_order():
+    """The kernel's F-slice split: each slice's partial over its own
+    F-tiles, then the partials added in slice order, partial 0 first: the
+    sum of the plain function on each slice's rows of W, and the plain
+    function on the whole of W."""
+    n, m, k, f, d = 12, 20, 6, 9 * tffn.BLOCK_F + 7, 8  # 10 tiles, 5 slices
+    x, w, nbr, mask = map(torch.from_numpy, _case(6, n, m, k, f, d))
+    n_tiles = -(-f // tffn.BLOCK_F)
+    per = -(-n_tiles // tffn.SLICES)
+    assert (n_tiles, per) == (10, 2)
+    out = tffn.fused_fp_na_emulate(x, w, nbr, mask)
+    parts = []
+    for s in range(tffn.SLICES):
+        lo = min(f, s * per * tffn.BLOCK_F)
+        hi = min(f, (s + 1) * per * tffn.BLOCK_F)
+        wz = torch.zeros_like(w)
+        wz[lo:hi] = w[lo:hi]
+        parts.append(ref.fused_fp_na(x, wz, nbr, mask))
+    np.testing.assert_allclose(out.numpy(), sum(parts).numpy(), **TOL)
+    np.testing.assert_allclose(out.numpy(),
+                               ref.fused_fp_na(x, w, nbr, mask).numpy(),
+                               **TOL)
+    assert (out[[0, -1]] == 0).all()
 
 
 def test_fused_equals_segment_spmm_then_projection():
@@ -104,3 +133,21 @@ def test_kernel_args_are_checked():
         tffn.check_kernel_args(x.t().contiguous().t(), w, nbr, mask)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tffn.fused_fp_na(*(t.to("meta") for t in (x, w, nbr, mask)))
+
+
+def test_launch_scratch_is_kept_per_stream_and_zero_when_made():
+    """The kernels' counters and partials live in ``build.scratch``: one
+    buffer a (use, device, stream), zero when it is allocated (the kernels
+    leave their counters at 0), reused while it is large enough and
+    replaced by a larger zeroed one when it is not."""
+    from repro_torch.kernels import build
+
+    a = build.scratch("test counters", 5, torch.int32, "cpu", 11)
+    assert a.dtype == torch.int32 and a.numel() == 5
+    assert torch.equal(a, torch.zeros(5, dtype=torch.int32))
+    a.fill_(7)
+    assert build.scratch("test counters", 3, torch.int32, "cpu", 11) is a
+    assert build.scratch("test counters", 5, torch.int32, "cpu", 12) is not a
+    b = build.scratch("test counters", 9, torch.int32, "cpu", 11)
+    assert b is not a and b.numel() == 9 and not b.any()
+    assert build.scratch("test counters", 9, torch.int32, "cpu", 11) is b

@@ -116,6 +116,83 @@ def test_kernel_emulation_matches_pallas(shape):
     np.testing.assert_allclose(w.numpy(), np.asarray(jw), **TOL)
 
 
+# live counts a row (K = 64) against the kernel's gather batch (8 live
+# slots at H*Dh <= 64, 4 at <= 128): none, one, a batch exactly, one past
+# it, a ragged count across the first 32-slot ballot, and all 64
+LIVE_COUNTS = [0, 1, 8, 9, 13, 31, 33, 47, 64]
+
+
+def _live_count_case(seed, s_dim, n, m, h, dh, hs):
+    """K = 64 with each row's live count taken from ``LIVE_COUNTS`` in
+    turn, the live slots scattered over the row."""
+    c = _case(seed, s_dim, n, m, 64, h, dh, hs)
+    rng = np.random.default_rng(seed + 100)
+    mask = np.zeros((s_dim, n, 64), np.float32)
+    for s in range(s_dim):
+        for r in range(n):
+            live = LIVE_COUNTS[(r + s) % len(LIVE_COUNTS)]
+            mask[s, r, rng.permutation(64)[:live]] = 1.0
+    c["mask"] = mask
+    return c
+
+
+@pytest.mark.parametrize("h,dh,hs", [(8, 8, 128), (4, 8, 300), (16, 8, 20)])
+def test_kernel_emulation_matches_pallas_across_batches(h, dh, hs):
+    """Live counts that are not a multiple of the gather batch, all 64
+    slots live and all masked; Hs over one, two and three of the
+    epilogue's 128-column groups."""
+    c = _live_count_case(8, 2, 37, 50, h, dh, hs)
+    p, hd, hsrc, nbr, mask, sem = _torch(c)
+    jp, jhd, jhs, jnbr, jmask, jsem = _jax(c)
+    dead = (c["mask"].sum(-1) == 0)
+    assert dead.any() and (c["mask"].sum(-1) == 64).any()
+    got = tgat.gat_na_emulate(p, hd, hsrc, nbr, mask)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas_gat_na(
+        jp, jhd, jhs, jnbr, jmask, interpret=True)), **TOL)
+    assert np.all(got.numpy()[dead] == 0.0)
+    z, w = tgat.gat_na_emulate(p, hd, hsrc, nbr, mask, sem=sem)
+    jz, jw = pallas_gat_na(jp, jhd, jhs, jnbr, jmask, interpret=True,
+                           sem=jsem)
+    np.testing.assert_allclose(z.numpy(), np.asarray(jz), **TOL)
+    np.testing.assert_allclose(w.numpy(), np.asarray(jw), **TOL)
+    zp, wp = tgat.gat_na_plain(p, hd, hsrc, nbr, mask, sem)
+    np.testing.assert_allclose(w.numpy(), wp.numpy(), **TOL)
+
+
+def test_emulation_score_order_is_the_kernels():
+    """The epilogue's reduction order, written out: a row's score sums
+    ``q·tanh(zW + b)`` over lane l's columns ``128 j + 4 l + c`` in order,
+    then the 32 lanes by an xor butterfly; the rows in blocks of 16 in
+    order; block b to lane b % 32 in order; the lanes by a butterfly."""
+    x = torch.arange(32, dtype=torch.float32)
+    assert float(tgat._butterfly(x)) == float(x.sum())
+    lanes = torch.tensor([1e8] + [1.0] * 31)  # order shows in the bits
+    want = lanes.clone()
+    for step in (16, 8, 4, 2, 1):  # lane 0 of an xor-shuffle sum
+        want = torch.stack([want[i] + want[i ^ step] for i in range(32)])
+    assert float(tgat._butterfly(lanes)) == float(want[0])
+    c = _case(9, 1, 40, 40, 6, 4, 8, hs=260)
+    p, hd, hsrc, nbr, mask, sem = _torch(c)
+    z, w = tgat.gat_na_emulate(p, hd, hsrc, nbr, mask, sem=sem)
+    val = sem["q"] * torch.tanh(z.reshape(1, 40, -1) @ sem["W"] + sem["b"])
+    val = torch.nn.functional.pad(val, (0, 384 - 260))
+    score = []
+    for r in range(40):
+        per_lane = []
+        for lane in range(32):
+            t = torch.tensor(0.0)
+            for j in range(3):
+                for cc in range(4):
+                    t = t + val[0, r, 128 * j + 4 * lane + cc]
+            per_lane.append(t)
+        score.append(tgat._butterfly(torch.stack(per_lane)))
+    blocks = [sum(score[i:i + 16], torch.tensor(0.0))
+              for i in range(0, 40, 16)]
+    lanes = torch.zeros(32)
+    lanes[:3] = torch.stack(blocks)
+    assert torch.equal(w, tgat._butterfly(lanes)[None] / 40)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(shape):
     c = _case(4, *shape)

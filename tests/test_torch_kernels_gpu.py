@@ -14,11 +14,11 @@ combine kernel rounds as its plain version does, so it is held bitwise.
 ``segment_spmm`` adds the live slots in slot order where the plain version
 sums the ``[N, K, D]`` product in another order (atol = rtol = 1e-5), and
 it is held bitwise against its emulation, which rounds step by step as the
-kernel does.  ``fused_fp_na`` accumulates the product over F in order with
-FMA where the plain version leaves the order to the matmul, so its error
-grows with F and with the size of the terms: rtol = 1e-5 and an atol of
-1e-5 times the largest |output| (at F = 3066 with unit-normal features and
-no mean, 2.9e-5 of outputs up to about 30 on the H100).
+kernel does.  ``fused_fp_na`` accumulates the product over F on the
+tensor cores with a 3xTF32 split (about fp32's precision, in another order
+than the plain version's matmul), so its error grows with F and with the
+size of the terms: rtol = 1e-5 and an atol of 1e-5 times the largest
+|output|.
 ``cached_gather`` moves rows and computes nothing: bitwise against its
 plain version and its emulation.  ``semantic_scores`` sums the zW products
 with FMA in feature order and the row scores per block, then over blocks,
@@ -85,6 +85,9 @@ SHAPES = [  # (S, N, M, K, H, Dh, Hs)
     (2, 50, 40, 12, 16, 16, 64),  # H*Dh = 256, the widest row
     (1, 33, 10, 3, 4, 4, 8),  # H*Dh = 16: half the lanes idle
     (2, 25, 30, 40, 2, 1, 7),  # Dh = 1
+    (2, 40, 60, 64, 8, 8, 128),  # HAN/imdb widths: ~38 live slots a row,
+    # several of the kernel's 8-slot gather batches
+    (1, 4278, 68448, 16, 8, 8, 128),  # MAGNN/imdb's unstacked launch
 ]
 
 
@@ -92,6 +95,11 @@ def test_kernel_constants_agree_with_the_wrapper(cuda):
     lib = build.library()
     assert lib.gat_na_rows_per_block() == tgat.ROWS_PER_BLOCK
     assert lib.gat_na_max_features() == tgat.MAX_FEATURES
+    props = torch.cuda.get_device_properties(cuda)
+    assert props.shared_memory_per_block_optin == tgat.SMEM_LIMIT
+    for hd in (1, 16, 32, 63, 64, 65, 96, 128, 200, 256):
+        for hs in (1, 7, 128, 161, 764, 1656):
+            assert lib.gat_na_smem_bytes(1, hd, hs) == tgat.smem_bytes(hd, hs)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -133,6 +141,37 @@ def test_gat_na_kernel_matches_its_emulation(cuda, shape):
     ze, we = tgat.gat_na_emulate(p, hd, hs, nbr, mask, sem=sem)
     torch.testing.assert_close(z, ze, **TOL)
     torch.testing.assert_close(w, we, **TOL)
+
+
+def test_gat_na_kernel_across_gather_batches(cuda):
+    """K = 64 with live counts 0, 1, 8, 9, 13, 31, 33, 47 and 64 a row:
+    counts not a multiple of the gather batch, all 64 slots live and all
+    masked; against plain and the emulation, with and without the
+    epilogue, the same bits twice."""
+    p, hd, hs, nbr, mask, sem = _case(19, 2, 90, 70, 64, 8, 8, 128, cuda)
+    counts = [0, 1, 8, 9, 13, 31, 33, 47, 64]
+    rng = np.random.default_rng(20)
+    m = np.zeros((2, 90, 64), np.float32)
+    for s in range(2):
+        for r in range(90):
+            m[s, r, rng.permutation(64)[:counts[(r + s) % 9]]] = 1.0
+    mask = torch.as_tensor(m, device=cuda)
+    dead = mask.sum(-1) == 0
+    got = tgat.gat_na(p, hd, hs, nbr, mask)
+    torch.testing.assert_close(got, tgat.gat_na_plain(p, hd, hs, nbr, mask),
+                               **TOL)
+    torch.testing.assert_close(
+        got, tgat.gat_na_emulate(p, hd, hs, nbr, mask), **TOL)
+    assert torch.all(got[dead] == 0)
+    z, w = tgat.gat_na(p, hd, hs, nbr, mask, sem=sem)
+    zp, wp = tgat.gat_na_plain(p, hd, hs, nbr, mask, sem)
+    ze, we = tgat.gat_na_emulate(p, hd, hs, nbr, mask, sem=sem)
+    torch.testing.assert_close(z, zp, **TOL)
+    torch.testing.assert_close(w, wp, **TOL)
+    torch.testing.assert_close(w, we, **TOL)
+    z2, w2 = tgat.gat_na(p, hd, hs, nbr, mask, sem=sem)
+    assert torch.equal(z, z2) and torch.equal(w, w2)
+    assert torch.equal(z, torch.nn.functional.elu(got))
 
 
 def test_gat_na_kernel_raises_instead_of_falling_back(cuda):
@@ -214,6 +253,10 @@ FFN_SHAPES = [  # (N, M, K, F, D); the kernel takes D = 64 only
     (33, 40, 40, 130, 64),  # K spans two ballots, three F-tiles
     (17, 25, 70, 100, 64),  # K spans three ballots
     (9, 12, 6, 5, 64),  # F below one tile
+    # F-slices (8 a row tile): 18 tiles in 6 slices of 3, the last tile of
+    # 3 columns; 48 tiles in all 8 slices; row tiles of 64
+    (45, 70, 20, 1091, 64),
+    (70, 90, 12, 3066, 64),
 ]
 
 
@@ -238,6 +281,98 @@ def test_fused_fp_na_kernel_matches_plain(cuda, shape, mean):
     if f <= 130:  # the emulation loops over F on the host
         torch.testing.assert_close(
             got, tffn.fused_fp_na_emulate(x, w, nbr, mask, mean=mean), **tol)
+
+
+def test_fused_fp_na_kernel_at_the_slot_cap(cuda):
+    """Every row with all 64 slots live (a 64-row tile's slot list holds
+    4096 entries, 128 of the ring's 32-entry chunks an F-tile), across
+    every slice."""
+    n, m, k, f = 70, 300, 64, 1091
+    rng = np.random.default_rng(21)
+    x = torch.as_tensor(rng.standard_normal((m, f)), dtype=torch.float32,
+                        device=cuda)
+    w = torch.as_tensor(rng.standard_normal((f, 64)) / np.sqrt(f),
+                        dtype=torch.float32, device=cuda)
+    nbr = torch.as_tensor(rng.integers(0, m, (n, k)), dtype=torch.int32,
+                          device=cuda)
+    mask = torch.as_tensor(rng.random((n, k)) * 2.0 + 0.5,
+                           dtype=torch.float32, device=cuda)
+    for mean in (True, False):
+        got = tffn.fused_fp_na(x, w, nbr, mask, mean=mean)
+        want = tffn.fused_fp_na_plain(x, w, nbr, mask, mean=mean)
+        tol = dict(rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+        torch.testing.assert_close(got, want, **tol)
+        torch.testing.assert_close(
+            got, tffn.fused_fp_na_emulate(x, w, nbr, mask, mean=mean), **tol)
+        assert torch.equal(got, tffn.fused_fp_na(x, w, nbr, mask, mean=mean))
+
+
+@pytest.mark.parametrize("k,fits", [(334, True), (335, False)])
+def test_fused_fp_na_kernel_at_its_widest_k(cuda, k, fits):
+    """A row tile's slot list holds 64 * K entries in shared memory, so K =
+    334 is the widest the launcher takes; K = 335 is refused without a
+    launch, and the refusal leaves no error behind for the next launch."""
+    n, m, f = 70, 90, 70
+    x, nbr, mask = _spmm_case(23, n, m, k, f, True, cuda)
+    rng = np.random.default_rng(24)
+    w = torch.as_tensor(rng.standard_normal((f, 64)) / np.sqrt(f),
+                        dtype=torch.float32, device=cuda)
+    safe = torch.where(mask != 0, nbr, 0)
+    before = tffn.fused_fp_na.launches
+    if not fits:
+        with pytest.raises(RuntimeError, match="fused_fp_na: CUDA error"):
+            tffn.fused_fp_na(x, w, nbr, mask)
+        assert tffn.fused_fp_na.launches == before
+        k_ok = 334  # the next launches run
+        x, nbr, mask = _spmm_case(23, n, m, k_ok, f, True, cuda)
+        safe = torch.where(mask != 0, nbr, 0)
+    got = tffn.fused_fp_na(x, w, nbr, mask)
+    want = tffn.fused_fp_na_plain(x, w, safe, mask)
+    torch.cuda.synchronize()
+    tol = dict(rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    torch.testing.assert_close(got, want, **tol)
+    assert torch.all(got[::7] == 0)
+
+
+@pytest.mark.parametrize("h,dh,hs,fits", [
+    (8, 8, 764, True), (8, 8, 765, False),  # H*Dh = 64
+    (16, 16, 160, True), (16, 16, 161, False),  # H*Dh = 256
+])
+def test_gat_na_epilogue_at_its_widest_hs(cuda, h, dh, hs, fits):
+    """The epilogue keeps W (rows padded to 4) and each warp's z rows in
+    shared memory: Hs = 764 at H*Dh = 64 and 160 at 256 are the widest the
+    kernel takes.  One wider is refused without a launch, and the next
+    launch runs."""
+    p, hd, h_src, nbr, mask, sem = _case(25, 2, 60, 50, 20, h, dh, hs, cuda)
+    before = tgat.gat_na.fused_launches
+    if not fits:
+        with pytest.raises(ValueError, match="shared memory"):
+            tgat.gat_na(p, hd, h_src, nbr, mask, sem=sem)
+        assert tgat.gat_na.fused_launches == before
+        sem = {"W": sem["W"][:, :hs - 1].contiguous(),
+               "b": sem["b"][:hs - 1].contiguous(),
+               "q": sem["q"][:hs - 1].contiguous()}
+    z, w = tgat.gat_na(p, hd, h_src, nbr, mask, sem=sem)
+    torch.cuda.synchronize()
+    zp, wp = tgat.gat_na_plain(p, hd, h_src, nbr, mask, sem)
+    torch.testing.assert_close(z, zp, **TOL)
+    torch.testing.assert_close(w, wp, **TOL)
+    z2, w2 = tgat.gat_na(p, hd, h_src, nbr, mask, sem=sem)
+    assert torch.equal(z, z2) and torch.equal(w, w2)
+
+
+def test_fused_fp_na_constants_and_alignment(cuda):
+    """The slice and row-tile counts agree with the wrapper's; a W off a
+    16-byte boundary is refused before any launch."""
+    assert build.library().fused_fp_na_slices() == tffn.SLICES
+    assert build.library().fused_fp_na_rows() == tffn.ROWS
+    h, nbr, mask = _spmm_case(22, 20, 10, 4, 8, False, cuda)
+    buf = torch.zeros(8 * 64 + 1, device=cuda)
+    w = buf[1:].view(8, 64)
+    before = tffn.fused_fp_na.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tffn.fused_fp_na(h, w, nbr, mask)
+    assert tffn.fused_fp_na.launches == before
 
 
 def test_new_kernels_raise_instead_of_falling_back(cuda):
