@@ -229,6 +229,23 @@ def gat_na_work(h_dst, h_src, nbr, mask, hs: int):
     return n_bytes, n_ops, live
 
 
+def device_kernels(fn) -> list:
+    """Names of the device kernels (and copies) that one call of ``fn``
+    runs, by torch.profiler, after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
 def spmm_work(n_src_cols: int, nbr, mask):
     """Bytes and operations of ``segment_spmm`` on these inputs: the mask
     once (4 bytes a slot), the index of each live slot (a dead slot's index
@@ -336,6 +353,9 @@ def rgcn_kernels_vs_plain(built, results: dict):
             check(torch.equal(out, tspmm.segment_spmm_emulate(h_src, nbr,
                                                               mask)),
                   f"segment_spmm {tag}: bitwise equal to its emulation")
+        names = device_kernels(lambda: tspmm.segment_spmm(*rels[0][1:]))
+        check(len(names) == 1 and "segment_spmm_kernel" in names[0],
+              f"segment_spmm: one device kernel a call ({names})")
         # real weights in the mask and every fifth row all-masked, on the
         # relation with the most destination rows
         key, h_src, nbr, mask = max(rels, key=lambda r: r[2].shape[0])
@@ -394,7 +414,8 @@ def rgcn_kernels_vs_plain(built, results: dict):
 def gather_work(table, hot, idx):
     """Bytes of ``cached_gather`` on these inputs: the output and the
     indices once, the hot ids once, and each table row that an index names
-    (directly or through its cache slot) once; it computes nothing."""
+    (directly, or through its hot id: the kernel reads no cache section)
+    once; it computes nothing."""
     import torch
 
     n, d = table.shape
@@ -458,6 +479,12 @@ def magnn_kernels_vs_plain(built, results: dict):
                     f"of {idx.numel()} indices hot: bitwise equal to plain "
                     f"and to its emulation")
                 rows.append(out)
+            if i_path == 0:
+                names = device_kernels(
+                    lambda: tfc.cached_gather(table, hot[ty], idx))
+                check(len(names) == 1 and "cached_gather_kernel" in names[0],
+                      f"cached_gather: one device kernel a call, no fill "
+                      f"({names})")
             h_path = torch.stack(rows, dim=2).reshape(n, i, l, heads, -1)
             flat = stages.rotate_encoder(h_path).reshape(n * i, heads, -1)
             nbr = torch.arange(n * i, dtype=torch.int32,
@@ -859,7 +886,7 @@ def granite_serve(dev, ops, profiles: dict) -> dict:
 
 
 SASS_KERNELS = ("flash_attention_tc_kernel", "decode_split_kernel",
-                "fused_fp_na_kernel", "gat_na_kernel")
+                "fused_fp_na_kernel", "segment_spmm_kernel", "gat_na_kernel")
 
 
 def sass_counts(lib_path: str):
@@ -901,10 +928,11 @@ def sass_counts(lib_path: str):
 
 
 def hgnn_instructions() -> dict:
-    """The SASS of the two HGNN kernels redesigned for Hopper: fused_fp_na's
+    """The SASS of the HGNN kernels redesigned for Hopper: fused_fp_na's
     gathers through a cp.async ring (LDGSTS) and its 3xTF32 product on the
-    tensor cores (HMMA), and gat_na's epilogue, whose W arrives by cp.async
-    and whose z is read in 16-byte shared loads; a check fails if the SASS
+    tensor cores (HMMA), gat_na's epilogue, whose W arrives by cp.async
+    and whose z is read in 16-byte shared loads, and segment_spmm's
+    gathers through a cp.async ring (LDGSTS); a check fails if the SASS
     lacks them."""
     from repro_torch.kernels import build
 
@@ -913,19 +941,24 @@ def hgnn_instructions() -> dict:
         print("  SASS not read: no cuobjdump beside nvcc")
         return {}
     ffn, gat = counts["fused_fp_na_kernel"], counts["gat_na_kernel fused"]
+    spmm = counts["segment_spmm_kernel"]
     print(f"  SASS: fused_fp_na_kernel HMMA {ffn['HMMA']}, LDGSTS "
           f"{ffn['LDGSTS']}; gat_na_kernel<fused> LDGSTS {gat['LDGSTS']} "
           f"(16-byte {gat['LDGSTS.128']}), LDS.128 {gat['LDS.128']}, FFMA "
           f"{gat['FFMA']}; gat_na_kernel<unfused> LDGSTS "
-          f"{counts['gat_na_kernel']['LDGSTS']}")
+          f"{counts['gat_na_kernel']['LDGSTS']}; segment_spmm_kernel LDGSTS "
+          f"{spmm['LDGSTS']} (16-byte {spmm['LDGSTS.128']})")
     check(ffn["HMMA"] > 0 and ffn["LDGSTS"] > 0,
           "fused_fp_na gathers by cp.async (LDGSTS) and multiplies on the "
           "tensor cores (HMMA)")
     check(gat["LDGSTS"] > 0 and gat["LDS.128"] > 0,
           "gat_na's epilogue copies W by cp.async (LDGSTS) and reads z in "
           "16-byte shared loads")
+    check(spmm["LDGSTS.128"] > 0,
+          "segment_spmm gathers by cp.async (16-byte LDGSTS)")
     return {name: counts[name] for name in
-            ("fused_fp_na_kernel", "gat_na_kernel fused", "gat_na_kernel")}
+            ("fused_fp_na_kernel", "gat_na_kernel fused", "gat_na_kernel",
+             "segment_spmm_kernel")}
 
 
 def attention_instructions() -> dict:

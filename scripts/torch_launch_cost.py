@@ -11,8 +11,11 @@ trees on one machine, run in turns.  Each number is the median
 over ``--rounds`` rounds:
 
 - ``host_us``: host microseconds a wrapper call of ``gat_na`` (unstacked
-  at the MAGNN/imdb shape; stacked with ``sem=`` at the HAN/imdb shape)
-  and of ``fused_fp_na`` (RGCN/imdb (M, md, D) shape), over 200 calls
+  at the MAGNN/imdb shape; stacked with ``sem=`` at the HAN/imdb shape),
+  of ``fused_fp_na`` (RGCN/imdb (M, md, D) shape), of ``segment_spmm``
+  (RGCN/imdb (A, am, M) shape) and of ``cached_gather`` (one MAGNN/imdb
+  instance position: a strided ``[4278, 16]`` index view, 256 hot rows),
+  over 200 calls
   back to back with no synchronisation: what the host spends to issue one
   launch, the wrapper's checks and allocations included (random inputs at
   those shapes, from a seed; the device runs behind);
@@ -26,9 +29,11 @@ over ``--rounds`` rounds:
 checkout's ``kernels/build.py`` is loaded on its own and builds that
 checkout's library, and its ``repro_torch`` package is imported on its
 own; then in every round each checkout's C launchers ``gat_na_launch``
-(the two launches above) and ``fused_fp_na_launch`` (``launcher_us``, no
-Python wrapper) and its wrappers (``wrapper_us``) are timed in turn on the
-same inputs, 200 calls back to back.  Taking the checkouts in turns within
+(the two launches above), ``fused_fp_na_launch``, ``segment_spmm_launch``
+and ``cached_gather_launch`` (``launcher_us``, no Python wrapper; a
+launcher that takes a filled cache section gets one made beforehand) and
+its wrappers (``wrapper_us``) are timed in turn on the same inputs, 200
+calls back to back.  Taking the checkouts in turns within
 one process keeps the host's drift, which moves a host clock by tens of
 percent between processes, out of the comparison.
 
@@ -37,6 +42,7 @@ The last line is one JSON object with every median and every round.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import statistics
@@ -85,7 +91,7 @@ def forward_ms(engine, reps: int = 20):
 
 
 def launch_inputs(dev):
-    """The three launches at their main-path shapes, random from a seed."""
+    """The five launches at their main-path shapes, random from a seed."""
     import numpy as np
     import torch
 
@@ -117,10 +123,18 @@ def launch_inputs(dev):
             t(rng.standard_normal((f, 64)) / np.sqrt(f)),
             t(rng.integers(0, m, (rows, k)), torch.int32),
             t(rng.random((rows, k)) < 0.03))
-    return magnn, han, sem, rgcn
+    m_a = 5257  # (A, am, M): actor rows as the source, movie rows
+    spmm = (t(rng.standard_normal((m_a, 64))),
+            t(rng.integers(0, m_a, (n, k)), torch.int32),
+            t(rng.random((n, k)) < 0.047))
+    nodes = t(rng.integers(0, n + 256, (n, inst, 3)), torch.int32)
+    gather = (t(rng.standard_normal((n, 64))),
+              t(rng.permutation(n)[:256], torch.int32), nodes[:, :, 1])
+    return magnn, han, sem, rgcn, spmm, gather
 
 
-def c_launches(root: Path, tag: str, dev, magnn, han, sem, rgcn) -> dict:
+def c_launches(root: Path, tag: str, dev, magnn, han, sem, rgcn, spmm,
+               gather) -> dict:
     """Calls of one checkout's C launchers on the given inputs, with its
     own argument lists (a launcher that takes scratch buffers gets them
     zeroed, as its wrapper keeps them)."""
@@ -134,6 +148,10 @@ def c_launches(root: Path, tag: str, dev, magnn, han, sem, rgcn) -> dict:
     stream = torch.cuda.current_stream(dev).cuda_stream
     gat_work = len(mod.SIGNATURES["gat_na_launch"][0]) == 20
     ffn_scratch = len(mod.SIGNATURES["fused_fp_na_launch"][0]) == 13
+    # the launcher that reads a filled cache section takes a copy flag
+    # where the fill-free one takes the stride of the hot ids
+    gather_fill = mod.SIGNATURES["cached_gather_launch"][0][-2] is not \
+        ctypes.c_longlong
 
     def gat(p, h_dst, h_src, nbr, mask, sem=None):
         s_dim, n, k = (1,) * (3 - nbr.dim()) + tuple(nbr.shape)
@@ -164,12 +182,38 @@ def c_launches(root: Path, tag: str, dev, magnn, han, sem, rgcn) -> dict:
         return lambda keep=t: mod.check(
             lib.fused_fp_na_launch(*ptrs, *ints, stream), "fused_fp_na")
 
+    def seg(h_src, nbr, mask):
+        n, k = nbr.shape
+        out = torch.empty((n, h_src.shape[1]), device=dev)
+        t = [h_src, nbr, mask, out]
+        ptrs = [x.data_ptr() for x in t]
+        return lambda keep=t: mod.check(
+            lib.segment_spmm_launch(*ptrs, n, k, h_src.shape[1], 1, stream),
+            "segment_spmm")
+
+    def gat_pos(table, hot, idx):
+        (n, d), (rows, cols) = table.shape, idx.shape
+        out = torch.empty((rows, cols, d), device=dev)
+        if gather_fill:
+            cache = table.index_select(0, hot)
+            t = [table, cache, idx, out]
+            rest = [n, hot.shape[0], d, rows, cols, *idx.stride(), 1]
+        else:
+            t = [table, hot, idx, out]
+            rest = [n, hot.shape[0], d, hot.stride(0), rows, cols,
+                    *idx.stride()]
+        ptrs = [x.data_ptr() for x in t]
+        return lambda keep=t: mod.check(
+            lib.cached_gather_launch(*ptrs, *rest, stream), "cached_gather")
+
     return {"gat_na unstacked (MAGNN/imdb)": gat(*magnn),
             "gat_na sem= (HAN/imdb)": gat(*han, sem=sem),
-            "fused_fp_na (RGCN/imdb M|md|D)": ffn(*rgcn)}
+            "fused_fp_na (RGCN/imdb M|md|D)": ffn(*rgcn),
+            "segment_spmm (RGCN/imdb A|am|M)": seg(*spmm),
+            "cached_gather (MAGNN/imdb position)": gat_pos(*gather)}
 
 
-def wrapper_calls(root: Path, magnn, han, sem, rgcn) -> dict:
+def wrapper_calls(root: Path, magnn, han, sem, rgcn, spmm, gather) -> dict:
     """Calls of one checkout's Python wrappers: its ``repro_torch`` is
     imported with no other in ``sys.modules``, and the wrappers keep the
     modules they were imported with."""
@@ -181,15 +225,21 @@ def wrapper_calls(root: Path, magnn, han, sem, rgcn) -> dict:
     drop()
     sys.path.insert(0, str(root / "src"))
     try:
+        from repro_torch.kernels import feature_cache as tfc
         from repro_torch.kernels import fused_fp_na as tffn
         from repro_torch.kernels import gat_na as tgat
+        from repro_torch.kernels import segment_spmm as tspmm
     finally:
         sys.path.remove(str(root / "src"))
         drop()
     return {"gat_na unstacked (MAGNN/imdb)": lambda: tgat.gat_na(*magnn),
             "gat_na sem= (HAN/imdb)": lambda: tgat.gat_na(*han, sem=sem),
             "fused_fp_na (RGCN/imdb M|md|D)": lambda: tffn.fused_fp_na(
-                *rgcn)}
+                *rgcn),
+            "segment_spmm (RGCN/imdb A|am|M)": lambda: tspmm.segment_spmm(
+                *spmm),
+            "cached_gather (MAGNN/imdb position)":
+                lambda: tfc.cached_gather(*gather)}
 
 
 def compare_launchers(roots, rounds: int) -> dict:
@@ -238,19 +288,25 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.configs.base import HGNNConfig
     from repro_torch.data.synthetic import make_dataset
+    from repro_torch.kernels import feature_cache as tfc
     from repro_torch.kernels import fused_fp_na as tffn
     from repro_torch.kernels import gat_na as tgat
+    from repro_torch.kernels import segment_spmm as tspmm
     from repro_torch.launch.serve import build_hgnn_infer
     from repro_torch.serve.engine import HGNNInferEngine
 
     import repro_torch
     print(f"repro_torch from {Path(repro_torch.__file__).parent}")
     dev = torch.device("cuda")
-    magnn, han, sem, rgcn = launch_inputs(dev)
+    magnn, han, sem, rgcn, spmm, gather = launch_inputs(dev)
     launches = {
         "gat_na unstacked (MAGNN/imdb)": lambda: tgat.gat_na(*magnn),
         "gat_na sem= (HAN/imdb)": lambda: tgat.gat_na(*han, sem=sem),
         "fused_fp_na (RGCN/imdb M|md|D)": lambda: tffn.fused_fp_na(*rgcn),
+        "segment_spmm (RGCN/imdb A|am|M)": lambda: tspmm.segment_spmm(
+            *spmm),
+        "cached_gather (MAGNN/imdb position)": lambda: tfc.cached_gather(
+            *gather),
     }
     hg = make_dataset("imdb")
     engines = {}

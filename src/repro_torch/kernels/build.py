@@ -44,10 +44,11 @@ SIGNATURES: Dict[str, tuple] = {
     "gat_na_smem_bytes": ([_I] * 3, _L),
     "semantic_combine_launch": ([_P, _P, _P, _I, _L, _P], _I),
     "segment_spmm_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "segment_spmm_geometry": ([_P], None),
     "fused_fp_na_launch": ([_P] * 7 + [_I] * 5 + [_P], _I),
     "fused_fp_na_slices": ([], _I),
     "fused_fp_na_rows": ([], _I),
-    "cached_gather_launch": ([_P] * 4 + [_I] * 3 + [_L] * 4 + [_I, _P], _I),
+    "cached_gather_launch": ([_P] * 4 + [_I] * 3 + [_L] * 5 + [_P], _I),
     "semantic_scores_launch": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "flash_attention_launch": ([_P] * 4 + [_I] * 7 + [_F, _I, _P], _I),
     "flash_attention_bf16_instruction": ([], ctypes.c_char_p),

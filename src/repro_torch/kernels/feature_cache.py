@@ -6,14 +6,18 @@ cached_gather`` (``:34``; body ``_kernel :26``): a gather from the extended
 pool ``concat(table, table[hot])``, whose indices ``>= N`` address the
 cache section of the hot rows.  The CUDA source is
 ``csrc/feature_cache.cu``; its header says how the kernel works.  In short:
-one kernel serves hot and cold indices alike, 16 lanes an index with
-16-byte copies, the output written once, the index read through its
-strides (a position of MAGNN's ``[N, I, L]`` instance table is a strided
-view), every row clamped into the table or the cache.
+one launch and no fill — an index ``v >= N`` reads ``table[hot[v - N]]``
+directly, which is bitwise the cache row the fill would have copied, and
+an index ``v < N`` reads ``table[v]``; 16 lanes an index with 16-byte
+copies, several indices in flight a thread, a persistent grid, the output
+written once, the index read through its strides (a position of MAGNN's
+``[N, I, L]`` instance table is a strided view), every row clamped into
+the table.
 
-What bounds it on an H100: bytes — the output once, the indices once, at
-most the table once.  The cache section (64 KB at C = 256, D = 64) stays in
-the 50 MB L2, the counterpart of the TPU kernel's VMEM-resident block.
+What bounds it on an H100: bytes — the output once, the indices and the
+hot ids once, at most the table once.  The hot rows stay in the 50 MB L2
+after their first touch: the counterpart of the TPU kernel's VMEM-resident
+cache block.
 
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version (:func:`cached_gather_plain`, from ``kernels/ref.py``); a CUDA
@@ -34,22 +38,22 @@ cached_gather_plain = ref.cached_gather
 def cached_gather_emulate(table: torch.Tensor, hot: torch.Tensor,
                           idx: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel's algorithm in PyTorch, for the CPU tests (the
-    counterpart of running a Pallas kernel in interpret mode): the cache
-    filled with ``table[hot]``, then per index the cache row
-    ``min(idx - N, C - 1)`` when ``idx >= N``, else the table row
-    ``max(idx, 0)``."""
+    counterpart of running a Pallas kernel in interpret mode): per index
+    the table row ``hot[min(idx - N, C - 1)]`` (clamped into the table)
+    when ``idx >= N``, else the table row ``max(idx, 0)``; no cache is
+    filled."""
     n, c = table.shape[0], hot.shape[0]
-    cache = table.index_select(0, hot.long())
     v = idx.long()
-    hot_rows = cache[torch.clamp(v - n, 0, c - 1)]
+    hot_ids = hot.long()[torch.clamp(v - n, 0, c - 1)]
+    hot_rows = table[torch.clamp(hot_ids, 0, n - 1)]
     cold_rows = table[torch.clamp(v, 0, n - 1)]
     return torch.where((v >= n)[..., None], hot_rows, cold_rows)
 
 
 def check_kernel_args(table, hot, idx) -> None:
-    """Raise on what the CUDA kernel does not take.  ``idx`` may be a
-    strided view (its strides go to the kernel); ``table`` must be
-    contiguous."""
+    """Raise on what the CUDA kernel does not take.  ``idx`` and ``hot``
+    may be strided views (their strides go to the kernel); ``table`` must
+    be contiguous."""
     if table.dim() != 2 or hot.dim() != 1 or idx.dim() not in (1, 2):
         raise ValueError(f"cached_gather: needs table [N, D], hot [C] and "
                          f"idx [R] or [R, I], got {tuple(table.shape)} / "
@@ -82,19 +86,17 @@ def cached_gather(table: torch.Tensor, hot: torch.Tensor,
     lib = build.library()
     check_kernel_args(table, hot, idx)
     n, d = table.shape
-    cache = table.index_select(0, hot)  # the fill, outside the kernel
     out = torch.empty(tuple(idx.shape) + (d,), dtype=torch.float32,
                       device=dev)
     if idx.dim() == 1:
         rows, cols, stride_r, stride_c = idx.shape[0], 1, idx.stride(0), 0
     else:
         (rows, cols), (stride_r, stride_c) = idx.shape, idx.stride()
-    vec = d % 4 == 0 and all(t.data_ptr() % 16 == 0
-                             for t in (table, cache, out))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.cached_gather_launch(
-        table.data_ptr(), cache.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        n, hot.shape[0], d, rows, cols, stride_r, stride_c, int(vec), stream)
+        table.data_ptr(), hot.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        n, hot.shape[0], d, hot.stride(0), rows, cols, stride_r, stride_c,
+        stream)
     build.check(err, "cached_gather")
     cached_gather.launches += 1
     return out

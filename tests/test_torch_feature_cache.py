@@ -56,6 +56,26 @@ def test_plain_and_emulation_are_bitwise_the_jax_ref_and_pallas(case):
         assert emu.tobytes() == want.tobytes()
 
 
+@pytest.mark.parametrize("c", [1, 45])
+def test_emulation_reads_hot_rows_from_the_table(c):
+    """No cache is filled: a hot index reads ``table[hot[idx - N]]``.  With
+    one hot row and with every row hot (C = N, a permutation, so no id
+    repeats), including the hot id N - 1, it is bitwise the JAX oracle and
+    the Pallas kernel, which gather from the filled pool."""
+    n = 45
+    table, _, idx = _case(8, n, 16, c, (29, 6), "mixed")
+    hot = np.random.default_rng(9).permutation(n)[:c].astype(np.int32)
+    if c == 1:
+        hot[0] = n - 1
+    assert len(set(hot.tolist())) == c and (n - 1) in hot
+    idx[0, :] = n + hot.tolist().index(n - 1)  # the slot of hot id N - 1
+    t, h, i = map(torch.from_numpy, (table, hot, idx))
+    emu = tfc.cached_gather_emulate(t, h, i).numpy()
+    for want in _oracles(table, hot, idx):
+        assert emu.tobytes() == want.tobytes()
+    assert emu[0, 0].tobytes() == table[n - 1].tobytes()
+
+
 def test_strided_index_views_are_bitwise_the_jax_ref():
     """One position of a MAGNN instance table ``nodes[:, :, j]`` is a view
     with a column stride of L; the port gathers through it as it is."""

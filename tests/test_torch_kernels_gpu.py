@@ -33,6 +33,8 @@ fp32 result to bf16, which may land one bf16 step apart (2e-2).  The
 copy widths that the launchers pick from the row alignment give the same
 bits (the arithmetic does not depend on how a row arrived).
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -246,6 +248,61 @@ def test_segment_spmm_kernel_matches_plain_and_emulation(cuda, shape, mean,
     assert torch.equal(got, tspmm.segment_spmm(h, nbr, mask, mean=mean))
 
 
+def test_segment_spmm_geometry_agrees_with_the_wrapper(cuda):
+    g = (ctypes.c_int * 4)()
+    build.library().segment_spmm_geometry(g)
+    assert tuple(g) == (tspmm.ROWS, tspmm.WINDOW, tspmm.CHUNK, tspmm.STAGES)
+
+
+SPMM_EDGES = {  # name: (N, M, K, D, h_src offset in floats, all slots live)
+    # every row at 64 live slots: each block's list (1024 entries) runs
+    # through the ring's 256 four times over
+    "all_64_live": (70, 300, 64, 64, 0, True),
+    "k65_windows": (50, 80, 65, 64, 0, False),  # a second window of 1 slot
+    "k300_windows": (40, 90, 300, 64, 0, False),  # five windows
+    "k300_all_live": (20, 60, 300, 33, 0, True),
+    "offset_4_bytes": (60, 50, 64, 64, 1, False),  # 4-byte copies
+    "offset_8_bytes": (45, 50, 40, 66, 2, False),  # 8-byte copies
+    "d1": (33, 10, 64, 1, 0, False),
+    "d20": (100, 80, 70, 20, 0, False),
+    "d130": (50, 40, 12, 130, 0, False),  # three column groups, last of 2
+}
+
+
+@pytest.mark.parametrize("mean", [True, False])
+@pytest.mark.parametrize("name", sorted(SPMM_EDGES))
+def test_segment_spmm_kernel_edges_are_bitwise_the_emulation(cuda, name,
+                                                             mean):
+    """The block walk at its edges: lists past the ring, K across windows,
+    the narrower copies of an h_src off 16 bytes, D of one column, under
+    one group and over two; bitwise equal to the emulation and to a second
+    run, one launch a call."""
+    n, m, k, d, offset, full = SPMM_EDGES[name]
+    h, nbr, mask = _spmm_case(26, n, m, k, d, True, cuda)
+    if full:
+        rng = np.random.default_rng(27)
+        mask = torch.as_tensor(rng.random((n, k)) * 2.0 + 0.5,
+                               dtype=torch.float32, device=cuda)
+        nbr = torch.as_tensor(rng.integers(0, m, (n, k)), dtype=torch.int32,
+                              device=cuda)
+    if offset:
+        flat = torch.zeros(m * d + offset, device=cuda)
+        h_off = flat[offset:].view(m, d)
+        h_off.copy_(h)
+        assert h_off.data_ptr() % 16 != 0
+        h = h_off
+    before = tspmm.segment_spmm.launches
+    got = tspmm.segment_spmm(h, nbr, mask, mean=mean)
+    torch.cuda.synchronize()
+    assert tspmm.segment_spmm.launches == before + 1
+    assert torch.equal(got, tspmm.segment_spmm_emulate(h, nbr, mask,
+                                                       mean=mean))
+    assert torch.equal(got, tspmm.segment_spmm(h, nbr, mask, mean=mean))
+    safe = torch.where(mask != 0, nbr, 0)
+    torch.testing.assert_close(
+        got, tspmm.segment_spmm_plain(h, safe, mask, mean=mean), **TOL)
+
+
 FFN_SHAPES = [  # (N, M, K, F, D); the kernel takes D = 64 only
     (2081, 4278, 64, 3066, 64),  # RGCN/imdb (M, md, D) at full width
     (37, 50, 9, 70, 64),  # rows and F not multiples of a block
@@ -438,6 +495,51 @@ def test_cached_gather_kernel_reads_strided_positions(cuda):
     idx = nodes[:, :, 1]
     assert torch.equal(tfc.cached_gather(shifted, hot, idx),
                        tfc.cached_gather_plain(table, hot, idx))
+
+
+def _gather_edge(name, device):
+    """``table`` (a view off 16 bytes for the scalar path), ``hot`` and
+    ``idx`` for one edge of the fill-free gather."""
+    rng = np.random.default_rng(28)
+    n, d, c = (3000, 64, 1500) if name == "many_hot_ids" else (300, 64, 32)
+    table = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32,
+                            device=device)
+    hot = torch.as_tensor(rng.permutation(n)[:c], dtype=torch.int32,
+                          device=device)
+    idx = torch.as_tensor(rng.integers(0, n + c, (70, 16)),
+                          dtype=torch.int32, device=device)
+    if name == "table_off_16_bytes":
+        flat = torch.zeros(n * d + 1, device=device)
+        table = flat[1:].view(n, d)
+        table.copy_(torch.as_tensor(rng.standard_normal((n, d)),
+                                    dtype=torch.float32, device=device))
+        assert table.data_ptr() % 16 != 0
+    elif name == "all_hot_c1":
+        hot = hot[:1].clone()
+        idx = torch.full((70, 16), n, dtype=torch.int32, device=device)
+    elif name == "hot_id_n_minus_1":  # 32 distinct ids, N - 1 the last
+        hot = torch.as_tensor(np.append(rng.permutation(n - 1)[:31], n - 1),
+                              dtype=torch.int32, device=device)
+        idx[:, 0] = n + 31
+    return table, hot, idx
+
+
+@pytest.mark.parametrize("name", ["table_off_16_bytes", "all_hot_c1",
+                                  "hot_id_n_minus_1", "many_hot_ids"])
+def test_cached_gather_kernel_edges_are_bitwise_plain(cuda, name):
+    """The scalar path of a table off 16 bytes, every index hot with one
+    hot row, the hot id N - 1, and 1500 hot ids: bitwise equal to the
+    plain version, which fills the pool, and to the emulation, one launch
+    a call."""
+    table, hot, idx = _gather_edge(name, cuda)
+    before = tfc.cached_gather.launches
+    got = tfc.cached_gather(table, hot, idx)
+    torch.cuda.synchronize()
+    assert tfc.cached_gather.launches == before + 1
+    assert torch.equal(got, tfc.cached_gather_plain(table, hot, idx))
+    assert torch.equal(got, tfc.cached_gather_emulate(table, hot, idx))
+    if name == "hot_id_n_minus_1":
+        assert torch.equal(got[:, 0], table[-1].expand(idx.shape[0], -1))
 
 
 def test_cached_gather_kernel_clamps_out_of_range_indices(cuda):

@@ -6,7 +6,10 @@ as ``tests/test_gat_na.py`` runs them.
 Tolerance: atol = rtol = 1e-5 in fp32.  The Pallas kernel and the
 emulation add the slots one by one in slot order, the plain versions sum
 the ``[N, K, D]`` product in another order; that moves the last bits only.
-The CUDA kernel itself runs only on a card
+The emulation follows the CUDA kernel's walk (blocks of rows, windows of
+slots, the compacted list, ring chunks), and is held bitwise against the
+slot-by-slot walk of the kernel before it (:func:`_slot_by_slot`).  The
+CUDA kernel itself runs only on a card
 (``tests/test_torch_kernels_gpu.py``)."""
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +42,25 @@ CASES = [  # (N, M, K, D): N never a multiple of the Pallas block (128)
     (70, 70, 1, 7),  # K = 1
     (33, 300, 5, 100),  # D over one 64-column group
 ]
+
+
+def _slot_by_slot(h_src, nbr, mask, mean=True):
+    """The walk of the kernel before the block-gathered one (one warp a
+    row): slots j = 0..K-1 in order, a masked slot skipped without reading
+    ``h_src``, ``acc = acc + row * m`` and ``deg = deg + m`` rounded step by
+    step, then ``acc / max(deg, 1)``."""
+    n, k = nbr.shape
+    acc = torch.zeros((n, h_src.shape[1]), dtype=torch.float32)
+    deg = torch.zeros((n, 1), dtype=torch.float32)
+    for j in range(k):
+        m = mask[:, j:j + 1].to(torch.float32)
+        live = m != 0
+        idx = torch.where(live[:, 0], nbr[:, j].long(), 0)
+        acc = torch.where(live, acc + h_src[idx] * m, acc)
+        deg = torch.where(live, deg + m, deg)
+    if mean:
+        acc = acc / torch.clamp(deg, min=1.0)
+    return acc
 
 
 def _reference(h, nbr, mask, mean, streaming):
@@ -92,6 +114,41 @@ def test_emulation_adds_in_slot_order_and_never_reads_masked_slots():
                 deg = deg + tm[i, j]
         want[i] = acc / torch.clamp(deg, min=1.0)
     assert torch.equal(got, want)
+
+
+WALK_CASES = [  # (N, M, K, D); N never a multiple of ROWS (16)
+    (37, 50, 1, 8),  # K = 1: one slot of a window
+    (45, 60, 33, 20),  # K spans two ballots of a window
+    (50, 70, 64, 64),  # the RGCN width; rows 16-31 fill one window's
+    # list (1024 entries) far past the ring (STAGES * CHUNK = 256)
+    (33, 40, 65, 7),  # two windows, the second of one slot
+    (21, 30, 200, 5),  # four windows, the last of 8 slots
+]
+
+
+@pytest.mark.parametrize("mean", [True, False])
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_emulation_is_bitwise_the_slot_by_slot_walk(case, mean):
+    """The block walk changes where each entry is fetched, not the order in
+    which a row's entries are added: the same bits as the walk before it.
+    Every fifth row has no live slot, every fifth from row 1 has all K
+    live, rows 16-31 are all live, and masked slots name rows far past the
+    table (never read)."""
+    n, m, k, d = case
+    h, nbr, mask = _case(6, n, m, k, d, weighted=True)
+    rng = np.random.default_rng(7)
+    full = np.zeros(n, bool)
+    full[1::5] = True
+    full[16:32] = k == 64
+    mask[full] = (rng.random((int(full.sum()), k)) * 2.0 + 0.5)
+    mask[::5] = 0.0
+    nbr[mask == 0] = 1 << 30
+    th, tn, tm = map(torch.from_numpy, (h, nbr, mask))
+    got = tspmm.segment_spmm_emulate(th, tn, tm, mean=mean)
+    assert torch.equal(got, _slot_by_slot(th, tn, tm, mean=mean))
+    assert (got[::5] == 0).all()
+    if k == 64:  # the second block's list spills over the ring
+        assert int((tm[16:32] != 0).sum()) > tspmm.STAGES * tspmm.CHUNK
 
 
 def test_wrapper_takes_the_plain_version_on_cpu():
