@@ -429,8 +429,10 @@ def gather_work(table, hot, idx):
 
 def scores_work(z, w):
     """Bytes and operations of ``semantic_scores``: z, W, b, q read once,
-    w written once; per row ``zW + b`` (2*D*Hs), tanh, the q dot (3*Hs),
-    and the mean."""
+    w written once; per row ``zW + b`` (2*D*Hs: the kernel's D FFMAs a
+    column from b), tanh and the q dot (3*Hs), and the mean.  The kernel
+    does all of it in fp32 outside the tensor cores, so the bound takes
+    the fp32 peak."""
     p, n, d = z.shape
     hs = w.shape[1]
     n_bytes = (z.numel() + d * hs + 2 * hs + p) * 4
@@ -447,6 +449,7 @@ def magnn_kernels_vs_plain(built, results: dict):
     ``gat_na`` calls ``{metapath: args}`` and ``(z, W, b, q)``."""
     import torch
     from repro_torch.core import stages
+    from repro_torch.kernels import build
     from repro_torch.kernels import feature_cache as tfc
     from repro_torch.kernels import gat_na as tgat
     from repro_torch.kernels import semantic_attn as tsem
@@ -521,10 +524,18 @@ def magnn_kernels_vs_plain(built, results: dict):
               f"semantic_scores z {tuple(z.shape)} W {tuple(sem['W'].shape)}"
               f": {w.tolist()} vs plain {want.tolist()}, max |err| "
               f"{err:.3e} (tol {TOL_SCORES})")
-        check(close(w, tsem.semantic_scores_emulate(*sa), **TOL_SCORES),
-              "semantic_scores vs its emulation")
+        tile = tsem.tile_rows(z, sem["W"])
+        check(close(w, tsem.semantic_scores_emulate(*sa, tile), **TOL_SCORES),
+              f"semantic_scores vs its emulation ({tile}-row tiles)")
         check(torch.equal(w, tsem.semantic_scores(*sa)),
               "semantic_scores: two runs give the same bits")
+        names = device_kernels(lambda: tsem.semantic_scores(*sa))
+        check(len(names) == 1 and "semantic_scores_kernel" in names[0],
+              f"semantic_scores: one device kernel a call ({names})")
+        done = build.scratch("semantic_scores done", 1, torch.int32, z.device,
+                             torch.cuda.current_stream().cuda_stream)
+        check(int(done.item()) == 0,
+              "semantic_scores: its last-block counter is back at 0")
         results["semantic_scores"] = {"max_abs_err": err,
                                       "tolerance": TOL_SCORES}
     return gathers, gat_args, sa
@@ -886,16 +897,18 @@ def granite_serve(dev, ops, profiles: dict) -> dict:
 
 
 SASS_KERNELS = ("flash_attention_tc_kernel", "decode_split_kernel",
-                "fused_fp_na_kernel", "segment_spmm_kernel", "gat_na_kernel")
+                "fused_fp_na_kernel", "segment_spmm_kernel", "gat_na_kernel",
+                "semantic_scores_kernel", "semantic_combine_kernel")
 
 
 def sass_counts(lib_path: str):
     """Tensor-core (``HGMMA``: wgmma; ``HMMA``: mma.sync),
     asynchronous-copy (``LDGSTS``; ``.128``: 16 bytes), 16-byte shared-load
-    (``LDS.128``) and fp32 FMA (``FFMA``) instructions in the built
-    library's SASS, summed over the instantiations of each kernel of
-    ``SASS_KERNELS`` (``gat_na_kernel`` split by its epilogue flag), by
-    ``cuobjdump -sass``; None where the toolkit has none."""
+    (``LDS.128``), 16-byte global-load (``LDG.128``) and fp32 FMA
+    (``FFMA``) instructions in the built library's SASS, summed over the
+    instantiations of each kernel of ``SASS_KERNELS`` (``gat_na_kernel``
+    split by its epilogue flag), by ``cuobjdump -sass``; None where the
+    toolkit has none."""
     from repro_torch.kernels import build
 
     tool = Path(build.find_nvcc()).with_name("cuobjdump")
@@ -903,7 +916,8 @@ def sass_counts(lib_path: str):
         return None
     sass = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
                           text=True, timeout=300).stdout
-    keys = ("HGMMA", "HMMA", "LDGSTS", "LDGSTS.128", "LDS.128", "FFMA")
+    keys = ("HGMMA", "HMMA", "LDGSTS", "LDGSTS.128", "LDS.128", "LDG.128",
+            "FFMA")
     names = [n for n in SASS_KERNELS if n != "gat_na_kernel"]
     names += ["gat_na_kernel fused", "gat_na_kernel"]
     counts = {name: dict.fromkeys(keys, 0) for name in names}
@@ -923,6 +937,7 @@ def sass_counts(lib_path: str):
         c["LDGSTS"] += "LDGSTS" in line
         c["LDGSTS.128"] += bool(re.search(r"LDGSTS[.\w]*\.128\b", line))
         c["LDS.128"] += bool(re.search(r"\bLDS(\.U)?\.128\b", line))
+        c["LDG.128"] += bool(re.search(r"\bLDG(\.\w+)*\.128\b", line))
         c["FFMA"] += bool(re.search(r"\bFFMA\b", line))
     return counts
 
@@ -931,8 +946,10 @@ def hgnn_instructions() -> dict:
     """The SASS of the HGNN kernels redesigned for Hopper: fused_fp_na's
     gathers through a cp.async ring (LDGSTS) and its 3xTF32 product on the
     tensor cores (HMMA), gat_na's epilogue, whose W arrives by cp.async
-    and whose z is read in 16-byte shared loads, and segment_spmm's
-    gathers through a cp.async ring (LDGSTS); a check fails if the SASS
+    and whose z is read in 16-byte shared loads, segment_spmm's gathers
+    through a cp.async ring (LDGSTS), semantic_scores' W and z staged by
+    16-byte cp.async and multiplied by FFMA from 16-byte shared loads, and
+    semantic_combine's 16-byte global loads; a check fails if the SASS
     lacks them."""
     from repro_torch.kernels import build
 
@@ -942,12 +959,18 @@ def hgnn_instructions() -> dict:
         return {}
     ffn, gat = counts["fused_fp_na_kernel"], counts["gat_na_kernel fused"]
     spmm = counts["segment_spmm_kernel"]
+    sc, comb = counts["semantic_scores_kernel"], counts[
+        "semantic_combine_kernel"]
     print(f"  SASS: fused_fp_na_kernel HMMA {ffn['HMMA']}, LDGSTS "
           f"{ffn['LDGSTS']}; gat_na_kernel<fused> LDGSTS {gat['LDGSTS']} "
           f"(16-byte {gat['LDGSTS.128']}), LDS.128 {gat['LDS.128']}, FFMA "
           f"{gat['FFMA']}; gat_na_kernel<unfused> LDGSTS "
           f"{counts['gat_na_kernel']['LDGSTS']}; segment_spmm_kernel LDGSTS "
-          f"{spmm['LDGSTS']} (16-byte {spmm['LDGSTS.128']})")
+          f"{spmm['LDGSTS']} (16-byte {spmm['LDGSTS.128']}); "
+          f"semantic_scores_kernel LDGSTS {sc['LDGSTS']} (16-byte "
+          f"{sc['LDGSTS.128']}), LDS.128 {sc['LDS.128']}, HMMA {sc['HMMA']}, "
+          f"FFMA {sc['FFMA']}; semantic_combine_kernel LDG.128 "
+          f"{comb['LDG.128']}")
     check(ffn["HMMA"] > 0 and ffn["LDGSTS"] > 0,
           "fused_fp_na gathers by cp.async (LDGSTS) and multiplies on the "
           "tensor cores (HMMA)")
@@ -956,9 +979,15 @@ def hgnn_instructions() -> dict:
           "16-byte shared loads")
     check(spmm["LDGSTS.128"] > 0,
           "segment_spmm gathers by cp.async (16-byte LDGSTS)")
+    check(sc["LDGSTS.128"] > 0 and sc["LDS.128"] > 0 and sc["FFMA"] > 0,
+          "semantic_scores stages W and z by cp.async (16-byte LDGSTS) and "
+          "multiplies by FFMA from 16-byte shared loads")
+    check(comb["LDG.128"] > 0,
+          "semantic_combine reads z in 16-byte global loads (LDG.128)")
     return {name: counts[name] for name in
             ("fused_fp_na_kernel", "gat_na_kernel fused", "gat_na_kernel",
-             "segment_spmm_kernel")}
+             "segment_spmm_kernel", "semantic_scores_kernel",
+             "semantic_combine_kernel")}
 
 
 def attention_instructions() -> dict:

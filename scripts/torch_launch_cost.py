@@ -13,12 +13,13 @@ over ``--rounds`` rounds:
 - ``host_us``: host microseconds a wrapper call of ``gat_na`` (unstacked
   at the MAGNN/imdb shape; stacked with ``sem=`` at the HAN/imdb shape),
   of ``fused_fp_na`` (RGCN/imdb (M, md, D) shape), of ``segment_spmm``
-  (RGCN/imdb (A, am, M) shape) and of ``cached_gather`` (one MAGNN/imdb
+  (RGCN/imdb (A, am, M) shape), of ``cached_gather`` (one MAGNN/imdb
   instance position: a strided ``[4278, 16]`` index view, 256 hot rows),
-  over 200 calls
-  back to back with no synchronisation: what the host spends to issue one
-  launch, the wrapper's checks and allocations included (random inputs at
-  those shapes, from a seed; the device runs behind);
+  of ``semantic_scores`` (``[2, 4278, 64]``, Hs = 128) and of
+  ``semantic_combine`` (``[2, 4278, 64]``), over 200 calls back to back
+  with no synchronisation: what the host spends to issue one launch, the
+  wrapper's checks and allocations included (random inputs at those
+  shapes, from a seed; the device runs behind);
 - ``wall_ms``: ms a forward of HAN/imdb L=1 with the fused NA→SA epilogue,
   MAGNN/imdb L=1 and RGCN/imdb L=1 padded through ``HGNNInferEngine``
   (20 ``infer()`` calls after 3 warm-ups, synchronised at the end);
@@ -29,9 +30,11 @@ over ``--rounds`` rounds:
 checkout's ``kernels/build.py`` is loaded on its own and builds that
 checkout's library, and its ``repro_torch`` package is imported on its
 own; then in every round each checkout's C launchers ``gat_na_launch``
-(the two launches above), ``fused_fp_na_launch``, ``segment_spmm_launch``
-and ``cached_gather_launch`` (``launcher_us``, no Python wrapper; a
-launcher that takes a filled cache section gets one made beforehand) and
+(the two launches above), ``fused_fp_na_launch``, ``segment_spmm_launch``,
+``cached_gather_launch``, ``semantic_scores_launch`` and
+``semantic_combine_launch`` (``launcher_us``, no Python wrapper; a
+launcher that takes a filled cache section gets one made beforehand, one
+that takes scratch gets it zeroed) and
 its wrappers (``wrapper_us``) are timed in turn on the same inputs, 200
 calls back to back.  Taking the checkouts in turns within
 one process keeps the host's drift, which moves a host clock by tens of
@@ -91,7 +94,7 @@ def forward_ms(engine, reps: int = 20):
 
 
 def launch_inputs(dev):
-    """The five launches at their main-path shapes, random from a seed."""
+    """The seven launches at their main-path shapes, random from a seed."""
     import numpy as np
     import torch
 
@@ -130,11 +133,14 @@ def launch_inputs(dev):
     nodes = t(rng.integers(0, n + 256, (n, inst, 3)), torch.int32)
     gather = (t(rng.standard_normal((n, 64))),
               t(rng.permutation(n)[:256], torch.int32), nodes[:, :, 1])
-    return magnn, han, sem, rgcn, spmm, gather
+    z = t(rng.standard_normal((s_dim, n, h * dh)))
+    scores = (z, sem["W"], sem["b"], sem["q"])
+    combine = (z, torch.softmax(t(rng.standard_normal(s_dim)), 0))
+    return magnn, han, sem, rgcn, spmm, gather, scores, combine
 
 
 def c_launches(root: Path, tag: str, dev, magnn, han, sem, rgcn, spmm,
-               gather) -> dict:
+               gather, scores, combine) -> dict:
     """Calls of one checkout's C launchers on the given inputs, with its
     own argument lists (a launcher that takes scratch buffers gets them
     zeroed, as its wrapper keeps them)."""
@@ -152,6 +158,8 @@ def c_launches(root: Path, tag: str, dev, magnn, han, sem, rgcn, spmm,
     # where the fill-free one takes the stride of the hot ids
     gather_fill = mod.SIGNATURES["cached_gather_launch"][0][-2] is not \
         ctypes.c_longlong
+    # the one-launch scores kernel takes a last-block counter
+    scores_done = len(mod.SIGNATURES["semantic_scores_launch"][0]) == 12
 
     def gat(p, h_dst, h_src, nbr, mask, sem=None):
         s_dim, n, k = (1,) * (3 - nbr.dim()) + tuple(nbr.shape)
@@ -206,14 +214,38 @@ def c_launches(root: Path, tag: str, dev, magnn, han, sem, rgcn, spmm,
         return lambda keep=t: mod.check(
             lib.cached_gather_launch(*ptrs, *rest, stream), "cached_gather")
 
+    def sc(z, w, b, q):
+        p, n, d = z.shape
+        out = torch.empty(p, device=dev)
+        part = torch.zeros(p * -(-n // 32), device=dev)  # either tile
+        t = [z, w, b, q, part]
+        t += [torch.zeros(1, dtype=torch.int32, device=dev)] \
+            if scores_done else []
+        t += [out]
+        ptrs = [x.data_ptr() for x in t]
+        return lambda keep=t: mod.check(
+            lib.semantic_scores_launch(*ptrs, p, n, d, w.shape[1], stream),
+            "semantic_scores")
+
+    def comb(z, beta):
+        p, n, d = z.shape
+        out = torch.empty((n, d), device=dev)
+        return lambda keep=(z, beta, out): mod.check(
+            lib.semantic_combine_launch(z.data_ptr(), beta.data_ptr(),
+                                        out.data_ptr(), p, n * d, stream),
+            "semantic_combine")
+
     return {"gat_na unstacked (MAGNN/imdb)": gat(*magnn),
             "gat_na sem= (HAN/imdb)": gat(*han, sem=sem),
             "fused_fp_na (RGCN/imdb M|md|D)": ffn(*rgcn),
             "segment_spmm (RGCN/imdb A|am|M)": seg(*spmm),
-            "cached_gather (MAGNN/imdb position)": gat_pos(*gather)}
+            "cached_gather (MAGNN/imdb position)": gat_pos(*gather),
+            "semantic_scores ([2, 4278, 64], Hs 128)": sc(*scores),
+            "semantic_combine ([2, 4278, 64])": comb(*combine)}
 
 
-def wrapper_calls(root: Path, magnn, han, sem, rgcn, spmm, gather) -> dict:
+def wrapper_calls(root: Path, magnn, han, sem, rgcn, spmm, gather, scores,
+                  combine) -> dict:
     """Calls of one checkout's Python wrappers: its ``repro_torch`` is
     imported with no other in ``sys.modules``, and the wrappers keep the
     modules they were imported with."""
@@ -229,6 +261,7 @@ def wrapper_calls(root: Path, magnn, han, sem, rgcn, spmm, gather) -> dict:
         from repro_torch.kernels import fused_fp_na as tffn
         from repro_torch.kernels import gat_na as tgat
         from repro_torch.kernels import segment_spmm as tspmm
+        from repro_torch.kernels import semantic_attn as tsem
     finally:
         sys.path.remove(str(root / "src"))
         drop()
@@ -239,7 +272,11 @@ def wrapper_calls(root: Path, magnn, han, sem, rgcn, spmm, gather) -> dict:
             "segment_spmm (RGCN/imdb A|am|M)": lambda: tspmm.segment_spmm(
                 *spmm),
             "cached_gather (MAGNN/imdb position)":
-                lambda: tfc.cached_gather(*gather)}
+                lambda: tfc.cached_gather(*gather),
+            "semantic_scores ([2, 4278, 64], Hs 128)":
+                lambda: tsem.semantic_scores(*scores),
+            "semantic_combine ([2, 4278, 64])":
+                lambda: tsem.semantic_combine(*combine)}
 
 
 def compare_launchers(roots, rounds: int) -> dict:
@@ -292,13 +329,14 @@ def main() -> None:
     from repro_torch.kernels import fused_fp_na as tffn
     from repro_torch.kernels import gat_na as tgat
     from repro_torch.kernels import segment_spmm as tspmm
+    from repro_torch.kernels import semantic_attn as tsem
     from repro_torch.launch.serve import build_hgnn_infer
     from repro_torch.serve.engine import HGNNInferEngine
 
     import repro_torch
     print(f"repro_torch from {Path(repro_torch.__file__).parent}")
     dev = torch.device("cuda")
-    magnn, han, sem, rgcn, spmm, gather = launch_inputs(dev)
+    magnn, han, sem, rgcn, spmm, gather, scores, combine = launch_inputs(dev)
     launches = {
         "gat_na unstacked (MAGNN/imdb)": lambda: tgat.gat_na(*magnn),
         "gat_na sem= (HAN/imdb)": lambda: tgat.gat_na(*han, sem=sem),
@@ -307,6 +345,10 @@ def main() -> None:
             *spmm),
         "cached_gather (MAGNN/imdb position)": lambda: tfc.cached_gather(
             *gather),
+        "semantic_scores ([2, 4278, 64], Hs 128)":
+            lambda: tsem.semantic_scores(*scores),
+        "semantic_combine ([2, 4278, 64])":
+            lambda: tsem.semantic_combine(*combine),
     }
     hg = make_dataset("imdb")
     engines = {}

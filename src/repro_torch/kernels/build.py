@@ -49,7 +49,9 @@ SIGNATURES: Dict[str, tuple] = {
     "fused_fp_na_slices": ([], _I),
     "fused_fp_na_rows": ([], _I),
     "cached_gather_launch": ([_P] * 4 + [_I] * 3 + [_L] * 5 + [_P], _I),
-    "semantic_scores_launch": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "semantic_scores_launch": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    "semantic_scores_tile_rows": ([_I] * 4, _I),
+    "semantic_scores_smem_bytes": ([_I] * 2, _L),
     "flash_attention_launch": ([_P] * 4 + [_I] * 7 + [_F, _I, _P], _I),
     "flash_attention_bf16_instruction": ([], ctypes.c_char_p),
     "decode_attention_launch": ([_P] * 7 + [_I] * 7 + [_F, _I, _P], _I),

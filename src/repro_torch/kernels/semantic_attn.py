@@ -4,22 +4,26 @@ CUDA kernels for both passes + wrappers.
 Pass 2, the weighted combine, replaces the TPU kernel
 ``src/repro/kernels/semantic_attn.py::semantic_combine`` (``:153``, body
 ``_combine_kernel :50``): ``out[n] = sum_p beta_p z[p, n]`` in fp32, one
-read of the stack.  The CUDA source is ``csrc/semantic_combine.cu``: one
-thread per output element, ``p`` walked in order, products and sums
-rounded one by one as the plain version rounds them.  Bound by bytes
-(``P*N*D*4`` read, ``N*D*4`` written; 3.3 MB at the main shape, about 1 us
-at 3.35 TB/s), so the design is one pass with coalesced accesses.
+read of the stack.  The CUDA source is ``csrc/semantic_combine.cu``: a
+thread two 16-byte vectors of the output (4-byte ones where z or out is
+off a 16-byte boundary or ``N*D % 4 != 0``), ``p`` walked in order,
+products and sums rounded one by one as the plain version rounds them.
+Bound by bytes (``P*N*D*4`` read, ``N*D*4`` written; 3.3 MB at the main
+shape, about 1 us at 3.35 TB/s).
 
 Pass 1, the scores, replaces ``semantic_scores`` (``:100``; bodies
 ``_score_kernel :27``, ``_score_stream_kernel :58``):
 ``w_p = mean_n q·tanh(z_p,n W + b)``.  The CUDA source is
-``csrc/semantic_scores.cu``: ``W`` staged in shared memory, a warp four
-rows with their columns' FMA chains in registers, row scores summed per
-block of ``ROWS_PER_BLOCK`` rows in row order, then over blocks in a
-second kernel (no float atomics).  Bound by operations
-(``2*P*N*D*Hs``; 1.4e8 at ``[2, 4278, 64]`` with Hs = 128, 2.1 us at 67
-TFLOP/s).  The TPU kernel's streaming twin has no counterpart: one design
-covers every N.
+``csrc/semantic_scores.cu``: one launch of at most one block an SM; a
+block stages ``W`` in shared memory once and walks tiles of 64 to 128
+rows (the launcher picks the least that fits every tile in one wave:
+``tile_rows``) through a ``cp.async`` ring, their products by FMA from
+shared memory; each tile's row scores are summed in row order into a
+partial indexed by tile, and the last block to finish sums each
+metapath's partials in a fixed order (no float atomics).  Bound by
+operations (``2*P*N*D*Hs``; 1.4e8 at ``[2, 4278, 64]`` with Hs = 128, 2.1
+us at 67 TFLOP/s).  The TPU kernel's streaming twin has no counterpart:
+one design covers every N.
 
 :func:`semantic_attention` composes the two as the reference does
 (``:175``): scores, softmax over ``P``, combine.  No executor path calls
@@ -31,19 +35,40 @@ Dispatch is by device: a CPU tensor takes the plain version
 (``kernels/ref.py``); a CUDA tensor launches the kernel or raises.
 ``semantic_combine.launches`` and ``semantic_scores.launches`` count the
 launches.  :func:`semantic_scores_emulate` replays the scores kernel's
-block-ordered sum in PyTorch for the CPU tests.
+order of sums in PyTorch for the CPU tests.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.gat_na import SMEM_LIMIT
 
 semantic_combine_plain = ref.semantic_combine
 semantic_scores_plain = ref.semantic_scores
-# csrc/semantic_scores.cu's kRowsPerBlock and kMaxColChunks * 32
-ROWS_PER_BLOCK = 32
+# csrc/semantic_scores.cu: the fewest rows a tile (8 warps of 8 rows),
+# kFC and kMaxHs
+MIN_TILE_ROWS = 64
+RING_FEATURES = 32
 MAX_HS = 256
+
+
+def smem_bytes(d: int, hs: int) -> int:
+    """The scores kernel's shared memory at its smallest tile (its
+    ``semantic_scores_smem_bytes``): W zero-padded to ``[round4(D),
+    round4(Hs)]``, the two-stage z ring and a tile's row scores."""
+    def round4(x):
+        return (x + 3) // 4 * 4
+
+    return 4 * (round4(d) * round4(hs) + (2 * RING_FEATURES + 1) *
+                MIN_TILE_ROWS)
+
+
+def tile_rows(z: torch.Tensor, w: torch.Tensor) -> int:
+    """The rows of a tile that the scores kernel takes at these shapes on
+    this card (64 to 128: the least that fits every tile in one wave)."""
+    p, n, d = z.shape
+    return build.library().semantic_scores_tile_rows(p, n, d, w.shape[1])
 
 
 def check_kernel_args(z: torch.Tensor, beta: torch.Tensor) -> None:
@@ -84,23 +109,30 @@ semantic_combine.launches = 0
 
 
 def semantic_scores_emulate(z: torch.Tensor, w: torch.Tensor,
-                            b: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """The scores kernel's algorithm in PyTorch, for the CPU tests: one
-    score ``q·tanh(z W + b)`` a row, the rows of each block of
-    ``ROWS_PER_BLOCK`` summed in row order (rows past N add 0), the blocks
-    summed in block order, then / N."""
+                            b: torch.Tensor, q: torch.Tensor,
+                            tile: int = MIN_TILE_ROWS) -> torch.Tensor:
+    """The scores kernel's order of sums in PyTorch, for the CPU tests: one
+    score ``q·tanh(z W + b)`` a row; the rows of each tile of ``tile`` rows
+    (the kernel's: :func:`tile_rows`) summed in row order (rows past N add
+    0); lane ``l`` of 32 sums tiles ``l, l + 32, ...`` in order; the lanes
+    by the kernel's xor butterfly (halves added pairwise: 16, 8, 4, 2, 1);
+    then / N."""
     p, n, _ = z.shape
     score = (torch.tanh(z @ w + b) * q).sum(-1)  # [P, N]
-    n_blocks = -(-n // ROWS_PER_BLOCK)
-    score = torch.nn.functional.pad(score, (0, n_blocks * ROWS_PER_BLOCK - n))
-    score = score.reshape(p, n_blocks, ROWS_PER_BLOCK)
-    partial = torch.zeros((p, n_blocks), dtype=z.dtype, device=z.device)
-    for r in range(ROWS_PER_BLOCK):
+    n_tiles = -(-n // tile)
+    score = torch.nn.functional.pad(score, (0, n_tiles * tile - n))
+    score = score.reshape(p, n_tiles, tile)
+    partial = torch.zeros((p, n_tiles), dtype=z.dtype, device=z.device)
+    for r in range(tile):
         partial = partial + score[:, :, r]
-    total = torch.zeros((p,), dtype=z.dtype, device=z.device)
-    for i in range(n_blocks):
-        total = total + partial[:, i]
-    return total / n
+    partial = torch.nn.functional.pad(partial, (0, -n_tiles % 32))
+    lanes = torch.zeros((p, 32), dtype=z.dtype, device=z.device)
+    for t in range(0, partial.shape[1], 32):
+        lanes = lanes + partial[:, t:t + 32]
+    while lanes.shape[1] > 1:
+        half = lanes.shape[1] // 2
+        lanes = lanes[:, :half] + lanes[:, half:]
+    return lanes[:, 0] / n
 
 
 def check_scores_args(z, w, b, q) -> None:
@@ -117,7 +149,7 @@ def check_scores_args(z, w, b, q) -> None:
     if hs > MAX_HS:
         raise ValueError(f"semantic_scores: the kernel takes Hs <= {MAX_HS}, "
                          f"got {hs}")
-    if 4 * (d * hs + ROWS_PER_BLOCK * (d + 1)) > 232448:
+    if smem_bytes(d, hs) > SMEM_LIMIT:
         raise ValueError("semantic_scores: W does not fit one block's shared "
                          "memory")
     for name, t in (("z", z), ("W", w), ("b", b), ("q", q)):
@@ -140,14 +172,16 @@ def semantic_scores(z: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     lib = build.library()
     check_scores_args(z, w, b, q)
     p, n, d = z.shape
-    partial = torch.empty((p, -(-n // ROWS_PER_BLOCK)), dtype=torch.float32,
-                          device=dev)
-    out = torch.empty((p,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    partial = build.scratch("semantic_scores partial",
+                            p * -(-n // MIN_TILE_ROWS), torch.float32, dev,
+                            stream)
+    done = build.scratch("semantic_scores done", 1, torch.int32, dev, stream)
+    out = torch.empty((p,), dtype=torch.float32, device=dev)
     err = lib.semantic_scores_launch(z.data_ptr(), w.data_ptr(), b.data_ptr(),
                                      q.data_ptr(), partial.data_ptr(),
-                                     out.data_ptr(), p, n, d, w.shape[1],
-                                     stream)
+                                     done.data_ptr(), out.data_ptr(), p, n, d,
+                                     w.shape[1], stream)
     build.check(err, "semantic_scores")
     semantic_scores.launches += 1
     return out

@@ -21,9 +21,10 @@ size of the terms: rtol = 1e-5 and an atol of 1e-5 times the largest
 |output|.
 ``cached_gather`` moves rows and computes nothing: bitwise against its
 plain version and its emulation.  ``semantic_scores`` sums the zW products
-with FMA in feature order and the row scores per block, then over blocks,
-where the plain version leaves both orders to the matmul and the mean:
-atol = rtol = 1e-5, and bitwise against a second run.
+with FMA in feature order, the row scores per tile, then the tiles by a
+lane-strided sum and a butterfly, where the plain version leaves both
+orders to the matmul and the mean: atol = rtol = 1e-5, and bitwise against
+a second run.
 ``flash_attention`` and ``decode_attention`` are held against the
 attention oracles at the reference's own kernel-test tolerances (2e-4 in
 fp32, 2e-2 in bf16, whose oracle rounds the scores and P to bf16), and
@@ -189,6 +190,9 @@ def test_gat_na_kernel_raises_instead_of_falling_back(cuda):
     (2, 4278, 64, 0),  # the main path
     (3, 101, 3, 0),  # N*D not a multiple of a block or of 4
     (2, 64, 8, 1),  # storage 4 bytes off a 16-byte boundary
+    (2, 1001, 2, 0),  # N*D % 4 == 2 on an aligned base: 4-byte vectors
+    (8, 4278, 64, 0),  # eight metapaths on the 16-byte path
+    (8, 33, 5, 2),  # eight metapaths, 8 bytes off, N*D odd
 ])
 def test_semantic_combine_kernel_is_bitwise_plain(cuda, p, n, d, offset):
     rng = np.random.default_rng(p * n + d)
@@ -569,6 +573,13 @@ SCORES_SHAPES = [  # (P, N, D, Hs)
     (3, 37, 16, 33),  # under one block; Hs not a multiple of 32
     (2, 200, 100, 7),  # D over 32 lanes twice plus a tail
     (1, 40, 8, 256),  # the widest Hs the kernel takes
+    (4, 4278, 64, 128),  # no tile fits one wave: 64-row tiles, blocks
+    # take 2-3, across metapaths
+    (2, 300, 7, 40),  # D % 4 != 0: 4-byte copies of z, W padded
+    (1, 50, 208, 256),  # the widest D at Hs = 256: seven ring chunks
+    (1, 10000, 64, 128),  # on 132 SMs: 80-row tiles
+    (1, 12000, 64, 100),  # 96-row tiles
+    (1, 16000, 64, 128),  # 128-row tiles
 ]
 
 
@@ -582,9 +593,72 @@ def test_semantic_scores_kernel_matches_plain_and_emulation(cuda, shape):
     assert got.shape == (shape[0],)
     torch.testing.assert_close(got, tsem.semantic_scores_plain(z, w, b, q),
                                **TOL)
-    torch.testing.assert_close(got, tsem.semantic_scores_emulate(z, w, b, q),
-                               **TOL)
+    tile = tsem.tile_rows(z, w)
+    assert tile in (64, 72, 80, 96, 128)
+    torch.testing.assert_close(
+        got, tsem.semantic_scores_emulate(z, w, b, q, tile), **TOL)
     assert torch.equal(got, tsem.semantic_scores(z, w, b, q))  # no atomics
+
+
+@pytest.mark.parametrize("w_off,z_off", [(1, 0), (0, 1), (3, 2)])
+def test_semantic_scores_kernel_takes_unaligned_inputs(cuda, w_off, z_off):
+    """W or z off a 16-byte boundary: the 4-byte copies give a result
+    within tolerance of plain, and the bits of the aligned inputs."""
+    z, w, b, q = _scores_case(19, 2, 4278, 64, 128, cuda)
+    want = tsem.semantic_scores(z, w, b, q)
+
+    def shifted(t, off):
+        flat = torch.empty(t.numel() + off, dtype=t.dtype, device=cuda)
+        flat[off:] = t.reshape(-1)
+        return flat[off:].view(t.shape)
+
+    got = tsem.semantic_scores(shifted(z, z_off), shifted(w, w_off), b, q)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tsem.semantic_scores_plain(z, w, b, q),
+                               **TOL)
+    assert torch.equal(got, want)
+
+
+def test_semantic_scores_kernel_after_a_refused_launch(cuda):
+    """A launch the C launcher refuses (W too wide for shared memory)
+    returns its error and leaves none pending; the next calls give the bits
+    of the calls before it, so the last-block counter was left at 0."""
+    z, w, b, q = _scores_case(20, 2, 4278, 64, 128, cuda)
+    first = tsem.semantic_scores(z, w, b, q)
+    lib = build.library()
+    d_big = 1000
+    assert lib.semantic_scores_smem_bytes(d_big, 256) > tsem.SMEM_LIMIT
+    zb = torch.zeros((1, 8, d_big), device=cuda)
+    wb = torch.zeros((d_big, 256), device=cuda)
+    vb = torch.zeros(256, device=cuda)
+    scratch = torch.zeros(16, device=cuda)
+    done = torch.zeros(1, dtype=torch.int32, device=cuda)
+    out = torch.empty(1, device=cuda)
+    err = lib.semantic_scores_launch(
+        zb.data_ptr(), wb.data_ptr(), vb.data_ptr(), vb.data_ptr(),
+        scratch.data_ptr(), done.data_ptr(), out.data_ptr(), 1, 8, d_big,
+        256, torch.cuda.current_stream(cuda).cuda_stream)
+    assert err != 0
+    for _ in range(2):
+        assert torch.equal(tsem.semantic_scores(z, w, b, q), first)
+    torch.cuda.synchronize()
+
+
+def test_semantic_scores_constants_agree_with_the_wrapper(cuda):
+    lib = build.library()
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for p, n, hs in ((2, 4278, 128), (1, 10, 128), (2, 4278, 256),
+                     (8, 4278, 128)):
+        tile = lib.semantic_scores_tile_rows(p, n, 64, hs)
+        # the least of 64, 72, 80, 96, 128 rows that fits one wave (64
+        # where none does, or where Hs > 128)
+        fits = [t for t in (64, 72, 80, 96, 128)
+                if p * -(-n // t) <= n_sm] if hs <= 128 else []
+        assert tile == (fits[0] if fits else 64)
+    for d in (1, 7, 8, 64, 100, 208, 1000):
+        for hs in (1, 7, 33, 128, 129, 256):
+            assert lib.semantic_scores_smem_bytes(d, hs) == tsem.smem_bytes(
+                d, hs)
 
 
 def test_semantic_attention_kernel_arm_matches_plain(cuda):

@@ -166,15 +166,92 @@ def test_plain_and_emulated_scores_match_jax_and_pallas(p, n, d, block_n,
         np.testing.assert_allclose(got.numpy(), pallas, **TOL)
 
 
-def test_emulated_scores_sum_blocks_in_order():
-    """Rows past N add nothing, and the emulation walks whole blocks of
-    ``ROWS_PER_BLOCK`` rows: N = 1 and N = 2 blocks + 1 row."""
-    for n in (1, 2 * tsem.ROWS_PER_BLOCK + 1):
+def _kernel_order_sum(score, n, tile):
+    """The scores kernel's sums written out one add at a time: row scores
+    ``[P, N]`` -> ``[P]``.  Tiles of ``tile`` rows summed in row order,
+    lane ``l`` of 32 adds tiles ``l, l + 32, ...`` in order, then the xor
+    butterfly over the lanes (lane 0's view), then / N."""
+    n_tiles = -(-n // tile)
+    out = []
+    for row in score:
+        partial = []
+        for t in range(n_tiles):
+            v = torch.zeros((), dtype=score.dtype)
+            for r in range(t * tile, min(n, (t + 1) * tile)):
+                v = v + row[r]
+            partial.append(v)
+        lanes = []
+        for lane in range(32):
+            v = torch.zeros((), dtype=score.dtype)
+            for t in range(lane, n_tiles, 32):
+                v = v + partial[t]
+            lanes.append(v)
+        while len(lanes) > 1:
+            half = len(lanes) // 2
+            lanes = [lanes[i] + lanes[i + half] for i in range(half)]
+        out.append(lanes[0] / n)
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("tile", [64, 72, 128])
+def test_emulated_scores_sum_blocks_in_order(tile):
+    """The emulation sums in the kernel's order, bitwise: rows within a
+    tile, tiles lane-strided, the lanes' butterfly, at the smallest tile,
+    the main path's (72 rows) and the largest.  N = 1, N = 2 tiles + 1 row,
+    and N of 33 tiles + 1 row (more tiles than lanes: lane 0 adds two
+    tiles), each also held against JAX."""
+    for n in (1, 2 * tile + 1, 33 * tile + 1):
         c = _case(n, 2, n, 8)
         z, w, b, q = _t(c, "z", "W", "b", "q")
-        np.testing.assert_allclose(
-            tsem.semantic_scores_emulate(z, w, b, q).numpy(), _jax_scores(c),
-            **TOL)
+        got = tsem.semantic_scores_emulate(z, w, b, q, tile)
+        score = (torch.tanh(z @ w + b) * q).sum(-1)
+        assert torch.equal(got, _kernel_order_sum(score, n, tile))
+        np.testing.assert_allclose(got.numpy(), _jax_scores(c), **TOL)
+
+
+@pytest.mark.parametrize("p,n,d,hs,block_n,budget", [
+    (2, 130, 16, 33, 64, None),  # resident; N and Hs off the tile and warp
+    (2, 130, 16, 33, 32, 2048),  # streaming, the same shapes
+    (1, 65, 8, 7, 32, None),  # one metapath, a one-row last tile
+    (1, 65, 8, 7, 16, 256),  # streaming, one metapath
+    (3, 2113, 12, 20, 256, None),  # 34 tiles: lanes 0 and 1 add two
+    (3, 2113, 12, 20, 512, 8192),  # streaming, the same shapes
+])
+def test_emulated_scores_match_jax_at_edge_shapes(p, n, d, hs, block_n,
+                                                  budget):
+    """The emulation against the JAX ``semantic_scores`` (Pallas in
+    interpret mode, resident and streaming bodies) where N is not a
+    multiple of the kernel's tile, Hs not a multiple of 32, and P = 1."""
+    c = _case(p * 10000 + n + hs, p, n, d, hs)
+    z, w, b, q = _t(c, "z", "W", "b", "q")
+    jz, jw, jb, jq = _j(c, "z", "W", "b", "q")
+    kw = {} if budget is None else {"vmem_budget": budget}
+    pallas = np.asarray(jsem.semantic_scores(jz, jw, jb, jq,
+                                             block_n=block_n, interpret=True,
+                                             **kw))
+    np.testing.assert_allclose(pallas, _jax_scores(c), **TOL)
+    for tile in (64, 72, 128):
+        got = tsem.semantic_scores_emulate(z, w, b, q, tile)
+        assert got.shape == (p,)
+        np.testing.assert_allclose(got.numpy(), pallas, **TOL)
+
+
+def test_scores_smem_limit_takes_every_shape_the_layout_fits():
+    """``check_scores_args`` refuses exactly where the kernel's shared
+    memory at its smallest tile (W padded to multiples of 4, the z ring, a
+    tile's row scores) passes the limit: at Hs = 256 the widest D is
+    208."""
+    def meta(d, hs):
+        return _scores_meta(z=torch.empty((2, 10, d), device="meta"),
+                            w=torch.empty((d, hs), device="meta"),
+                            b=torch.empty((hs,), device="meta"),
+                            q=torch.empty((hs,), device="meta"))
+
+    assert tsem.smem_bytes(208, 256) <= tsem.SMEM_LIMIT
+    assert tsem.smem_bytes(209, 256) > tsem.SMEM_LIMIT
+    tsem.check_scores_args(**meta(208, 256))
+    with pytest.raises(ValueError, match="shared memory"):
+        tsem.check_scores_args(**meta(209, 256))
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
