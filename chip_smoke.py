@@ -14,14 +14,23 @@ every relation) for 1 and 2 layers on the padded and the 3-bucket layouts,
 plus one RGCN forward on synthetic DBLP, and MAGNN full-graph inference on
 synthetic IMDB (hidden 64, 8 heads, 16 instances a target, metapaths MDM
 and MAM) for 1 and 2 layers with and without hot-feature residency (256
-rows a type), plus HAN and RGCN with residency — and LM serving of
+rows a type), plus HAN and RGCN with residency; HAN on synthetic IMDB in
+its baseline ``csr`` layout (separate SDDMM, segment max, segment softmax
+and SpMM, whose sums are the fixed-order ``segment_sum`` kernel) and its
+3-bucket layout (one unstacked ``gat_na`` launch a degree bucket), for 1
+and 2 layers, with and without residency, and the paper's Fig. 5c (HAN's
+NA device time by layout); GCN on the synthetic Reddit-like graph (602
+features, hidden 64) at the CLI's scale 0.1 for 1 and 2 layers, with and
+without residency, and one forward at the paper's 232,965 nodes — and LM
+serving of
 granite-8b: the prefill and decode kernels against their plain versions at
 the granite and h2o-danube shapes, granite at full width and 2 layers in
 fp32 (kernel arm against plain arm, teacher-forced), and the full 36-layer
 bf16 granite through ``ServeEngine.generate`` (4 prompts of 2048 tokens,
 32 greedy tokens each, twice).  It checks the logits (the kernel arm
-against the plain arm, cached against uncached bitwise) and the kernels'
-launch counts, and times every kernel beside its bound.  It imports
+against the plain arm, cached against uncached bitwise, two runs bitwise
+on the new paths) and the kernels' launch counts, and times every kernel
+beside its bound.  It imports
 nothing of jax or of the JAX package ``repro``.
 
 Output: progress lines, then the card's name and power limit as
@@ -231,19 +240,26 @@ def gat_na_work(h_dst, h_src, nbr, mask, hs: int):
 
 def device_kernels(fn) -> list:
     """Names of the device kernels (and copies) that one call of ``fn``
-    runs, by torch.profiler, after a warm-up call."""
+    runs, by torch.profiler, after a warm-up call.  A profile that holds
+    no device event at all (a call runs at least one kernel) is a failed
+    trace, not an answer: it is taken again, up to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+        print(f"  (profile {attempt + 1} held no device event: again)")
+    return names
 
 
 def spmm_work(n_src_cols: int, nbr, mask):
@@ -542,21 +558,29 @@ def magnn_kernels_vs_plain(built, results: dict):
 
 
 def drive_variant(cfg, hg, dev, tag: str, per_forward, cpu_check: bool,
-                  forward_ms: dict, profiles: dict) -> dict:
+                  forward_ms: dict, profiles: dict, twice: bool = False,
+                  keep: dict = None) -> dict:
     """Drive one configuration through ``build_hgnn_infer`` +
     ``HGNNInferEngine``: ITERS forwards with every launch count set to 0
     just before and read just after, held equal to ``per_forward(batch)``
     (kernel -> launches a forward; the rest 0) times ITERS; logits finite
-    and of the target's shape; against the plain arm on the card and, with
+    and of the target's shape; with ``twice``, a further forward bitwise
+    equal to the last; against the plain arm on the card and, with
     ``cpu_check``, on the CPU; then walls and a profile.  Returns the
-    counts and the logits."""
+    counts and the logits; ``keep`` receives the built model."""
     import torch
     from repro_torch.core.models import get_model
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_hgnn_infer
     from repro_torch.serve.engine import HGNNInferEngine
 
+    t0 = time.perf_counter()
     b = build_hgnn_infer(cfg, hg, dev)
+    torch.cuda.synchronize()
+    print(f"  {tag}: build_hgnn_infer (host tables, residency, copy to the "
+          f"card) {time.perf_counter() - t0:.2f} s", flush=True)
+    if keep is not None:
+        keep["built"] = b
     engine = HGNNInferEngine(b.executor, b.params, b.batch, fn=b.fn)
     ops.reset_launch_counts()
     for _ in range(ITERS):
@@ -570,6 +594,9 @@ def drive_variant(cfg, hg, dev, tag: str, per_forward, cpu_check: bool,
     check(tuple(logits.shape) == (rows, cfg.n_classes)
           and bool(torch.isfinite(logits).all()),
           f"{tag}: logits {tuple(logits.shape)} finite")
+    if twice:
+        check(torch.equal(engine.infer(), logits),
+              f"{tag}: a second run gives the same bits")
     plain_model = get_model(cfg.replace(use_pallas=False))
     with torch.inference_mode():
         plain = plain_model.forward(b.params, b.batch)
@@ -620,6 +647,182 @@ def rgcn_dblp(dev, forward_ms: dict, profiles: dict) -> int:
     return drive_variant(cfg, hg, dev, "rgcn/dblp L=1 padded",
                          segment_spmm_launches(1), False, forward_ms,
                          profiles)[0]["segment_spmm"]
+
+
+def segment_sum_work(vals, seg, n: int, idx=None, mean: bool = False):
+    """Bytes and operations of one ``segment_sum`` call on these inputs:
+    seg (and idx) once, each value (the plain form) or each table row that
+    an edge names (the gather form) once, the output once; an add per edge
+    and column, and a divide per output for the mean."""
+    e, c = seg.shape[0], vals.shape[1]
+    rows = e if idx is None else int(idx.unique().numel())
+    n_bytes = 4 * e * (1 if idx is None else 2) + 4 * rows * c + 4 * n * c
+    return n_bytes, e * c + (n * c if mean else 0)
+
+
+def capture_segment_sums(fn) -> list:
+    """Run ``fn`` once with ``ops.segment_sum``, the stages' entry to the
+    kernel, recorded: the ``(vals, seg, n, idx, mean)`` of each call in
+    order, the main path's own inputs."""
+    import torch
+    from repro_torch.kernels import ops
+
+    calls = []
+    orig = ops.segment_sum
+
+    def record(vals, seg, n, idx=None, mean=False):
+        calls.append((vals, seg, n, idx, mean))
+        return orig(vals, seg, n, idx=idx, mean=mean)
+
+    ops.segment_sum = record
+    try:
+        with torch.inference_mode():
+            fn()
+    finally:
+        ops.segment_sum = orig
+    return calls
+
+
+def segment_sum_vs_plain(tag: str, calls: list, results: dict) -> None:
+    """Phase 2d: each recorded call's kernel output bitwise against the
+    plain version run on the CPU (``index_add_``, index order) and against
+    a second run; one device kernel a call."""
+    import torch
+    from repro_torch.kernels import segment_sum as tss
+
+    rec = results.setdefault("segment_sum", {
+        "max_abs_err": 0.0, "tolerance": "bitwise (vs the plain version "
+        "on the CPU)", "checked": []})
+    with torch.inference_mode():
+        for i, (vals, seg, n, idx, mean) in enumerate(calls):
+            out = tss.segment_sum(vals, seg, n, idx=idx, mean=mean)
+            want = tss.segment_sum_plain(
+                vals.cpu(), seg.cpu(), n,
+                idx=None if idx is None else idx.cpu(), mean=mean)
+            err = max_err(out.cpu(), want)
+            lens = torch.bincount(seg.long(), minlength=n)
+            form = "gather mean" if idx is not None else "sum"
+            what = (f"segment_sum {tag} call {i} ({form}): vals "
+                    f"{tuple(vals.shape)}, E {seg.numel()}, N {n}, "
+                    f"{int((lens == 0).sum())} empty segments, the longest "
+                    f"{int(lens.max())}")
+            print(f"  {what}")
+            check(torch.equal(out.cpu(), want),
+                  f"{what}: bitwise equal to the plain version on the CPU "
+                  f"(max |err| {err:.3e})")
+            check(torch.equal(out, tss.segment_sum(vals, seg, n, idx=idx,
+                                                   mean=mean)),
+                  f"segment_sum {tag} call {i}: two runs give the same bits")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["checked"].append({"case": f"{tag} call {i} ({form})",
+                                   "E": int(seg.numel()), "N": n,
+                                   "C": int(vals.shape[1]),
+                                   "max_abs_err": err})
+        vals, seg, n, idx, mean = calls[0]
+        names = device_kernels(lambda: tss.segment_sum(vals, seg, n, idx=idx,
+                                                       mean=mean))
+        check(len(names) == 2 and "segment_sum_kernel" in names[0]
+              and "segment_sum_long_kernel" in names[1],
+              f"segment_sum {tag}: two device kernels a call, the segments "
+              f"then the long ones ({names})")
+
+
+def bucket_calls(built) -> list:
+    """The unstacked ``gat_na`` calls of HAN's bucketed layer 0, one a
+    degree bucket: ``[(tag, (p, h_dst, h_src, nbr, mask))]``."""
+    import torch
+
+    ex, params, batch = built.executor, built.params, built.batch
+    with torch.inference_mode():
+        h = ex.fp(params, batch)  # [N, H, Dh]
+    calls = []
+    for (path, bks), p_i in zip(zip(built.plan.metapaths, batch["buckets"]),
+                                params["gat"]):
+        for rid, nbr, mask in bks:
+            calls.append((f"{''.join(path)} K={nbr.shape[1]}",
+                          (p_i, h.index_select(0, rid.long()), h, nbr,
+                           mask)))
+    return calls
+
+
+def gat_na_buckets_vs_plain(calls: list, results: dict) -> None:
+    """Phase 2e: the unstacked ``gat_na`` on each HAN/imdb degree bucket
+    against its plain version; rows with no live slot exactly 0; the same
+    bits twice."""
+    import torch
+    from repro_torch.kernels import gat_na as tgat
+
+    errs = []
+    with torch.inference_mode():
+        for tag, args in calls:
+            out = tgat.gat_na(*args)
+            want = tgat.gat_na_plain(*args)
+            torch.cuda.synchronize()
+            errs.append(max_err(out, want))
+            mask = args[4]
+            dead = mask.sum(dim=1) == 0
+            check(close(out, want, **TOL_Z)
+                  and bool((out[dead] == 0).all())
+                  and torch.equal(out, tgat.gat_na(*args)),
+                  f"gat_na bucket {tag}: {mask.shape[0]} rows, "
+                  f"{int((mask != 0).sum())} live slots: vs plain max |err| "
+                  f"{errs[-1]:.3e} (tol {TOL_Z}); {int(dead.sum())} rows with "
+                  f"no live slot exactly 0; the same bits twice")
+    results["gat_na_bucketed"] = {"max_abs_err": max(errs),
+                                  "tolerance": TOL_Z}
+
+
+def na_profile(built, tag: str, profiles: dict) -> float:
+    """Device ms of one NA stage (layer 0, after its FP) under the
+    profiler: the paper's Fig. 5c measures NA alone."""
+    import torch
+
+    ex, params, batch = built.executor, built.params, built.batch
+    with torch.inference_mode():
+        h = ex.fp(params, batch)
+
+    def na():
+        with torch.inference_mode():
+            return ex.na(params, batch, h)
+
+    profiles[tag] = profile_forward(types.SimpleNamespace(infer=na), tag)
+    return profiles[tag]["device_busy_ms"]
+
+
+def segment_sum_timing(call, flush) -> dict:
+    """One ``segment_sum`` call timed cold and warm beside its bound, its
+    plain version on the card, ``index_add_`` (one call, atomic, on rows
+    gathered beforehand: the sum alone) and, for the gather mean,
+    ``torch.sparse.mm`` by the matrix of 1/len weights (the whole
+    function in one call)."""
+    import torch
+    from repro_torch.kernels import segment_sum as tss
+
+    vals, seg, n, idx, mean = call
+    seg_l = seg.long()
+    rows = vals if idx is None else vals[idx.long()]
+    acc = torch.zeros((n, vals.shape[1]), device=vals.device)
+    kern = lambda: tss.segment_sum(vals, seg, n, idx=idx,  # noqa: E731
+                                   mean=mean)
+    n_bytes, n_ops = segment_sum_work(vals, seg, n, idx, mean)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    rec = {"ms": time_ms(kern, 50, flush), "warm_ms": time_ms(kern, 50),
+           "plain_ms": time_ms(lambda: tss.segment_sum_plain(
+               vals, seg, n, idx=idx, mean=mean), 20, flush),
+           "library_ms": time_ms(lambda: acc.index_add_(0, seg_l, rows), 50,
+                                 flush),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+           "operations": n_ops, "E": int(seg.numel()), "N": n,
+           "C": int(vals.shape[1])}
+    if idx is not None:
+        lens = torch.bincount(seg_l, minlength=n).clamp(min=1)
+        w = (1.0 / lens.float())[seg_l]
+        csr = torch.sparse_coo_tensor(torch.stack([seg_l, idx.long()]), w,
+                                      (n, vals.shape[0])).coalesce()
+        csr = csr.to_sparse_csr()
+        rec["sparse_mm_ms"] = time_ms(lambda: torch.sparse.mm(csr, vals), 50,
+                                      flush)
+    return rec
 
 
 # LM serving (granite-8b): its two kernels, the 2-layer full-width arm
@@ -898,7 +1101,8 @@ def granite_serve(dev, ops, profiles: dict) -> dict:
 
 SASS_KERNELS = ("flash_attention_tc_kernel", "decode_split_kernel",
                 "fused_fp_na_kernel", "segment_spmm_kernel", "gat_na_kernel",
-                "semantic_scores_kernel", "semantic_combine_kernel")
+                "semantic_scores_kernel", "semantic_combine_kernel",
+                "segment_sum_long_kernel")
 
 
 def sass_counts(lib_path: str):
@@ -961,6 +1165,7 @@ def hgnn_instructions() -> dict:
     spmm = counts["segment_spmm_kernel"]
     sc, comb = counts["semantic_scores_kernel"], counts[
         "semantic_combine_kernel"]
+    ssum = counts["segment_sum_long_kernel"]
     print(f"  SASS: fused_fp_na_kernel HMMA {ffn['HMMA']}, LDGSTS "
           f"{ffn['LDGSTS']}; gat_na_kernel<fused> LDGSTS {gat['LDGSTS']} "
           f"(16-byte {gat['LDGSTS.128']}), LDS.128 {gat['LDS.128']}, FFMA "
@@ -970,7 +1175,8 @@ def hgnn_instructions() -> dict:
           f"semantic_scores_kernel LDGSTS {sc['LDGSTS']} (16-byte "
           f"{sc['LDGSTS.128']}), LDS.128 {sc['LDS.128']}, HMMA {sc['HMMA']}, "
           f"FFMA {sc['FFMA']}; semantic_combine_kernel LDG.128 "
-          f"{comb['LDG.128']}")
+          f"{comb['LDG.128']}; segment_sum_long_kernel LDGSTS "
+          f"{ssum['LDGSTS']} (16-byte {ssum['LDGSTS.128']})")
     check(ffn["HMMA"] > 0 and ffn["LDGSTS"] > 0,
           "fused_fp_na gathers by cp.async (LDGSTS) and multiplies on the "
           "tensor cores (HMMA)")
@@ -984,10 +1190,13 @@ def hgnn_instructions() -> dict:
           "multiplies by FFMA from 16-byte shared loads")
     check(comb["LDG.128"] > 0,
           "semantic_combine reads z in 16-byte global loads (LDG.128)")
+    check(ssum["LDGSTS.128"] > 0,
+          "segment_sum's long-segment kernel streams rows by cp.async "
+          "(16-byte LDGSTS)")
     return {name: counts[name] for name in
             ("fused_fp_na_kernel", "gat_na_kernel fused", "gat_na_kernel",
              "segment_spmm_kernel", "semantic_scores_kernel",
-             "semantic_combine_kernel")}
+             "semantic_combine_kernel", "segment_sum_long_kernel")}
 
 
 def attention_instructions() -> dict:
@@ -1126,6 +1335,7 @@ def main() -> None:
     from repro_torch.kernels import fused_fp_na as tffn
     from repro_torch.kernels import gat_na as tgat
     from repro_torch.kernels import segment_spmm as tspmm
+    from repro_torch.kernels import segment_sum as tss
     from repro_torch.kernels import semantic_attn as tsem
     from repro_torch.launch.serve import build_hgnn_infer
     from repro_torch.nn import transformer  # noqa: F401
@@ -1237,11 +1447,51 @@ def main() -> None:
                    cache_rows=CACHE_ROWS), hg, dev)
     gathers, gat_args, sa_args = magnn_kernels_vs_plain(magnn_built, results)
 
+    print("phase 2d: segment_sum at the GCN/Reddit (scale 0.1) and the "
+          "HAN/imdb csr shapes, bitwise against its plain version on the CPU")
+    t0 = time.perf_counter()
+    hg_r = make_dataset("reddit")
+    print(f"  reddit (scale 0.1) built in {time.perf_counter() - t0:.2f} s: "
+          f"{hg_r.node_counts['N']} nodes, "
+          f"{hg_r.relations[('N', 'nn', 'N')].nnz} edges after symmetrising")
+    cfg_g = HGNNConfig(model="gcn", dataset="reddit")
+    gcn_built = build_hgnn_infer(cfg_g, hg_r, dev)
+    with torch.inference_mode():
+        h_g = gcn_built.executor.fp(gcn_built.params, gcn_built.batch)
+    gcn_calls = capture_segment_sums(lambda: gcn_built.executor.na(
+        gcn_built.params, gcn_built.batch, h_g))
+    check(len(gcn_calls) == 2, f"GCN NA: {len(gcn_calls)} segment sums (2)")
+    segment_sum_vs_plain("gcn/reddit", gcn_calls, results)
+    cfg_hc = HGNNConfig(model="han", dataset="imdb", fused=False,
+                        use_pallas=True)
+    han_csr = build_hgnn_infer(cfg_hc, hg, dev)
+    for path, (seg_p, _) in zip(han_csr.plan.metapaths,
+                                han_csr.batch["edges"]):
+        print(f"  HAN/imdb csr {''.join(path)}: E = {seg_p.numel()} edges "
+              f"(msg [E, H, Dh] is {seg_p.numel() * 64 * 4 / 2 ** 20:.1f} "
+              f"MiB)")
+    with torch.inference_mode():
+        h_c = han_csr.executor.fp(han_csr.params, han_csr.batch)
+    csr_calls = capture_segment_sums(lambda: han_csr.executor.na(
+        han_csr.params, han_csr.batch, h_c))
+    check(len(csr_calls) == 4,
+          f"HAN csr NA: {len(csr_calls)} segment sums (2 a metapath)")
+    segment_sum_vs_plain("han/imdb csr", csr_calls, results)
+
+    print("phase 2e: the unstacked gat_na on each HAN/imdb degree bucket "
+          "(bucket_padded, 3 buckets a metapath)")
+    cfg_hb = HGNNConfig(model="han", dataset="imdb", fused=True,
+                        degree_buckets=3, use_pallas=True)
+    han_bk = build_hgnn_infer(cfg_hb, hg, dev)
+    bk_calls = bucket_calls(han_bk)
+    gat_na_buckets_vs_plain(bk_calls, results)
+
     # ---------------- phase 3: the main paths ----------------
     print("phase 3: HAN/imdb full-graph inference through the entry points")
     main_counts = {"gat_na": 0, "gat_na_fused_sa": 0, "semantic_combine": 0,
                    "segment_spmm": 0, "fused_fp_na": 0, "cached_gather": 0,
-                   "gat_na_unstacked": 0, "semantic_scores": 0}
+                   "gat_na_unstacked": 0, "semantic_scores": 0,
+                   "segment_sum": 0, "gat_na_bucketed": 0}
     forward_ms, profiles, logits_of = {}, {}, {}
 
     def add_counts(counts):  # a HAN or RGCN variant's launches
@@ -1322,8 +1572,8 @@ def main() -> None:
               f"{tag}: logits bitwise equal to the uncached run")
         add_counts(counts)
 
-    # the csr arm sums with index_add_, which adds with atomics on the
-    # card (ROADMAP Queue 3 check (d)): held by tolerance, not bitwise
+    # the csr arm's segment mean is the fixed-order segment_sum kernel:
+    # held bitwise to the uncached run (and still by tolerance)
     cfg_csr = HGNNConfig(model="rgcn", dataset="imdb", fused=False)
     with torch.inference_mode():
         csr_runs = {}
@@ -1336,6 +1586,11 @@ def main() -> None:
           f"rgcn L=1 csr cache_rows={CACHE_ROWS}: logits vs the uncached run "
           f"max |err| {err:.3e} (tol {TOL_LOGITS}; two uncached runs "
           f"bitwise equal: {torch.equal(*csr_runs[0])})")
+    check(torch.equal(csr_runs[0][0], csr_runs[CACHE_ROWS][0]),
+          f"rgcn L=1 csr cache_rows={CACHE_ROWS}: logits bitwise equal to "
+          f"the uncached run")
+    check(torch.equal(*csr_runs[0]) and torch.equal(*csr_runs[CACHE_ROWS]),
+          "rgcn L=1 csr: two runs give the same bits, cached and uncached")
 
     print("phase 3g: both SA passes through their entry point "
           "ops.semantic_attention (no executor path reaches it)")
@@ -1358,6 +1613,93 @@ def main() -> None:
     profiles["ops.semantic_attention"] = profile_forward(
         types.SimpleNamespace(infer=lambda: ops.semantic_attention(
             *sa_args, use_pallas=True)), "ops.semantic_attention")
+
+    print("phase 3h: HAN/imdb in the csr and 3-bucket layouts through the "
+          "entry points, without and with residency")
+
+    def han_layout_launches(layout, layers):
+        if layout == "csr":  # the denominator and the SpMM a metapath
+            return lambda batch: {"segment_sum": 2 * layers
+                                  * len(batch["edges"])}
+        return lambda batch: {"gat_na": layers * sum(
+            len(bks) for bks in batch["buckets"])}
+
+    han_layouts = (("csr", cfg_hc), ("bucketed 3", cfg_hb))
+    for layers in (1, 2):
+        for name, cfg in han_layouts:
+            tag = f"han L={layers} {name}"
+            counts, logits_of[tag] = drive_variant(
+                cfg.replace(layers=layers), hg, dev, tag,
+                han_layout_launches(name, layers), True, forward_ms,
+                profiles, twice=True)
+            main_counts["segment_sum"] += counts["segment_sum"]
+            main_counts["gat_na_bucketed"] += counts["gat_na"]
+    for name, cfg in han_layouts:
+        tag = f"han L=1 {name} cache_rows={CACHE_ROWS}"
+        counts, logits_of[tag] = drive_variant(
+            cfg.replace(cache_rows=CACHE_ROWS), hg, dev, tag,
+            han_layout_launches(name, 1), False, forward_ms, profiles,
+            twice=True)
+        check(torch.equal(logits_of[tag], logits_of[f"han L=1 {name}"]),
+              f"{tag}: logits bitwise equal to the uncached run")
+        main_counts["segment_sum"] += counts["segment_sum"]
+        main_counts["gat_na_bucketed"] += counts["gat_na"]
+
+    print("phase 3i: GCN on the Reddit-like graph (scale 0.1) through the "
+          "entry points, without and with residency")
+    for layers in (1, 2):
+        for c in (0, CACHE_ROWS):
+            tag = f"gcn/reddit L={layers} cache_rows={c}"
+            counts, logits_of[tag] = drive_variant(
+                cfg_g.replace(layers=layers, cache_rows=c), hg_r, dev, tag,
+                lambda batch, n=layers: {"segment_sum": 2 * n},
+                layers == 1 and c == 0, forward_ms, profiles, twice=True)
+            main_counts["segment_sum"] += counts["segment_sum"]
+        check(torch.equal(logits_of[tag],
+                          logits_of[f"gcn/reddit L={layers} cache_rows=0"]),
+              f"gcn/reddit L={layers}: cached logits bitwise equal to "
+              f"uncached")
+
+    print("phase 3j: GCN on the Reddit-like graph at the paper's size "
+          "(scale 1.0), one layer")
+    t0 = time.perf_counter()
+    hg_big = make_dataset("reddit", scale=1.0)
+    print(f"  reddit (scale 1.0) built in {time.perf_counter() - t0:.2f} s "
+          f"on the host: {hg_big.node_counts['N']} nodes x 602 features, "
+          f"{hg_big.relations[('N', 'nn', 'N')].nnz} edges after "
+          f"symmetrising", flush=True)
+    keep = {}
+    counts, logits_big = drive_variant(
+        cfg_g, hg_big, dev, "gcn/reddit-1.0 L=1",
+        lambda batch: {"segment_sum": 2}, False, forward_ms, profiles,
+        twice=True, keep=keep)
+    main_counts["segment_sum"] += counts["segment_sum"]
+    big = keep.pop("built")
+    with torch.inference_mode():
+        h_big = big.executor.fp(big.params, big.batch)
+    big_calls = capture_segment_sums(lambda: big.executor.na(
+        big.params, big.batch, h_big))
+    flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        segment_sum_shapes = {"gcn/reddit-1.0 aggregation 1":
+                              segment_sum_timing(big_calls[0], flush)}
+    del big, h_big, big_calls, hg_big, logits_big, keep
+    torch.cuda.empty_cache()
+
+    print("phase 3k: the paper's Fig. 5c on this card: HAN/imdb NA device "
+          "time by layout (layer 0, profiler)")
+    fig5c = {}
+    for name, cfg in (
+            ("csr", cfg_hc), ("bucketed 3", cfg_hb),
+            ("stacked", cfg1.replace(fuse_na_sa=False)),
+            ("stacked +fused SA pass 1", cfg1),
+            ("bucketed 3 plain", cfg_hb.replace(use_pallas=False)),
+            ("stacked plain", cfg1.replace(fuse_na_sa=False,
+                                           use_pallas=False))):
+        fig5c[name] = na_profile(build_hgnn_infer(cfg, hg, dev),
+                                 f"han/imdb NA {name}", profiles)
+    print("  Fig. 5c, HAN/imdb NA device ms a forward: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in fig5c.items()))
 
     # ---------------- phase 4: timing ----------------
     print("phase 4: kernel times (CUDA events, median; cold = L2 flushed)")
@@ -1487,6 +1829,47 @@ def main() -> None:
             lambda: tsem.semantic_scores(*sa_args),
             lambda: tsem.semantic_scores_plain(*sa_args), None,
             scores_work(sa_args[0], sa_args[1]))
+        # segment_sum: GCN/Reddit's first aggregation (scale 0.1), with
+        # index_add_ of the gathered rows as the library yardstick; each
+        # HAN/imdb csr call and GCN's second aggregation on their own
+        vals_g, seg_g, n_g_seg, idx_g, mean_g = gcn_calls[0]
+        rows_g = vals_g[idx_g.long()]
+        acc_g = torch.zeros((n_g_seg, vals_g.shape[1]), device=dev)
+        seg_gl = seg_g.long()
+        timed["segment_sum"] = (
+            lambda: tss.segment_sum(vals_g, seg_g, n_g_seg, idx=idx_g,
+                                    mean=mean_g),
+            lambda: tss.segment_sum_plain(vals_g, seg_g, n_g_seg, idx=idx_g,
+                                          mean=mean_g),
+            lambda: acc_g.index_add_(0, seg_gl, rows_g),
+            segment_sum_work(vals_g, seg_g, n_g_seg, idx_g, mean_g))
+        segment_sum_shapes["gcn/reddit aggregation 2"] = segment_sum_timing(
+            gcn_calls[1], flush)
+        for i, call in enumerate(csr_calls):
+            segment_sum_shapes[
+                f"han/imdb csr {''.join(han_csr.plan.metapaths[i // 2])} "
+                f"{'denominator' if i % 2 == 0 else 'SpMM'}"] = \
+                segment_sum_timing(call, flush)
+        for tag, rec in segment_sum_shapes.items():
+            print(f"  segment_sum {tag} (E {rec['E']}, N {rec['N']}, C "
+                  f"{rec['C']}): {rec['ms']:.5f} ms cold, {rec['warm_ms']:.5f} "
+                  f"ms warm (plain {rec['plain_ms']:.5f}, bound "
+                  f"{rec['bound_ms']:.5f} by {rec['bound_by']}, index_add_ "
+                  f"{rec['library_ms']:.5f}"
+                  + (f", sparse.mm {rec['sparse_mm_ms']:.5f}"
+                     if "sparse_mm_ms" in rec else "") + ")")
+        # gat_na on the buckets: each launch alone, then one HAN/imdb
+        # layer's launches together (the kernels line's entry)
+        for tag, a in bk_calls:
+            bk_ms = time_ms(lambda a=a: tgat.gat_na(*a), 50, flush)
+            print(f"  gat_na bucket {tag}: {a[4].shape[0]} rows, "
+                  f"{bk_ms:.5f} ms cold")
+        timed["gat_na_bucketed"] = (
+            layer_of([lambda a=a: tgat.gat_na(*a) for _, a in bk_calls]),
+            layer_of([lambda a=a: tgat.gat_na_plain(*a)
+                      for _, a in bk_calls]), None,
+            summed([gat_na_work(a[1], a[2], a[3][None], a[4][None], 0)[:2]
+                    for _, a in bk_calls]))
         shapes = {
             "segment_spmm": "one RGCN/imdb layer: 4 launches, one per "
                             "relation, K=64, D=64",
@@ -1500,13 +1883,23 @@ def main() -> None:
                                 "instances [68448, 8, 8]",
             "semantic_scores": f"z {tuple(sa_args[0].shape)}, W "
                                f"{tuple(sa_args[1].shape)}",
+            "segment_sum": f"GCN/Reddit (scale 0.1) aggregation 1: table "
+                           f"{tuple(vals_g.shape)}, E {seg_g.numel()}, N "
+                           f"{n_g_seg}, gather mean",
+            "gat_na_bucketed": f"one HAN/imdb bucketed layer: {len(bk_calls)} "
+                               f"launches, one a degree bucket (K "
+                               f"{[a[3].shape[1] for _, a in bk_calls]}), "
+                               f"h_src [4278, 8, 8]",
         }
         library = {"semantic_combine": "torch.einsum",
                    "segment_spmm": "torch.sparse.mm (CSR of mask/deg, one "
                                    "call per relation)",
                    "fused_fp_na": "torch.sparse.mm then @ W (two calls)",
                    "cached_gather": "pool[idx] on the pre-built pool (one "
-                                    "call per launch)"}
+                                    "call per launch)",
+                   "segment_sum": "index_add_ of the rows gathered "
+                                  "beforehand (one call, float atomics; "
+                                  "the sum alone, no gather, no divide)"}
         kernels = []
         source = {"gat_na": "src/repro_torch/kernels/csrc/gat_na.cu",
                   "gat_na_fused_sa": "src/repro_torch/kernels/csrc/gat_na.cu",
@@ -1519,7 +1912,9 @@ def main() -> None:
                       "src/repro_torch/kernels/csrc/feature_cache.cu",
                   "gat_na_unstacked": "src/repro_torch/kernels/csrc/gat_na.cu",
                   "semantic_scores":
-                      "src/repro_torch/kernels/csrc/semantic_scores.cu"}
+                      "src/repro_torch/kernels/csrc/semantic_scores.cu",
+                  "segment_sum": "src/repro_torch/kernels/csrc/segment_sum.cu",
+                  "gat_na_bucketed": "src/repro_torch/kernels/csrc/gat_na.cu"}
         replaces = {"gat_na": "src/repro/kernels/gat_na.py:225",
                     "gat_na_fused_sa": "src/repro/kernels/gat_na.py:225",
                     "semantic_combine":
@@ -1529,7 +1924,10 @@ def main() -> None:
                     "cached_gather": "src/repro/kernels/feature_cache.py:34",
                     "gat_na_unstacked": "src/repro/kernels/gat_na.py:225",
                     "semantic_scores":
-                        "src/repro/kernels/semantic_attn.py:100"}
+                        "src/repro/kernels/semantic_attn.py:100",
+                    # port-only: XLA's jax.ops.segment_sum, no Pallas kernel
+                    "segment_sum": "src/repro/core/stages.py:308",
+                    "gat_na_bucketed": "src/repro/kernels/gat_na.py:225"}
         for name, (kern, plain, lib, work) in timed.items():
             ms = time_ms(kern, 50, flush)
             plain_ms = time_ms(plain, 20, flush)
@@ -1551,6 +1949,10 @@ def main() -> None:
                 entry["shape"] = shapes[name]
             if name in library:
                 entry["library"] = library[name]
+            if name == "segment_sum":
+                entry["note"] = ("port-only: the reference's "
+                                 "jax.ops.segment_sum runs in XLA, with no "
+                                 "TPU kernel behind it")
             kernels.append(entry)
             print(f"  {name}: {ms:.5f} ms cold, {warm_ms:.5f} ms warm "
                   f"(plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms by "
@@ -1587,6 +1989,8 @@ def main() -> None:
                       "hgnn_sass": hgnn_sass,
                       "segment_spmm_per_relation": per_relation,
                       "magnn_per_launch": magnn_per_launch,
+                      "segment_sum_shapes": segment_sum_shapes,
+                      "fig5c_han_na_device_ms": fig5c,
                       "lm": {"granite_2_layers_fp32": two_layers,
                              "granite_serve": serve},
                       "profiles": profiles}))

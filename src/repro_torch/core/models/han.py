@@ -6,12 +6,21 @@ Attention Sum.  Execution is a :class:`StagePlan` run by the stage-graph
 executor (:mod:`repro_torch.core.pipeline`); this module owns the
 host-side Subgraph Build and the plan.
 
-Ported: the optimized plan (``cfg.fused=True``), layout ``stacked``
-``[P, N, K]``; ``cfg.use_pallas`` runs the hand-written ``gat_na`` kernel,
-``cfg.fuse_na_sa`` fuses the SA pass-1 epilogue into it; ``cfg.cache_rows``
-turns on single-device hot-feature residency.  The baseline ``csr`` layout
-and the ``bucketed`` one, and the partitioned, sampled and overlap modes
-raise ``NotImplementedError`` naming their ROADMAP item.
+Layouts, as in the reference:
+
+* baseline (``cfg.fused=False``): ``csr`` — one edge list a metapath,
+  separate kernels (SDDMM, segment max, segment softmax, SpMM; the sums
+  are the fixed-order ``segment_sum`` kernel on the card), SA pays the
+  DR-Type concat;
+* optimized (``cfg.fused=True``): ``stacked`` ``[P, N, K]``, or
+  ``bucketed`` when ``cfg.degree_buckets > 1``.  ``cfg.use_pallas`` runs
+  the hand-written ``gat_na`` kernel (one launch for the stack, or one a
+  degree bucket); ``cfg.fuse_na_sa`` fuses the SA pass-1 epilogue into it
+  (stacked only).
+
+``cfg.cache_rows`` turns on single-device hot-feature residency.  The
+partitioned, sampled and overlap modes raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import numpy as np
 
 from repro_torch.configs.base import HGNNConfig
 from repro_torch.core import metapath as mp
+from repro_torch.core import stages
 from repro_torch.core.hgraph import HeteroGraph
 from repro_torch.core.pipeline import PlannedModel, not_ported
 from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
@@ -38,19 +48,26 @@ class HAN(PlannedModel):
     def plan(self) -> StagePlan:
         cfg = self.cfg
         if not cfg.fused:
-            raise not_ported("HAN's baseline csr layout (fused=False)", 6)
-        if cfg.degree_buckets > 1:
-            raise not_ported("HAN's bucketed layout (degree_buckets > 1)", 6)
+            layout = "csr"
+        elif cfg.degree_buckets > 1:
+            layout = "bucketed"
+        else:
+            layout = "stacked"
         if cfg.partitions >= 1:
+            if layout != "stacked":
+                raise ValueError(
+                    "partitioned HAN execution needs the stacked layout "
+                    "(fused=True, no degree buckets); got "
+                    f"layout={layout!r}")
             raise not_ported("graph-partitioned execution (partitions)", 12)
         if cfg.fanout >= 1:
             raise not_ported("request-path sampled serving (fanout)", 13)
         if cfg.overlap >= 1:
             raise not_ported("the async stage-graph schedule (overlap)", 14)
-        na = NASpec(kind="gat", layout="stacked", activation="elu",
+        na = NASpec(kind="gat", layout=layout, activation="elu",
                     use_pallas=cfg.use_pallas)
-        sa = SASpec(kind="attention", stacked=True,
-                    fuse_epilogue=cfg.fuse_na_sa)
+        sa = SASpec(kind="attention", stacked=cfg.fused,
+                    fuse_epilogue=cfg.fuse_na_sa and layout == "stacked")
         residency = (ResidencySpec(cache_rows=cfg.cache_rows)
                      if cfg.cache_rows >= 1 else None)
         # layer 0 projects the raw per-type features; the metapath graphs
@@ -71,20 +88,35 @@ class HAN(PlannedModel):
 
     # ---------------- Stage 1: Subgraph Build (host) ----------------
     def prepare(self, hg: HeteroGraph, device=None) -> Dict:
-        """Build the stacked ``[P, N, K]`` neighbor tables on the host (the
-        reference's RNG stream, so the tables are byte-equal to its own),
-        apply residency to them, and place the batch on ``device``
-        (default: the CUDA device)."""
+        """Build the layout's tables on the host, apply residency to them,
+        and place the batch on ``device`` (default: the CUDA device): the
+        stacked ``[P, N, K]`` neighbor tables, per metapath a list of
+        ``(row_ids, nbr, mask)`` degree buckets, or per metapath the
+        ``(seg, idx)`` edge list of its CSR subgraph.  The padded tables
+        draw from one ``np.random.default_rng(cfg.seed)`` over the
+        metapaths, as in the reference, so every table is byte-equal to
+        its own."""
         cfg = self.cfg
         dev = resolve_device(device)
-        rng = np.random.default_rng(cfg.seed)
-        subs = [mp.build_padded(hg, p, cfg.max_degree, rng)
-                for p in self.metapaths]
-        nbr, mask = mp.stack_padded(subs)
-        return self._finalize({
-            "feats": dict(hg.features),
-            "n_nodes": hg.node_counts[self.target],
-            "nbr": nbr,  # [P, N, K] int32
-            "mask": mask,
-            "feat_dims": {t: hg.feat_dim(t) for t in hg.features},
-        }, dev)
+        batch: Dict = {"feats": dict(hg.features),
+                       "n_nodes": hg.node_counts[self.target]}
+        if cfg.fused:
+            rng = np.random.default_rng(cfg.seed)
+            subs = [mp.build_padded(hg, p, cfg.max_degree, rng)
+                    for p in self.metapaths]
+            if cfg.degree_buckets > 1:
+                batch["buckets"] = [
+                    [(b.row_ids[i], b.nbr[i], b.mask[i])
+                     for i in range(b.n_buckets)]
+                    for b in (mp.bucket_padded(s, cfg.degree_buckets)
+                              for s in subs)]
+            else:
+                batch["nbr"], batch["mask"] = mp.stack_padded(subs)
+        else:
+            batch["edges"] = []
+            for p in self.metapaths:
+                csr = mp.build_csr(hg, p)
+                batch["edges"].append(stages.csr_to_edges(csr.indptr,
+                                                          csr.indices))
+        batch["feat_dims"] = {t: hg.feat_dim(t) for t in hg.features}
+        return self._finalize(batch, dev)

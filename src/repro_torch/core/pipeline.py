@@ -9,33 +9,43 @@ parameters live at the root of the parameter dict and hidden layers under
 so the reference's own parameters carry across unchanged
 (``repro_torch.interop.params_from_numpy``).
 
-Ported arms — HAN (slice 1), RGCN (slice 2) and MAGNN (slice 3)
-full-graph inference, each with single-device hot-feature residency:
+Ported arms — HAN (slices 1 and 9), RGCN (slice 2), MAGNN (slice 3) and
+GCN (slice 9) full-graph inference, each with single-device hot-feature
+residency:
 
 * FP ``per_type`` (layer 0; reshaped to heads when ``fp.heads``), the
   ``dense`` re-projection of HAN's hidden layers with the ``target``
   handoff, the ``identity`` FP of RGCN's hidden layers with the ``all``
-  handoff, and MAGNN's ``per_type`` hidden FP over the carried tables with
-  the ``target+carry`` handoff;
+  handoff, MAGNN's ``per_type`` hidden FP over the carried tables with
+  the ``target+carry`` handoff, and GCN's ``dense`` FP (``x @ w1``, then
+  ``[D, D]`` per hidden layer);
 * NA ``gat`` on the ``stacked`` ``[P, N, K]`` layout — plain, or ONE
   ``gat_na`` kernel launch for the whole stack (``na.use_pallas``), or that
-  launch with the fused NA→SA epilogue (``sa.fuse_epilogue``);
+  launch with the fused NA→SA epilogue (``sa.fuse_epilogue``); on the
+  ``bucketed`` layout — plain, or one unstacked ``gat_na`` launch a degree
+  bucket; on the ``csr`` edge lists — SDDMM, segment max, segment softmax
+  and SpMM as separate steps, whose sums are the fixed-order
+  ``segment_sum`` kernel on the card whatever ``na.use_pallas`` says (the
+  reference's ``csr`` arm ignores it too);
 * NA ``mean`` per relation on the ``padded``, ``bucketed`` and ``csr``
   layouts — with ``na.use_pallas`` the padded and bucketed arms launch the
-  ``segment_spmm`` kernel (one launch per relation, per bucket);
+  ``segment_spmm`` kernel (one launch per relation, per bucket); the
+  ``csr`` arm is the ``segment_sum`` kernel's segment mean on the card;
+* NA ``gcn``: ``agg(pool(relu(agg(pool(h)))))``, two segment means over
+  GCN's edge list;
 * NA ``instance`` on the ``instances`` layout (MAGNN): per metapath the
   positions' rows gathered, rotation-encoded and attended — plain, or one
   unstacked ``gat_na`` launch over the encoded instances;
 * residency (``plan.residency``): the NA gathers read a pool extended by
   the cache section of the hot rows (``_res_pool``), and MAGNN's hot
   instance positions go through the ``cached_gather`` kernel;
-* SA ``attention`` on the stack or on MAGNN's list, or, after the fused
-  epilogue, the O(P) softmax plus the ``semantic_combine`` kernel (with
-  the reference's closed-form ``row_mask`` correction for padded rows); SA
-  ``rel_sum``;
+* SA ``attention`` on the stack or on a list (MAGNN, HAN's ``csr``), or,
+  after the fused epilogue, the O(P) softmax plus the ``semantic_combine``
+  kernel (with the reference's closed-form ``row_mask`` correction for
+  padded rows); SA ``rel_sum``; SA ``none`` (GCN);
 * the ``linear`` and ``select_linear`` heads.
 
-:func:`check_ported` accepts exactly HAN's, RGCN's and MAGNN's
+:func:`check_ported` accepts exactly HAN's, RGCN's, MAGNN's and GCN's
 combinations of these arms.  Arms of later slices raise
 ``NotImplementedError`` naming their ROADMAP item, and combinations that
 no model of the reference declares raise too; no arm is served by another
@@ -58,9 +68,6 @@ from repro_torch.kernels import ops
 
 _ACT = {None: lambda x: x, "elu": F.elu, "relu": F.relu}
 
-# NA kinds of later slices -> the ROADMAP Queue 1 item that ports them
-_NA_KIND_ITEM = {"gcn": 10}
-
 
 def not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
@@ -79,8 +86,15 @@ def _fp_kinds(plan: StagePlan):
 
 
 def _check_han_arms(plan: StagePlan) -> None:
-    if plan.na.layout != "stacked" or not plan.sa.stacked:
-        raise not_ported(f"the {plan.na.layout!r} GAT layout", 6)
+    layout, sa = plan.na.layout, plan.sa
+    if layout not in ("stacked", "bucketed", "csr"):
+        raise no_such_arm(f"GAT NA on the {layout!r} layout")
+    # the csr arm hands SA a list; the fused epilogue is the stacked arm's
+    if sa.stacked != (layout != "csr") or (sa.fuse_epilogue
+                                           and layout != "stacked"):
+        raise no_such_arm(f"SA (stacked={sa.stacked}, fuse_epilogue="
+                          f"{sa.fuse_epilogue}) after GAT NA on the "
+                          f"{layout!r} layout")
     if plan.sa.kind != "attention":
         raise no_such_arm(f"SA kind {plan.sa.kind!r} after GAT NA")
     fp_kinds = _fp_kinds(plan)
@@ -125,10 +139,26 @@ def _check_magnn_arms(plan: StagePlan) -> None:
         raise no_such_arm(f"head kind {plan.head.kind!r} after instance NA")
 
 
+def _check_gcn_arms(plan: StagePlan) -> None:
+    if plan.na.layout != "csr" or plan.na.activation != "relu":
+        raise no_such_arm(f"GCN NA on the {plan.na.layout!r} layout with "
+                          f"activation {plan.na.activation!r}")
+    if plan.sa.kind != "none":
+        raise no_such_arm(f"SA kind {plan.sa.kind!r} after GCN NA")
+    fp_kinds = _fp_kinds(plan)
+    if fp_kinds != [("dense", False)] * plan.n_layers \
+            or plan.layers[0].handoff != "target":
+        raise no_such_arm(f"GCN NA with FP kinds {fp_kinds} and handoff "
+                          f"{plan.layers[0].handoff!r}")
+    if plan.head.kind != "linear" or plan.head.param != "w2":
+        raise no_such_arm(f"head {plan.head} after GCN NA")
+
+
 def check_ported(plan: StagePlan) -> None:
-    """Raise for any plan outside the ported slices (HAN's, RGCN's and
-    MAGNN's combinations of arms, each with or without single-device
-    residency), so that no arm is silently served by another one."""
+    """Raise for any plan outside the ported slices (HAN's, RGCN's,
+    MAGNN's and GCN's combinations of arms, each with or without
+    single-device residency), so that no arm is silently served by another
+    one."""
     if plan.partition is not None:
         raise not_ported(
             "graph-partitioned execution" + (
@@ -139,14 +169,14 @@ def check_ported(plan: StagePlan) -> None:
     if plan.schedule is not None:
         raise not_ported("the async stage-graph schedule", 14)
     kind = plan.na.kind
-    if kind in _NA_KIND_ITEM:
-        raise not_ported(f"NA kind {kind!r}", _NA_KIND_ITEM[kind])
     if kind == "gat":
         _check_han_arms(plan)
     elif kind == "mean":
         _check_rgcn_arms(plan)
     elif kind == "instance":
         _check_magnn_arms(plan)
+    elif kind == "gcn":
+        _check_gcn_arms(plan)
     else:
         raise ValueError(f"unknown NA kind {kind!r}")
 
@@ -170,12 +200,18 @@ class StageGraphExecutor:
         if self.plan.n_layers > 1:
             params["layers"] = [self._init_hidden_layer(gen, batch)
                                 for _ in range(1, self.plan.n_layers)]
-        device = next(iter(batch["feats"].values())).device
-        return _to_device(params, device)
+        x = batch["x"] if "x" in batch else next(iter(batch["feats"].values()))
+        return _to_device(params, x.device)
 
     def _init_layer0(self, gen: torch.Generator, batch: Dict) -> Dict:
         cfg = self.cfg
         d = cfg.hidden
+        if self.plan.na.kind == "gcn":
+            d_in = batch["feat_dim"]
+            return {"w1": torch.randn((d_in, d), generator=gen)
+                    / math.sqrt(d_in),
+                    "w2": torch.randn((d, cfg.n_classes), generator=gen)
+                    / math.sqrt(d)}
         params: Dict = {
             "fp": stages.init_feature_projection(gen, batch["feat_dims"], d)}
         params.update(self._init_na_sa(gen, batch))
@@ -185,7 +221,9 @@ class StageGraphExecutor:
 
     def _init_na_sa(self, gen: torch.Generator, batch: Dict) -> Dict:
         """The NA/SA block shared by layer 0 and every hidden layer: the
-        stacked per-metapath GAT vectors and the semantic attention (HAN),
+        per-metapath GAT vectors, stacked ``[P, H, Dh]`` for the stacked
+        layout (one launch) and a list for the others (no uniform K), and
+        the semantic attention (HAN),
         per-metapath instance attention and the semantic attention (MAGNN),
         or per-relation ``w_rel`` keyed by the relation tuples and per-type
         ``w_self`` (RGCN)."""
@@ -205,19 +243,21 @@ class StageGraphExecutor:
                 for _ in self.plan.metapaths], "sem": sem}
         gat = [stages.init_gat(gen, cfg.n_heads, d // cfg.n_heads)
                for _ in self.plan.metapaths]
-        return {
+        if self.plan.na.layout == "stacked":
             # one stacked param set -> ONE kernel launch for the stack
-            "gat": {k: torch.stack([g[k] for g in gat]) for k in gat[0]},
-            "sem": sem,
-        }
+            gat = {k: torch.stack([g[k] for g in gat]) for k in gat[0]}
+        return {"gat": gat, "sem": sem}
 
     def _init_hidden_layer(self, gen: torch.Generator, batch: Dict) -> Dict:
         """Params for one layer >= 1: HAN's square [D, D] re-projection of
         the carried target table, MAGNN's one per carried type and the
         target (RGCN's hidden FP is the identity: its ``w_rel``/``w_self``
-        are the layer's transform) plus a fresh NA/SA block."""
+        are the layer's transform) plus a fresh NA/SA block; GCN's [D, D]
+        combination weight alone."""
         plan = self.plan
         d = self.cfg.hidden
+        if plan.na.kind == "gcn":
+            return {"fp": torch.randn((d, d), generator=gen) / math.sqrt(d)}
         p: Dict = {}
         if plan.na.kind == "gat":
             p["fp"] = torch.randn((d, d), generator=gen) / math.sqrt(d)
@@ -237,7 +277,10 @@ class StageGraphExecutor:
     def fp(self, params: Dict, batch: Dict):
         """Layer 0: per-type projection of the raw features.  With
         ``fp.heads`` only the target type's table goes on, as
-        ``[N, H, Dh]``; otherwise every type's ``[N_t, D]`` table."""
+        ``[N, H, Dh]``; otherwise every type's ``[N_t, D]`` table.  GCN's
+        ``dense`` FP is its first combination, ``x @ w1``."""
+        if self.plan.fp.kind == "dense":
+            return batch["x"] @ params["w1"]
         h = stages.feature_projection(params["fp"], batch["feats"])
         if self.plan.fp.heads:
             ht = h[self.plan.target]
@@ -292,21 +335,59 @@ class StageGraphExecutor:
             return self._na_mean(params, batch, h)
         if kind == "instance":
             return self._na_instance(params, batch, h)
-        return self._na_gat(params, batch, h)  # check_ported: gat/stacked
+        if kind == "gcn":
+            return self._na_gcn(batch, h)
+        return self._na_gat(params, batch, h)  # check_ported: gat
+
+    def _na_gcn(self, batch: Dict, h: torch.Tensor):
+        """GCN's two aggregation layers, both NA work (the paper's GNN
+        comparison has no semantic stage): segment means over the edge
+        list, the second over the relu of the first.  The residency pool
+        covers both; the second re-gathers z over the same remapped table
+        (the inter-layer reuse)."""
+        t = self.plan.target
+        z = F.relu(stages.mean_aggregate_csr(
+            self._res_pool(batch, t, h), batch["seg"], batch["idx"],
+            h.shape[0]))
+        return stages.mean_aggregate_csr(
+            self._res_pool(batch, t, z), batch["seg"], batch["idx"],
+            z.shape[0])
 
     def _na_gat(self, params: Dict, batch: Dict, h: torch.Tensor):
+        """HAN's NA: the ``csr`` baseline (one edge list a metapath,
+        separate kernels; returns a list of ``[N, D]``), the ``bucketed``
+        layout (one unstacked ``gat_na`` launch a degree bucket with
+        ``na.use_pallas``) or the ``stacked`` one (one launch for the
+        stack); both return ``[P, N, D]``."""
         plan = self.plan
         if plan.sa.fuse_epilogue:
             return self._na_gat_fused_sa(params, batch, h)
+        act = _ACT[plan.na.activation]
+        pool = self._res_pool(batch, plan.target, h)
+        if plan.na.layout == "csr":
+            outs = []
+            for p_i, (seg, idx) in zip(params["gat"], batch["edges"]):
+                z = stages.gat_aggregate_csr(p_i, h, pool, seg, idx,
+                                             h.shape[0])
+                outs.append(act(z).reshape(z.shape[0], -1))
+            return outs
+        if plan.na.layout == "bucketed":
+            agg_fn = None
+            if plan.na.use_pallas:
+                agg_fn = functools.partial(ops.gat_aggregate, use_pallas=True)
+            z = act(torch.stack([
+                stages.gat_aggregate_bucketed(p_i, h, pool, bks,
+                                              agg_fn=agg_fn)
+                for p_i, bks in zip(params["gat"], batch["buckets"])]))
+            return z.reshape(z.shape[0], z.shape[1], -1)  # [P, N, D]
         stacked_fn = None
         if plan.na.use_pallas:
             stacked_fn = functools.partial(ops.gat_aggregate_stacked,
                                            use_pallas=True)
         z = stages.gat_aggregate_padded_stacked(
             params["gat"], h, batch["nbr"], batch["mask"],
-            stacked_fn=stacked_fn,
-            h_src=self._res_pool(batch, plan.target, h))
-        z = _ACT[plan.na.activation](z)
+            stacked_fn=stacked_fn, h_src=pool)
+        z = act(z)
         return z.reshape(z.shape[0], z.shape[1], -1)  # [P, N, D]
 
     def _na_gat_fused_sa(self, params: Dict, batch: Dict, h: torch.Tensor):
@@ -326,7 +407,8 @@ class StageGraphExecutor:
         """RGCN's NA: per relation (sorted keys), the mean of the source
         type's rows over the incoming neighbours, projected by ``w_rel``.
         With ``na.use_pallas`` the padded and bucketed layouts run the
-        ``segment_spmm`` kernel; ``csr`` is the plain segment mean."""
+        ``segment_spmm`` kernel; ``csr`` is the ``segment_sum`` segment
+        mean."""
         plan = self.plan
         # "__h__" rides along for the self-loop term in SA (rel_sum)
         out: Dict = {"__h__": h}
@@ -412,6 +494,8 @@ class StageGraphExecutor:
 
     def sa(self, params: Dict, batch: Dict, z):
         plan = self.plan
+        if plan.sa.kind == "none":
+            return z
         if plan.sa.kind == "rel_sum":
             return self._rel_sum(params, z["__h__"], z)
         row_mask = batch.get("row_mask")
@@ -430,7 +514,7 @@ class StageGraphExecutor:
             # pass 2 (combine) is the only remaining full read of z
             return ops.semantic_combine(z_stack, beta,
                                       use_pallas=plan.na.use_pallas)
-        if not plan.sa.stacked:  # MAGNN: a list of per-metapath [N, D]
+        if not plan.sa.stacked:  # MAGNN, HAN csr: a list of [N, D]
             return semantics.semantic_attention_list(params["sem"], z,
                                                      row_mask)
         return semantics.semantic_attention(params["sem"], z, row_mask)

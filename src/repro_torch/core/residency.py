@@ -1,6 +1,8 @@
 """Hot-feature residency on one device: a degree-ordered feature cache for
 the NA gathers (port of the single-device part of
-``repro/core/residency.py:60-231``).
+``repro/core/residency.py:60-231``), for every ported layout: HAN's
+``stacked``, ``bucketed`` and ``csr`` GAT tables, RGCN's relation tables,
+MAGNN's instance positions and GCN's edge list.
 
 Per source type, the top-``cache_rows`` rows by *reference count* under
 the plan's own index tables (degree ordering) become the hot set.  The
@@ -37,8 +39,11 @@ def hot_set(counts: np.ndarray, capacity: int) -> np.ndarray:
     return order[:c].astype(np.int32)
 
 
-def _populations(batch: Dict) -> Dict[str, int]:
-    return {t: int(f.shape[0]) for t, f in batch["feats"].items()}
+def _populations(plan: StagePlan, batch: Dict) -> Dict[str, int]:
+    if "feats" in batch:
+        return {t: int(f.shape[0]) for t, f in batch["feats"].items()}
+    # GCN: one homogeneous table
+    return {plan.target: int(batch["x"].shape[0])}
 
 
 def _iter_gathers(plan: StagePlan, batch: Dict) -> Iterator[Tuple]:
@@ -46,8 +51,17 @@ def _iter_gathers(plan: StagePlan, batch: Dict) -> Iterator[Tuple]:
     gather table of a prepared batch, in a fixed order.  ``None`` means
     every entry is a real reference (edge lists)."""
     kind, layout = plan.na.kind, plan.na.layout
-    if kind == "gat":  # the stacked layout is the only ported GAT one
-        yield plan.target, batch["nbr"], batch["mask"]
+    if kind == "gat":
+        t = plan.target
+        if layout == "csr":
+            for _seg, idx in batch["edges"]:
+                yield t, idx, None
+        elif layout == "bucketed":
+            for bks in batch["buckets"]:
+                for _row_ids, nbr, mask in bks:
+                    yield t, nbr, mask
+        else:  # stacked
+            yield t, batch["nbr"], batch["mask"]
     elif kind == "mean":
         for key in sorted(batch["rels"]):
             s = key[0]
@@ -63,6 +77,8 @@ def _iter_gathers(plan: StagePlan, batch: Dict) -> Iterator[Tuple]:
         for (nodes, mask), types in zip(batch["instances"], plan.metapaths):
             for j, ty in enumerate(types):
                 yield ty, nodes[..., j], mask
+    elif kind == "gcn":
+        yield plan.target, batch["idx"], None
     else:
         raise ValueError(f"no residency gather walk for NA kind {kind!r}")
 
@@ -83,7 +99,7 @@ def build_tables(plan: StagePlan, batch: Dict) -> ResidencyTables:
     """Reference-count every NA gather table and select per-type hot
     sets."""
     spec = plan.residency
-    pops = _populations(batch)
+    pops = _populations(plan, batch)
     counts: Dict[str, np.ndarray] = {}
     for t, idx, mask in _iter_gathers(plan, batch):
         a = np.asarray(idx)
@@ -143,7 +159,15 @@ def apply(plan: StagePlan, batch: Dict, tables: ResidencyTables) -> Dict:
 
     kind, layout = plan.na.kind, plan.na.layout
     if kind == "gat":
-        out["nbr"] = remap(plan.target, batch["nbr"])
+        t = plan.target
+        if layout == "csr":
+            out["edges"] = [(seg, remap(t, idx))
+                            for seg, idx in batch["edges"]]
+        elif layout == "bucketed":
+            out["buckets"] = [[(rid, remap(t, nbr), m) for rid, nbr, m in bks]
+                              for bks in batch["buckets"]]
+        else:
+            out["nbr"] = remap(t, batch["nbr"])
     elif kind == "mean":
         rels = {}
         for key, rel in batch["rels"].items():
@@ -164,6 +188,8 @@ def apply(plan: StagePlan, batch: Dict, tables: ResidencyTables) -> Dict:
                     nn[..., j] = lut[ty][nn[..., j]]
             inst.append((nn, mask))
         out["instances"] = inst
+    elif kind == "gcn":
+        out["idx"] = remap(plan.target, batch["idx"])
     out["residency"] = {
         "hot": {t: np.asarray(h, np.int32) for t, h in tables.hot.items()},
         "counters": counters,

@@ -1,5 +1,5 @@
 """The paper's HGNN execution stages in PyTorch (port of
-``repro/core/stages.py:55-200``, ``:226-317`` and ``:325-364``).
+``repro/core/stages.py:55-223``, ``:226-317`` and ``:325-364``).
 
 Stage 2 — Feature Projection (FP): type-specific dense matmul (DM-Type).
 Stage 3 — Neighbor Aggregation (NA): graph-topology gather + reduce
@@ -20,6 +20,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import ops
 
 
 def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
@@ -103,6 +105,58 @@ def gat_aggregate_padded_stacked(
         for i in range(nbr.shape[0])])
 
 
+def gat_aggregate_csr(
+    p: Dict[str, torch.Tensor],
+    h_dst: torch.Tensor,  # [N, H, Dh]
+    h_src: torch.Tensor,  # [M, H, Dh]
+    seg: torch.Tensor,  # [E] int32 destination (segment) id per edge, sorted
+    idx: torch.Tensor,  # [E] int32 source id per edge
+    n_nodes: int,
+) -> torch.Tensor:
+    """DGL-faithful GAT: SDDMM (edge scores), segment max, segment softmax,
+    SpMM, as separate steps (the paper's multi-kernel baseline, Fig. 5c).
+    The segment max is ``scatter_reduce("amax")``, exact in any order; the
+    softmax denominator and the SpMM are the fixed-order ``segment_sum``.
+    A segment with no edge comes out 0, never NaN: it has no edge to read
+    its (unset) max, and its sums are 0.  Returns ``[N, H, Dh]``."""
+    seg_l, idx_l = seg.long(), idx.long()
+    e_dst = (h_dst * p["a_dst"]).sum(-1)  # [N, H]
+    e_src = (h_src * p["a_src"]).sum(-1)  # [M, H]
+    e = _leaky_relu(e_dst[seg_l] + e_src[idx_l])  # [E, H]  SDDMM
+    m = torch.zeros((n_nodes, e.shape[1]), dtype=e.dtype,
+                    device=e.device).scatter_reduce(
+        0, seg_l[:, None].expand_as(e), e, "amax", include_self=False)
+    w = torch.exp(e - m[seg_l])
+    denom = ops.segment_sum(w, seg, n_nodes)
+    alpha = w / torch.clamp(denom[seg_l], min=1e-9)  # [E, H]
+    msg = h_src[idx_l] * alpha[..., None]  # [E, H, Dh]
+    out = ops.segment_sum(msg.flatten(1), seg, n_nodes)  # SpMM
+    return out.reshape((n_nodes,) + tuple(h_src.shape[1:]))
+
+
+def gat_aggregate_bucketed(
+    p: Dict[str, torch.Tensor],
+    h_dst: torch.Tensor,  # [N, H, Dh]
+    h_src: torch.Tensor,  # [M, H, Dh]
+    buckets: Sequence,  # (row_ids [n_b], nbr [n_b, K_b], mask) per bucket
+    agg_fn: Optional[Callable] = None,
+) -> torch.Tensor:
+    """GAT NA over a degree-bucketed layout: each bucket runs the padded
+    aggregation at its own degree cap ``K_b`` on the gathered rows
+    ``h_dst[row_ids]`` (a fresh contiguous table, as the kernel wants) and
+    is copied back to node order through ``row_ids``; ``agg_fn`` swaps in
+    the unstacked ``gat_na`` kernel, one launch a bucket.  Full-graph
+    ``row_ids`` partition the rows exactly (``mean_aggregate_bucketed``
+    says why ``index_copy_`` needs that)."""
+    base = agg_fn or gat_aggregate_padded
+    out = torch.zeros_like(h_dst)
+    for row_ids, nbr, mask in buckets:
+        rows = row_ids.long()
+        out.index_copy_(0, rows, base(p, h_dst.index_select(0, rows), h_src,
+                                      nbr, mask))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Instance aggregation (MAGNN intra-metapath)
 # ---------------------------------------------------------------------------
@@ -182,16 +236,12 @@ def mean_aggregate_bucketed(
 def mean_aggregate_csr(h_src: torch.Tensor, seg: torch.Tensor,
                        idx: torch.Tensor, n_nodes: int) -> torch.Tensor:
     """Mean NA over a flat edge list (the DGL-faithful baseline):
-    ``jax.ops.segment_sum`` becomes ``index_add_``.  On a CUDA tensor
-    ``index_add_`` adds with atomics, so this arm is not bitwise
-    reproducible from run to run there (ROADMAP Queue 3)."""
-    seg = seg.long()
-    s = torch.zeros((n_nodes, h_src.shape[-1]), dtype=h_src.dtype,
-                    device=h_src.device).index_add_(0, seg, h_src[idx.long()])
-    d = torch.zeros((n_nodes,), dtype=h_src.dtype,
-                    device=h_src.device).index_add_(
-        0, seg, torch.ones_like(seg, dtype=h_src.dtype))
-    return s / torch.clamp(d[:, None], min=1.0)
+    ``segment_sum(h_src[idx], seg) / max(count, 1)``.  The sum is the
+    fixed-order ``segment_sum`` (the CPU's plain version or the card's
+    kernel, by the device alone, as the reference's ``csr`` arm is the same
+    under both values of ``use_pallas``), so the arm gives the same bits on
+    every run, and cached == uncached holds bitwise on the card too."""
+    return ops.segment_sum(h_src, seg, n_nodes, idx=idx, mean=True)
 
 
 def csr_to_edges(indptr: np.ndarray,

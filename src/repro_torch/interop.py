@@ -4,8 +4,10 @@ device rule.
 ``params_from_numpy`` carries a parameter tree made by the reference's own
 ``init`` into the port unchanged, so the two packages can run the same
 model (``jax.random`` streams cannot be reproduced in torch): the HGNN trees
-(``fp{t}``, ``cls``, ``gat{a_dst, a_src}`` stacked ``[P, H, Dh]``, ``sem{W,
-b, q}``, ``layers[l-1]{fp, gat, sem}``) and the LM tree (``embed``,
+(``fp{t}``, ``cls``, ``gat{a_dst, a_src}`` stacked ``[P, H, Dh]`` — or,
+for HAN's ``csr`` and ``bucketed`` layouts, a list of ``P`` such dicts of
+``[H, Dh]`` — ``sem{W, b, q}``, ``layers[l-1]{fp, gat, sem}``; GCN's
+``w1``, ``w2``, ``layers[l-1]{fp}``) and the LM tree (``embed``,
 ``ln_f``, ``lm_head``, ``runs[i]{ln1, attn{wq, wk, wv, wo}, ln2, mlp{...}}``
 stacked ``[L, ...]``).  ``batch_from_numpy`` does the same for a prepared
 batch.  Leaves are copied with ``np.array`` (not ``np.asarray``, whose

@@ -30,6 +30,7 @@ from repro_torch.kernels import fused_fp_na as _ffn
 from repro_torch.kernels import gat_na as _gat
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_spmm as _spmm
+from repro_torch.kernels import segment_sum as _ssum
 from repro_torch.kernels import semantic_attn as _sem
 
 
@@ -40,6 +41,18 @@ def segment_spmm(h_src, nbr, mask, mean: bool = True,
     if use_pallas:
         return _spmm.segment_spmm(h_src, nbr, mask, mean=mean)
     return ref.segment_spmm(h_src, nbr, mask, mean=mean)
+
+
+def segment_sum(vals, seg, n: int, idx=None, mean: bool = False
+                ) -> torch.Tensor:
+    """Fixed-order segment sum over a sorted edge list (the ``csr`` arms'
+    ``jax.ops.segment_sum``): ``vals [E, C]``, or the rows ``vals[idx]``,
+    summed per segment in edge order -> ``[n, C]`` (``mean``: divided by
+    each segment's edge count).  The reference's ``csr`` arms do not
+    depend on ``use_pallas``, so this dispatches by the tensors' device
+    alone: the CPU's plain version or the card's kernel.  The stages call
+    it here, so a harness can record their calls in one place."""
+    return _ssum.segment_sum(vals, seg, n, idx=idx, mean=mean)
 
 
 def fused_fp_na(x_src, w, nbr, mask, mean: bool = True,
@@ -127,6 +140,7 @@ def reset_launch_counts() -> None:
     _gat.gat_na.fused_launches = 0
     _sem.semantic_combine.launches = 0
     _spmm.segment_spmm.launches = 0
+    _ssum.segment_sum.launches = 0
     _ffn.fused_fp_na.launches = 0
     _fc.cached_gather.launches = 0
     _sem.semantic_scores.launches = 0
@@ -140,6 +154,7 @@ def launch_counts() -> Dict[str, int]:
             "gat_na_fused_sa": _gat.gat_na.fused_launches,
             "semantic_combine": _sem.semantic_combine.launches,
             "segment_spmm": _spmm.segment_spmm.launches,
+            "segment_sum": _ssum.segment_sum.launches,
             "fused_fp_na": _ffn.fused_fp_na.launches,
             "cached_gather": _fc.cached_gather.launches,
             "semantic_scores": _sem.semantic_scores.launches,

@@ -11,7 +11,7 @@ plain arm (``nn/attention.py``) at up to 1024 tokens and in decode.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -34,6 +34,31 @@ def segment_spmm(
         d = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
         s = s / d.to(h_src.dtype)
     return s
+
+
+def segment_sum(
+    vals: torch.Tensor,  # [E, C], or the table [M, C] with idx
+    seg: torch.Tensor,  # [E] int segment id per edge, sorted ascending
+    n: int,  # segments
+    idx: Optional[torch.Tensor] = None,  # [E] int rows of vals to gather
+    mean: bool = False,
+) -> torch.Tensor:
+    """``jax.ops.segment_sum(rows, seg, num_segments=n)`` with ``rows =
+    vals`` or ``vals[idx]``, divided by ``max(len_s, 1)`` when ``mean``
+    (``len_s`` the segment's edge count).  ``index_add_`` on a CPU tensor
+    adds in index order, so every segment is summed in edge order, one
+    rounded add after another: the order of the ``segment_sum`` kernel.
+    A segment with no edge comes out 0.  Returns ``[n, C]``."""
+    rows = vals if idx is None else vals[idx.long()]
+    seg = seg.long()
+    out = torch.zeros((n,) + tuple(rows.shape[1:]), dtype=vals.dtype,
+                      device=vals.device).index_add_(0, seg, rows)
+    if mean:
+        cnt = torch.zeros((n,), dtype=vals.dtype, device=vals.device)
+        cnt.index_add_(0, seg, torch.ones_like(seg, dtype=vals.dtype))
+        out = out / torch.clamp(cnt, min=1.0).reshape((n,) + (1,) * (
+            out.dim() - 1))
+    return out
 
 
 def fused_fp_na(

@@ -8,8 +8,12 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --hgnn han \\
       --dataset imdb --use-pallas --fuse-na-sa [--layers L] [--iters N]
+  PYTHONPATH=src python -m repro_torch.launch.serve --hgnn han \\
+      --dataset imdb --use-pallas --degree-buckets 3 [--layers L]
   PYTHONPATH=src python -m repro_torch.launch.serve --hgnn rgcn \\
       --dataset imdb --use-pallas [--degree-buckets 3] [--layers L]
+  PYTHONPATH=src python -m repro_torch.launch.serve --hgnn gcn \\
+      --dataset reddit [--cache-rows 256] [--layers L]
   PYTHONPATH=src python -m repro_torch.launch.serve --hgnn magnn \\
       --dataset imdb --use-pallas [--cache-rows 256] [--layers L]
 
@@ -24,11 +28,17 @@ The encdec family exits as the reference does; the other non-dense
 families raise ``NotImplementedError``.
 
 With ``--hgnn``, ``--cache-rows C`` turns on hot-feature residency for
-any of the three models.  It prints the device, then the reference's line
+any of the four models; ``--hgnn gcn`` needs ``--dataset reddit`` (the
+reference's rule), and the CLI builds the fused layouts, as the
+reference's does (HAN's baseline ``csr`` layout is ``HGNNConfig(fused=
+False)``, in both packages).  It prints the device, then the reference's
+line
 
   han/imdb [na=gat/stacked +fused-sa] logits (4278, 8) on single-device: ... ms/iter
+  han/imdb [na=gat/bucketed] logits (4278, 8) on single-device: ... ms/iter
   rgcn/imdb [na=mean/padded] logits (4278, 8) on single-device: ... ms/iter
   magnn/imdb [na=instance/instances] logits (4278, 8) on single-device: ... ms/iter
+  gcn/reddit [na=gcn/csr] logits (23296, 8) on single-device: ... ms/iter
 
 with the time per forward on the host clock, after one warm-up forward,
 synchronised with the device, and with residency the reference's counters
@@ -91,6 +101,9 @@ def run_hgnn(args) -> None:
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.serve.engine import HGNNInferEngine
 
+    if args.hgnn == "gcn" and args.dataset != "reddit":
+        raise SystemExit("--hgnn gcn runs the paper's homogeneous GNN "
+                         "comparison: use --dataset reddit")
     dev = resolve_device(args.device)
     cfg = HGNNConfig(model=args.hgnn, dataset=args.dataset, fused=True,
                      use_pallas=args.use_pallas,
@@ -171,21 +184,22 @@ def main() -> None:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--hgnn", default=None,
                     choices=["han", "rgcn", "magnn", "gcn"],
-                    help="serve an HGNN model instead of an LM (HAN, RGCN "
-                         "and MAGNN are ported; GCN raises)")
+                    help="serve an HGNN model instead of an LM (gcn needs "
+                         "--dataset reddit)")
     ap.add_argument("--dataset", default="imdb",
                     choices=["imdb", "acm", "dblp", "reddit"])
     ap.add_argument("--use-pallas", action="store_true",
                     help="hand-written CUDA kernels on the hot loop (HGNN: "
                          "gat_na, semantic_combine, segment_spmm, "
                          "cached_gather; LM: flash_attention, "
-                         "decode_attention)")
+                         "decode_attention); the csr arms' segment_sum "
+                         "runs on the card either way")
     ap.add_argument("--fuse-na-sa", action="store_true",
                     help="fused NA→SA epilogue: SA pass-1 scores accumulate "
                          "inside the NA kernel (stacked layout)")
     ap.add_argument("--degree-buckets", type=int, default=0,
                     help="degree-bucketed padded NA layout with that many "
-                         "buckets (RGCN relations)")
+                         "buckets (HAN metapaths, RGCN relations)")
     ap.add_argument("--cache-rows", type=int, default=0,
                     help="hot-feature residency: keep that many hot rows per "
                          "node type in a cache section of the gather pool")

@@ -149,15 +149,15 @@ def test_entry_points_need_a_device_without_cuda(tiny_hg, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(fused=False), "item 6"),
-    (dict(degree_buckets=3), "item 6"),
+    (dict(model="gcn", fanout=4), "item 13"),
+    (dict(model="gcn", overlap=2), "item 14"),
     (dict(partitions=2), "item 12"),
     (dict(fanout=4), "item 13"),
     (dict(cache_rows=8, partitions=2), "item 12"),
     (dict(overlap=2), "item 14"),
     (dict(model="rgcn", partitions=2), "item 12"),
     (dict(model="magnn", fanout=4), "item 13"),
-    (dict(model="gcn"), "item 10"),
+    (dict(fused=False, fanout=4), "item 13"),
 ])
 def test_arms_outside_the_slice_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -174,7 +174,9 @@ def test_arms_outside_the_slice_raise(kw, item):
         for lp in pl.layers)), "no model of the reference"),
     (lambda pl: dataclasses.replace(pl, layers=tuple(
         dataclasses.replace(lp, na=dataclasses.replace(
-            lp.na, layout="bucketed")) for lp in pl.layers)), "item 6"),
+            lp.na, layout="bucketed"), sa=dataclasses.replace(
+            lp.sa, fuse_epilogue=True)) for lp in pl.layers)),
+     "no model of the reference"),
     (lambda pl: dataclasses.replace(pl, layers=tuple(
         dataclasses.replace(lp, handoff="all") for lp in pl.layers)),
      "no model of the reference"),

@@ -25,6 +25,10 @@ with FMA in feature order, the row scores per tile, then the tiles by a
 lane-strided sum and a butterfly, where the plain version leaves both
 orders to the matmul and the mean: atol = rtol = 1e-5, and bitwise against
 a second run.
+``segment_sum`` adds each segment's edges in edge order, one rounded add
+after another, as the plain version's ``index_add_`` does on the CPU: it is
+held bitwise against the plain version run on the CPU and against its
+emulation, and against a second run.
 ``flash_attention`` and ``decode_attention`` are held against the
 attention oracles at the reference's own kernel-test tolerances (2e-4 in
 fp32, 2e-2 in bf16, whose oracle rounds the scores and P to bf16), and
@@ -48,6 +52,7 @@ from repro_torch.kernels import fused_fp_na as tffn
 from repro_torch.kernels import gat_na as tgat
 from repro_torch.kernels import ops
 from repro_torch.kernels import segment_spmm as tspmm
+from repro_torch.kernels import segment_sum as tss
 from repro_torch.kernels import semantic_attn as tsem
 
 pytestmark = pytest.mark.gpu
@@ -867,3 +872,164 @@ def test_attention_kernels_refuse_what_they_do_not_take(cuda):
         ops.flash_attention(q.half(), q.half(), q.half(), use_pallas=True)
     assert (tflash.flash_attention.launches,
             tdec.decode_attention.launches) == before
+
+
+def _ssum_case(seed, e, n, c, m, heavy=0):
+    """(vals [E, C], table [M, C], idx [E], seg [E] sorted) with empty
+    segments, one segment of ``heavy`` extra edges and values of mixed
+    magnitude, so that the order of the sums shows in the bits."""
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, n, e)
+    if heavy:
+        seg = np.concatenate([seg, np.full(heavy, n // 3)])
+    seg = np.sort(seg[seg % 5 != 2]).astype(np.int32)
+    scale = np.exp(rng.uniform(-6, 6, (len(seg), 1)))
+    vals = (rng.standard_normal((len(seg), c)) * scale).astype(np.float32)
+    table = rng.standard_normal((m, c)).astype(np.float32)
+    idx = rng.integers(0, m, len(seg)).astype(np.int32)
+    return vals, table, idx, seg
+
+
+SSUM_SHAPES = [  # (E, N, C, M, heavy)
+    (0, 5, 8, 4, 0),  # no edge: every segment 0
+    (40, 40, 1, 10, 0),  # one column, single-edge segments
+    (3000, 400, 8, 100, 0),  # the csr GAT's denominator [E, H]
+    (5000, 300, 64, 500, 2000),  # its SpMM [E, H*Dh]; a 2000-edge segment
+    (2000, 50, 300, 70, 33),  # wider than a 256-column block
+    (200000, 23296, 64, 23296, 0),  # GCN/Reddit-like: 8.6 edges a segment
+    (20000, 40, 300, 100, 3000),  # every segment long; two column blocks
+    (30000, 60, 63, 200, 0),  # long segments, C % 4 != 0: 4-byte copies
+    (200000, 500, 8, 1000, 0),  # 500 long segments: more than the blocks
+]
+
+
+def test_segment_sum_long_edges_agree_with_the_wrapper(cuda):
+    assert build.library().segment_sum_long_edges() == tss.LONG
+
+
+@pytest.mark.parametrize("gather", [False, True])
+def test_segment_sum_kernel_at_the_long_boundary(cuda, gather):
+    """Segments of LONG - 1, LONG, LONG + 1 edges and one of 5 ring
+    stages and a row, beside empty and short ones: the two kernels split
+    at LONG, and a second call (the counters back at 0) gives the same
+    bits."""
+    lens = [0, tss.LONG - 1, 3, tss.LONG, 0, tss.LONG + 1, 1, 5 * 32 + 1]
+    seg = np.repeat(np.arange(len(lens)), lens).astype(np.int32)
+    vals, table, idx, _ = _ssum_case(7, len(seg), 1, 64, 90)
+    vals = vals[:len(seg)]
+    src = torch.as_tensor(table if gather else vals, device=cuda)
+    s = torch.as_tensor(seg, device=cuda)
+    i = torch.as_tensor(idx[:len(seg)], device=cuda) if gather else None
+    got = tss.segment_sum(src, s, len(lens), idx=i, mean=True)
+    want = tss.segment_sum_plain(src.cpu(), s.cpu(), len(lens),
+                                 idx=None if i is None else i.cpu(),
+                                 mean=True)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, tss.segment_sum(src, s, len(lens), idx=i,
+                                            mean=True))
+
+
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("gather", [False, True])
+@pytest.mark.parametrize("shape", SSUM_SHAPES)
+def test_segment_sum_kernel_is_bitwise_plain(cuda, shape, gather, mean):
+    e, n, c, m, heavy = shape
+    vals, table, idx, seg = _ssum_case(sum(shape), e, n, c, m, heavy)
+    src = table if gather else vals
+    args = [torch.as_tensor(a, device=cuda) for a in (src, seg)]
+    i = torch.as_tensor(idx, device=cuda) if gather else None
+    before = tss.segment_sum.launches
+    got = tss.segment_sum(*args, n, idx=i, mean=mean)
+    torch.cuda.synchronize()
+    assert tss.segment_sum.launches == before + 1
+    cpu = [a.cpu() for a in args]
+    want = tss.segment_sum_plain(*cpu, n, idx=None if i is None else i.cpu(),
+                                 mean=mean)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, tss.segment_sum(*args, n, idx=i, mean=mean))
+    if e <= 5000:
+        assert torch.equal(got.cpu(), tss.segment_sum_emulate(
+            *cpu, n, idx=None if i is None else i.cpu(), mean=mean))
+    empty = np.setdiff1d(np.arange(n), seg)
+    assert torch.all(got[torch.as_tensor(empty, device=cuda)] == 0)
+
+
+def test_segment_sum_kernel_drops_segments_past_n(cuda):
+    """Edges whose segment id is n or more are never reached, as
+    ``jax.ops.segment_sum(num_segments=n)`` drops them."""
+    vals, _, _, seg = _ssum_case(3, 500, 30, 8, 1)
+    seg[-40:] = 30 + np.arange(40) // 10  # sorted, past the last segment
+    v, s = (torch.as_tensor(a, device=cuda) for a in (vals, seg))
+    got = tss.segment_sum(v, s, 30)
+    keep = seg < 30
+    want = tss.segment_sum_plain(torch.as_tensor(vals[keep]),
+                                 torch.as_tensor(seg[keep]), 30)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_segment_sum_kernel_raises_instead_of_falling_back(cuda):
+    vals, table, idx, seg = _ssum_case(4, 300, 20, 8, 30)
+    v, t, i, s = (torch.as_tensor(a, device=cuda)
+                  for a in (vals, table, idx, seg))
+    before = tss.segment_sum.launches
+    with pytest.raises(ValueError, match="int32"):
+        tss.segment_sum(v, s.long(), 20)
+    with pytest.raises(ValueError, match="int32"):
+        tss.segment_sum(t, s, 20, idx=i.long(), mean=True)
+    with pytest.raises(ValueError, match="float32"):
+        tss.segment_sum(v.double(), s, 20)
+    with pytest.raises(ValueError, match="contiguous"):
+        tss.segment_sum(v.t().contiguous().t(), s, 20)
+    with pytest.raises(ValueError, match="empty"):
+        tss.segment_sum(v, s, 0)
+    assert tss.segment_sum.launches == before
+
+
+@pytest.mark.parametrize("n,k", [(1, 8), (3, 8), (5, 16), (40, 24), (7, 64),
+                                 (300, 8)])
+def test_gat_na_unstacked_at_bucket_shapes(cuda, n, k):
+    """HAN's bucketed call: one degree bucket's gathered rows (few of
+    them, fewer than a block's warps) against the whole target table at
+    a cap K below the 32-slot ballot; every third row with a single live
+    slot, one row with none."""
+    rng = np.random.default_rng(n * k)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+
+    p = {"a_dst": t(rng.standard_normal((8, 8)) * 0.3),
+         "a_src": t(rng.standard_normal((8, 8)) * 0.3)}
+    table = t(rng.standard_normal((500, 8, 8)))
+    rows = torch.as_tensor(rng.choice(500, n, replace=False),
+                           dtype=torch.long, device=cuda)
+    h_dst = table.index_select(0, rows)
+    nbr = torch.as_tensor(rng.integers(0, 500, (n, k)), dtype=torch.int32,
+                          device=cuda)
+    mask = (rng.random((n, k)) < 0.7).astype(np.float32)
+    mask[::3] = 0.0
+    mask[::3, 0] = 1.0
+    mask[n // 2] = 0.0
+    mask = t(mask)
+    before = tgat.gat_na.launches
+    got = ops.gat_aggregate(p, h_dst, table, nbr, mask, use_pallas=True)
+    torch.cuda.synchronize()
+    assert tgat.gat_na.launches == before + 1 and got.shape == (n, 8, 8)
+    torch.testing.assert_close(
+        got, ops.gat_aggregate(p, h_dst, table, nbr, mask), **TOL)
+    torch.testing.assert_close(
+        got, tgat.gat_na_emulate(p, h_dst, table, nbr, mask), **TOL)
+    assert torch.all(got[n // 2] == 0)
+    assert torch.equal(got, ops.gat_aggregate(p, h_dst, table, nbr, mask,
+                                              use_pallas=True))
+
+
+def test_gat_na_refuses_an_empty_bucket(cuda):
+    p = {"a_dst": torch.zeros((8, 8), device=cuda),
+         "a_src": torch.zeros((8, 8), device=cuda)}
+    table = torch.zeros((10, 8, 8), device=cuda)
+    before = tgat.gat_na.launches
+    with pytest.raises(ValueError, match="empty"):
+        ops.gat_aggregate(p, table[:0], table,
+                          torch.zeros((0, 8), dtype=torch.int32, device=cuda),
+                          torch.zeros((0, 8), device=cuda), use_pallas=True)
+    assert tgat.gat_na.launches == before

@@ -27,14 +27,18 @@ from repro_torch.launch.serve import build_hgnn_infer
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = dict(dataset="tiny", hidden=16, n_heads=4, n_classes=3,
              attn_hidden=8, max_degree=6, max_instances=4, fused=True)
-# every layout of every ported model, as HGNNConfig keywords
+# every layout of every ported model, as HGNNConfig keywords (GCN runs on
+# the Reddit-like graph, the others on the tiny one)
 VARIANTS = {
     "han": dict(model="han"),
     "han-fused": dict(model="han", fuse_na_sa=True),
+    "han-csr": dict(model="han", fused=False),
+    "han-bucketed": dict(model="han", degree_buckets=3, max_degree=16),
     "rgcn-padded": dict(model="rgcn"),
     "rgcn-bucketed": dict(model="rgcn", degree_buckets=3),
     "rgcn-csr": dict(model="rgcn", fused=False),
     "magnn": dict(model="magnn"),
+    "gcn": dict(model="gcn", dataset="reddit"),
 }
 
 
@@ -48,6 +52,18 @@ def _tiny_tables():
 def _port_hg(hg):
     return hgraph.HeteroGraph(hg.node_counts, hg.features, hg.relations,
                               name=hg.name)
+
+
+@pytest.fixture(scope="module")
+def reddit_hg():
+    return ref_syn.make_reddit_like(scale=0.005)
+
+
+@pytest.fixture
+def graph_of(tiny_hg, reddit_hg):
+    """The reference's graph a variant runs on."""
+    return lambda variant: (reddit_hg if VARIANTS[variant].get("dataset")
+                            == "reddit" else tiny_hg)
 
 
 def _same(a, b):
@@ -74,25 +90,26 @@ def _same_tree(port, ref):
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_cached_batch_byte_equal_to_reference(tiny_hg, variant):
+def test_cached_batch_byte_equal_to_reference(graph_of, variant):
     """Hot sets, remapped tables and counters after the finalize hook."""
     kw = dict(SMALL, **VARIANTS[variant], cache_rows=5)
-    ref_b = ref_get_model(RefConfig(**kw)).prepare(tiny_hg)
-    b = get_model(HGNNConfig(**kw)).prepare(_port_hg(tiny_hg), device="cpu")
+    hg = graph_of(variant)
+    ref_b = ref_get_model(RefConfig(**kw)).prepare(hg)
+    b = get_model(HGNNConfig(**kw)).prepare(_port_hg(hg), device="cpu")
     assert ref_b["residency"]["counters"]["hits"] > 0
     _same_tree(b, ref_b)
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_tables_equal_to_reference(tiny_hg, variant):
+def test_tables_equal_to_reference(graph_of, variant):
     """``build_tables`` on the uncached host tables: hot sets, ranks, LUTs
     and reference counts; then ``_count_hits``."""
     kw = dict(SMALL, **VARIANTS[variant])
+    hg = graph_of(variant)
     ref_m = ref_get_model(RefConfig(**kw, cache_rows=7))
-    ref_b = ref_get_model(RefConfig(**kw)).prepare(tiny_hg)
+    ref_b = ref_get_model(RefConfig(**kw)).prepare(hg)
     m = get_model(HGNNConfig(**kw, cache_rows=7))
-    host = get_model(HGNNConfig(**kw)).prepare(_port_hg(tiny_hg),
-                                               device="cpu")
+    host = get_model(HGNNConfig(**kw)).prepare(_port_hg(hg), device="cpu")
     want = ref_rsd.build_tables(ref_m.plan(), ref_b)
     got = residency.build_tables(m.plan(), host)
     assert got.populations == want.populations
@@ -136,14 +153,14 @@ def test_imdb_counters_equal_the_bench_record(imdb, model, c):
 @pytest.mark.parametrize("layers", [1, 2])
 @pytest.mark.parametrize("use_pallas", [False, True])
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_cached_logits_bitwise_equal_uncached(tiny_hg, variant, use_pallas,
+def test_cached_logits_bitwise_equal_uncached(graph_of, variant, use_pallas,
                                               layers):
     kw = dict(SMALL, **VARIANTS[variant], use_pallas=use_pallas,
               layers=layers)
     outs = []
     for c in (0, 5):
         built = build_hgnn_infer(HGNNConfig(**kw, cache_rows=c),
-                                 _port_hg(tiny_hg), device="cpu")
+                                 _port_hg(graph_of(variant)), device="cpu")
         assert ("residency" in built.batch) == bool(c)
         with torch.inference_mode():
             outs.append(built.fn(built.params, built.batch))
