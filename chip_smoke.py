@@ -30,7 +30,13 @@ bf16 granite through ``ServeEngine.generate`` (4 prompts of 2048 tokens,
 32 greedy tokens each, twice).  It checks the logits (the kernel arm
 against the plain arm, cached against uncached bitwise, two runs bitwise
 on the new paths) and the kernels' launch counts, and times every kernel
-beside its bound.  It imports
+beside its bound (the work formulas beside the kernels' wrappers, held to
+the numbers they gave before they moved there).  Phase 3l is the
+paper's characterization on this card: per-stage records through
+``HGNNInferEngine.characterize(timed=True)`` for HAN/imdb's baseline and
+optimized plans, RGCN/imdb's and MAGNN/imdb's baselines, MAGNN/imdb with
+residency and GCN/Reddit, the FLOPs and bytes held equal to the CPU's
+records, every device kernel in a class.  It imports
 nothing of jax or of the JAX package ``repro``.
 
 Output: progress lines, then the card's name and power limit as
@@ -68,6 +74,22 @@ TOL_FFN = dict(atol=1e-5, rtol=1e-5)
 # scores summed per block then over blocks, against the matmul and mean
 TOL_SCORES = dict(atol=1e-5, rtol=1e-5)
 CACHE_ROWS = 256  # hot rows a node type on the residency paths
+# (bytes, operations[, TF32 operations]) of each kernels-line entry's
+# bound as this script reckoned them on an H100 before its formulas moved
+# beside the kernels (``work(..., live_only=True)``): the inputs are made
+# from seeds, so the moved formulas must give the same numbers
+BOUND_WORK = {
+    "gat_na": (7667200, 40767824), "gat_na_fused_sa": (7701000, 185886140),
+    "semantic_combine": (3285512, 821376),
+    "segment_spmm": (10954476, 5210880),
+    "fused_fp_na": (29705028, 29957886, 2450052864),
+    "cached_gather": (110692352, 0), "gat_na_unstacked": (21958656, 21214880),
+    "semantic_scores": (2224136, 143475564),
+    "segment_sum": (30432736, 149532416),
+    "gat_na_bucketed": (9725312, 41157968),
+    "flash_attention": (167772160, 137506062336),
+    "decode_attention": (21078032, 84049920),
+}
 
 failures: list = []
 
@@ -208,35 +230,6 @@ def bound(n_bytes: float, n_ops: float, peak_flops: float = PEAK_FP32_FLOPS,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def gat_na_work(h_dst, h_src, nbr, mask, hs: int):
-    """Bytes the function must move and operations it must do on these
-    inputs, whatever the algorithm: each input read once, each output
-    written once, only the source rows that live slots name; e_src = a_src·h
-    once per named source row of each metapath, and per live slot the score
-    and softmax terms per head plus the weighted reduce."""
-    import torch
-
-    s_dim, n, k = nbr.shape
-    heads = h_dst.shape[1]
-    hd = heads * h_dst.shape[2]
-    live = int((mask != 0).sum())
-    named = [nbr[s][mask[s] != 0].unique() for s in range(s_dim)]
-    n_bytes = 2 * nbr.numel() * 4 + n * hd * 4 + s_dim * n * hd * 4
-    n_bytes += 2 * s_dim * hd * 4  # a_dst, a_src
-    if h_src.data_ptr() != h_dst.data_ptr():
-        n_bytes += int(torch.cat(named).unique().numel()) * hd * 4
-    n_ops = 2 * s_dim * n * hd  # e_dst
-    n_ops += 2 * hd * sum(int(r.numel()) for r in named)  # e_src
-    # per live slot: add, leaky relu, max, shift, exp, denominator per head;
-    # multiply-add per feature
-    n_ops += live * (6 * heads + 2 * hd)
-    n_ops += s_dim * n * hd  # the final divide
-    if hs:
-        n_bytes += (hd * hs + 2 * hs) * 4 + s_dim * 4  # W, b, q; w
-        # per row: elu, zW + b, tanh, the q dot; then the mean
-        n_ops += s_dim * n * (hd + 2 * hd * hs + 4 * hs) + s_dim * n
-    return n_bytes, n_ops, live
-
 
 def device_kernels(fn) -> list:
     """Names of the device kernels (and copies) that one call of ``fn``
@@ -260,33 +253,6 @@ def device_kernels(fn) -> list:
             break
         print(f"  (profile {attempt + 1} held no device event: again)")
     return names
-
-
-def spmm_work(n_src_cols: int, nbr, mask):
-    """Bytes and operations of ``segment_spmm`` on these inputs: the mask
-    once (4 bytes a slot), the index of each live slot (a dead slot's index
-    is never needed), each source row that a live slot names once, the
-    output once; per live slot a multiply-add per column, the divide per
-    output column."""
-    n, k = nbr.shape
-    live = mask != 0
-    n_live = int(live.sum())
-    named = int(nbr[live].unique().numel())
-    n_bytes = 4 * n * k + 4 * n_live + named * n_src_cols * 4
-    n_ops = 2 * n_live * n_src_cols + n * n_src_cols
-    return n_bytes + n * n_src_cols * 4, n_ops, n_live
-
-
-def ffn_work(x, w, nbr, mask):
-    """Bytes, fp32 operations and TF32 tensor-core operations of
-    ``fused_fp_na`` on these inputs: ``segment_spmm``'s reads of the mask,
-    the live indices and the named raw rows, plus W once and the [N, D]
-    output once; the aggregate's multiply-adds in fp32; the product
-    ``2*N*F*D`` three times over (the kernel's 3xTF32 split)."""
-    n, f, d = nbr.shape[0], x.shape[1], w.shape[1]
-    n_bytes, n_ops, _ = spmm_work(f, nbr, mask)
-    n_bytes += f * d * 4 + n * d * 4 - n * f * 4  # out is [N, D], not [N, F]
-    return n_bytes, n_ops, 3 * 2 * n * f * d
 
 
 def bucket_times(h_src, nbr, mask, flush) -> list:
@@ -425,34 +391,6 @@ def rgcn_kernels_vs_plain(built, results: dict):
                                   "vs_fp_then_na_max_abs_err": err_o,
                                   "tolerance": TOL_FFN}
     return rels, (x, w, nbr, mask)
-
-
-def gather_work(table, hot, idx):
-    """Bytes of ``cached_gather`` on these inputs: the output and the
-    indices once, the hot ids once, and each table row that an index names
-    (directly, or through its hot id: the kernel reads no cache section)
-    once; it computes nothing."""
-    import torch
-
-    n, d = table.shape
-    v = idx.long().reshape(-1)
-    rows = torch.where(v >= n, hot.long()[(v - n).clamp(0, hot.numel() - 1)],
-                       v)
-    n_bytes = idx.numel() * 4 * (1 + d) + hot.numel() * 4
-    n_bytes += int(rows.unique().numel()) * d * 4
-    return n_bytes, 0
-
-
-def scores_work(z, w):
-    """Bytes and operations of ``semantic_scores``: z, W, b, q read once,
-    w written once; per row ``zW + b`` (2*D*Hs: the kernel's D FFMAs a
-    column from b), tanh and the q dot (3*Hs), and the mean.  The kernel
-    does all of it in fp32 outside the tensor cores, so the bound takes
-    the fp32 peak."""
-    p, n, d = z.shape
-    hs = w.shape[1]
-    n_bytes = (z.numel() + d * hs + 2 * hs + p) * 4
-    return n_bytes, p * n * (2 * d * hs + 3 * hs + 1)
 
 
 def magnn_kernels_vs_plain(built, results: dict):
@@ -649,16 +587,6 @@ def rgcn_dblp(dev, forward_ms: dict, profiles: dict) -> int:
                          profiles)[0]["segment_spmm"]
 
 
-def segment_sum_work(vals, seg, n: int, idx=None, mean: bool = False):
-    """Bytes and operations of one ``segment_sum`` call on these inputs:
-    seg (and idx) once, each value (the plain form) or each table row that
-    an edge names (the gather form) once, the output once; an add per edge
-    and column, and a divide per output for the mean."""
-    e, c = seg.shape[0], vals.shape[1]
-    rows = e if idx is None else int(idx.unique().numel())
-    n_bytes = 4 * e * (1 if idx is None else 2) + 4 * rows * c + 4 * n * c
-    return n_bytes, e * c + (n * c if mean else 0)
-
 
 def capture_segment_sums(fn) -> list:
     """Run ``fn`` once with ``ops.segment_sum``, the stages' entry to the
@@ -804,7 +732,7 @@ def segment_sum_timing(call, flush) -> dict:
     acc = torch.zeros((n, vals.shape[1]), device=vals.device)
     kern = lambda: tss.segment_sum(vals, seg, n, idx=idx,  # noqa: E731
                                    mean=mean)
-    n_bytes, n_ops = segment_sum_work(vals, seg, n, idx, mean)
+    n_bytes, n_ops = tss.work(vals, seg, n, idx, mean, live_only=True)
     b_ms, b_by = bound(n_bytes, n_ops)
     rec = {"ms": time_ms(kern, 50, flush), "warm_ms": time_ms(kern, 50),
            "plain_ms": time_ms(lambda: tss.segment_sum_plain(
@@ -848,28 +776,6 @@ def attn_inputs(gen, b, s, h, kvh, dh, dtype, decode=False):
 
     q = draw(b, h, dh) if decode else draw(b, s, h, dh)
     return q, draw(b, s, kvh, dh), draw(b, s, kvh, dh)
-
-
-def flash_work(q, k, causal: bool, window: int):
-    """Bytes (q, k, v read once, out written once) and operations (a dot
-    and a multiply-add per head dim per live pair: 4 Dh) of one call."""
-    b, s, h, dh = q.shape
-    rows = range(s)
-    lo = [max(0, i - window + 1) if window else 0 for i in rows]
-    hi = [i + 1 if causal else s for i in rows]
-    pairs = sum(max(0, e - a) for a, e in zip(lo, hi))
-    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return n_bytes, 4 * b * h * dh * pairs
-
-
-def decode_work(q, k, kv_len):
-    """Bytes of the live cache rows (k and v), q, out and kv_len, and the
-    operations (4 Dh a head a live row) of one call."""
-    b, h, dh = q.shape
-    live = int(kv_len.clamp(max=k.shape[1]).sum())
-    n_bytes = ((2 * live * k.shape[2] * dh + 2 * q.numel()) * q.element_size()
-               + 4 * b)
-    return n_bytes, 4 * live * h * dh
 
 
 def lm_kernels_vs_plain(dev) -> dict:
@@ -1241,7 +1147,7 @@ def lm_kernel_times(dev, flush, results: dict, main_counts: dict) -> list:
     arms = attention_instructions()
     with torch.inference_mode():
         q, k, v = attn_inputs(gen, 4, 2048, 32, 8, 128, torch.float32)
-        n_bytes, n_ops = flash_work(q, k, True, 0)
+        n_bytes, n_ops = tflash.work(q, k, True, 0)
         fp32_fn = lambda: tflash.flash_attention(q, k, v)  # noqa: E731
         fp32_ms = time_ms(fp32_fn, 10, flush)
         fp32_warm_ms = time_ms(fp32_fn, 10)
@@ -1253,7 +1159,7 @@ def lm_kernel_times(dev, flush, results: dict, main_counts: dict) -> list:
                      "fp32_bound_ms": fp32_bound})
         del q, k, v
         q, k, v = attn_inputs(gen, 4, 2048, 32, 8, 128, torch.bfloat16)
-        n_bytes, n_ops = flash_work(q, k, True, 0)
+        n_bytes, n_ops = tflash.work(q, k, True, 0)
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True)
@@ -1282,7 +1188,7 @@ def lm_kernel_times(dev, flush, results: dict, main_counts: dict) -> list:
                       tdec.decode_attention(dq, dk, dv, kv_len))
         print(f"  SDPA vs decode_attention at the granite decode: max |err| "
               f"{err:.3e}")
-        n_bytes, n_ops = decode_work(dq, dk, kv_len)
+        n_bytes, n_ops = tdec.work(dq, dk, kv_len)
         timed.append(("decode_attention",
                       lambda: tdec.decode_attention(dq, dk, dv, kv_len),
                       lambda: tdec.decode_attention_plain(dq, dk, dv, kv_len),
@@ -1299,6 +1205,9 @@ def lm_kernel_times(dev, flush, results: dict, main_counts: dict) -> list:
             plain_ms = time_ms(plain, 5, flush)
             lib_ms = time_ms(lib, 20, flush)
             b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_FLOPS)
+            check((n_bytes, n_ops) == BOUND_WORK[name],
+                  f"{name}: bound work {(n_bytes, n_ops)} as before the "
+                  f"formulas moved ({BOUND_WORK[name]})")
             entries.append({
                 "name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1313,6 +1222,77 @@ def lm_kernel_times(dev, flush, results: dict, main_counts: dict) -> list:
                   f"(plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms by {b_by}, "
                   f"SDPA {lib_ms:.5f} ms)")
     return entries
+
+
+def characterization(hg, hg_r, dev) -> dict:
+    """Phase 3l: ``stage_records(timed=True)`` through
+    ``HGNNInferEngine.characterize`` on HAN/imdb's baseline (``csr``) and
+    optimized (fused, the epilogue) plans, RGCN/imdb's and MAGNN/imdb's
+    baselines, MAGNN/imdb optimized with 256 hot rows and GCN/Reddit at
+    scale 0.1.  Checked: the card's FLOPs and bytes equal the CPU's records
+    of the same plan exactly (the batch moved to the CPU, the same
+    parameters); each stage's device time by class sums to its device
+    time; no device kernel lands in OTHER.  Printed: a line a stage, as
+    the CLI prints it, the Fig. 2 shares of each case's device time, and
+    the stages' summed times beside the forward's wall (the stage split
+    adds a synchronisation a stage: a line to read, not a check)."""
+    import math
+
+    import torch
+    from repro_torch.configs.base import HGNNConfig
+    from repro_torch.launch.serve import build_hgnn_infer, stage_line
+    from repro_torch.serve.engine import HGNNInferEngine
+
+    han = HGNNConfig(model="han", dataset="imdb")
+    cases = [
+        ("han/imdb baseline", han.replace(fused=False), hg),
+        ("han/imdb optimized", han.replace(fused=True, use_pallas=True,
+                                           fuse_na_sa=True), hg),
+        ("rgcn/imdb baseline",
+         HGNNConfig(model="rgcn", dataset="imdb", fused=False), hg),
+        ("magnn/imdb baseline", HGNNConfig(model="magnn", dataset="imdb"),
+         hg),
+        (f"magnn/imdb optimized cache_rows={CACHE_ROWS}",
+         HGNNConfig(model="magnn", dataset="imdb", use_pallas=True,
+                    cache_rows=CACHE_ROWS), hg),
+        ("gcn/reddit-0.1", HGNNConfig(model="gcn", dataset="reddit"), hg_r),
+    ]
+    keys = ("flops", "hbm_bytes", "flops_by_class", "hbm_bytes_by_class")
+    out = {}
+    for tag, cfg, graph in cases:
+        b = build_hgnn_infer(cfg, graph, dev)
+        engine = HGNNInferEngine(b.executor, b.params, b.batch, fn=b.fn)
+        recs = engine.characterize(timed=True)
+        on_cpu = b.executor.stage_records(to_device(b.params, "cpu"),
+                                          to_device(b.batch, "cpu"))
+        same = list(recs) == list(on_cpu["stages"]) and all(
+            recs[n][k] == on_cpu["stages"][n][k] for n in recs for k in keys)
+        check(same, f"{tag}: the card's records (FLOPs, bytes, by class) "
+                    f"equal the CPU's exactly")
+        for name, rec in recs.items():
+            print(f"  {tag} {name}: {stage_line(rec)}")
+            check(math.isclose(sum(rec["device_us_by_class"].values()),
+                               rec["device_us"], rel_tol=1e-9),
+                  f"{tag} {name}: device time by class sums to "
+                  f"{rec['device_us']:.3f} us")
+            check(not rec["other_kernels"],
+                  f"{tag} {name}: no device kernel in OTHER "
+                  f"{rec['other_kernels']}")
+        dev_total = sum(r["device_us"] for r in recs.values())
+        time_total = sum(r["time_us"] for r in recs.values())
+        wall = wall_ms(engine)
+        print(f"  Fig. 2 {tag}: device {dev_total:.1f} us, " + ", ".join(
+            f"{n} {100 * r['device_us'] / dev_total:.1f}%"
+            for n, r in recs.items()) + "; stage walls " + ", ".join(
+            f"{n} {100 * r['time_us'] / time_total:.1f}%"
+            for n, r in recs.items()))
+        print(f"  {tag}: stages' time_us sum {time_total:.1f} us beside the "
+              f"forward wall {1e3 * wall:.1f} us")
+        out[tag] = {"stages": recs, "time_us_sum": time_total,
+                    "wall_us": 1e3 * wall}
+        del b, engine
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -1701,6 +1681,11 @@ def main() -> None:
     print("  Fig. 5c, HAN/imdb NA device ms a forward: " + ", ".join(
         f"{k} {v:.4f}" for k, v in fig5c.items()))
 
+    print("phase 3l: characterization, the paper's Fig. 2 and Fig. 3 on this "
+          "card: per-stage records through HGNNInferEngine.characterize("
+          "timed=True), against the CPU's records of the same plans")
+    char = characterization(hg, hg_r, dev)
+
     # ---------------- phase 4: timing ----------------
     print("phase 4: kernel times (CUDA events, median; cold = L2 flushed)")
     flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -1710,17 +1695,16 @@ def main() -> None:
         timed = {
             "gat_na": (lambda: tgat.gat_na(p_gat, h, h, nbr, mask),
                        lambda: tgat.gat_na_plain(p_gat, h, h, nbr, mask),
-                       None, gat_na_work(h, h, nbr, mask, 0)[:2]),
+                       None, tgat.work(h, h, nbr, mask, 0, live_only=True)),
             "gat_na_fused_sa": (
                 lambda: tgat.gat_na(p_gat, h, h, nbr, mask, sem=sem),
                 lambda: tgat.gat_na_plain(p_gat, h, h, nbr, mask, sem),
-                None, gat_na_work(h, h, nbr, mask, hs)[:2]),
+                None, tgat.work(h, h, nbr, mask, hs, live_only=True)),
             "semantic_combine": (
                 lambda: tsem.semantic_combine(z_stack, beta),
                 lambda: tsem.semantic_combine_plain(z_stack, beta),
                 lambda: torch.einsum("p,pnd->nd", beta, z_stack),
-                (z_stack.numel() * 4 + s_dim * 4 + n * z_stack.shape[2] * 4,
-                 (2 * s_dim - 1) * n * z_stack.shape[2])),
+                tsem.combine_work(z_stack, beta)),
         }
         # segment_spmm per relation, then one RGCN/imdb layer's four
         # launches together (the kernels line's entry)
@@ -1729,7 +1713,8 @@ def main() -> None:
         for key, h_src, r_nbr, r_mask in spmm_rels:
             csr = mean_csr(r_nbr, r_mask, h_src.shape[0])
             spmm_csr.append(csr)
-            n_bytes, n_ops, _ = spmm_work(h_src.shape[1], r_nbr, r_mask)
+            n_bytes, n_ops = tspmm.work(h_src.shape[1], r_nbr, r_mask,
+                                        live_only=True)
             layer_work[0] += n_bytes
             layer_work[1] += n_ops
             ms = time_ms(lambda: tspmm.segment_spmm(h_src, r_nbr, r_mask),
@@ -1772,7 +1757,7 @@ def main() -> None:
             lambda: tffn.fused_fp_na(x, w, f_nbr, f_mask),
             lambda: tffn.fused_fp_na_plain(x, w, f_nbr, f_mask),
             lambda: torch.sparse.mm(f_csr, x) @ w,
-            ffn_work(x, w, f_nbr, f_mask))
+            tffn.work(x, w, f_nbr, f_mask, live_only=True))
 
         # MAGNN/imdb: each of a layer's six cached gathers and two unstacked
         # gat_na launches on its own, then each layer's launches together
@@ -1786,12 +1771,12 @@ def main() -> None:
                     lambda t=t, hh=hh, idx=idx: tfc.cached_gather_plain(
                         t, hh, idx),
                     lambda pool=pool, idx=idx: pool[idx],
-                    gather_work(t, hh, idx))
+                    tfc.work(t, hh, idx, live_only=True))
                    for (tag, t, hh, idx), pool in zip(gathers, pools)]
         singles += [(f"gat_na unstacked {mp_tag}",
                      lambda a=a: tgat.gat_na(*a),
                      lambda a=a: tgat.gat_na_plain(*a), None,
-                     gat_na_work(a[1], a[2], a[3][None], a[4][None], 0)[:2])
+                     tgat.work(a[1], a[2], a[3], a[4], live_only=True))
                     for mp_tag, a in gat_args.items()]
         for tag, kern, plain, lib, (n_bytes, n_ops) in singles:
             ms, warm_ms = time_ms(kern, 50, flush), time_ms(kern, 50)
@@ -1828,7 +1813,7 @@ def main() -> None:
         timed["semantic_scores"] = (
             lambda: tsem.semantic_scores(*sa_args),
             lambda: tsem.semantic_scores_plain(*sa_args), None,
-            scores_work(sa_args[0], sa_args[1]))
+            tsem.scores_work(sa_args[0], sa_args[1]))
         # segment_sum: GCN/Reddit's first aggregation (scale 0.1), with
         # index_add_ of the gathered rows as the library yardstick; each
         # HAN/imdb csr call and GCN's second aggregation on their own
@@ -1842,7 +1827,7 @@ def main() -> None:
             lambda: tss.segment_sum_plain(vals_g, seg_g, n_g_seg, idx=idx_g,
                                           mean=mean_g),
             lambda: acc_g.index_add_(0, seg_gl, rows_g),
-            segment_sum_work(vals_g, seg_g, n_g_seg, idx_g, mean_g))
+            tss.work(vals_g, seg_g, n_g_seg, idx_g, mean_g, live_only=True))
         segment_sum_shapes["gcn/reddit aggregation 2"] = segment_sum_timing(
             gcn_calls[1], flush)
         for i, call in enumerate(csr_calls):
@@ -1868,7 +1853,7 @@ def main() -> None:
             layer_of([lambda a=a: tgat.gat_na(*a) for _, a in bk_calls]),
             layer_of([lambda a=a: tgat.gat_na_plain(*a)
                       for _, a in bk_calls]), None,
-            summed([gat_na_work(a[1], a[2], a[3][None], a[4][None], 0)[:2]
+            summed([tgat.work(a[1], a[2], a[3], a[4], live_only=True)
                     for _, a in bk_calls]))
         shapes = {
             "segment_spmm": "one RGCN/imdb layer: 4 launches, one per "
@@ -1954,6 +1939,9 @@ def main() -> None:
                                  "jax.ops.segment_sum runs in XLA, with no "
                                  "TPU kernel behind it")
             kernels.append(entry)
+            check(tuple(work) == BOUND_WORK[name],
+                  f"{name}: bound work {tuple(work)} as before the formulas "
+                  f"moved ({BOUND_WORK[name]})")
             print(f"  {name}: {ms:.5f} ms cold, {warm_ms:.5f} ms warm "
                   f"(plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms by "
                   f"{b_by}, library "
@@ -1980,6 +1968,7 @@ def main() -> None:
           "flushed)")
     kernels += lm_kernel_times(dev, flush, lm_results, lm_counts)
 
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -1993,6 +1982,7 @@ def main() -> None:
                       "fig5c_han_na_device_ms": fig5c,
                       "lm": {"granite_2_layers_fp32": two_layers,
                              "granite_serve": serve},
+                      "characterization": char,
                       "profiles": profiles}))
     if failures:
         print(f"FAILED: {failures}", file=sys.stderr)

@@ -56,7 +56,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -200,8 +200,7 @@ class StageGraphExecutor:
         if self.plan.n_layers > 1:
             params["layers"] = [self._init_hidden_layer(gen, batch)
                                 for _ in range(1, self.plan.n_layers)]
-        x = batch["x"] if "x" in batch else next(iter(batch["feats"].values()))
-        return _to_device(params, x.device)
+        return _to_device(params, _batch_device(batch))
 
     def _init_layer0(self, gen: torch.Generator, batch: Dict) -> Dict:
         cfg = self.cfg
@@ -281,11 +280,11 @@ class StageGraphExecutor:
         ``dense`` FP is its first combination, ``x @ w1``."""
         if self.plan.fp.kind == "dense":
             return batch["x"] @ params["w1"]
-        h = stages.feature_projection(params["fp"], batch["feats"])
-        if self.plan.fp.heads:
-            ht = h[self.plan.target]
+        if self.plan.fp.heads:  # the other types' tables are not used
+            t = self.plan.target
+            ht = batch["feats"][t] @ params["fp"][t]
             return ht.reshape(ht.shape[0], self.cfg.n_heads, -1)
-        return h
+        return stages.feature_projection(params["fp"], batch["feats"])
 
     def _fp_hidden(self, lp, p_l: Dict, state: Dict):
         """Layers >= 1: ``identity`` passes the carried tables through
@@ -541,6 +540,128 @@ class StageGraphExecutor:
             state = self._handoff(lp, h, out)
         return self.head(params, out, batch)
 
+    # ------------------------------------------------------------------
+    # per-stage characterization hooks
+    # ------------------------------------------------------------------
+    def stage_fns(self, params: Dict, batch: Dict) -> Dict[str, Tuple]:
+        """One callable per stage, chained on concrete intermediates:
+        ``name -> (fn, args)``, each run once here to make the next one's
+        input (the reference's per-stage jits, ``:1032``; separate calls
+        expose the NA→SA barrier, paper Fig. 5c).  A one-layer plan names
+        its stages ``FP``/``NA``/``SA``/``head``; an L-layer stack prefixes
+        every per-layer stage with ``L{i}.`` (1-based)."""
+        n_l = self.plan.n_layers
+        fns: Dict[str, Tuple] = {}
+        state = out = None
+        with torch.inference_mode():
+            for l, lp in enumerate(self.plan.layers):
+                pre = f"L{l + 1}." if n_l > 1 else ""
+                if l == 0:
+                    fns[pre + "FP"] = (lambda p: self.fp(p, batch), (params,))
+                else:
+                    fns[pre + "FP"] = (
+                        lambda p, s, lp=lp, l=l: self._fp_hidden(
+                            lp, self._layer_params(p, l), s), (params, state))
+                fn, args = fns[pre + "FP"]
+                h = fn(*args)
+                fns[pre + "NA"] = (lambda p, hh, l=l: self.na(
+                    self._layer_params(p, l), batch, hh), (params, h))
+                z = fns[pre + "NA"][0](params, h)
+                fns[pre + "SA"] = (lambda p, zz, l=l: self.sa(
+                    self._layer_params(p, l), batch, zz), (params, z))
+                out = fns[pre + "SA"][0](params, z)
+                state = self._handoff(lp, h, out)
+        fns["head"] = (lambda p, oo: self.head(p, oo, batch), (params, out))
+        return fns
+
+    def stage_records(self, params: Dict, batch: Dict, n_chips: int = 1,
+                      sample_meta: Dict = None, timed: bool = False
+                      ) -> Dict:
+        """Per-stage characterization (the reference's schema, ``:1093``):
+        stage name -> ``flops``, ``hbm_bytes``, ``flops_by_class``,
+        ``hbm_bytes_by_class`` and the H100 ``roofline``, counted by
+        ``core/characterize.py``'s recorder over the exact stage callables
+        of :meth:`stage_fns`; ``total`` is the sum over the stages.  With
+        residency, ``residency`` holds the batch's counters priced at
+        ``4 * hidden`` bytes a row, and each NA record's bytes drop by the
+        hot rows it did not re-read (its TB bytes too), the cache fill
+        charged at the first NA stage only.
+
+        ``timed=True`` (a CUDA batch only: walls count only on the card)
+        adds to each stage ``time_us``, the median of CUDA events around
+        its callable over 20 calls, synchronised, after warm-up, and
+        ``device_us`` / ``device_us_by_class`` / ``other_kernels``, its
+        device kernels under ``torch.profiler``, each stage in a window of
+        its own.  The SAMPLE stage of sampled serving is ROADMAP item 13."""
+        from repro_torch.core import characterize as ch
+
+        if sample_meta is not None:
+            raise not_ported("the SAMPLE stage record of request-path "
+                             "sampled serving", 13)
+        dev = _batch_device(batch)
+        if timed and dev.type != "cuda":
+            raise ValueError(f"stage_records(timed=True) measures on a CUDA "
+                             f"device; this batch is on {dev}")
+        fns = self.stage_fns(params, batch)
+        recs: Dict[str, Dict] = {}
+        with torch.inference_mode():
+            for name, (fn, args) in fns.items():
+                with ch.Recorder() as rec:
+                    fn(*args)
+                rep = rec.report()
+                recs[name] = {
+                    "flops": rep["total_flops"],
+                    "hbm_bytes": rep["total_hbm_bytes"],
+                    "flops_by_class": rep["flops_by_class"],
+                    "hbm_bytes_by_class": rep["hbm_bytes_by_class"],
+                    "roofline": ch.roofline(rep, n_chips, 0.0),
+                }
+            if timed:
+                calls = {name: functools.partial(fn, *args)
+                         for name, (fn, args) in fns.items()}
+                # a stage of no op (GCN's SA) launches no kernel
+                on_card = ch.device_times_us({
+                    name: call for name, call in calls.items()
+                    if recs[name]["hbm_bytes"]})
+                for name, call in calls.items():
+                    dev_us, by_class, other = on_card.get(name,
+                                                          (0.0, {}, []))
+                    recs[name].update(
+                        time_us=ch.stage_time_us(call),
+                        device_us=dev_us, device_us_by_class=by_class,
+                        other_kernels=other)
+        res = batch.get("residency")
+        rr = None
+        if res is not None:
+            # the recorder charges every gather at its structural size, so
+            # the cache's effect — hot rows served from the resident section
+            # instead of re-read — comes from the deterministic counters;
+            # the hot set is layer-invariant, so only the first cached stage
+            # pays the fill
+            cached = [n for n in fns if n.endswith("NA")]
+            rr = ch.residency_record(res["counters"], 4 * self.cfg.hidden,
+                                     layers=len(cached))
+            for i, name in enumerate(cached):
+                saved = rr["bytes_saved_per_layer"] - (
+                    rr["fill_bytes"] if i == 0 else 0)
+                r = recs[name]
+                r["residency_bytes_saved"] = saved
+                r["hit_rate"] = rr["hit_rate"]
+                r["hbm_bytes"] = max(r["hbm_bytes"] - saved, 0)
+                by_class = r["hbm_bytes_by_class"]
+                by_class["TB"] = by_class.get("TB", 0.0) - saved
+        total = {"flops": sum(r["flops"] for r in recs.values()),
+                 "hbm_bytes": sum(r["hbm_bytes"] for r in recs.values())}
+        out = {"stages": recs, "total": total}
+        if rr is not None:
+            out["residency"] = rr
+        return out
+
+
+def _batch_device(batch: Dict) -> torch.device:
+    x = batch["x"] if "x" in batch else next(iter(batch["feats"].values()))
+    return x.device
+
 
 def _to_device(tree, device):
     """A tree of dicts, lists and tuples with every array (numpy or torch)
@@ -604,3 +725,8 @@ class PlannedModel:
 
     def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
         return self.executor.forward(params, batch)
+
+    def stage_records(self, params: Dict, batch: Dict, n_chips: int = 1,
+                      **kw) -> Dict:
+        return self.executor.stage_records(params, batch, n_chips=n_chips,
+                                           **kw)

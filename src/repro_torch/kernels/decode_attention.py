@@ -151,3 +151,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention.launches = 0
+
+
+def work(q, k, kv_len):
+    """``(bytes, operations)`` of one call: the live cache rows of k and v,
+    q, the output and kv_len; 4 Dh operations a head a live row."""
+    b, h, dh = q.shape
+    lens = torch.as_tensor(kv_len).reshape(-1).expand(b)
+    live = int(lens.clamp(max=k.shape[1]).sum())
+    n_bytes = ((2 * live * k.shape[2] * dh + 2 * q.numel())
+               * q.element_size() + 4 * b)
+    return n_bytes, 4 * live * h * dh

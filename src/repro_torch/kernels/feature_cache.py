@@ -103,3 +103,23 @@ def cached_gather(table: torch.Tensor, hot: torch.Tensor,
 
 
 cached_gather.launches = 0
+
+
+def work(table, hot, idx, live_only: bool = False):
+    """``(bytes, operations)`` of one call: the output and the indices
+    once, the hot ids once, and the table rows that the indices name (the
+    kernel reads no cache section: a hot index reads its row through its
+    hot id); it computes nothing.  ``live_only=False`` counts one row read
+    an index (the characterization record, as the reference's HLO walker
+    charges a gather); ``live_only=True`` each named row once (the roofline
+    bound)."""
+    n, d = table.shape
+    n_bytes = idx.numel() * 4 * (1 + d) + hot.numel() * 4
+    if live_only:
+        v = idx.long().reshape(-1)
+        rows = torch.where(
+            v >= n, hot.long()[(v - n).clamp(0, hot.numel() - 1)], v)
+        n_bytes += int(rows.unique().numel()) * d * 4
+    else:
+        n_bytes += idx.numel() * d * 4
+    return n_bytes, 0

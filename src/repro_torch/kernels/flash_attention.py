@@ -178,3 +178,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+def work(q, k, causal: bool = True, window: int = 0):
+    """``(bytes, operations)`` of one call: q, k, v read once and the
+    output written once; a dot and a multiply-add per head dim per live
+    (query, key) pair: 4 Dh."""
+    b, s, h, dh = q.shape
+    rows = range(s)
+    lo = [max(0, i - window + 1) if window else 0 for i in rows]
+    hi = [i + 1 if causal else s for i in rows]
+    pairs = sum(max(0, e - a) for a, e in zip(lo, hi))
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return n_bytes, 4 * b * h * dh * pairs

@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.segment_spmm import segment_spmm_emulate
+from repro_torch.kernels.segment_spmm import work as segment_spmm_work
 
 BLOCK_F = 64  # csrc/fused_fp_na.cu's kBF: raw-feature columns per F-tile
 SLICES = 8  # its kSlices: F-slices a row tile
@@ -153,3 +154,15 @@ def fused_fp_na(x_src: torch.Tensor, w: torch.Tensor, nbr: torch.Tensor,
 
 
 fused_fp_na.launches = 0
+
+
+def work(x, w, nbr, mask, live_only: bool = False):
+    """``(bytes, fp32 operations, TF32 tensor-core operations)`` of one
+    call: :func:`segment_spmm.work`'s reads of the mask, the indices and
+    the raw rows (``live_only`` as there), plus ``W`` once and the
+    ``[N, D]`` output once; the aggregate's multiply-adds in fp32; the
+    product ``2*N*F*D`` three times over (the kernel's 3xTF32 split)."""
+    n, f, d = nbr.shape[0], x.shape[1], w.shape[1]
+    n_bytes, n_ops = segment_spmm_work(f, nbr, mask, live_only)
+    n_bytes += f * d * 4 + n * d * 4 - n * f * 4  # out is [N, D], not [N, F]
+    return n_bytes, n_ops, 3 * 2 * n * f * d

@@ -274,3 +274,45 @@ def gat_na(p: Dict[str, torch.Tensor], h_dst: torch.Tensor,
 
 gat_na.launches = 0
 gat_na.fused_launches = 0
+
+
+def work(h_dst, h_src, nbr, mask, hs: int = 0, live_only: bool = False):
+    """``(bytes, operations)`` of one call on these inputs, either call
+    form: ``nbr``/``mask`` (8 bytes a slot), ``h_dst`` and ``a_dst``/
+    ``a_src`` read once, the output written once; ``e_dst`` per row and
+    head, ``e_src = a_src·h`` per source row read, and per slot the
+    add, leaky relu, max, shift, exp and denominator per head plus a
+    multiply-add per feature; the final divide.  With ``hs`` (the ``sem=``
+    epilogue's width) also ``W``, ``b``, ``q`` read and ``w`` written, and
+    per row the elu, ``zW + b``, the tanh and the ``q`` dot, then the mean.
+
+    ``live_only=False`` counts the gather structurally, one source row read
+    a slot, live or masked (as the reference's HLO walker charges a gather:
+    the characterization record).  ``live_only=True`` counts what the
+    function must do on these data: only the slots that are live, each
+    named source row read once and not at all when ``h_src`` is ``h_dst``
+    (the roofline bound of ``chip_smoke.py``)."""
+    if nbr.dim() == 2:
+        nbr, mask = nbr[None], mask[None]
+    s_dim, n, k = nbr.shape
+    heads = h_dst.shape[1]
+    hd = heads * h_dst.shape[2]
+    n_bytes = 2 * nbr.numel() * 4 + n * hd * 4 + s_dim * n * hd * 4
+    n_bytes += 2 * s_dim * hd * 4  # a_dst, a_src
+    if live_only:
+        live = int((mask != 0).sum())
+        named = [nbr[s][mask[s] != 0].unique() for s in range(s_dim)]
+        if h_src.data_ptr() != h_dst.data_ptr():
+            n_bytes += int(torch.cat(named).unique().numel()) * hd * 4
+        src_rows = sum(int(r.numel()) for r in named)
+    else:
+        live = src_rows = nbr.numel()
+        n_bytes += src_rows * hd * 4
+    n_ops = 2 * s_dim * n * hd  # e_dst
+    n_ops += 2 * hd * src_rows  # e_src
+    n_ops += live * (6 * heads + 2 * hd)
+    n_ops += s_dim * n * hd  # the final divide
+    if hs:
+        n_bytes += (hd * hs + 2 * hs) * 4 + s_dim * 4  # W, b, q; w
+        n_ops += s_dim * n * (hd + 2 * hd * hs + 4 * hs) + s_dim * n
+    return n_bytes, n_ops

@@ -12,6 +12,16 @@ Dispatch policy:
   the hand-written kernel and raises if the build or the launch fails.
   There is no fallback from a CUDA tensor to the plain version.
 
+Every kernel is called here, so this is where a kernel-arm call declares
+its work to the characterization recorder (``core/characterize.py``): its
+class, FLOPs and bytes from the ``work`` helper beside its wrapper, with
+gathers counted structurally, in place of the aten ops that the call runs
+(the wrapper's allocations on the card, the plain version on the CPU, so
+that both give the same records).  ``segment_sum`` declares on any device;
+a ``use_pallas=False`` call declares nothing, and its aten ops are counted
+one by one.  With no recorder active a call costs one check of an empty
+list more.
+
 The name ``use_pallas`` is the reference's; here it means "hand-written
 kernels".  ``flash_attention`` and ``decode_attention`` serve the LM's
 prefill and decode (``nn/attention.py``); the reference takes its Pallas
@@ -23,6 +33,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core.characterize import declared
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import feature_cache as _fc
 from repro_torch.kernels import flash_attention as _flash
@@ -34,12 +45,30 @@ from repro_torch.kernels import segment_sum as _ssum
 from repro_torch.kernels import semantic_attn as _sem
 
 
+def _ffn_work(x, w, nbr, mask):
+    """``fused_fp_na``'s declared work: the product counted once (the
+    kernel's 3xTF32 split runs it three times over) beside the
+    aggregate's operations."""
+    n_bytes, n_ops, tf32_ops = _ffn.work(x, w, nbr, mask)
+    return n_bytes, n_ops + tf32_ops // 3
+
+
+def _gat_na(p, h_dst, h_src, nbr, mask, sem=None):
+    """The ``gat_na`` kernel, every call form, with its declared work."""
+    hs = 0 if sem is None else sem["W"].shape[1]
+    return declared(
+        "TB", lambda: _gat.work(h_dst, h_src, nbr, mask, hs),
+        _gat.gat_na, p, h_dst, h_src, nbr, mask, sem=sem)
+
+
 def segment_spmm(h_src, nbr, mask, mean: bool = True,
                  use_pallas: bool = False) -> torch.Tensor:
     """Padded-neighbour sum/mean aggregation (RGCN's mean NA):
     ``h_src [M, D]``, ``nbr``/``mask`` ``[N, K]`` -> ``[N, D]``."""
     if use_pallas:
-        return _spmm.segment_spmm(h_src, nbr, mask, mean=mean)
+        return declared(
+            "TB", lambda: _spmm.work(h_src.shape[1], nbr, mask),
+            _spmm.segment_spmm, h_src, nbr, mask, mean=mean)
     return ref.segment_spmm(h_src, nbr, mask, mean=mean)
 
 
@@ -52,7 +81,9 @@ def segment_sum(vals, seg, n: int, idx=None, mean: bool = False
     depend on ``use_pallas``, so this dispatches by the tensors' device
     alone: the CPU's plain version or the card's kernel.  The stages call
     it here, so a harness can record their calls in one place."""
-    return _ssum.segment_sum(vals, seg, n, idx=idx, mean=mean)
+    return declared(
+        "TB", lambda: _ssum.work(vals, seg, n, idx, mean),
+        _ssum.segment_sum, vals, seg, n, idx=idx, mean=mean)
 
 
 def fused_fp_na(x_src, w, nbr, mask, mean: bool = True,
@@ -60,7 +91,8 @@ def fused_fp_na(x_src, w, nbr, mask, mean: bool = True,
     """Fused FP + NA: ``mean_k(x[nbr]) @ W`` with the projection in the
     kernel body: ``x [M, F]``, ``W [F, D]`` -> ``[N, D]``."""
     if use_pallas:
-        return _ffn.fused_fp_na(x_src, w, nbr, mask, mean=mean)
+        return declared("DM", lambda: _ffn_work(x_src, w, nbr, mask),
+                        _ffn.fused_fp_na, x_src, w, nbr, mask, mean=mean)
     return ref.fused_fp_na(x_src, w, nbr, mask, mean=mean)
 
 
@@ -68,7 +100,11 @@ def semantic_attention(z, w, b, q, use_pallas: bool = False) -> torch.Tensor:
     """Both SA passes over the stacked ``[P, N, D]`` input: the scores
     kernel, the softmax over ``P``, the combine kernel."""
     if use_pallas:
-        return _sem.semantic_attention(z, w, b, q)
+        scores = declared(
+            "DM", lambda: _sem.scores_work(z, w),
+            _sem.semantic_scores, z, w, b, q)
+        return semantic_combine(z, torch.softmax(scores, dim=0),
+                                use_pallas=True)
     return ref.semantic_attention(z, w, b, q)
 
 
@@ -77,7 +113,9 @@ def cached_gather(table, hot, idx, use_pallas: bool = False) -> torch.Tensor:
     extended pool ``concat(table, table[hot])``; indices ``>= len(table)``
     hit the cache section."""
     if use_pallas:
-        return _fc.cached_gather(table, hot, idx)
+        return declared(
+            "TB", lambda: _fc.work(table, hot, idx),
+            _fc.cached_gather, table, hot, idx)
     return ref.cached_gather(table, hot, idx)
 
 
@@ -86,7 +124,7 @@ def gat_aggregate(p: Dict, h_dst, h_src, nbr, mask,
     """Unstacked GAT NA: ``nbr/mask [N, K]``, params ``[H, Dh]`` ->
     ``[N, H, Dh]`` (MAGNN's instance attention, one launch a metapath)."""
     if use_pallas:
-        return _gat.gat_na(p, h_dst, h_src, nbr, mask)
+        return _gat_na(p, h_dst, h_src, nbr, mask)
     return ref.gat_na(p, h_dst, h_src, nbr, mask)
 
 
@@ -95,7 +133,7 @@ def gat_aggregate_stacked(p_stacked: Dict, h_dst, h_src, nbr, mask,
     """Stacked GAT NA: ``nbr/mask [P, N, K]``, params ``[P, H, Dh]`` — the
     whole metapath stack is ONE kernel launch."""
     if use_pallas:
-        return _gat.gat_na(p_stacked, h_dst, h_src, nbr, mask)
+        return _gat_na(p_stacked, h_dst, h_src, nbr, mask)
     return ref.gat_na(p_stacked, h_dst, h_src, nbr, mask)
 
 
@@ -104,7 +142,7 @@ def gat_aggregate_stacked_fused_sa(p_stacked: Dict, h_dst, h_src, nbr, mask,
     """Stacked GAT NA with the fused NA→SA epilogue.  Returns
     ``(z [P, N, H, Dh] elu-activated, w [P])``."""
     if use_pallas:
-        return _gat.gat_na(p_stacked, h_dst, h_src, nbr, mask, sem=sem)
+        return _gat_na(p_stacked, h_dst, h_src, nbr, mask, sem=sem)
     return ref.gat_na_fused_sa(p_stacked, h_dst, h_src, nbr, mask,
                                sem["W"], sem["b"], sem["q"])
 
@@ -112,7 +150,9 @@ def gat_aggregate_stacked_fused_sa(p_stacked: Dict, h_dst, h_src, nbr, mask,
 def semantic_combine(z, beta, use_pallas: bool = False) -> torch.Tensor:
     """SA pass 2 only: ``sum_p beta_p z_p`` — one read of the stack."""
     if use_pallas:
-        return _sem.semantic_combine(z, beta)
+        return declared(
+            "EW", lambda: _sem.combine_work(z, beta),
+            _sem.semantic_combine, z, beta)
     return ref.semantic_combine(z, beta)
 
 
@@ -121,7 +161,9 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     """Causal / windowed GQA attention: ``q [B, S, H, Dh]``, ``k, v [B, S,
     KVH, Dh]`` -> ``[B, S, H, Dh]`` (the LM's prefill)."""
     if use_pallas:
-        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+        return declared(
+            "DM", lambda: _flash.work(q, k, causal, window),
+            _flash.flash_attention, q, k, v, causal=causal, window=window)
     return ref.mha_attention(q, k, v, causal=causal, window=window)
 
 
@@ -130,7 +172,9 @@ def decode_attention(q, k, v, kv_len, use_pallas: bool = False
     """One-token GQA attention over the first ``kv_len[b]`` cache rows:
     ``q [B, H, Dh]``, ``k, v [B, S, KVH, Dh]`` -> ``[B, H, Dh]``."""
     if use_pallas:
-        return _dec.decode_attention(q, k, v, kv_len)
+        return declared(
+            "DM", lambda: _dec.work(q, k, kv_len),
+            _dec.decode_attention, q, k, v, kv_len)
     return ref.decode_attention(q, k, v, kv_len)
 
 

@@ -139,3 +139,23 @@ def segment_spmm(h_src: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
 
 
 segment_spmm.launches = 0
+
+
+def work(n_cols: int, nbr, mask, live_only: bool = False):
+    """``(bytes, operations)`` of one call with ``n_cols``-wide source
+    rows: the mask once (4 bytes a slot), the index and the source row of
+    each slot, the output once; a multiply-add per slot and column, the
+    divide per output.  ``live_only=False`` counts every slot, live or
+    masked (the characterization record, as the reference's HLO walker
+    charges a gather); ``live_only=True`` only what the function must do on
+    these data: the live slots' indices and each source row that a live
+    slot names once (the roofline bound)."""
+    n, k = nbr.shape
+    if live_only:
+        live = mask != 0
+        n_live = int(live.sum())
+        named = int(nbr[live].unique().numel())
+    else:
+        n_live = named = n * k
+    n_bytes = 4 * n * k + 4 * n_live + named * n_cols * 4 + n * n_cols * 4
+    return n_bytes, 2 * n_live * n_cols + n * n_cols

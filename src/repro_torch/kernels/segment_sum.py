@@ -168,3 +168,18 @@ def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int,
 
 
 segment_sum.launches = 0
+
+
+def work(vals, seg, n: int, idx=None, mean: bool = False,
+         live_only: bool = False):
+    """``(bytes, operations)`` of one call: ``seg`` (and ``idx``) once,
+    the rows summed, the output once; an add per edge and column, and a
+    divide per output for the mean.  The plain form reads each value once.
+    The gather form reads one table row an edge with ``live_only=False``
+    (the characterization record, as the reference's HLO walker charges a
+    gather) and each named row once with ``live_only=True`` (the roofline
+    bound)."""
+    e, c = seg.shape[0], vals.shape[1]
+    rows = e if idx is None or not live_only else int(idx.unique().numel())
+    n_bytes = 4 * e * (1 if idx is None else 2) + 4 * rows * c + 4 * n * c
+    return n_bytes, e * c + (n * c if mean else 0)

@@ -25,11 +25,10 @@ operations (``2*P*N*D*Hs``; 1.4e8 at ``[2, 4278, 64]`` with Hs = 128, 2.1
 us at 67 TFLOP/s).  The TPU kernel's streaming twin has no counterpart:
 one design covers every N.
 
-:func:`semantic_attention` composes the two as the reference does
-(``:175``): scores, softmax over ``P``, combine.  No executor path calls
-it — the fused NA epilogue computes HAN's scores and the unfused SA is
-plain PyTorch, as in the reference — so it is reached through
-``ops.semantic_attention``.
+``ops.semantic_attention`` composes the two as the reference's
+``semantic_attention`` does (``:175``): scores, softmax over ``P``,
+combine.  No executor path calls it — the fused NA epilogue computes
+HAN's scores and the unfused SA is plain PyTorch, as in the reference.
 
 Dispatch is by device: a CPU tensor takes the plain version
 (``kernels/ref.py``); a CUDA tensor launches the kernel or raises.
@@ -106,6 +105,14 @@ def semantic_combine(z: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
 
 
 semantic_combine.launches = 0
+
+
+def combine_work(z, beta):
+    """``(bytes, operations)`` of one combine: z and beta read once, the
+    ``[N, D]`` output written once; ``P`` multiplies and ``P - 1`` adds an
+    output element."""
+    p, n, d = z.shape
+    return z.numel() * 4 + p * 4 + n * d * 4, (2 * p - 1) * n * d
 
 
 def semantic_scores_emulate(z: torch.Tensor, w: torch.Tensor,
@@ -190,8 +197,13 @@ def semantic_scores(z: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 semantic_scores.launches = 0
 
 
-def semantic_attention(z: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                       q: torch.Tensor) -> torch.Tensor:
-    """Both SA passes: the scores, the softmax over ``P``, the combine."""
-    beta = torch.softmax(semantic_scores(z, w, b, q), dim=0)
-    return semantic_combine(z, beta)
+def scores_work(z, w):
+    """``(bytes, operations)`` of one scores call: z, W, b, q read once, w
+    written once; per row ``zW + b`` (2*D*Hs: the kernel's D FFMAs a
+    column from b), the tanh and the q dot (3*Hs), and the mean.  The
+    kernel does all of it in fp32 outside the tensor cores."""
+    p, n, d = z.shape
+    hs = w.shape[1]
+    n_bytes = (z.numel() + d * hs + 2 * hs + p) * 4
+    return n_bytes, p * n * (2 * d * hs + 3 * hs + 1)
+

@@ -45,8 +45,18 @@ synchronised with the device, and with residency the reference's counters
 
   residency: cache_rows=... hits=... misses=... rows=... hit_rate=...
 
-The reference's device mesh, graph partitioning, sampled serving, the
-overlap schedule and characterization are not ported yet.
+``--characterize`` then prints the reference's line for each stage of
+``HGNNInferEngine.characterize`` (``FP``/``NA``/``SA``/``head``,
+``L{i}.``-prefixed with ``--layers``)
+
+  FP: flops=... hbm_bytes=... bound=...
+
+and on the card, where the stages are timed, also ``time_us=...
+device_us=... DM=...% TB=...% EW=...% DR=...%`` (the device time's shares
+by kernel class) and ``OTHER=[...]`` naming any kernel left unclassed.
+
+The reference's device mesh, graph partitioning, sampled serving and the
+overlap schedule are not ported yet.
 """
 from __future__ import annotations
 
@@ -137,6 +147,28 @@ def run_hgnn(args) -> None:
         print(f"  residency: cache_rows={ct['cache_rows']} "
               f"hits={ct['hits']} misses={ct['misses']} rows={ct['rows']} "
               f"hit_rate={ct['hits'] / max(ct['rows'], 1):.3f}")
+    if args.characterize:
+        recs = engine.characterize(timed=dev.type == "cuda")
+        for stage, rec in recs.items():
+            print(f"  {stage}: {stage_line(rec)}")
+
+
+def stage_line(rec) -> str:
+    """A stage record as the CLI prints it: the reference's FLOPs, bytes
+    and bound, then, for a timed record, the stage and device times and
+    the device time's shares by kernel class."""
+    line = (f"flops={rec['flops']:.3g} hbm_bytes={rec['hbm_bytes']:.3g} "
+            f"bound={rec['roofline']['bound']}")
+    if "device_us" in rec:
+        dev_us = rec["device_us"]
+        shares = " ".join(
+            f"{c}={100 * rec['device_us_by_class'].get(c, 0.0) / dev_us:.1f}%"
+            for c in ("DM", "TB", "EW", "DR")) if dev_us else ""
+        line += (f" time_us={rec['time_us']:.1f} device_us={dev_us:.1f} "
+                 f"{shares}")
+        if rec["other_kernels"]:
+            line += f" OTHER={rec['other_kernels']}"
+    return line
 
 
 def run_lm(args) -> None:
@@ -205,6 +237,10 @@ def main() -> None:
                          "node type in a cache section of the gather pool")
     ap.add_argument("--layers", type=int, default=1,
                     help="stack that many FP->NA->SA layers")
+    ap.add_argument("--characterize", action="store_true",
+                    help="print the per-stage FLOPs/bytes/roofline records "
+                         "(and, on the card, stage and device times by "
+                         "kernel class)")
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "

@@ -2,9 +2,10 @@
 
 ``HGNNInferEngine`` — HGNN inference driven by a :class:`StagePlan`: the
 engine holds the stage-graph executor (not a model class) and serves the
-forward over the prepared batch.  The per-stage characterization hook
-(``characterize``) and the sampled-serving ``HGNNServeEngine`` are later
-items of the port (ROADMAP Queue 1 items 13 and 15).
+forward over the prepared batch, and ``characterize`` gives the per-stage
+records of ``core/characterize.py`` from the same plan.  The
+sampled-serving ``HGNNServeEngine`` is a later item of the port (ROADMAP
+Queue 1 item 13).
 
 ``ServeEngine`` — LM serving over the prefill / decode step functions of
 ``nn/transformer.py``: each wave of up to ``batch_slots`` requests is
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -44,6 +45,16 @@ class HGNNInferEngine:
         """One full forward over the prepared batch -> logits."""
         with torch.inference_mode():
             return self.fn(self.params, self.batch)
+
+    def characterize(self, n_chips: int = 1, timed: bool = False
+                     ) -> Dict[str, Dict]:
+        """Per-stage (FP/NA/SA/head) FLOPs, HBM bytes and roofline records
+        from the serving code path — the paper's Fig. 3 breakdown; with
+        ``timed`` (on the card) the stage and device times and the device
+        time by kernel class too (Fig. 2 and Fig. 3 measured)."""
+        return self.executor.stage_records(self.params, self.batch,
+                                           n_chips=n_chips,
+                                           timed=timed)["stages"]
 
 
 @dataclasses.dataclass
