@@ -36,8 +36,17 @@ paper's characterization on this card: per-stage records through
 ``HGNNInferEngine.characterize(timed=True)`` for HAN/imdb's baseline and
 optimized plans, RGCN/imdb's and MAGNN/imdb's baselines, MAGNN/imdb with
 residency and GCN/Reddit, the FLOPs and bytes held equal to the CPU's
-records, every device kernel in a class.  It imports
-nothing of jax or of the JAX package ``repro``.
+records, every device kernel in a class.  Phase 3m is request-path
+serving: ``HGNNSampler`` and ``HGNNServeEngine`` serve 32 requests of the
+CLI's queue (fan-out 8, 8 slots of 4 targets) for HAN/imdb through the
+``gat_na`` epilogue and ``semantic_combine``, RGCN/imdb on rung-padded
+degree buckets, MAGNN/imdb and GCN/Reddit 0.1, each held against the same
+queue served on the CPU by the plain arm, with exact launch counts, no
+failed step or retry, nothing made after warmup, and each kernel call of a
+served step against its plain version; an identity-rung serve of all 4278
+HAN/imdb targets is bitwise the full-graph forward, and a seeded chaos
+serve's counters equal ``BENCH_hgnn.json``'s.  It imports nothing of jax
+or of the JAX package ``repro``.
 
 Output: progress lines, then the card's name and power limit as
 ``nvidia-smi`` prints them, a ``{"kernels": [...]}`` JSON line, and as the
@@ -753,6 +762,429 @@ def segment_sum_timing(call, flush) -> dict:
     return rec
 
 
+# Request-path serving (phase 3m): HAN/imdb through the gat_na epilogue and
+# semantic_combine, RGCN/imdb on rung-padded buckets, MAGNN/imdb, and GCN
+# on the Reddit-like graph, each sampled and served by HGNNServeEngine
+
+SERVE_REQUESTS = 32  # the CLI's --requests: the checked serve
+SERVE_SLOTS, SERVE_SLOT_TARGETS, SERVE_FANOUT = 8, 4, 8
+# the timed serves: the same CLI traffic, long enough (~220 steps) that a
+# serve's p99 step wall rests on a tail, repeated for the spread
+SERVE_TIMED_REQUESTS, SERVE_REPEATS = 1024, 3
+
+
+def capture_served_calls(fn) -> list:
+    """Run ``fn`` once with the kernel entries of ``kernels/ops.py`` that
+    a served step reaches recorded: ``[(kernel, args)]`` at the shapes the
+    step gave them (sink row and pad slots included)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    calls = []
+    orig = {n: getattr(ops, n) for n in ("_gat_na", "semantic_combine",
+                                         "segment_spmm", "segment_sum")}
+
+    def gat(p, h_dst, h_src, nbr, mask, sem=None):
+        calls.append(("gat_na", (p, h_dst, h_src, nbr, mask, sem)))
+        return orig["_gat_na"](p, h_dst, h_src, nbr, mask, sem=sem)
+
+    def combine(z, beta, use_pallas=False):
+        if use_pallas:
+            calls.append(("semantic_combine", (z, beta)))
+        return orig["semantic_combine"](z, beta, use_pallas=use_pallas)
+
+    def spmm(h_src, nbr, mask, mean=True, use_pallas=False):
+        if use_pallas:
+            calls.append(("segment_spmm", (h_src, nbr, mask, mean)))
+        return orig["segment_spmm"](h_src, nbr, mask, mean=mean,
+                                    use_pallas=use_pallas)
+
+    def ssum(vals, seg, n, idx=None, mean=False):
+        calls.append(("segment_sum", (vals, seg, n, idx, mean)))
+        return orig["segment_sum"](vals, seg, n, idx=idx, mean=mean)
+
+    for name, f in (("_gat_na", gat), ("semantic_combine", combine),
+                    ("segment_spmm", spmm), ("segment_sum", ssum)):
+        setattr(ops, name, f)
+    try:
+        with torch.inference_mode():
+            fn()
+    finally:
+        for name, f in orig.items():
+            setattr(ops, name, f)
+    return calls
+
+
+def served_calls_vs_plain(tag: str, calls: list, errs: dict) -> None:
+    """Each captured call's kernel against its plain version on the same
+    inputs: ``gat_na`` (z at TOL_Z, the epilogue's w at TOL_W),
+    ``semantic_combine`` at 1e-6, ``segment_spmm`` at TOL_SPMM, and
+    ``segment_sum`` bitwise against its plain version on the CPU."""
+    import torch
+    from repro_torch.kernels import gat_na as tgat
+    from repro_torch.kernels import segment_spmm as tspmm
+    from repro_torch.kernels import segment_sum as tss
+    from repro_torch.kernels import semantic_attn as tsem
+
+    with torch.inference_mode():
+        for i, (name, a) in enumerate(calls):
+            if name == "gat_na":
+                p, h_dst, h_src, nbr, mask, sem = a
+                key = "gat_na_fused_sa" if sem is not None else "gat_na"
+                if sem is None:
+                    out = tgat.gat_na(p, h_dst, h_src, nbr, mask)
+                    want = tgat.gat_na_plain(p, h_dst, h_src, nbr, mask)
+                    err = max_err(out, want)
+                    ok = close(out, want, **TOL_Z) and bool(
+                        (out[mask.sum(dim=-1) == 0] == 0).all())
+                else:
+                    (z, w), (zp, wp) = (
+                        tgat.gat_na(p, h_dst, h_src, nbr, mask, sem=sem),
+                        tgat.gat_na_plain(p, h_dst, h_src, nbr, mask, sem))
+                    err = max(max_err(z, zp), max_err(w, wp))
+                    ok = close(z, zp, **TOL_Z) and close(w, wp, **TOL_W)
+                shape = f"nbr {tuple(nbr.shape)}, h_src {tuple(h_src.shape)}"
+            elif name == "semantic_combine":
+                z, beta = a
+                key = name
+                out = tsem.semantic_combine(z, beta)
+                want = tsem.semantic_combine_plain(z, beta)
+                err = max_err(out, want)
+                ok = close(out, want, atol=1e-6, rtol=1e-6)
+                shape = f"z {tuple(z.shape)}"
+            elif name == "segment_spmm":
+                h_src, nbr, mask, mean = a
+                key = name
+                out = tspmm.segment_spmm(h_src, nbr, mask, mean=mean)
+                want = tspmm.segment_spmm_plain(h_src, nbr, mask, mean=mean)
+                err = max_err(out, want)
+                ok = close(out, want, **TOL_SPMM) and bool(
+                    (out[mask.sum(dim=1) == 0] == 0).all())
+                shape = (f"nbr {tuple(nbr.shape)}, "
+                         f"{int((mask.sum(dim=1) == 0).sum())} rows "
+                         f"without a live slot")
+            else:
+                vals, seg, n, idx, mean = a
+                key = name
+                out = tss.segment_sum(vals, seg, n, idx=idx, mean=mean)
+                want = tss.segment_sum_plain(
+                    vals.cpu(), seg.cpu(), n,
+                    idx=None if idx is None else idx.cpu(), mean=mean)
+                err = max_err(out.cpu(), want)
+                ok = torch.equal(out.cpu(), want)
+                shape = (f"E {seg.numel()}, N {n} (sink segment "
+                         f"{n - 1}: {int((seg == n - 1).sum())} pad edges)")
+            torch.cuda.synchronize()
+            errs[key] = max(errs.get(key, 0.0), err)
+            check(ok, f"{tag} served call {i} {name}: {shape}: vs plain "
+                      f"max |err| {err:.3e}")
+
+
+def busy_over(fn) -> dict:
+    """Device time of one call of ``fn`` under torch.profiler: kernels and
+    copies apart, over the profiled wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    copy = sum(e.self_device_time_total for e in rows
+               if "memcpy" in e.key.lower()) / 1e3
+    kern = sum(e.self_device_time_total for e in rows) / 1e3 - copy
+    return {"wall_ms": wall, "kernel_ms": kern, "copy_ms": copy}
+
+
+def serve_case(tag, cfg, hg, dev, per_forward, serve_counts: dict,
+               errs: dict, out: dict, slots=SERVE_SLOTS,
+               slot_targets=SERVE_SLOT_TARGETS) -> None:
+    """One model served on the card through ``build_hgnn_infer``,
+    ``HGNNSampler`` and ``HGNNServeEngine``: the launch counts of the
+    warmup and the serve (set to 0 just before, read just after) exactly
+    ``per_forward(sampler)`` a forward times (rungs + steps); no failed
+    step, no retry, every request OK, nothing made after warmup; each
+    request's logits against the same queue served on the CPU by the
+    plain arm (TOL_CPU) with every counter equal; each kernel call of one
+    served step against its plain version, their number that of one
+    forward's launches; then ``SERVE_REPEATS`` timed serves of
+    ``SERVE_TIMED_REQUESTS`` requests of the same traffic (step wall
+    p50/p99 and targets/s of each, their median and range), the host
+    sampler and the upload a step, and the device's busy share over one
+    more, profiled, serve."""
+    import numpy as np
+    import torch
+    from repro_torch.core.models import get_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_hgnn_infer, request_queue
+    from repro_torch.serve.engine import HGNNServeEngine
+    from repro_torch.serve.sampler import HGNNSampler
+
+    b = build_hgnn_infer(cfg, hg, dev)
+    t0 = time.perf_counter()
+    sampler = HGNNSampler(b.plan, cfg, hg)
+    print(f"  {tag}: sampler tables {time.perf_counter() - t0:.2f} s, "
+          f"ladder {sampler.ladder}", flush=True)
+    eng = HGNNServeEngine(b.executor, b.params, sampler, slots=slots,
+                          slot_targets=slot_targets, fn=b.fn)
+    reqs = request_queue(sampler.n_target_type, slot_targets,
+                         SERVE_REQUESTS)
+    ops.reset_launch_counts()
+    eng.warmup()
+    eng.serve(reqs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    st = eng.stats()
+    rs = st["resilience"]
+    n_fw = len(sampler.ladder) + st["steps"]
+    want = dict.fromkeys(counts, 0)
+    want.update({k: v * n_fw for k, v in per_forward(sampler).items()})
+    check(counts == want, f"{tag}: launches {counts} over {n_fw} forwards "
+                          f"({len(sampler.ladder)} rungs + {st['steps']} "
+                          f"steps)")
+    for name in ("gat_na_fused_sa", "semantic_combine", "segment_spmm",
+                 "segment_sum"):
+        serve_counts[name] += counts[name]
+    serve_counts["gat_na_unstacked"] += counts["gat_na"] - counts[
+        "gat_na_fused_sa"]
+    check(rs["failed_steps"] == 0 and rs["retries"] == 0
+          and all(r.status == "OK" for r in reqs)
+          and st["compiles_after_warmup"] == 0,
+          f"{tag}: failed_steps {rs['failed_steps']}, retries "
+          f"{rs['retries']}, statuses {rs['statuses']}, "
+          f"compiles_after_warmup {st['compiles_after_warmup']}")
+
+    plain = get_model(cfg.replace(use_pallas=False))
+    cpu_eng = HGNNServeEngine(plain.executor, to_device(b.params, "cpu"),
+                              sampler, slots=slots,
+                              slot_targets=slot_targets)
+    cpu_reqs = request_queue(sampler.n_target_type, slot_targets,
+                             SERVE_REQUESTS)
+    cpu_eng.warmup()
+    cpu_eng.serve(cpu_reqs)
+    cst = cpu_eng.stats()
+    err = max(max_err(torch.from_numpy(r.logits), torch.from_numpy(c.logits))
+              for r, c in zip(reqs, cpu_reqs))
+    check(all(np.array_equal(r.served, c.served)
+              and close(torch.from_numpy(r.logits),
+                        torch.from_numpy(c.logits), **TOL_CPU)
+              for r, c in zip(reqs, cpu_reqs)),
+          f"{tag}: every request's logits vs the CPU plain-arm serve: max "
+          f"|err| {err:.3e} (tol {TOL_CPU})")
+    same = {k: st[k] == cst[k] for k in ("steps", "rung_hits",
+                                         "frontier_bytes", "truncated_rows",
+                                         "compiles_after_warmup")}
+    check(all(same.values()) and rs == cst["resilience"],
+          f"{tag}: counters equal the CPU serve's exactly ({same}; "
+          f"resilience equal: {rs == cst['resilience']})")
+
+    calls = capture_served_calls(lambda: b.fn(b.params,
+                                              eng.place(eng.last_sb.batch)))
+    got = {}
+    for name, a in calls:
+        got[name] = got.get(name, 0) + 1
+        if name == "gat_na" and a[-1] is not None:
+            got["gat_na_fused_sa"] = got.get("gat_na_fused_sa", 0) + 1
+    check(got == per_forward(sampler),
+          f"{tag}: one served step's captured kernel calls {got} = one "
+          f"forward's launches {per_forward(sampler)}")
+    served_calls_vs_plain(tag, calls, errs)
+
+    sb = eng.last_sb
+    h2d = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.place(sb.batch)
+        torch.cuda.synchronize()
+        h2d.append((time.perf_counter() - t1) * 1e3)
+    h2d_mb = sum(t.numel() * t.element_size() for t in
+                 _tensors(sb.batch)) / 2 ** 20
+
+    def timed_queue():
+        return request_queue(sampler.n_target_type, slot_targets,
+                             SERVE_TIMED_REQUESTS)
+
+    n_targets = sum(len(r.targets) for r in timed_queue())
+    serves, sample, fwd, clean = [], [], [], True
+    for _ in range(SERVE_REPEATS):
+        reqs = timed_queue()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        rs = st["resilience"]
+        clean &= (rs["failed_steps"] == 0 and rs["retries"] == 0
+                  and st["compiles_after_warmup"] == 0
+                  and all(r.status == "OK" for r in reqs))
+        walls = np.array([e["wall_s"] for e in eng.step_log]) * 1e3
+        sample += [e["sample_s"] * 1e3 for e in eng.step_log]
+        fwd += [e["forward_s"] * 1e3 for e in eng.step_log]
+        serves.append({"steps": st["steps"], "rung_hits": st["rung_hits"],
+                       "wall_ms": wall * 1e3,
+                       "step_wall_p50_ms": float(np.percentile(walls, 50)),
+                       "step_wall_p99_ms": float(np.percentile(walls, 99)),
+                       "targets_per_s": n_targets / wall})
+    check(clean, f"{tag}: {SERVE_REPEATS} timed serves of "
+                 f"{SERVE_TIMED_REQUESTS} requests: no failed step, no "
+                 f"retry, every request OK, nothing made after warmup")
+    prof = busy_over(lambda: eng.serve(timed_queue()))
+
+    def spread(key):
+        v = [x[key] for x in serves]
+        return {"median": float(np.median(v)), "min": float(min(v)),
+                "max": float(max(v))}
+
+    rec = {"requests": SERVE_TIMED_REQUESTS, "targets": n_targets,
+           "serves": serves, "step_wall_p50_ms": spread("step_wall_p50_ms"),
+           "step_wall_p99_ms": spread("step_wall_p99_ms"),
+           "targets_per_s": spread("targets_per_s"),
+           "sampler_ms_per_step": float(np.mean(sample)),
+           "forward_ms_per_step": float(np.mean(fwd)),
+           "h2d_ms_last_batch": float(np.median(h2d)),
+           "h2d_mib_last_batch": h2d_mb,
+           "profiled_serve": prof,
+           "busy_share": (prof["kernel_ms"] + prof["copy_ms"])
+           / prof["wall_ms"],
+           "kernel_share": prof["kernel_ms"] / prof["wall_ms"]}
+    out[tag] = rec
+
+    def line(key, fmt):
+        v = rec[key]
+        return (f"{v['median']:{fmt}} [{v['min']:{fmt}}, "
+                f"{v['max']:{fmt}}]")
+
+    print(f"  {tag}: {SERVE_REPEATS} serves of {SERVE_TIMED_REQUESTS} "
+          f"requests ({n_targets} targets; steps "
+          f"{[x['steps'] for x in serves]}, rung_hits "
+          f"{serves[0]['rung_hits']}), median [min, max] over the serves: "
+          f"step wall p50 {line('step_wall_p50_ms', '.3f')} ms, p99 "
+          f"{line('step_wall_p99_ms', '.3f')} ms; "
+          f"{line('targets_per_s', '.1f')} targets/s (serve walls "
+          f"{[round(x['wall_ms'], 2) for x in serves]} ms)")
+    print(f"  {tag}: a step: host sampler {rec['sampler_ms_per_step']:.3f} "
+          f"ms, upload + forward + read-back "
+          f"{rec['forward_ms_per_step']:.3f} ms (the last batch's upload: "
+          f"{h2d_mb:.2f} MiB in {rec['h2d_ms_last_batch']:.3f} ms)")
+    print(f"  {tag}: profiled serve {prof['wall_ms']:.2f} ms wall, kernels "
+          f"{prof['kernel_ms']:.3f} ms, copies {prof['copy_ms']:.3f} ms: "
+          f"device busy {100 * rec['busy_share']:.1f}% (kernels alone "
+          f"{100 * rec['kernel_share']:.1f}%)", flush=True)
+    del b, eng, cpu_eng
+    torch.cuda.empty_cache()
+
+
+def _tensors(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if torch.is_tensor(tree) else []
+
+
+def serving(hg, hg_r, dev, serve_counts: dict, results: dict) -> dict:
+    """Phase 3m: the HAN/imdb serve of the CLI's command (fan-out 8, 8
+    slots of 4 targets, 32 requests checked, then the same traffic timed
+    at 1024 requests) and the RGCN/imdb 3-bucket, MAGNN/imdb
+    and GCN/Reddit (0.1) serves through :func:`serve_case`; the
+    identity-rung HAN/imdb serve of all 4278 targets bitwise against the
+    card's full-graph forward; one seeded chaos serve whose counters equal
+    ``BENCH_hgnn.json``'s ``resilience`` row ``han/imdb/chaos``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import HGNNConfig
+    from repro_torch.core.characterize import resilience_record
+    from repro_torch.launch.serve import build_hgnn_infer, request_queue
+    from repro_torch.serve.engine import HGNNRequest, HGNNServeEngine
+    from repro_torch.serve.faults import FaultInjector
+    from repro_torch.serve.resilience import ResilienceConfig
+    from repro_torch.serve.sampler import HGNNSampler
+
+    out, errs = {}, {}
+    han = HGNNConfig(model="han", dataset="imdb", fused=True,
+                     use_pallas=True, fuse_na_sa=True, fanout=SERVE_FANOUT)
+    serve_case("serve han/imdb", han, hg, dev,
+               lambda s: {"gat_na": 1, "gat_na_fused_sa": 1,
+                          "semantic_combine": 1}, serve_counts, errs, out)
+    serve_case("serve rgcn/imdb bucketed 3",
+               HGNNConfig(model="rgcn", dataset="imdb", fused=True,
+                          use_pallas=True, degree_buckets=3,
+                          fanout=SERVE_FANOUT), hg, dev,
+               lambda s: {"segment_spmm": sum(
+                   b.n_buckets for b in s.full_buckets.values())},
+               serve_counts, errs, out)
+    serve_case("serve magnn/imdb",
+               HGNNConfig(model="magnn", dataset="imdb", use_pallas=True,
+                          fanout=SERVE_FANOUT), hg, dev,
+               lambda s: {"gat_na": len(s.plan.metapaths)}, serve_counts,
+               errs, out)
+    serve_case("serve gcn/reddit-0.1",
+               HGNNConfig(model="gcn", dataset="reddit",
+                          fanout=SERVE_FANOUT), hg_r, dev,
+               lambda s: {"segment_sum": 2}, serve_counts, errs, out)
+    results["served_max_abs_err"] = errs
+
+    n = hg.node_counts["M"]
+    ident = han.replace(fanout=64, sample_ladder=((n, n),))
+    b = build_hgnn_infer(ident, hg, dev)
+    eng = HGNNServeEngine(b.executor, b.params, HGNNSampler(b.plan, ident,
+                                                            hg),
+                          slots=1, slot_targets=n, fn=b.fn)
+    eng.warmup()
+    req = HGNNRequest(targets=np.arange(n))
+    eng.serve([req])
+    with torch.inference_mode():
+        full = b.fn(b.params, b.batch).cpu().numpy()
+    check(req.status == "OK" and eng.stats()["rung_hits"] == {0: 1}
+          and np.array_equal(req.logits, full),
+          f"han/imdb identity rung ({n}, {n}), fan-out 64: all {n} targets "
+          f"served in one step bitwise equal to the card's full-graph "
+          f"forward")
+    del b, eng
+
+    bench = json.loads((ROOT / "BENCH_hgnn.json").read_text())[
+        "resilience"]["han/imdb/chaos"]
+    cfg = HGNNConfig(model="han", dataset="imdb", hidden=64, n_heads=8,
+                     n_classes=8, max_degree=32, fused=True, use_pallas=True,
+                     fanout=8)
+    b = build_hgnn_infer(cfg, hg, dev)
+    sampler = HGNNSampler(b.plan, cfg, hg)
+    eng = HGNNServeEngine(
+        b.executor, b.params, sampler, slots=4, slot_targets=2, fn=b.fn,
+        resilience_cfg=ResilienceConfig(
+            max_queue=24, deadline_ms=60_000.0, slo_ms=50.0,
+            slo_signal="injected", degrade_patience=1, recover_patience=2),
+        injector=FaultInjector.seeded(0, n_steps=16, sampler=2, forward=1,
+                                      persistent_sampler=1, latency_steps=4,
+                                      latency_s=0.2))
+    eng.warmup()
+    eng.serve(request_queue(sampler.n_target_type, 4, SERVE_REQUESTS,
+                            pool=48))
+    got = resilience_record(eng.stats())
+    diff = {k: (got[k], v) for k, v in bench.items()
+            if k in got and got[k] != v}
+    check(not diff, f"han/imdb chaos serve (seed 0, bench_resilience.py's "
+                    f"config): counters equal BENCH_hgnn.json's "
+                    f"han/imdb/chaos row (differences: {diff}; steps "
+                    f"{got['steps']}, retries {got['retries']}, "
+                    f"failed_steps {got['failed_steps']})")
+    out["chaos han/imdb"] = got
+    del b, eng
+    torch.cuda.empty_cache()
+    return out
+
+
 # LM serving (granite-8b): its two kernels, the 2-layer full-width arm
 # check, the 36-layer serve, and their timing
 GRANITE = "granite-8b"
@@ -1320,7 +1752,9 @@ def main() -> None:
     from repro_torch.launch.serve import build_hgnn_infer
     from repro_torch.nn import transformer  # noqa: F401
     from repro_torch.serve.engine import HGNNInferEngine  # noqa: F401
+    from repro_torch.serve.engine import HGNNServeEngine  # noqa: F401
     from repro_torch.serve.engine import ServeEngine  # noqa: F401
+    from repro_torch.serve.sampler import HGNNSampler  # noqa: F401
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -1686,6 +2120,22 @@ def main() -> None:
           "timed=True), against the CPU's records of the same plans")
     char = characterization(hg, hg_r, dev)
 
+    print("phase 3m: request-path serving on the card: HAN/imdb (fan-out "
+          f"{SERVE_FANOUT}, {SERVE_SLOTS} slots of {SERVE_SLOT_TARGETS} "
+          f"targets, {SERVE_REQUESTS} requests checked, "
+          f"{SERVE_REPEATS} x {SERVE_TIMED_REQUESTS} timed) through the "
+          "gat_na epilogue and semantic_combine, RGCN/imdb on rung-padded "
+          "buckets, MAGNN/imdb, GCN/Reddit 0.1")
+    serve_counts = dict.fromkeys(("gat_na_fused_sa", "semantic_combine",
+                                  "segment_spmm", "gat_na_unstacked",
+                                  "segment_sum"), 0)
+    serve_rec = serving(hg, hg_r, dev, serve_counts, results)
+    for name, n_launch in serve_counts.items():
+        check(n_launch > 0, f"{name} launched {n_launch} times on the "
+                            f"request path")
+        main_counts[name] += n_launch
+    serve_rec["launches"] = serve_counts
+
     # ---------------- phase 4: timing ----------------
     print("phase 4: kernel times (CUDA events, median; cold = L2 flushed)")
     flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -1983,6 +2433,7 @@ def main() -> None:
                       "lm": {"granite_2_layers_fp32": two_layers,
                              "granite_serve": serve},
                       "characterization": char,
+                      "serving": serve_rec,
                       "profiles": profiles}))
     if failures:
         print(f"FAILED: {failures}", file=sys.stderr)

@@ -163,11 +163,12 @@ class HGNNConfig:
     partitions: int = 0
     # Stacked FP->NA->SA layers; the graph-side index tables are built once.
     layers: int = 1
-    # Request-path sampled serving (>= 1); not ported yet.
+    # Request-path sampled serving (>= 1): the per-hop fan-out cap.
     fanout: int = 0
     sample_ladder: Tuple[Tuple[int, int], ...] = ()
     # Hot-feature residency (>= 1): hot rows kept per node type (one
-    # device; the partitioned and serving parts are not ported yet).
+    # device, and the serve engine's live caches; the partitioned part is
+    # not ported yet).
     cache_rows: int = 0
     # Async stage-graph schedule (>= 1); not ported yet.
     overlap: int = 0

@@ -10,8 +10,9 @@ aggregation and the dense matmul commute), NA covers both aggregation
 layers (two segment means over the edge list, the fixed-order
 ``segment_sum`` kernel on the card; GCN has no semantic stage:
 ``sa.kind="none"``), the head is the second Combination (``w2``).
-``cfg.cache_rows`` turns on single-device hot-feature residency; sampled
-serving and the overlap schedule raise ``NotImplementedError`` naming their
+``cfg.cache_rows`` turns on single-device hot-feature residency;
+``cfg.fanout >= 1`` declares the plan's ``SampleSpec`` for request-path
+serving; the overlap schedule raises ``NotImplementedError`` naming its
 ROADMAP item, and ``partitions`` raises the reference's ``ValueError``.
 """
 from __future__ import annotations
@@ -24,7 +25,8 @@ from repro_torch.core import stages
 from repro_torch.core.hgraph import HeteroGraph
 from repro_torch.core.pipeline import PlannedModel, not_ported
 from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
-                                   ResidencySpec, SASpec, StagePlan)
+                                   ResidencySpec, SASpec, SampleSpec,
+                                   StagePlan, default_sample_ladder)
 from repro_torch.data.synthetic import DATASET_TARGET
 from repro_torch.interop import resolve_device
 
@@ -39,10 +41,16 @@ class GCN(PlannedModel):
         if cfg.partitions >= 1:
             raise ValueError("gcn runs the homogeneous CSR baseline; it has "
                              "no partitioned execution layout")
-        if cfg.fanout >= 1:
-            raise not_ported("request-path sampled serving (fanout)", 13)
         if cfg.overlap >= 1:
             raise not_ported("the async stage-graph schedule (overlap)", 14)
+        sample = None
+        if cfg.fanout >= 1:
+            # each LayerPlan runs TWO csr aggregations -> 2 hops per layer
+            sample = SampleSpec(
+                fanout=cfg.fanout,
+                ladder=(cfg.sample_ladder or default_sample_ladder(
+                    cfg.fanout, cfg.fanout, 2 * cfg.layers)),
+                seed=cfg.seed)
         residency = (ResidencySpec(cache_rows=cfg.cache_rows)
                      if cfg.cache_rows >= 1 else None)
         # one LayerPlan = one agg(relu(agg(h @ w))) block (the paper's
@@ -59,6 +67,7 @@ class GCN(PlannedModel):
                           residency=residency)
                 for _ in range(cfg.layers)),
             head=HeadSpec(kind="linear", param="w2"),
+            sample=sample,
         )
 
     def prepare(self, hg: HeteroGraph, device=None) -> Dict:

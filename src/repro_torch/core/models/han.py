@@ -19,8 +19,9 @@ Layouts, as in the reference:
   (stacked only).
 
 ``cfg.cache_rows`` turns on single-device hot-feature residency.  The
-partitioned, sampled and overlap modes raise ``NotImplementedError``
-naming their ROADMAP item.
+partitioned and overlap modes raise ``NotImplementedError`` naming
+their ROADMAP item; ``cfg.fanout >= 1`` declares the plan's ``SampleSpec``
+for request-path serving (:mod:`repro_torch.serve`).
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ from repro_torch.core import stages
 from repro_torch.core.hgraph import HeteroGraph
 from repro_torch.core.pipeline import PlannedModel, not_ported
 from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
-                                   ResidencySpec, SASpec, StagePlan)
+                                   ResidencySpec, SASpec, SampleSpec,
+                                   StagePlan, default_sample_ladder)
 from repro_torch.data.synthetic import DATASET_METAPATHS, DATASET_TARGET
 from repro_torch.interop import resolve_device
 
@@ -60,14 +62,22 @@ class HAN(PlannedModel):
                     "(fused=True, no degree buckets); got "
                     f"layout={layout!r}")
             raise not_ported("graph-partitioned execution (partitions)", 12)
-        if cfg.fanout >= 1:
-            raise not_ported("request-path sampled serving (fanout)", 13)
         if cfg.overlap >= 1:
             raise not_ported("the async stage-graph schedule (overlap)", 14)
         na = NASpec(kind="gat", layout=layout, activation="elu",
                     use_pallas=cfg.use_pallas)
         sa = SASpec(kind="attention", stacked=cfg.fused,
                     fuse_epilogue=cfg.fuse_na_sa and layout == "stacked")
+        sample = None
+        if cfg.fanout >= 1:
+            # per-hop width: every metapath contributes up to the padded
+            # table's effective fan-out per target row
+            k = min(cfg.fanout, cfg.max_degree)
+            sample = SampleSpec(
+                fanout=cfg.fanout,
+                ladder=(cfg.sample_ladder or default_sample_ladder(
+                    cfg.fanout, len(self.metapaths) * k, cfg.layers)),
+                seed=cfg.seed)
         residency = (ResidencySpec(cache_rows=cfg.cache_rows)
                      if cfg.cache_rows >= 1 else None)
         # layer 0 projects the raw per-type features; the metapath graphs
@@ -84,6 +94,7 @@ class HAN(PlannedModel):
                 for l in range(cfg.layers)),
             head=HeadSpec(kind="linear"),
             metapaths=tuple(tuple(p) for p in self.metapaths),
+            sample=sample,
         )
 
     # ---------------- Stage 1: Subgraph Build (host) ----------------

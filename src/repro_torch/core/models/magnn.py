@@ -14,8 +14,9 @@ node types ride the plan (``metapaths``), so the batch holds arrays only.
 ``cfg.use_pallas`` runs the unstacked ``gat_na`` kernel over the encoded
 instances; ``cfg.cache_rows`` turns on single-device hot-feature
 residency, whose instance gathers go through the ``cached_gather`` kernel.
-The partitioned, sampled and overlap modes raise ``NotImplementedError``
-naming their ROADMAP item.
+The partitioned and overlap modes raise ``NotImplementedError`` naming
+their ROADMAP item; ``cfg.fanout >= 1`` declares the plan's ``SampleSpec``
+for request-path serving (:mod:`repro_torch.serve`).
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ from repro_torch.core import metapath as mp
 from repro_torch.core.hgraph import HeteroGraph
 from repro_torch.core.pipeline import PlannedModel, not_ported
 from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
-                                   ResidencySpec, SASpec, StagePlan)
+                                   ResidencySpec, SASpec, SampleSpec,
+                                   StagePlan, default_sample_ladder)
 from repro_torch.data.synthetic import DATASET_METAPATHS, DATASET_TARGET
 from repro_torch.interop import resolve_device
 
@@ -43,8 +45,6 @@ class MAGNN(PlannedModel):
         cfg = self.cfg
         if cfg.partitions >= 1:
             raise not_ported("graph-partitioned execution (partitions)", 12)
-        if cfg.fanout >= 1:
-            raise not_ported("request-path sampled serving (fanout)", 13)
         if cfg.overlap >= 1:
             raise not_ported("the async stage-graph schedule (overlap)", 14)
         na = NASpec(kind="instance", layout="instances", activation="elu",
@@ -56,6 +56,19 @@ class MAGNN(PlannedModel):
         # per type) before the next round of gathers
         carry = tuple(sorted({ty for p in self.metapaths for ty in p}
                              - {self.target}))
+        sample = None
+        if cfg.fanout >= 1:
+            # instances per target are the MAGNN fan-out knob; every kept
+            # instance pulls its full node path into the frontier
+            k = min(cfg.fanout, cfg.max_instances)
+            width = (len(self.metapaths) * k
+                     * max(len(p) for p in self.metapaths))
+            sample = SampleSpec(
+                fanout=cfg.fanout,
+                ladder=(cfg.sample_ladder
+                        or default_sample_ladder(cfg.fanout, width,
+                                                 cfg.layers)),
+                seed=cfg.seed)
         residency = (ResidencySpec(cache_rows=cfg.cache_rows)
                      if cfg.cache_rows >= 1 else None)
         return StagePlan(
@@ -68,6 +81,7 @@ class MAGNN(PlannedModel):
                 for _ in range(cfg.layers)),
             head=HeadSpec(kind="linear"),
             metapaths=tuple(tuple(p) for p in self.metapaths),
+            sample=sample,
         )
 
     # ---------------- Stage 1: Subgraph Build (host, sampled instances) ----

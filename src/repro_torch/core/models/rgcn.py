@@ -12,8 +12,9 @@ Execution is a :class:`StagePlan` run by the stage-graph executor
 ``padded`` (``cfg.fused``), or ``bucketed`` (``cfg.degree_buckets > 1``);
 ``cfg.use_pallas`` runs the hand-written ``segment_spmm`` kernel on the
 padded and bucketed layouts; ``cfg.cache_rows`` turns on single-device
-hot-feature residency.  The partitioned, sampled and overlap modes raise
-``NotImplementedError`` naming their ROADMAP item.
+hot-feature residency; ``cfg.fanout >= 1`` declares the plan's
+``SampleSpec`` for request-path serving.  The partitioned and overlap
+modes raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from repro_torch.core import stages
 from repro_torch.core.hgraph import HeteroGraph
 from repro_torch.core.pipeline import PlannedModel, not_ported
 from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
-                                   ResidencySpec, SASpec, StagePlan)
+                                   ResidencySpec, SASpec, SampleSpec,
+                                   StagePlan, default_sample_ladder)
 from repro_torch.data.synthetic import DATASET_TARGET
 from repro_torch.interop import resolve_device
 
@@ -48,11 +50,20 @@ class RGCN(PlannedModel):
             layout = "padded"
         if cfg.partitions >= 1:
             raise not_ported("graph-partitioned execution (partitions)", 12)
-        if cfg.fanout >= 1:
-            raise not_ported("request-path sampled serving (fanout)", 13)
         if cfg.overlap >= 1:
             raise not_ported("the async stage-graph schedule (overlap)", 14)
         na = NASpec(kind="mean", layout=layout, use_pallas=cfg.use_pallas)
+        sample = None
+        if cfg.fanout >= 1:
+            # the relation count is graph-side (plan() has no hg); size the
+            # auto ladder for a nominal 4 relations — the sampler clamps
+            # per-type and counts any truncation
+            k = min(cfg.fanout, cfg.max_degree)
+            sample = SampleSpec(
+                fanout=cfg.fanout,
+                ladder=(cfg.sample_ladder or default_sample_ladder(
+                    cfg.fanout, 4 * k, cfg.layers)),
+                seed=cfg.seed)
         residency = (ResidencySpec(cache_rows=cfg.cache_rows)
                      if cfg.cache_rows >= 1 else None)
         # rel_sum SA updates EVERY node type (handoff="all"); hidden layers
@@ -69,6 +80,7 @@ class RGCN(PlannedModel):
                     residency=residency)
                 for l in range(cfg.layers)),
             head=HeadSpec(kind="select_linear", target=self.target),
+            sample=sample,
         )
 
     # ---------------- Stage 1: Relation Walk (host) ----------------

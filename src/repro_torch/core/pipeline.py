@@ -10,8 +10,9 @@ so the reference's own parameters carry across unchanged
 (``repro_torch.interop.params_from_numpy``).
 
 Ported arms — HAN (slices 1 and 9), RGCN (slice 2), MAGNN (slice 3) and
-GCN (slice 9) full-graph inference, each with single-device hot-feature
-residency:
+GCN (slice 9) inference over the full graph or over a sampled, rung-padded
+minibatch of request-path serving (slice 11, ``plan.sample``), each with
+single-device hot-feature residency:
 
 * FP ``per_type`` (layer 0; reshaped to heads when ``fp.heads``), the
   ``dense`` re-projection of HAN's hidden layers with the ``target``
@@ -43,7 +44,10 @@ residency:
   after the fused epilogue, the O(P) softmax plus the ``semantic_combine``
   kernel (with the reference's closed-form ``row_mask`` correction for
   padded rows); SA ``rel_sum``; SA ``none`` (GCN);
-* the ``linear`` and ``select_linear`` heads.
+* the ``linear`` and ``select_linear`` heads;
+* sampled batches (``plan.sample``): the bucketed and edge-list arms drop
+  the sampler's pad rows and pad edges into a sink row (``stages``), and
+  SA keeps pad rows out of its score means through ``row_mask``.
 
 :func:`check_ported` accepts exactly HAN's, RGCN's, MAGNN's and GCN's
 combinations of these arms.  Arms of later slices raise
@@ -157,15 +161,13 @@ def _check_gcn_arms(plan: StagePlan) -> None:
 def check_ported(plan: StagePlan) -> None:
     """Raise for any plan outside the ported slices (HAN's, RGCN's,
     MAGNN's and GCN's combinations of arms, each with or without
-    single-device residency), so that no arm is silently served by another
-    one."""
+    single-device residency and sampling), so that no arm is silently
+    served by another one."""
     if plan.partition is not None:
         raise not_ported(
             "graph-partitioned execution" + (
                 " with hot-feature residency (partition_overlay)"
                 if plan.residency is not None else ""), 12)
-    if plan.sample is not None:
-        raise not_ported("request-path sampled serving", 13)
     if plan.schedule is not None:
         raise not_ported("the async stage-graph schedule", 14)
     kind = plan.na.kind
@@ -188,6 +190,9 @@ class StageGraphExecutor:
         check_ported(plan)
         self.plan = plan
         self.cfg = cfg
+        # sampled batches name pad rows and pad edges one past the table:
+        # the bucketed and edge-list arms drop them into a sink row
+        self._sink = plan.sample is not None
 
     # ------------------------------------------------------------------
     # params
@@ -347,10 +352,10 @@ class StageGraphExecutor:
         t = self.plan.target
         z = F.relu(stages.mean_aggregate_csr(
             self._res_pool(batch, t, h), batch["seg"], batch["idx"],
-            h.shape[0]))
+            h.shape[0], sink=self._sink))
         return stages.mean_aggregate_csr(
             self._res_pool(batch, t, z), batch["seg"], batch["idx"],
-            z.shape[0])
+            z.shape[0], sink=self._sink)
 
     def _na_gat(self, params: Dict, batch: Dict, h: torch.Tensor):
         """HAN's NA: the ``csr`` baseline (one edge list a metapath,
@@ -376,7 +381,7 @@ class StageGraphExecutor:
                 agg_fn = functools.partial(ops.gat_aggregate, use_pallas=True)
             z = act(torch.stack([
                 stages.gat_aggregate_bucketed(p_i, h, pool, bks,
-                                              agg_fn=agg_fn)
+                                              agg_fn=agg_fn, sink=self._sink)
                 for p_i, bks in zip(params["gat"], batch["buckets"])]))
             return z.reshape(z.shape[0], z.shape[1], -1)  # [P, N, D]
         stacked_fn = None
@@ -423,8 +428,8 @@ class StageGraphExecutor:
                 agg = stages.mean_aggregate_csr(pool, rel[0], rel[1],
                                                 h[d].shape[0])
             elif plan.na.layout == "bucketed":
-                agg = stages.mean_aggregate_bucketed(pool, rel, h[d].shape[0],
-                                                     agg_fn=agg_fn)
+                agg = stages.mean_aggregate_bucketed(
+                    pool, rel, h[d].shape[0], agg_fn=agg_fn, sink=self._sink)
             else:  # padded
                 agg = (agg_fn or stages.mean_aggregate_padded)(pool, rel[0],
                                                                rel[1])
@@ -592,12 +597,14 @@ class StageGraphExecutor:
         its callable over 20 calls, synchronised, after warm-up, and
         ``device_us`` / ``device_us_by_class`` / ``other_kernels``, its
         device kernels under ``torch.profiler``, each stage in a window of
-        its own.  The SAMPLE stage of sampled serving is ROADMAP item 13."""
+        its own.
+
+        ``sample_meta`` (request-path serving): the sampler's host-side
+        batch metadata; adds the SAMPLE stage (``characterize.
+        sample_traffic``, the Subgraph Build of a sampled batch) as the
+        first record, kept out of ``total``, which sums the device stages."""
         from repro_torch.core import characterize as ch
 
-        if sample_meta is not None:
-            raise not_ported("the SAMPLE stage record of request-path "
-                             "sampled serving", 13)
         dev = _batch_device(batch)
         if timed and dev.type != "cuda":
             raise ValueError(f"stage_records(timed=True) measures on a CUDA "
@@ -652,6 +659,8 @@ class StageGraphExecutor:
                 by_class["TB"] = by_class.get("TB", 0.0) - saved
         total = {"flops": sum(r["flops"] for r in recs.values()),
                  "hbm_bytes": sum(r["hbm_bytes"] for r in recs.values())}
+        if sample_meta is not None:
+            recs = {"SAMPLE": ch.sample_traffic(sample_meta), **recs}
         out = {"stages": recs, "total": total}
         if rr is not None:
             out["residency"] = rr

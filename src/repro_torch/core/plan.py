@@ -8,9 +8,9 @@ their ``__post_init__`` checks are the reference's.  The reference's
 sharding rule tables (``batch_specs`` / ``param_specs`` and the mesh axis
 names) are dropped: the port runs on one device, where they are no-ops.
 
-The executor of the port serves the arms of HAN, RGCN and MAGNN
-(``pipeline.check_ported``); a plan that names another arm raises
-``NotImplementedError`` naming its ROADMAP item.
+The executor of the port serves the arms of HAN, RGCN, MAGNN and GCN,
+full-graph or sampled (``pipeline.check_ported``); a plan that names
+another arm raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -68,7 +68,16 @@ class PartitionSpec:
 
 @dataclass(frozen=True)
 class SampleSpec:
-    """Request-path neighbor sampling (not ported yet: Queue 1 item 13)."""
+    """Request-path neighbor sampling (:mod:`repro_torch.serve.sampler`).
+
+    ``fanout`` caps the neighbours kept per hop (per metapath or relation;
+    the padded width is ``min(fanout, cfg.max_degree)``, or
+    ``cfg.max_instances`` for MAGNN).  ``ladder`` is the tuple of ``(t_cap,
+    f_cap)`` rungs, small to large: ``t_cap`` bounds the targets of a
+    batch, ``f_cap`` each type's local vertex table (clamped to the type's
+    population).  A batch is padded to the smallest rung that fits, so its
+    shapes are a pure function of the rung.  ``seed`` is ``cfg.seed``, so
+    the sampler's full tables replay ``prepare()``'s RNG stream."""
 
     fanout: int
     ladder: Tuple[Tuple[int, int], ...]
@@ -78,8 +87,9 @@ class SampleSpec:
 @dataclass(frozen=True)
 class ResidencySpec:
     """Hot-feature residency: ``cache_rows`` hot rows per node type in a
-    cache section of the gather pool (one device; ``pin_targets`` is the
-    serving cache's, not ported yet: Queue 1 item 13)."""
+    cache section of the gather pool (one device).  ``pin_targets`` pins
+    a serving step's in-flight targets in the serve engine's live
+    :class:`~repro_torch.core.residency.HotRowCache`."""
 
     cache_rows: int
     pin_targets: bool = True
@@ -97,6 +107,19 @@ class ScheduleSpec:
     def __post_init__(self):
         if self.depth < 1:
             raise ValueError(f"ScheduleSpec.depth must be >= 1: {self.depth}")
+
+
+def default_sample_ladder(
+    fanout: int, width: int, hops: int = 1,
+    t_rungs: Tuple[int, ...] = (8, 32, 128),
+) -> Tuple[Tuple[int, int], ...]:
+    """The automatic ``(t_cap, f_cap)`` ladder of a :class:`SampleSpec`:
+    ``f_cap = t_cap * (1 + width * hops)``, where ``width`` is the model's
+    nominal per-target per-hop frontier (metapaths × padded degree for
+    HAN, ...) and ``hops`` the expansion depth.  The sampler clamps
+    ``f_cap`` to each type's population and counts any truncation."""
+    return tuple((t, t * (1 + max(width, 1) * max(hops, 1)))
+                 for t in t_rungs)
 
 
 @dataclass(frozen=True)

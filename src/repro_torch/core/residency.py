@@ -15,9 +15,10 @@ and the remap are computed once from the layer-invariant index tables, so
 every layer of an L-layer stack reuses the same resident rows.
 
 Everything here is host-side numpy, run by ``prepare()`` before the batch
-is placed on its device.  The reference's ``partition_overlay`` waits for
-graph partitioning (ROADMAP Queue 1 item 12), and ``graph_degrees`` and
-``HotRowCache`` for sampled serving (item 13).
+is placed on its device.  ``graph_degrees`` and ``HotRowCache`` (port of
+``:287-369``) are the serve engine's live per-type cache over the sampled
+frontier.  The reference's ``partition_overlay`` waits for graph
+partitioning (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -195,3 +196,95 @@ def apply(plan: StagePlan, batch: Dict, tables: ResidencyTables) -> Dict:
         "counters": counters,
     }
     return out
+
+
+
+
+# ---------------------------------------------------------------------------
+# the live cache (serving's per-step sampled frontier)
+# ---------------------------------------------------------------------------
+
+
+def graph_degrees(hg) -> Dict[str, np.ndarray]:
+    """Per-type source degrees — how often each vertex is gathered as a
+    neighbor source across every relation.  The serving cache's priority
+    ordering (a degree proxy for the request-time reference counts)."""
+    deg = {t: np.zeros(n, np.int64) for t, n in hg.node_counts.items()}
+    for (s, _r, _d), a in hg.relations.items():
+        deg[s] += np.asarray(a.sum(axis=1)).reshape(-1).astype(np.int64)
+    return deg
+
+
+class HotRowCache:
+    """Deterministic degree-priority hot-row cache (host-side simulator and
+    the serving engine's live per-type cache).
+
+    Priority of row ``r`` is ``(degree[r], -r)`` — higher is better, and no
+    two rows tie.  On a miss with a full cache, the candidate is admitted
+    only if it outranks the lowest-priority *unpinned* resident, which is
+    evicted; pinned rows are never evicted.  Replaying the same access
+    trace therefore always reproduces the same resident set and counters.
+    """
+
+    def __init__(self, capacity: int, degree: np.ndarray):
+        self.degree = np.asarray(degree)
+        self.capacity = int(min(max(capacity, 0), len(self.degree)))
+        self.resident: set = set()
+        self.pinned: set = set()
+        self.hits = 0
+        self.misses = 0
+        self.inserts = 0
+        self.evictions = 0
+
+    def _prio(self, r: int) -> Tuple[int, int]:
+        return (int(self.degree[r]), -int(r))
+
+    def access(self, row) -> bool:
+        """One gather of ``row``: returns True on a cache hit; a miss runs
+        the deterministic admission/eviction policy."""
+        row = int(row)
+        if row in self.resident:
+            self.hits += 1
+            return True
+        self.misses += 1
+        if self.capacity == 0:
+            return False
+        if len(self.resident) < self.capacity:
+            self.resident.add(row)
+            self.inserts += 1
+            return False
+        unpinned = [r for r in self.resident if r not in self.pinned]
+        if not unpinned:
+            return False  # everything pinned by the in-flight batch
+        victim = min(unpinned, key=self._prio)
+        if self._prio(row) > self._prio(victim):
+            self.resident.discard(victim)
+            self.evictions += 1
+            self.resident.add(row)
+            self.inserts += 1
+        return False
+
+    def access_many(self, rows) -> Tuple[int, int]:
+        h0, m0 = self.hits, self.misses
+        for r in np.asarray(rows).reshape(-1):
+            self.access(r)
+        return self.hits - h0, self.misses - m0
+
+    def pin(self, rows) -> None:
+        self.pinned.update(int(r) for r in np.asarray(rows).reshape(-1))
+
+    def unpin(self, rows) -> None:
+        self.pinned.difference_update(
+            int(r) for r in np.asarray(rows).reshape(-1))
+
+    @property
+    def counters(self) -> Dict[str, int]:
+        return {
+            "hits": self.hits,
+            "misses": self.misses,
+            "rows": self.hits + self.misses,
+            "inserts": self.inserts,
+            "evictions": self.evictions,
+            "resident": len(self.resident),
+            "capacity": self.capacity,
+        }

@@ -1,6 +1,10 @@
 """The paper's HGNN execution stages in PyTorch (port of
 ``repro/core/stages.py:55-223``, ``:226-317`` and ``:325-364``).
 
+The bucketed and edge-list arms take ``sink=True`` for sampled batches:
+their pad rows and pad edges name the row one past the table, which JAX
+drops and torch's ``index_copy_`` / ``index_add_`` would not.
+
 Stage 2 — Feature Projection (FP): type-specific dense matmul (DM-Type).
 Stage 3 — Neighbor Aggregation (NA): graph-topology gather + reduce
 (TB-Type) with element-wise attention math (EW-Type).
@@ -140,21 +144,26 @@ def gat_aggregate_bucketed(
     h_src: torch.Tensor,  # [M, H, Dh]
     buckets: Sequence,  # (row_ids [n_b], nbr [n_b, K_b], mask) per bucket
     agg_fn: Optional[Callable] = None,
+    sink: bool = False,
 ) -> torch.Tensor:
     """GAT NA over a degree-bucketed layout: each bucket runs the padded
     aggregation at its own degree cap ``K_b`` on the gathered rows
     ``h_dst[row_ids]`` (a fresh contiguous table, as the kernel wants) and
     is copied back to node order through ``row_ids``; ``agg_fn`` swaps in
     the unstacked ``gat_na`` kernel, one launch a bucket.  Full-graph
-    ``row_ids`` partition the rows exactly (``mean_aggregate_bucketed``
-    says why ``index_copy_`` needs that)."""
+    ``row_ids`` partition the rows exactly.  ``sink`` is the sampled
+    batches' arm (:func:`mean_aggregate_bucketed` says why): a pad row id
+    ``N`` gathers row ``N - 1`` instead — its slots are all masked, so its
+    output is exactly 0 whichever row it reads — and lands in the sink."""
     base = agg_fn or gat_aggregate_padded
-    out = torch.zeros_like(h_dst)
+    n = h_dst.shape[0]
+    out = h_dst.new_zeros((n + sink,) + tuple(h_dst.shape[1:]))
     for row_ids, nbr, mask in buckets:
         rows = row_ids.long()
-        out.index_copy_(0, rows, base(p, h_dst.index_select(0, rows), h_src,
+        src = rows.clamp(max=n - 1) if sink else rows
+        out.index_copy_(0, rows, base(p, h_dst.index_select(0, src), h_src,
                                       nbr, mask))
-    return out
+    return out[:n] if sink else out
 
 
 # ---------------------------------------------------------------------------
@@ -216,32 +225,42 @@ def mean_aggregate_bucketed(
     buckets: Sequence,  # (row_ids [n_b], nbr [n_b, K_b], mask) per bucket
     n_rows: int,
     agg_fn: Optional[Callable] = None,
+    sink: bool = False,
 ) -> torch.Tensor:
     """Mean NA over a degree-bucketed layout: each bucket runs the padded
     mean at its own degree cap ``K_b`` and is copied back to node order
     through ``row_ids``; ``agg_fn`` swaps in the ``segment_spmm`` kernel.
 
     The reference scatters with ``out.at[row_ids].set``, which drops
-    out-of-range ids; ``index_copy_`` raises on them instead.  Full-graph
-    ``row_ids`` partition ``[0, n_rows)`` exactly, so none is out of range
-    here (the sampled slice's pad ids are ROADMAP Queue 3 check (a))."""
+    out-of-range ids; ``index_copy_`` raises on them on the CPU and
+    device-asserts on the card.  Full-graph ``row_ids`` partition ``[0,
+    n_rows)`` exactly.  The sampler pads every bucket of a rung to ``cap``
+    rows whose pad ids are ``cap = n_rows`` (ROADMAP Queue 3 check (a)):
+    with ``sink`` the scatter goes into ``n_rows + 1`` rows and the last
+    one, the sink that takes the pads, is sliced away — no host sync, and
+    shapes stay a pure function of the rung."""
     base = agg_fn or mean_aggregate_padded
-    out = torch.zeros((n_rows, h_src.shape[-1]), dtype=h_src.dtype,
+    out = torch.zeros((n_rows + sink, h_src.shape[-1]), dtype=h_src.dtype,
                       device=h_src.device)
     for row_ids, nbr, mask in buckets:
         out.index_copy_(0, row_ids.long(), base(h_src, nbr, mask))
-    return out
+    return out[:n_rows] if sink else out
 
 
 def mean_aggregate_csr(h_src: torch.Tensor, seg: torch.Tensor,
-                       idx: torch.Tensor, n_nodes: int) -> torch.Tensor:
+                       idx: torch.Tensor, n_nodes: int,
+                       sink: bool = False) -> torch.Tensor:
     """Mean NA over a flat edge list (the DGL-faithful baseline):
     ``segment_sum(h_src[idx], seg) / max(count, 1)``.  The sum is the
     fixed-order ``segment_sum`` (the CPU's plain version or the card's
     kernel, by the device alone, as the reference's ``csr`` arm is the same
     under both values of ``use_pallas``), so the arm gives the same bits on
-    every run, and cached == uncached holds bitwise on the card too."""
-    return ops.segment_sum(h_src, seg, n_nodes, idx=idx, mean=True)
+    every run, and cached == uncached holds bitwise on the card too.
+    ``sink``: the sampled edge lists' pad edges name segment ``n_nodes``
+    (a sorted suffix, so the kernel's bound search still holds), summed
+    into one more segment that is sliced away."""
+    out = ops.segment_sum(h_src, seg, n_nodes + sink, idx=idx, mean=True)
+    return out[:n_nodes] if sink else out
 
 
 def csr_to_edges(indptr: np.ndarray,

@@ -64,6 +64,9 @@ build_log = ""  # ptxas -v output of the last build in this process
 build_seconds = 0.0  # wall time of that build (0 when the library was cached)
 _lib: Optional[ctypes.CDLL] = None
 _scratch: Dict[tuple, "torch.Tensor"] = {}
+# things made at run time: library loads and new or grown scratch buffers
+# (what the serve engine's ``compiles_after_warmup`` counts after warmup)
+created = 0
 
 
 def sources() -> List[Path]:
@@ -121,7 +124,7 @@ def _compile(srcs: List[Path], lib_path: Path) -> str:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib, build_log, build_seconds
+    global _lib, build_log, build_seconds, created
     if _lib is not None:
         return _lib
     srcs = sources()
@@ -136,6 +139,7 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     _lib = lib
+    created += 1
     return lib
 
 
@@ -157,11 +161,13 @@ def scratch(what: str, numel: int, dtype, device, stream: int
     never share it at once."""
     import torch
 
+    global created
     key = (what, str(device), stream, dtype)
     buf = _scratch.get(key)
     if buf is None or buf.numel() < numel:
         buf = torch.zeros(numel, dtype=dtype, device=device)
         _scratch[key] = buf
+        created += 1
     return buf
 
 

@@ -1,6 +1,6 @@
 """Serving launcher (port of ``repro/launch/serve.py``: the LM branch of
-``main``, ``:309-418``, and the full-graph ``--hgnn`` path, ``:76-120,
-228-274``).
+``main``, ``:309-418``, the full-graph ``--hgnn`` path, ``:76-120,
+228-274``, and request-path serving, ``:131-227``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       --reduced [--requests N] [--prompt-len T] [--max-tokens M] \
@@ -16,6 +16,10 @@
       --dataset reddit [--cache-rows 256] [--layers L]
   PYTHONPATH=src python -m repro_torch.launch.serve --hgnn magnn \\
       --dataset imdb --use-pallas [--cache-rows 256] [--layers L]
+  PYTHONPATH=src python -m repro_torch.launch.serve --hgnn han \\
+      --dataset imdb --use-pallas --fuse-na-sa --fanout 8 --slots 8 \\
+      --slot-targets 4 --requests 32 [--deadline-ms D] [--slo-ms S] \\
+      [--max-queue Q] [--inject-faults SEED] [--slo-signal injected]
 
 runs on the CUDA device; ``--device cpu`` runs on the CPU (the kernels'
 plain versions).  Without ``--hgnn`` it serves the dense LM ``--arch`` (full
@@ -55,8 +59,25 @@ and on the card, where the stages are timed, also ``time_us=...
 device_us=... DM=...% TB=...% EW=...% DR=...%`` (the device time's shares
 by kernel class) and ``OTHER=[...]`` naming any kernel left unclassed.
 
-The reference's device mesh, graph partitioning, sampled serving and the
-overlap schedule are not ported yet.
+``--fanout K`` (K >= 1) serves instead: ``--requests`` requests of 1 to
+``2 * --slot-targets`` target ids drawn with ``default_rng(0)``, through
+``HGNNSampler`` and ``HGNNServeEngine`` (``--slots`` slots), after the
+per-rung warmup, and prints the reference's lines
+
+  serve han/imdb requests=... targets=... slots=... slot_targets=...
+      fanout=... steps=... recompiles=0 frontier_bytes=... truncated=...
+      rung_hits=0:..;1:.. warmup_ms=... wall_ms=... step_ms=...
+  resilience: ok=... partial=... failed=... rejected=... shed=...
+      retries=... failed_steps=... deadline_expired=... degrade_steps=...
+      max_degrade_level=... failovers=0
+
+(``recompiles`` is ``compiles_after_warmup``), the residency line with
+``--cache-rows``, and with ``--characterize`` the last step's ``SAMPLE``
+record and stage records.  ``--inject-faults SEED`` runs the reference's
+seeded chaos schedule through the serve loop.
+
+The reference's device mesh, graph partitioning and the overlap schedule
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -107,6 +128,106 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def build_fault_injector(args) -> Any:
+    """``--inject-faults SEED`` -> the chaos-smoke schedule: two transient
+    sampler faults + one transient forward fault (absorbed by retries), one
+    persistent sampler fault (fails the step's requests) and injected
+    latency on three steps (drives the degradation ladder when --slo-ms is
+    set).  Deterministic per seed.  The reference's partition loss waits
+    for partitioned plans (ROADMAP Queue 1 item 12)."""
+    from repro_torch.serve.faults import FaultInjector
+
+    return FaultInjector.seeded(
+        seed=args.inject_faults, n_steps=max(args.requests, 8),
+        sampler=2, forward=1, persistent_sampler=1, latency_steps=3,
+        latency_s=(args.slo_ms or 50.0) / 250.0)
+
+
+def request_queue(n_t: int, slot_targets: int, n_requests: int,
+                  pool: Optional[int] = None, seed: int = 0) -> list:
+    """The serve CLI's request queue: ``n_requests`` requests of 1 to
+    ``2 * slot_targets`` target ids drawn with ``default_rng(seed)``
+    below ``n_t`` (below ``min(pool, n_t)`` with ``pool``, as the
+    reference's chaos bench draws)."""
+    import numpy as np
+
+    from repro_torch.serve.engine import HGNNRequest
+
+    rng = np.random.default_rng(seed)
+    hi = n_t if pool is None else min(pool, n_t)
+    return [HGNNRequest(targets=rng.integers(
+        0, hi, size=int(rng.integers(1, 2 * slot_targets + 1))))
+        for _ in range(n_requests)]
+
+
+def run_hgnn_serve(args, cfg: HGNNConfig, hg, built: BuiltHGNNInfer):
+    """Request-path serving: neighbor-sampled minibatches through the
+    slot-based continuous-batching engine (``--fanout >= 1``).  Returns
+    the engine and its requests."""
+    from repro_torch.serve.engine import HGNNServeEngine
+    from repro_torch.serve.resilience import ResilienceConfig
+    from repro_torch.serve.sampler import HGNNSampler
+
+    sampler = HGNNSampler(built.plan, cfg, hg)
+    res = ResilienceConfig(max_queue=args.max_queue,
+                           deadline_ms=args.deadline_ms,
+                           slo_ms=args.slo_ms,
+                           slo_signal=args.slo_signal)
+    injector = (build_fault_injector(args)
+                if args.inject_faults is not None else None)
+    engine = HGNNServeEngine(built.executor, built.params, sampler,
+                             slots=args.slots,
+                             slot_targets=args.slot_targets, fn=built.fn,
+                             resilience_cfg=res, injector=injector)
+    reqs = request_queue(sampler.n_target_type, args.slot_targets,
+                         args.requests)
+    n_targets = sum(len(r.targets) for r in reqs)
+    t0 = time.time()
+    engine.warmup()
+    warm = time.time() - t0
+    t0 = time.time()
+    engine.serve(reqs)
+    dt = time.time() - t0
+    st = engine.stats()
+    rungs = ";".join(f"{i}:{n}" for i, n in st["rung_hits"].items())
+    print(f"serve {cfg.model}/{cfg.dataset} "
+          f"requests={len(reqs)} targets={n_targets} slots={args.slots} "
+          f"slot_targets={args.slot_targets} fanout={cfg.fanout} "
+          f"steps={st['steps']} recompiles={st['compiles_after_warmup']} "
+          f"frontier_bytes={st['frontier_bytes']:.0f} "
+          f"truncated={st['truncated_rows']} rung_hits={rungs} "
+          f"warmup_ms={warm*1e3:.2f} wall_ms={dt*1e3:.2f} "
+          f"step_ms={st['wall_mean_ms']:.3f}")
+    rs = st["resilience"]
+    print(f"  resilience: ok={rs['ok_requests']} "
+          f"partial={rs['partial_requests']} failed={rs['failed_requests']} "
+          f"rejected={rs['rejected']} shed={rs['shed']} "
+          f"retries={rs['retries']} failed_steps={rs['failed_steps']} "
+          f"deadline_expired={rs['deadline_expired']} "
+          f"degrade_steps={rs['degrade_steps']} "
+          f"max_degrade_level={rs['max_degrade_level']} "
+          f"failovers={rs['partition_failovers']}")
+    if "residency" in st:
+        rd = st["residency"]
+        print(f"  residency: cache_rows={rd['cache_rows']} "
+              f"hits={rd['hits']} misses={rd['misses']} rows={rd['rows']} "
+              f"hit_rate={rd['hit_rate']:.3f} evictions={rd['evictions']}")
+    if args.characterize:
+        sb = engine.last_sb
+        recs = built.executor.stage_records(
+            built.params, engine.place(sb.batch),
+            sample_meta=sb.meta)
+        sm = recs["stages"]["SAMPLE"]
+        print(f"  SAMPLE: rung={sm['rung']} n_targets={sm['n_targets']} "
+              f"frontier_rows={sm['frontier_rows']} "
+              f"frontier_bytes={sm['frontier_bytes']:.3g} "
+              f"index_bytes={sm['index_bytes']:.3g}")
+        for stage, rec in recs["stages"].items():
+            if stage != "SAMPLE":
+                print(f"  {stage}: {stage_line(rec)}")
+    return engine, reqs
+
+
 def run_hgnn(args) -> None:
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.serve.engine import HGNNInferEngine
@@ -119,9 +240,15 @@ def run_hgnn(args) -> None:
                      use_pallas=args.use_pallas,
                      degree_buckets=args.degree_buckets,
                      fuse_na_sa=args.fuse_na_sa, layers=args.layers,
-                     cache_rows=args.cache_rows)
+                     fanout=args.fanout, cache_rows=args.cache_rows)
     hg = make_dataset(args.dataset)
     built = build_hgnn_infer(cfg, hg, dev)
+    if args.fanout >= 1:
+        name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                else "host CPU")
+        print(f"device: {dev} ({name})")
+        run_hgnn_serve(args, cfg, hg, built)
+        return
     engine = HGNNInferEngine(built.executor, built.params, built.batch,
                              fn=built.fn)
     logits = engine.infer()  # warm-up (builds the kernels on first use)
@@ -237,6 +364,33 @@ def main() -> None:
                          "node type in a cache section of the gather pool")
     ap.add_argument("--layers", type=int, default=1,
                     help="stack that many FP->NA->SA layers")
+    ap.add_argument("--fanout", type=int, default=0,
+                    help=">=1: request-path serving — neighbor-sampled "
+                         "minibatch inference (per-hop fan-out cap) through "
+                         "the slot-based continuous-batching engine; "
+                         "--requests/--slots/--slot-targets size the queue")
+    ap.add_argument("--slot-targets", type=int, default=4,
+                    help="target vertices each slot contributes per serving "
+                         "step (HGNN serving mode)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline: expired requests complete "
+                         "PARTIAL with the rows served so far")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="per-step SLO target: walls breaching it drive the "
+                         "degradation ladder (smaller chunks + smaller "
+                         "warmed rungs; restores when pressure drops)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="admission bound: requests beyond this queue depth "
+                         "are shed (status REJECTED)")
+    ap.add_argument("--inject-faults", type=int, default=None,
+                    help="seed a deterministic fault schedule (transient + "
+                         "persistent sampler/forward faults, injected "
+                         "latency) through the serve loop")
+    ap.add_argument("--slo-signal", choices=("observed", "injected"),
+                    default="observed",
+                    help="wall feeding the SLO comparison: 'observed' = real "
+                         "step wall + injected latency; 'injected' = the "
+                         "fault schedule's latency alone (replayable)")
     ap.add_argument("--characterize", action="store_true",
                     help="print the per-stage FLOPs/bytes/roofline records "
                          "(and, on the card, stage and device times by "

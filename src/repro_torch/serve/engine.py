@@ -1,11 +1,20 @@
-"""Serving engines (port of ``repro/serve/engine.py:32-59, 572-646``).
+"""Serving engines (port of ``repro/serve/engine.py:32-89, 162-646``).
 
 ``HGNNInferEngine`` — HGNN inference driven by a :class:`StagePlan`: the
 engine holds the stage-graph executor (not a model class) and serves the
 forward over the prepared batch, and ``characterize`` gives the per-stage
-records of ``core/characterize.py`` from the same plan.  The
-sampled-serving ``HGNNServeEngine`` is a later item of the port (ROADMAP
-Queue 1 item 13).
+records of ``core/characterize.py`` from the same plan.
+
+``HGNNServeEngine`` — request-path serving: slot-based continuous
+batching of :class:`HGNNRequest` objects over sampled, rung-padded
+minibatches (:mod:`repro_torch.serve.sampler`), with the reference's
+resilience policies (:mod:`repro_torch.serve.resilience`), fault hooks
+(:mod:`repro_torch.serve.faults`) and live hot-row caches, and every
+counter and status name of the reference's ``stats()``.  Two of the
+reference's parts wait for their ROADMAP items: the async sampler
+prefetch (``_SamplerPrefetcher``, reached only through ``plan.schedule``,
+item 14) and partition failover (``_maybe_failover``, partitioned plans
+only, item 12); the executor refuses both plans.
 
 ``ServeEngine`` — LM serving over the prefill / decode step functions of
 ``nn/transformer.py``: each wave of up to ``batch_slots`` requests is
@@ -16,10 +25,11 @@ engine's own seeded ``torch.Generator`` (``jax.random`` streams cannot be
 reproduced).
 
 The reference jits the forward and the decode step; PyTorch runs eagerly,
-so both engines call them under ``torch.inference_mode``.
+so the engines call them under ``torch.inference_mode``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -28,7 +38,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import build
 from repro_torch.nn import transformer as tf
+from repro_torch.serve import resilience
+from repro_torch.serve.resilience import (
+    FAILED, OK, PARTIAL, AdmissionController, DegradationController,
+    ResilienceConfig, RetryPolicy, StepFailure, finalize_request)
 
 
 class HGNNInferEngine:
@@ -55,6 +70,368 @@ class HGNNInferEngine:
         return self.executor.stage_records(self.params, self.batch,
                                            n_chips=n_chips,
                                            timed=timed)["stages"]
+
+
+@dataclasses.dataclass
+class HGNNRequest:
+    """One HGNN inference request: classify ``targets`` (global target-type
+    vertex ids).
+
+    ``serve`` leaves every request in a terminal ``status``
+    (``OK`` / ``PARTIAL`` / ``REJECTED`` / ``FAILED`` — see
+    ``repro_torch.serve.resilience``) with ``logits`` rows for exactly the
+    target ids named by ``served`` (all of ``targets`` when ``OK``; the
+    rows completed before the deadline/failure otherwise; always
+    ``n_classes`` wide).  ``deadline_ms`` overrides the engine-wide
+    default."""
+    targets: np.ndarray  # [n] integer, global ids of the plan's target type
+    logits: Optional[np.ndarray] = None  # [n_served, n_classes] when done
+    deadline_ms: Optional[float] = None  # per-request deadline override
+    status: str = "NEW"
+    error: Optional[str] = None          # reject/failure reason
+    served: Optional[np.ndarray] = None  # target ids the logits rows answer
+    _done: int = 0  # host cursor into _serve_ids: rows < _done are served
+    _serve_ids: Optional[np.ndarray] = None  # admission's deduped id view
+    _inv: Optional[np.ndarray] = None        # original row -> _serve_ids row
+    _buf: Optional[np.ndarray] = None        # [len(_serve_ids), C] working
+    _deadline: Optional[float] = None        # absolute perf_counter deadline
+
+    @property
+    def finished(self) -> bool:
+        return self.status in resilience.TERMINAL
+
+
+def _first_tensor(tree):
+    if torch.is_tensor(tree):
+        return tree
+    values = (tree.values() if isinstance(tree, dict)
+              else tree if isinstance(tree, (list, tuple)) else ())
+    for v in values:
+        t = _first_tensor(v)
+        if t is not None:
+            return t
+    return None
+
+
+class HGNNServeEngine:
+    """Slot-based continuous batching for HGNN requests.
+
+    Requests occupy fixed batch slots; each step every active slot
+    contributes up to ``slot_targets`` of its remaining target vertices to
+    a union minibatch, the sampler extracts one rung-padded subgraph for
+    the union, one forward serves it on the parameters' device, and the
+    logits scatter back per request through ``SampledBatch.target_rows``.  Finished slots refill from the queue
+    without stopping the step loop.
+
+    ``warmup()`` runs one forward per ladder rung on an all-pad batch.
+    The port runs eagerly, so there is no jit cache to diff:
+    ``stats()["compiles_after_warmup"]`` counts what can still be made at
+    run time after warmup — kernel-library loads and new or grown kernel
+    scratch buffers (``kernels/build.py``'s process-wide ``created``) —
+    summed over this engine's own forwards since warmup, so another
+    engine or kernel call in the process is not counted against it.  It
+    must stay 0, which holds because a batch's shapes are a pure function
+    of its rung.  Once the forward is captured as CUDA graphs (ROADMAP Queue 1
+    item 18), it will count the captures made after warmup too.
+
+    Resilience, as in the reference: admission control with per-request
+    statuses, per-request deadlines (expired requests complete
+    ``PARTIAL``), SLO-driven degradation inside the warmed ladder, and
+    bounded retry around the sampler call and the forward.  The retry
+    layer retries every exception, kernel errors included, so a run that
+    must show its kernels ran checks ``failed_steps == 0`` and
+    ``retries == 0``.  ``step_log`` entries add ``sample_s`` (the host
+    sampler) and ``forward_s`` (upload, forward and read-back) to the
+    reference's ``wall_s``.
+    """
+
+    def __init__(self, executor, params, sampler, slots: int = 8,
+                 slot_targets: int = 4, fn=None,
+                 resilience_cfg: Optional[ResilienceConfig] = None,
+                 injector=None):
+        self.executor = executor
+        self.plan = executor.plan
+        self.params = params
+        self.sampler = sampler
+        self.slots = slots
+        self.slot_targets = slot_targets
+        self.fn = fn if fn is not None else executor.forward
+        self.device = _first_tensor(params).device
+        max_t = max(t for t, _ in sampler.ladder)
+        if slots * slot_targets > max_t:
+            raise ValueError(
+                f"slots*slot_targets={slots * slot_targets} exceeds the "
+                f"largest ladder rung's target cap {max_t}; widen the "
+                "ladder or shrink the slot plan")
+        self.res = (resilience_cfg if resilience_cfg is not None
+                    else ResilienceConfig())
+        self.injector = injector
+        self.n_classes = int(executor.cfg.n_classes)
+        self._made_after_warmup: Optional[int] = None
+        self.step_log: List[Dict] = []
+        self.last_sb = None
+        # residency: live per-type hot-row caches over the sampled frontier,
+        # keyed by global vertex ids and owned by the engine, so rung
+        # changes and degradation never touch them
+        self.caches: Optional[Dict] = None
+        if self.plan.residency is not None:
+            from repro_torch.core.residency import HotRowCache, graph_degrees
+
+            cap = self.plan.residency.cache_rows
+            self.caches = {t: HotRowCache(cap, d)
+                           for t, d in graph_degrees(sampler.hg).items()}
+        self._fresh_policies()
+
+    def _fresh_policies(self) -> None:
+        """Per-serve policy state (counters reset each ``serve`` call)."""
+        self.admission = AdmissionController(
+            self.res, self.sampler.n_target_type, self.n_classes)
+        self.degrade = DegradationController(
+            self.res, len(self.sampler.ladder), self.slot_targets)
+        self.retry = RetryPolicy(self.res)
+        self._deadline_expired = 0
+        self._status_counts: Dict[str, int] = {}
+
+    def _cache_step(self, ids: np.ndarray, sb) -> None:
+        """One serving step's residency traffic: pin the in-flight targets,
+        run every type's sampled local->global table through the live
+        caches' deterministic admission policy, then unpin."""
+        spec = self.plan.residency
+        tgt = self.plan.target
+        pin = spec.pin_targets and tgt in self.caches
+        if pin:
+            self.caches[tgt].pin(ids)
+        for t, loc in sb.local.items():
+            if t in self.caches:
+                self.caches[t].access_many(loc)
+        if pin:
+            self.caches[tgt].unpin(ids)
+
+    def place(self, batch: Dict) -> Dict:
+        """A sampled host batch (CPU tensors) on the engine's device."""
+        from repro_torch.core.pipeline import _to_device
+
+        return _to_device(batch, self.device)
+
+    def _forward(self, batch: Dict) -> np.ndarray:
+        """Upload a sampled host batch to the engine's device, run the
+        forward and read the logits back; after warmup, add what the
+        forward made (``build.created``'s change) to the engine's count."""
+        made = build.created
+        with torch.inference_mode():
+            out = self.fn(self.params, self.place(batch)).cpu().numpy()
+        if self._made_after_warmup is not None:
+            self._made_after_warmup += build.created - made
+        return out
+
+    def warmup(self) -> int:
+        """One forward per ladder rung on an all-pad batch: builds the
+        kernels and sizes every scratch buffer; then starts the count that
+        ``stats`` reports as ``compiles_after_warmup`` at 0.  Returns the
+        number of rungs warmed."""
+        for i in range(len(self.sampler.ladder)):
+            self._forward(self.sampler.dummy_batch(i).batch)
+        self._made_after_warmup = 0
+        return len(self.sampler.ladder)
+
+    def serve(self, requests: List[HGNNRequest]) -> List[HGNNRequest]:
+        """Run the slot loop until every request reaches a terminal status.
+
+        Never raises for admissible traffic: bad requests are REJECTED at
+        admission, deadline-expired ones complete PARTIAL, and persistent
+        step errors FAIL only the requests in the affected slots.
+        """
+        self._fresh_policies()
+        adm, deg, retry = self.admission, self.degrade, self.retry
+        now = time.perf_counter()
+        q: collections.deque = collections.deque()
+        for r in requests:
+            if adm.admit(r, len(q), now):
+                q.append(r)
+        active: List[Optional[HGNNRequest]] = [None] * self.slots
+        self.step_log = []
+        step = 0
+        while q or any(r is not None for r in active):
+            now = time.perf_counter()
+            # deadline expiry: active slots and queued requests complete
+            # PARTIAL (rows served so far) without blocking the loop
+            active, n_exp = resilience.expire_requests(
+                active, now, self.n_classes)
+            self._deadline_expired += n_exp
+            if q:
+                live: collections.deque = collections.deque()
+                for r in q:
+                    if r._deadline is not None and now >= r._deadline:
+                        finalize_request(r, PARTIAL, self.n_classes,
+                                         error="deadline expired")
+                        self._deadline_expired += 1
+                    else:
+                        live.append(r)
+                q = live
+            # refill: every queued request is servable and takes one slot
+            for s in range(self.slots):
+                if active[s] is None and q:
+                    active[s] = q.popleft()
+                    active[s].status = "ACTIVE"
+            # degradation: per-slot chunk + rung clamp (warmed rungs only)
+            level_used = deg.level
+            chunk = deg.chunk()
+            rung_limit = deg.rung_limit()
+            t_budget = self.sampler.ladder[rung_limit][0]
+            chunks = []  # (request, start_row_in_request, ids)
+            n_union = 0
+            for r in active:
+                if r is None:
+                    continue
+                if n_union >= t_budget:
+                    break  # degraded union budget: remaining slots wait
+                take = min(chunk, t_budget - n_union,
+                           len(r._serve_ids) - r._done)
+                ids = r._serve_ids[r._done: r._done + take]
+                chunks.append((r, r._done, np.asarray(ids, np.int64)))
+                n_union += take
+            if not chunks:  # everything expired this pass
+                continue
+            ids = np.concatenate([c[2] for c in chunks])
+            t0 = time.perf_counter()
+            inj = self.injector
+            t_sampled = t0
+            try:
+                sb = retry.run(
+                    "sampler",
+                    lambda: self.sampler.sample(ids, max_rung=rung_limit),
+                    hook=(lambda a: inj.check("sampler", step, a))
+                    if inj else None)
+                t_sampled = time.perf_counter()
+                out = retry.run(
+                    "forward", lambda: self._forward(sb.batch),
+                    hook=(lambda a: inj.check("forward", step, a))
+                    if inj else None)
+            except StepFailure as e:
+                wall = time.perf_counter() - t0
+                inj_lat = inj.latency_s(step) if inj else 0.0
+                wall_obs = wall + inj_lat
+                for r, _start, _cids in chunks:
+                    finalize_request(r, FAILED, self.n_classes,
+                                     error=str(e))
+                for s in range(self.slots):
+                    if active[s] is not None and active[s].status == FAILED:
+                        active[s] = None
+                deg.observe(inj_lat if self.res.slo_signal == "injected"
+                            else wall_obs)
+                self.step_log.append({
+                    "active_slots": len(chunks), "queue_len": len(q),
+                    "n_targets": int(len(ids)), "rung_index": -1,
+                    "frontier_bytes": 0.0, "truncated_rows": 0,
+                    "wall_s": wall, "wall_observed_s": wall_obs,
+                    "degrade_level": level_used, "failed": True,
+                    "error": str(e),
+                })
+                step += 1
+                continue
+            rows = out[sb.target_rows]
+            t_end = time.perf_counter()
+            wall = t_end - t0
+            if self.caches is not None:  # host bookkeeping, untimed
+                self._cache_step(ids, sb)
+            inj_lat = inj.latency_s(step) if inj else 0.0
+            wall_obs = wall + inj_lat
+            off = 0
+            for r, start, cids in chunks:
+                n = len(cids)
+                if r._buf is None:
+                    r._buf = np.zeros((len(r._serve_ids), rows.shape[1]),
+                                      rows.dtype)
+                r._buf[start: start + n] = rows[off: off + n]
+                r._done = start + n
+                off += n
+            for s in range(self.slots):
+                r = active[s]
+                if r is not None and r._done >= len(r._serve_ids):
+                    finalize_request(r, OK, self.n_classes)
+                    active[s] = None
+            deg.observe(inj_lat if self.res.slo_signal == "injected"
+                        else wall_obs)
+            self.step_log.append({
+                "active_slots": len(chunks),
+                "queue_len": len(q),
+                "n_targets": int(sb.n_targets),
+                "rung_index": int(sb.rung_index),
+                "frontier_bytes": float(sb.meta["frontier_bytes"]),
+                "truncated_rows": int(sb.meta["truncated_rows"]),
+                "wall_s": wall,
+                "wall_observed_s": wall_obs,
+                "degrade_level": level_used,
+                "sample_s": t_sampled - t0,
+                "forward_s": t_end - t_sampled,
+            })
+            self.last_sb = sb
+            step += 1
+        for r in requests:
+            self._status_counts[r.status] = (
+                self._status_counts.get(r.status, 0) + 1)
+        return requests
+
+    def stats(self) -> Dict:
+        """Deterministic serving counters (walls reported, never gated):
+        the reference's keys.  ``compiles_after_warmup`` is ``None`` until
+        :meth:`warmup` has run; ``partition_failovers`` and
+        ``lost_partitions`` stay 0 and ``[]`` (no partitioned plan is
+        served yet)."""
+        rung_hits: Dict[int, int] = {}
+        for e in self.step_log:
+            if e.get("failed"):
+                continue  # failed steps sample no rung
+            rung_hits[e["rung_index"]] = rung_hits.get(e["rung_index"], 0) + 1
+        compiles = self._made_after_warmup
+        walls = [e["wall_s"] for e in self.step_log]
+        deg, retry, adm = self.degrade, self.retry, self.admission
+        inj_counts = dict(self.injector.counters) if self.injector else {}
+        out = {
+            "steps": len(self.step_log),
+            "rung_hits": {int(k): int(v)
+                          for k, v in sorted(rung_hits.items())},
+            "frontier_bytes": float(
+                sum(e["frontier_bytes"] for e in self.step_log)),
+            "truncated_rows": int(
+                sum(e["truncated_rows"] for e in self.step_log)),
+            "compiles_after_warmup": compiles,
+            "wall_total_s": float(sum(walls)),
+            "wall_mean_ms": float(1e3 * np.mean(walls)) if walls else 0.0,
+            "resilience": {
+                **{k: int(v) for k, v in adm.counters.items()},
+                **{k: int(v) for k, v in retry.counters.items()},
+                **{k: int(v) for k, v in deg.counters.items()},
+                "retries": int(retry.counters["sampler_retries"]
+                               + retry.counters["forward_retries"]),
+                "deadline_expired": int(self._deadline_expired),
+                "failed_requests": int(
+                    self._status_counts.get(FAILED, 0)),
+                "partial_requests": int(
+                    self._status_counts.get(PARTIAL, 0)),
+                "ok_requests": int(self._status_counts.get(OK, 0)),
+                "partition_failovers": 0,
+                "lost_partitions": [],
+                "statuses": dict(self._status_counts),
+                "injected": inj_counts,
+            },
+        }
+        if self.caches is not None:
+            hits = sum(c.hits for c in self.caches.values())
+            misses = sum(c.misses for c in self.caches.values())
+            out["residency"] = {
+                "per_type": {t: dict(c.counters)
+                             for t, c in sorted(self.caches.items())},
+                "hits": int(hits),
+                "misses": int(misses),
+                "rows": int(hits + misses),
+                "hit_rate": float(hits / max(hits + misses, 1)),
+                "evictions": int(sum(c.evictions
+                                     for c in self.caches.values())),
+                "cache_rows": int(sum(c.capacity
+                                      for c in self.caches.values())),
+            }
+        return out
 
 
 @dataclasses.dataclass

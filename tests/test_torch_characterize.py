@@ -471,9 +471,17 @@ def test_timed_records_raise_on_the_cpu(tiny_hg):
 
 
 def test_sampled_partitioned_and_overlap_paths_raise(tiny_hg):
-    m, p, b, _ = _records(tiny_hg, model="han", fused=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        m.stage_records(p, b, sample_meta={"rung": [8]})
+    """The sampled path is ported (its SAMPLE record is the reference's
+    ``sample_traffic``, ahead of the device stages and out of ``total``);
+    the partitioned and overlap plans still raise naming their items."""
+    m, p, b, recs = _records(tiny_hg, model="han", fused=True)
+    meta = {"rung": (8, 64), "rung_index": 1, "n_targets": 5,
+            "frontier_rows": 211, "frontier_bytes": 54016,
+            "index_bytes": 9000, "truncated_rows": 3, "fanout": 8}
+    sampled = m.stage_records(p, b, sample_meta=meta)
+    assert list(sampled["stages"]) == ["SAMPLE"] + list(recs["stages"])
+    assert sampled["stages"]["SAMPLE"] == ref_ch.sample_traffic(meta)
+    assert sampled["total"] == recs["total"]
     for kw, item in ((dict(partitions=4), 12), (dict(overlap=2), 14)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             get_model(HGNNConfig(**TINY, model="han", fused=True,

@@ -139,7 +139,7 @@ def test_engine_runs_gcn_without_a_launch_on_cpu(reddit):
 
 @pytest.mark.parametrize("kw,err,match", [
     (dict(partitions=2), ValueError, "no partitioned execution layout"),
-    (dict(fanout=4), NotImplementedError, "item 13"),
+    (dict(fanout=4, overlap=2), NotImplementedError, "item 14"),
     (dict(overlap=2), NotImplementedError, "item 14"),
 ])
 def test_gcn_modes_outside_the_slice_raise(kw, err, match):

@@ -149,15 +149,15 @@ def test_entry_points_need_a_device_without_cuda(tiny_hg, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(model="gcn", fanout=4), "item 13"),
+    (dict(model="gcn", fanout=4, overlap=2), "item 14"),
     (dict(model="gcn", overlap=2), "item 14"),
     (dict(partitions=2), "item 12"),
-    (dict(fanout=4), "item 13"),
+    (dict(fanout=4, partitions=2), "item 12"),
     (dict(cache_rows=8, partitions=2), "item 12"),
     (dict(overlap=2), "item 14"),
     (dict(model="rgcn", partitions=2), "item 12"),
-    (dict(model="magnn", fanout=4), "item 13"),
-    (dict(fused=False, fanout=4), "item 13"),
+    (dict(model="magnn", fanout=4, partitions=2), "item 12"),
+    (dict(fused=False, fanout=4, overlap=2), "item 14"),
 ])
 def test_arms_outside_the_slice_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -1033,3 +1033,97 @@ def test_gat_na_refuses_an_empty_bucket(cuda):
                           torch.zeros((0, 8), dtype=torch.int32, device=cuda),
                           torch.zeros((0, 8), device=cuda), use_pallas=True)
     assert tgat.gat_na.launches == before
+
+
+def _rung_buckets(n, caps, all_pad, rng, device):
+    """Degree buckets as the sampler pads them to a rung: ``n`` rows
+    each, the pad rows all masked with row id ``n`` (the sink); with
+    ``all_pad`` the first bucket has no real row at all."""
+    rows = rng.permutation(n - 2)
+    parts = np.array_split(rows, len(caps))
+    if all_pad:
+        parts = [rows[:0], *np.array_split(rows, len(caps) - 1)]
+    out = []
+    for part, k in zip(parts, caps):
+        rid = np.full(n, n, np.int32)
+        rid[:len(part)] = part
+        nbr = rng.integers(0, n, (n, k)).astype(np.int32)
+        mask = (rng.random((n, k)) < 0.6).astype(np.float32)
+        nbr[len(part):] = 0
+        mask[len(part):] = 0.0
+        out.append(tuple(torch.as_tensor(a, device=device)
+                         for a in (rid, nbr, mask)))
+    return out
+
+
+@pytest.mark.parametrize("all_pad", [True, False])
+def test_sampled_bucket_arms_on_the_card(cuda, all_pad):
+    """A sampled rung's buckets through the bucketed GAT and mean arms on
+    the kernels (``gat_na`` unstacked, ``segment_spmm``): an all-pad
+    bucket comes out exactly 0 and lands in the sink row with every other
+    pad, the real rows agree with the CPU's plain arm, and the context
+    stays usable (no device assert)."""
+    from repro_torch.core import stages
+
+    rng = np.random.default_rng(23)
+    n = 136
+    bks = _rung_buckets(n, (4, 8, 16), all_pad, rng, cuda)
+    h = torch.as_tensor(rng.standard_normal((n, 8, 8)), dtype=torch.float32,
+                        device=cuda)
+    p = {"a_dst": torch.as_tensor(rng.standard_normal((8, 8)) * 0.3,
+                                  dtype=torch.float32, device=cuda),
+         "a_src": torch.as_tensor(rng.standard_normal((8, 8)) * 0.3,
+                                  dtype=torch.float32, device=cuda)}
+    gat = lambda *a: ops.gat_aggregate(*a, use_pallas=True)  # noqa: E731
+    spmm = lambda hs, nb, mk: ops.segment_spmm(  # noqa: E731
+        hs, nb, mk, use_pallas=True)
+    if all_pad:
+        rid, nbr, mask = bks[0]
+        assert bool((rid == n).all()) and float(mask.sum()) == 0.0
+        assert torch.all(ops.gat_aggregate(p, h, h, nbr, mask,
+                                           use_pallas=True) == 0)
+        assert torch.all(spmm(h.reshape(n, -1), nbr, mask) == 0)
+    before = (tgat.gat_na.launches, tspmm.segment_spmm.launches)
+    z = stages.gat_aggregate_bucketed(p, h, h, bks, agg_fn=gat, sink=True)
+    m = stages.mean_aggregate_bucketed(h.reshape(n, -1), bks, n,
+                                       agg_fn=spmm, sink=True)
+    torch.cuda.synchronize()
+    assert (tgat.gat_na.launches, tspmm.segment_spmm.launches) == (
+        before[0] + 3, before[1] + 3)
+    cpu = [tuple(a.cpu() for a in b) for b in bks]
+    p_cpu = {k: v.cpu() for k, v in p.items()}
+    torch.testing.assert_close(z.cpu(), stages.gat_aggregate_bucketed(
+        p_cpu, h.cpu(), h.cpu(), cpu, sink=True), **TOL)
+    torch.testing.assert_close(m.cpu(), stages.mean_aggregate_bucketed(
+        h.cpu().reshape(n, -1), cpu, n, sink=True), **TOL)
+    dead = torch.ones(n, dtype=torch.bool, device=cuda)
+    for rid, _, _ in bks:
+        dead[rid[rid < n].long()] = False
+    assert int(dead.sum()) == 2
+    assert torch.all(z[dead] == 0) and torch.all(m[dead] == 0)
+    assert float(torch.ones(4, device=cuda).sum()) == 4.0
+
+
+@pytest.mark.parametrize("pads", [0, 1, 40, 600])
+def test_segment_sum_kernel_sums_a_sink_segment(cuda, pads):
+    """A sampled edge list: real edges sorted, then ``pads`` pad edges
+    naming segment ``n`` (row 0 gathered).  The kernel sums them as one
+    more segment — the sink, a long one past LONG edges — bitwise the
+    plain version on the CPU, and the real segments equal the list
+    without pads."""
+    from repro_torch.core import stages
+
+    vals, table, idx, seg = _ssum_case(31, 900, 70, 64, 80, 0)
+    seg = np.concatenate([seg, np.full(pads, 70, np.int32)])
+    idx = np.concatenate([idx[:len(seg) - pads],
+                          np.zeros(pads, np.int32)])
+    t, s, i = (torch.as_tensor(a, device=cuda) for a in (table, seg, idx))
+    got = tss.segment_sum(t, s, 71, idx=i, mean=True)
+    want = tss.segment_sum_plain(t.cpu(), s.cpu(), 71, idx=i.cpu(),
+                                 mean=True)
+    assert torch.equal(got.cpu(), want)
+    real = len(seg) - pads
+    assert torch.equal(got[:70], tss.segment_sum(t, s[:real], 70,
+                                                 idx=i[:real], mean=True))
+    arm = stages.mean_aggregate_csr(t, s, i, 70, sink=True)
+    assert arm.shape == (70, 64) and torch.equal(arm, got[:70])

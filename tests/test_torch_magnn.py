@@ -242,7 +242,8 @@ def _layers(pl, **kw):
     (lambda pl: dataclasses.replace(pl, partition=plan.PartitionSpec(k=2)),
      "item 12"),
     (lambda pl: dataclasses.replace(pl, sample=plan.SampleSpec(
-        fanout=2, ladder=((8, 8),))), "item 13"),
+        fanout=2, ladder=((8, 8),)), schedule=plan.ScheduleSpec()),
+     "item 14"),
     (lambda pl: dataclasses.replace(pl, schedule=plan.ScheduleSpec()),
      "item 14"),
     (lambda pl: dataclasses.replace(
@@ -266,7 +267,7 @@ def test_executor_refuses_magnn_plans_outside_the_slice(edit, match):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(partitions=2), "item 12"),
-    (dict(fanout=4), "item 13"),
+    (dict(fanout=4, partitions=2), "item 12"),
     (dict(overlap=2), "item 14"),
 ])
 def test_magnn_modes_outside_the_slice_raise(kw, item):
