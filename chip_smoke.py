@@ -45,8 +45,18 @@ queue served on the CPU by the plain arm, with exact launch counts, no
 failed step or retry, nothing made after warmup, and each kernel call of a
 served step against its plain version; an identity-rung serve of all 4278
 HAN/imdb targets is bitwise the full-graph forward, and a seeded chaos
-serve's counters equal ``BENCH_hgnn.json``'s.  It imports nothing of jax
-or of the JAX package ``repro``.
+serve's counters equal ``BENCH_hgnn.json``'s.  Phase 3p is graph-partitioned
+execution: HAN/imdb and RGCN/imdb for L ∈ {1, 2} and MAGNN/imdb at full
+width over K ∈ {1, 2, 4} partitions through the same kernels (one stacked
+``gat_na`` a partition, one ``segment_spmm`` a relation and partition, one
+unstacked ``gat_na`` a metapath), with exact launches, K = 1 bitwise the
+unpartitioned kernel arm for every K, the CPU's plain arm on the same
+partitioned batch, partitioned residency bitwise;
+``bench_partition.py``'s sweep (counters equal ``BENCH_hgnn.json``'s
+``partition`` and ``layers/*/halo`` rows, NA and ``gather_halo`` timed)
+and ``bench_resilience.py``'s failover serve (its row reproduced, bitwise
+the never-failed serve).  It imports nothing of jax or of the JAX package
+``repro``.
 
 Output: progress lines, then the card's name and power limit as
 ``nvidia-smi`` prints them, a ``{"kernels": [...]}`` JSON line, and as the
@@ -815,7 +825,8 @@ def capture_served_calls(fn) -> list:
     return calls
 
 
-def served_calls_vs_plain(tag: str, calls: list, errs: dict) -> None:
+def served_calls_vs_plain(tag: str, calls: list, errs: dict,
+                          what: str = "served call") -> None:
     """Each captured call's kernel against its plain version on the same
     inputs: ``gat_na`` (z at TOL_Z, the epilogue's w at TOL_W),
     ``semantic_combine`` at 1e-6, ``segment_spmm`` at TOL_SPMM, and
@@ -876,7 +887,7 @@ def served_calls_vs_plain(tag: str, calls: list, errs: dict) -> None:
                          f"{n - 1}: {int((seg == n - 1).sum())} pad edges)")
             torch.cuda.synchronize()
             errs[key] = max(errs.get(key, 0.0), err)
-            check(ok, f"{tag} served call {i} {name}: {shape}: vs plain "
+            check(ok, f"{tag} {what} {i} {name}: {shape}: vs plain "
                       f"max |err| {err:.3e}")
 
 
@@ -1181,6 +1192,307 @@ def serving(hg, hg_r, dev, serve_counts: dict, results: dict) -> dict:
                     f"failed_steps {got['failed_steps']})")
     out["chaos han/imdb"] = got
     del b, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+# graph-partitioned execution (phase 3p): the full-width forwards, the
+# reference bench's partition sweep, and its failover serve
+PART_KS = (1, 2, 4)
+PART_CASES = (("han", 1), ("han", 2), ("rgcn", 1), ("rgcn", 2), ("magnn", 1))
+# benchmarks/bench_partition.py's, bench_layers.py's and
+# bench_resilience.py's settings (BENCH_hgnn.json's rows)
+PART_BENCH = dict(dataset="imdb", hidden=64, n_heads=8, n_classes=8,
+                  max_degree=32, fused=True, use_pallas=True)
+
+
+def part_launches(model: str, layers: int, k: int):
+    """Launches of one partitioned forward, from its batch: HAN one
+    stacked ``gat_na`` a partition and layer; RGCN one ``segment_spmm`` a
+    partitioned relation, partition and layer (L = 1: the relations into
+    the target); MAGNN one unstacked ``gat_na`` a metapath and layer over
+    every partition's rows."""
+    def per_forward(batch):
+        part = batch["part"]
+        if model == "han":
+            return {"gat_na": k * layers}
+        if model == "rgcn":
+            return {"segment_spmm": layers * k * len(part["rels"])}
+        return {"gat_na": layers * len(part["instances"])}
+    return per_forward
+
+
+def partitioned(hg, dev, main_counts: dict, results: dict) -> dict:
+    """Phase 3p.  Per case of ``PART_CASES`` at full width (hidden 64, 8
+    heads, K = 64 slots, 16 instances), the unpartitioned kernel arm and
+    then K in ``PART_KS`` partitions through ``build_hgnn_infer`` on the
+    same parameters: exact launches over ITERS forwards (set to 0 just
+    before, read just after), logits finite, K = 1 bitwise the
+    unpartitioned kernel arm for every K, the card against the same
+    partitioned batch through the plain arm on the CPU (TOL_CPU), forward
+    walls; at K = 4 each kernel call of a forward against its plain
+    version, a profile of the L = 1 forwards, and partitioned residency
+    (256 hot rows a type) bitwise the uncached run.  Then
+    ``bench_partition.py``'s sweep (HAN and RGCN, K = 1, 2, 4): the
+    counters equal ``BENCH_hgnn.json``'s ``partition`` rows, the NA and
+    ``gather_halo`` stages timed; ``bench_layers.py``'s halo rows (K = 4,
+    L = 1, 2, 3); and ``bench_resilience.py``'s failover serve (HAN/imdb,
+    fan-out 8, K = 3, partition 0 lost at step 3) against its never-failed
+    twin and the row ``han/imdb/failover``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import HGNNConfig
+    from repro_torch.core import characterize as ch
+    from repro_torch.core.models import get_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_hgnn_infer, request_queue
+    from repro_torch.serve.engine import HGNNInferEngine, HGNNServeEngine
+    from repro_torch.serve.faults import Fault, FaultInjector
+    from repro_torch.serve.sampler import HGNNSampler
+
+    bench = json.loads((ROOT / "BENCH_hgnn.json").read_text())
+    out = {"forwards": {}, "sweep": {}, "layers_halo": {}, "residency": {},
+           "profiles": {}}
+    halo_in = {}  # (model, relabeling variant) -> (part, FP output)
+    errs: dict = {}
+    for model, layers in PART_CASES:
+        base = HGNNConfig(model=model, dataset="imdb", fused=True,
+                          use_pallas=True, layers=layers)
+        flat = build_hgnn_infer(base, hg, dev)
+        flat_eng = HGNNInferEngine(flat.executor, flat.params, flat.batch,
+                                   fn=flat.fn)
+        flat_logits = flat_eng.infer()
+        flat_ms = wall_ms(flat_eng)
+        for k in PART_KS:
+            tag = f"{model}/imdb K={k} L={layers}"
+            t0 = time.perf_counter()
+            b = build_hgnn_infer(base.replace(partitions=k), hg, dev)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            eng = HGNNInferEngine(b.executor, flat.params, b.batch, fn=b.fn)
+            ops.reset_launch_counts()
+            for _ in range(ITERS):
+                logits = eng.infer()
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            want = dict.fromkeys(counts, 0)
+            per = part_launches(model, layers, k)(b.batch)
+            want.update({n: v * ITERS for n, v in per.items()})
+            check(counts == want, f"{tag}: launches {counts} over {ITERS} "
+                                  f"forwards")
+            key = ("segment_spmm" if model == "rgcn" else
+                   "gat_na" if model == "han" else "gat_na_unstacked")
+            main_counts[key] += sum(want.values())
+            check(tuple(logits.shape) == (4278, 8)
+                  and bool(torch.isfinite(logits).all()),
+                  f"{tag}: logits {tuple(logits.shape)} finite")
+            # every row is reduced in an order that does not depend on K
+            # (the kernels' slot order, SA's scores in global row order),
+            # and cuBLAS keeps one order for these row counts
+            bitwise = bool(torch.equal(logits, flat_logits))
+            err = max_err(logits, flat_logits)
+            check(bitwise, f"{tag}: bitwise the unpartitioned kernel arm "
+                           f"(max |err| {err:.3e})")
+            plain = get_model(base.replace(partitions=k, use_pallas=False))
+            with torch.inference_mode():
+                on_cpu = plain.forward(to_device(flat.params, "cpu"),
+                                       to_device(b.batch, "cpu"))
+            cpu_err = max_err(logits.cpu(), on_cpu)
+            check(close(logits.cpu(), on_cpu, **TOL_CPU),
+                  f"{tag}: vs the plain arm on the CPU, same partitioned "
+                  f"batch: max |err| {cpu_err:.3e} (tol {TOL_CPU})")
+            part_ms = wall_ms(eng)
+            meta = b.batch["part"]["meta"]
+            out["forwards"][tag] = {
+                "wall_ms": part_ms, "unpartitioned_wall_ms": flat_ms,
+                "build_s": build_s, "bitwise_vs_unpartitioned": bitwise,
+                "max_abs_err_vs_unpartitioned": err,
+                "max_abs_err_vs_cpu": cpu_err, "launches": per,
+                "cut_edges": meta["cut_edges"],
+                "edges_total": meta["edges_total"]}
+            print(f"  {tag}: forward {part_ms:.4f} ms/iter wall "
+                  f"(unpartitioned kernel arm {flat_ms:.4f}); host build "
+                  f"with the partitioner {build_s:.2f} s; cut "
+                  f"{meta['cut_edges']} of {meta['edges_total']} edges",
+                  flush=True)
+            if k == 4:
+                calls = capture_served_calls(lambda: b.fn(flat.params,
+                                                          b.batch))
+                got = {}
+                for name, _ in calls:
+                    got[name] = got.get(name, 0) + 1
+                check(got == per, f"{tag}: one forward's captured kernel "
+                                  f"calls {got} = its launches {per}")
+                served_calls_vs_plain(tag, calls, errs, what="call")
+                if layers == 1:
+                    out["profiles"][tag] = profile_forward(eng, tag)
+                    c = build_hgnn_infer(base.replace(
+                        partitions=k, cache_rows=CACHE_ROWS), hg, dev)
+                    with torch.inference_mode():
+                        cached = c.fn(flat.params, c.batch)
+                    ct = c.batch["residency"]["counters"]
+                    check(torch.equal(cached, logits),
+                          f"{tag} cache_rows={CACHE_ROWS}: bitwise the "
+                          f"uncached run ({ct['hits']} of {ct['rows']} halo "
+                          f"rows hot)")
+                    out["residency"][tag] = ct
+                    del c
+            del b, eng
+        del flat, flat_eng
+        torch.cuda.empty_cache()
+    results["partitioned_max_abs_err"] = errs
+
+    flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=dev)
+    for model in ("han", "rgcn"):
+        base = HGNNConfig(model=model, **PART_BENCH)
+        flat = build_hgnn_infer(base, hg, dev)
+        fns = flat.executor.stage_fns(flat.params, flat.batch)
+        with torch.inference_mode():
+            na_flat = time_ms(lambda: fns["NA"][0](*fns["NA"][1]), 20, flush)
+        print(f"  sweep {model}/imdb (max_degree 32) unpartitioned: NA "
+              f"{na_flat:.5f} ms cold", flush=True)
+        out["sweep"][f"{model}/imdb/unpartitioned"] = {"na_ms": na_flat}
+        for k in PART_KS:
+            b = build_hgnn_infer(base.replace(partitions=k), hg, dev)
+            fns = b.executor.stage_fns(flat.params, b.batch)
+            gh_fn, gh_args = fns["gather_halo"]
+            tr = ch.partition_traffic(b.batch["part"], gh_args[0])
+            got = {"cut_edges": tr["cut_edges"],
+                   "cut_ratio": round(tr["cut_ratio"], 4),
+                   "halo_rows": tr["halo_rows"],
+                   "halo_bytes": tr["halo_bytes"]}
+            row = bench["partition"][f"{model}/imdb/k{k}"]
+            check(got == {n: row[n] for n in got},
+                  f"partition {model}/imdb/k{k}: {got} equal "
+                  f"BENCH_hgnn.json's")
+            na_fn, na_args = fns["NA"]
+            with torch.inference_mode():
+                t = {"na_ms": time_ms(lambda: na_fn(*na_args), 20, flush),
+                     "na_warm_ms": time_ms(lambda: na_fn(*na_args), 20),
+                     "gather_halo_ms": time_ms(lambda: gh_fn(*gh_args), 20,
+                                               flush),
+                     "gather_halo_warm_ms": time_ms(lambda: gh_fn(*gh_args),
+                                                    20)}
+            out["sweep"][f"{model}/imdb/k{k}"] = {**got, **t}
+            print(f"  sweep {model}/imdb/k{k}: NA {t['na_ms']:.5f} ms cold "
+                  f"({t['na_warm_ms']:.5f} warm); gather_halo "
+                  f"{t['gather_halo_ms']:.5f} ms cold "
+                  f"({t['gather_halo_warm_ms']:.5f} warm), "
+                  f"{tr['halo_rows']:.0f} halo rows", flush=True)
+            if k == 4:
+                halo_in[(model, 1)] = (b.batch["part"], gh_args[0])
+            del b
+        if model == "rgcn":  # L > 1 relabels every relation
+            b = build_hgnn_infer(base.replace(partitions=4, layers=2), hg,
+                                 dev)
+            with torch.inference_mode():
+                h_own = b.executor.fp(b.params, b.batch)
+            halo_in[(model, 2)] = (b.batch["part"], h_own)
+            del b
+        for depth in (1, 2, 3):
+            part, h_own = halo_in[(model, min(depth, 2) if model == "rgcn"
+                                   else 1)]
+            tr = ch.partition_traffic(part, h_own, layers=depth)
+            got = {"k": float(tr["k"]), "layers": float(tr["layers"]),
+                   "halo_bytes": tr["halo_bytes"],
+                   "halo_bytes_total": tr["halo_bytes_total"],
+                   "cut_edges": float(tr["cut_edges"])}
+            row = bench["layers"][f"{model}/imdb/L{depth}"]["halo"]
+            check(got == row, f"layers {model}/imdb/L{depth}/halo: {got} "
+                              f"equal BENCH_hgnn.json's")
+            out["layers_halo"][f"{model}/imdb/L{depth}"] = got
+        del flat
+    del halo_in
+    torch.cuda.empty_cache()
+
+    cfg = HGNNConfig(model="han", fanout=SERVE_FANOUT, partitions=3,
+                     **PART_BENCH)
+    b = build_hgnn_infer(cfg, hg, dev)
+    sampler = HGNNSampler(b.plan, cfg, hg)
+    runs = []
+    for inj in (FaultInjector([Fault(step=3, kind="partition", partition=0)]),
+                None):
+        eng = HGNNServeEngine(b.executor, b.params, sampler, slots=8,
+                              slot_targets=4, fn=b.fn, injector=inj)
+        reqs = request_queue(sampler.n_target_type, 4, SERVE_REQUESTS,
+                             pool=48)
+        ops.reset_launch_counts()
+        eng.warmup()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        runs.append((eng, reqs, ops.launch_counts()))
+    (eng, reqs, counts), (never, never_reqs, never_counts) = runs
+    st, rs = eng.stats(), eng.stats()["resilience"]
+    got = {"bitexact": int(all(np.array_equal(a.logits, c.logits)
+                               for a, c in zip(reqs, never_reqs))),
+           "ok_requests": rs["ok_requests"],
+           "partition_failovers": rs["partition_failovers"],
+           "requests": len(reqs), "steps": st["steps"],
+           "surviving_k": eng._serve_plan.partition.k}
+    row = bench["resilience"]["han/imdb/failover"]
+    diff = {n: (v, row[n]) for n, v in got.items() if row[n] != v}
+    check(not diff, f"han/imdb failover serve (K=3, partition 0 lost at "
+                    f"step 3): {got} equal BENCH_hgnn.json's "
+                    f"han/imdb/failover row (differences: {diff})")
+    rungs = [e["rung_index"] for e in eng.step_log]
+    k_of_step = [3] * 3 + [2] * (len(rungs) - 3)
+    want = 3 * len(sampler.ladder) + sum(k_of_step)
+    check(counts["gat_na"] == want
+          and never_counts["gat_na"] == 3 * (len(sampler.ladder)
+                                             + never.stats()["steps"]),
+          f"failover serve: stacked gat_na launches {counts['gat_na']} "
+          f"(want {want}: K=3 over {len(sampler.ladder)} warmup rungs and "
+          f"steps 0-2, K=2 after), never-failed {never_counts['gat_na']}")
+    main_counts["gat_na"] += counts["gat_na"] + never_counts["gat_na"]
+    new_shapes = len(set(rungs[3:]))
+    check(rs["failed_steps"] == 0 and rs["retries"] == 0
+          and st["compiles_after_warmup"] == new_shapes
+          and never.stats()["compiles_after_warmup"] == 0,
+          f"failover serve: failed_steps {rs['failed_steps']}, retries "
+          f"{rs['retries']}, compiles_after_warmup "
+          f"{st['compiles_after_warmup']} (the {new_shapes} rungs served at "
+          f"K=2, as the reference's jit counts), never-failed "
+          f"{never.stats()['compiles_after_warmup']}")
+    plain = get_model(cfg.replace(use_pallas=False))
+    cpu_eng = HGNNServeEngine(
+        plain.executor, to_device(b.params, "cpu"), sampler, slots=8,
+        slot_targets=4,
+        injector=FaultInjector([Fault(step=3, kind="partition",
+                                      partition=0)]))
+    cpu_reqs = request_queue(sampler.n_target_type, 4, SERVE_REQUESTS,
+                             pool=48)
+    cpu_eng.warmup()
+    cpu_eng.serve(cpu_reqs)
+    err = max(max_err(torch.from_numpy(r.logits), torch.from_numpy(c.logits))
+              for r, c in zip(reqs, cpu_reqs))
+    check(all(close(torch.from_numpy(r.logits), torch.from_numpy(c.logits),
+                    **TOL_CPU) for r, c in zip(reqs, cpu_reqs))
+          and cpu_eng.stats()["resilience"] == rs,
+          f"failover serve vs the same serve on the CPU (plain arm): max "
+          f"|err| {err:.3e} (tol {TOL_CPU}), resilience counters equal")
+    fail = {}
+    for name, e in (("failover", eng), ("never failed", never)):
+        walls = np.array([x["wall_s"] for x in e.step_log]) * 1e3
+        fail[name] = {
+            "step_wall_p50_ms": float(np.percentile(walls, 50)),
+            "step_wall_p99_ms": float(np.percentile(walls, 99)),
+            "sampler_ms": float(np.median([x["sample_s"] * 1e3
+                                           for x in e.step_log])),
+            "partition_ms": float(np.median([x["partition_s"] * 1e3
+                                             for x in e.step_log])),
+            "forward_ms": float(np.median([x["forward_s"] * 1e3
+                                           for x in e.step_log]))}
+        f = fail[name]
+        print(f"  serve han/imdb K=3 ({name}): step wall p50 "
+              f"{f['step_wall_p50_ms']:.3f} ms, p99 "
+              f"{f['step_wall_p99_ms']:.3f} ms over {len(walls)} steps; "
+              f"medians a step: sampler {f['sampler_ms']:.3f} ms, host "
+              f"partitioner {f['partition_ms']:.3f} ms (inside) partition + "
+              f"upload + forward + read-back {f['forward_ms']:.3f} ms",
+              flush=True)
+    out["failover"] = {"row": got, "steps": fail, "rungs": rungs,
+                       "compiles_after_warmup": st["compiles_after_warmup"]}
+    del b, eng, never, cpu_eng
     torch.cuda.empty_cache()
     return out
 
@@ -1742,6 +2054,7 @@ def main() -> None:
     from repro_torch.configs.base import HGNNConfig
     from repro_torch.core.models import get_model  # noqa: F401
     from repro_torch.data.synthetic import make_dataset
+    from repro_torch.dist import partition  # noqa: F401
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import feature_cache as tfc
     from repro_torch.kernels import fused_fp_na as tffn
@@ -2136,6 +2449,12 @@ def main() -> None:
         main_counts[name] += n_launch
     serve_rec["launches"] = serve_counts
 
+    print("phase 3p: graph-partitioned execution on the card: HAN/imdb L "
+          "1, 2, RGCN/imdb L 1, 2 and MAGNN/imdb at K = 1, 2, 4 through the "
+          "kernels, bench_partition.py's sweep and bench_resilience.py's "
+          "failover serve")
+    part_rec = partitioned(hg, dev, main_counts, results)
+
     # ---------------- phase 4: timing ----------------
     print("phase 4: kernel times (CUDA events, median; cold = L2 flushed)")
     flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -2434,6 +2753,7 @@ def main() -> None:
                              "granite_serve": serve},
                       "characterization": char,
                       "serving": serve_rec,
+                      "partitioned": part_rec,
                       "profiles": profiles}))
     if failures:
         print(f"FAILED: {failures}", file=sys.stderr)

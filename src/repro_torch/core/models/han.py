@@ -18,10 +18,11 @@ Layouts, as in the reference:
   degree bucket); ``cfg.fuse_na_sa`` fuses the SA pass-1 epilogue into it
   (stacked only).
 
-``cfg.cache_rows`` turns on single-device hot-feature residency.  The
-partitioned and overlap modes raise ``NotImplementedError`` naming
-their ROADMAP item; ``cfg.fanout >= 1`` declares the plan's ``SampleSpec``
-for request-path serving (:mod:`repro_torch.serve`).
+``cfg.cache_rows`` turns on hot-feature residency; ``cfg.partitions >= 1``
+declares graph-partitioned execution over ``K`` partitions (stacked
+layout only, with the epilogue off); ``cfg.fanout >= 1`` declares the
+plan's ``SampleSpec`` for request-path serving (:mod:`repro_torch.serve`).
+The overlap mode raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -35,8 +36,9 @@ from repro_torch.core import stages
 from repro_torch.core.hgraph import HeteroGraph
 from repro_torch.core.pipeline import PlannedModel, not_ported
 from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
-                                   ResidencySpec, SASpec, SampleSpec,
-                                   StagePlan, default_sample_ladder)
+                                   PartitionSpec, ResidencySpec, SASpec,
+                                   SampleSpec, StagePlan,
+                                   default_sample_ladder)
 from repro_torch.data.synthetic import DATASET_METAPATHS, DATASET_TARGET
 from repro_torch.interop import resolve_device
 
@@ -55,19 +57,22 @@ class HAN(PlannedModel):
             layout = "bucketed"
         else:
             layout = "stacked"
+        part = None
         if cfg.partitions >= 1:
             if layout != "stacked":
                 raise ValueError(
                     "partitioned HAN execution needs the stacked layout "
                     "(fused=True, no degree buckets); got "
                     f"layout={layout!r}")
-            raise not_ported("graph-partitioned execution (partitions)", 12)
+            part = PartitionSpec(k=cfg.partitions)
         if cfg.overlap >= 1:
             raise not_ported("the async stage-graph schedule (overlap)", 14)
         na = NASpec(kind="gat", layout=layout, activation="elu",
                     use_pallas=cfg.use_pallas)
+        # the epilogue's score mean needs the single-table stack
         sa = SASpec(kind="attention", stacked=cfg.fused,
-                    fuse_epilogue=cfg.fuse_na_sa and layout == "stacked")
+                    fuse_epilogue=(cfg.fuse_na_sa and layout == "stacked"
+                                   and part is None))
         sample = None
         if cfg.fanout >= 1:
             # per-hop width: every metapath contributes up to the padded
@@ -94,13 +99,15 @@ class HAN(PlannedModel):
                 for l in range(cfg.layers)),
             head=HeadSpec(kind="linear"),
             metapaths=tuple(tuple(p) for p in self.metapaths),
+            partition=part,
             sample=sample,
         )
 
     # ---------------- Stage 1: Subgraph Build (host) ----------------
     def prepare(self, hg: HeteroGraph, device=None) -> Dict:
         """Build the layout's tables on the host, apply residency to them,
-        and place the batch on ``device`` (default: the CUDA device): the
+        partition it when the plan says so, and place the batch on
+        ``device`` (default: the CUDA device): the
         stacked ``[P, N, K]`` neighbor tables, per metapath a list of
         ``(row_ids, nbr, mask)`` degree buckets, or per metapath the
         ``(seg, idx)`` edge list of its CSR subgraph.  The padded tables

@@ -12,11 +12,12 @@ Execution is a :class:`StagePlan` with NA layout ``instances`` run by the
 stage-graph executor (:mod:`repro_torch.core.pipeline`); the per-position
 node types ride the plan (``metapaths``), so the batch holds arrays only.
 ``cfg.use_pallas`` runs the unstacked ``gat_na`` kernel over the encoded
-instances; ``cfg.cache_rows`` turns on single-device hot-feature
-residency, whose instance gathers go through the ``cached_gather`` kernel.
-The partitioned and overlap modes raise ``NotImplementedError`` naming
-their ROADMAP item; ``cfg.fanout >= 1`` declares the plan's ``SampleSpec``
-for request-path serving (:mod:`repro_torch.serve`).
+instances; ``cfg.cache_rows`` turns on hot-feature residency, whose
+single-device instance gathers go through the ``cached_gather`` kernel;
+``cfg.partitions >= 1`` declares graph-partitioned execution over ``K``
+partitions; ``cfg.fanout >= 1`` declares the plan's ``SampleSpec`` for
+request-path serving (:mod:`repro_torch.serve`).  The overlap mode raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -29,8 +30,9 @@ from repro_torch.core import metapath as mp
 from repro_torch.core.hgraph import HeteroGraph
 from repro_torch.core.pipeline import PlannedModel, not_ported
 from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
-                                   ResidencySpec, SASpec, SampleSpec,
-                                   StagePlan, default_sample_ladder)
+                                   PartitionSpec, ResidencySpec, SASpec,
+                                   SampleSpec, StagePlan,
+                                   default_sample_ladder)
 from repro_torch.data.synthetic import DATASET_METAPATHS, DATASET_TARGET
 from repro_torch.interop import resolve_device
 
@@ -43,8 +45,8 @@ class MAGNN(PlannedModel):
 
     def plan(self) -> StagePlan:
         cfg = self.cfg
-        if cfg.partitions >= 1:
-            raise not_ported("graph-partitioned execution (partitions)", 12)
+        part = (PartitionSpec(k=cfg.partitions) if cfg.partitions >= 1
+                else None)
         if cfg.overlap >= 1:
             raise not_ported("the async stage-graph schedule (overlap)", 14)
         na = NASpec(kind="instance", layout="instances", activation="elu",
@@ -81,6 +83,7 @@ class MAGNN(PlannedModel):
                 for _ in range(cfg.layers)),
             head=HeadSpec(kind="linear"),
             metapaths=tuple(tuple(p) for p in self.metapaths),
+            partition=part,
             sample=sample,
         )
 

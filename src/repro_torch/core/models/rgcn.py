@@ -11,10 +11,11 @@ Execution is a :class:`StagePlan` run by the stage-graph executor
 (:mod:`repro_torch.core.pipeline`): NA layout ``csr`` (baseline),
 ``padded`` (``cfg.fused``), or ``bucketed`` (``cfg.degree_buckets > 1``);
 ``cfg.use_pallas`` runs the hand-written ``segment_spmm`` kernel on the
-padded and bucketed layouts; ``cfg.cache_rows`` turns on single-device
-hot-feature residency; ``cfg.fanout >= 1`` declares the plan's
-``SampleSpec`` for request-path serving.  The partitioned and overlap
-modes raise ``NotImplementedError`` naming their ROADMAP item.
+padded and bucketed layouts; ``cfg.cache_rows`` turns on hot-feature
+residency; ``cfg.partitions >= 1`` declares graph-partitioned execution
+over ``K`` partitions (padded layout only); ``cfg.fanout >= 1`` declares
+the plan's ``SampleSpec`` for request-path serving.  The overlap mode
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -28,8 +29,9 @@ from repro_torch.core import stages
 from repro_torch.core.hgraph import HeteroGraph
 from repro_torch.core.pipeline import PlannedModel, not_ported
 from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
-                                   ResidencySpec, SASpec, SampleSpec,
-                                   StagePlan, default_sample_ladder)
+                                   PartitionSpec, ResidencySpec, SASpec,
+                                   SampleSpec, StagePlan,
+                                   default_sample_ladder)
 from repro_torch.data.synthetic import DATASET_TARGET
 from repro_torch.interop import resolve_device
 
@@ -48,8 +50,13 @@ class RGCN(PlannedModel):
             layout = "bucketed"
         else:
             layout = "padded"
+        part = None
         if cfg.partitions >= 1:
-            raise not_ported("graph-partitioned execution (partitions)", 12)
+            if layout != "padded":
+                raise ValueError(
+                    "partitioned RGCN execution needs the padded per-relation "
+                    f"layout (fused=True, no degree buckets); got {layout!r}")
+            part = PartitionSpec(k=cfg.partitions)
         if cfg.overlap >= 1:
             raise not_ported("the async stage-graph schedule (overlap)", 14)
         na = NASpec(kind="mean", layout=layout, use_pallas=cfg.use_pallas)
@@ -80,6 +87,7 @@ class RGCN(PlannedModel):
                     residency=residency)
                 for l in range(cfg.layers)),
             head=HeadSpec(kind="select_linear", target=self.target),
+            partition=part,
             sample=sample,
         )
 

@@ -12,7 +12,8 @@ so the reference's own parameters carry across unchanged
 Ported arms — HAN (slices 1 and 9), RGCN (slice 2), MAGNN (slice 3) and
 GCN (slice 9) inference over the full graph or over a sampled, rung-padded
 minibatch of request-path serving (slice 11, ``plan.sample``), each with
-single-device hot-feature residency:
+hot-feature residency, and HAN, RGCN and MAGNN graph-partitioned over
+``K`` partitions on one device (slice 12, ``plan.partition``):
 
 * FP ``per_type`` (layer 0; reshaped to heads when ``fp.heads``), the
   ``dense`` re-projection of HAN's hidden layers with the ``target``
@@ -47,7 +48,21 @@ single-device hot-feature residency:
 * the ``linear`` and ``select_linear`` heads;
 * sampled batches (``plan.sample``): the bucketed and edge-list arms drop
   the sampler's pad rows and pad edges into a sink row (``stages``), and
-  SA keeps pad rows out of its score means through ``row_mask``.
+  SA keeps pad rows out of its score means through ``row_mask``;
+* partitioned batches (``plan.partition``, :mod:`repro_torch.dist.
+  partition`): FP projects each partition's owned rows
+  (``[K, n_t, F_t] @ W_t``), the ``gather_halo`` stage appends each
+  type's halo rows to its owned table (the flat gather; with residency,
+  hot halo rows are selected from the partition-local cache instead), NA
+  runs a partition at a time on ``concat(own, halo)`` through the same
+  arm the unpartitioned layout takes — with ``na.use_pallas`` one
+  stacked ``gat_na`` launch a partition (HAN), one ``segment_spmm``
+  launch a relation and partition (RGCN), and one unstacked ``gat_na``
+  launch a metapath over the encoded instances of every partition
+  (MAGNN) — SA averages its scores in global row order, and the head
+  restores global row order through the inverse permutation ``inv``.
+  Each row is reduced in a fixed order whatever ``K`` is, so ``K = 1``
+  gives the unpartitioned arm's bits.
 
 :func:`check_ported` accepts exactly HAN's, RGCN's, MAGNN's and GCN's
 combinations of these arms.  Arms of later slices raise
@@ -68,6 +83,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import residency, semantics, stages
 from repro_torch.core.plan import StagePlan
+from repro_torch.dist import partition as dpart
+from repro_torch.dist.partition import HALO_MODES
 from repro_torch.kernels import ops
 
 _ACT = {None: lambda x: x, "elu": F.elu, "relu": F.relu}
@@ -158,16 +175,28 @@ def _check_gcn_arms(plan: StagePlan) -> None:
         raise no_such_arm(f"head {plan.head} after GCN NA")
 
 
+# the NA layout that each NA kind partitions (``dist.partition_batch``)
+_PARTITIONED_LAYOUTS = {"gat": "stacked", "mean": "padded",
+                        "instance": "instances"}
+
+
+def _check_partitioned(plan: StagePlan) -> None:
+    kind, layout = plan.na.kind, plan.na.layout
+    if _PARTITIONED_LAYOUTS.get(kind) != layout or plan.sa.fuse_epilogue:
+        raise no_such_arm(f"graph-partitioned {kind} NA on the {layout!r} "
+                          f"layout (fuse_epilogue={plan.sa.fuse_epilogue})")
+    if plan.partition.halo not in HALO_MODES:
+        raise ValueError(f"unknown halo mode {plan.partition.halo!r} "
+                         f"(one of {HALO_MODES})")
+
+
 def check_ported(plan: StagePlan) -> None:
     """Raise for any plan outside the ported slices (HAN's, RGCN's,
     MAGNN's and GCN's combinations of arms, each with or without
-    single-device residency and sampling), so that no arm is silently
-    served by another one."""
+    residency and sampling, the first three also graph-partitioned), so
+    that no arm is silently served by another one."""
     if plan.partition is not None:
-        raise not_ported(
-            "graph-partitioned execution" + (
-                " with hot-feature residency (partition_overlay)"
-                if plan.residency is not None else ""), 12)
+        _check_partitioned(plan)
     if plan.schedule is not None:
         raise not_ported("the async stage-graph schedule", 14)
     kind = plan.na.kind
@@ -282,7 +311,11 @@ class StageGraphExecutor:
         """Layer 0: per-type projection of the raw features.  With
         ``fp.heads`` only the target type's table goes on, as
         ``[N, H, Dh]``; otherwise every type's ``[N_t, D]`` table.  GCN's
-        ``dense`` FP is its first combination, ``x @ w1``."""
+        ``dense`` FP is its first combination, ``x @ w1``.  Partitioned:
+        every type's owned rows, ``[K, n_t, F_t] @ W_t``."""
+        if self.plan.partition is not None:
+            return {t: f @ params["fp"][t]
+                    for t, f in batch["part"]["feats"].items()}
         if self.plan.fp.kind == "dense":
             return batch["x"] @ params["w1"]
         if self.plan.fp.heads:  # the other types' tables are not used
@@ -296,29 +329,63 @@ class StageGraphExecutor:
         (RGCN: the relation weights are the layer's transform); ``per_type``
         re-projects every carried table (MAGNN); ``dense`` is a [D, D]
         re-projection of the carried target table, reshaped to heads when
-        ``fp.heads``."""
+        ``fp.heads`` (partitioned: ``[K, n, D]``, kept in a dict for
+        ``gather_halo``; the partitioned NA makes the heads)."""
         if lp.fp.kind == "identity":
             return state
         if lp.fp.kind == "per_type":
             return stages.feature_projection(p_l["fp"], state)
-        h = state[self.plan.target] @ p_l["fp"]
+        t = self.plan.target
+        if self.plan.partition is not None:
+            return {t: state[t] @ p_l["fp"]}
+        h = state[t] @ p_l["fp"]
         if lp.fp.heads:
             return h.reshape(h.shape[0], self.cfg.n_heads, -1)
         return h
 
-    def _handoff(self, lp, h, out) -> Dict:
+    def _handoff(self, lp, batch: Dict, h, out) -> Dict:
         """Package one layer's outputs as the next layer's state: ``all``
         (rel_sum already returned every type's table), ``target`` (the
         metapath graphs are target->target, so only this layer's SA output)
         or ``target+carry`` (MAGNN: the SA output plus this layer's FP
-        output ``h`` for the carried types)."""
+        output ``h`` for the carried types; partitioned, their owned rows
+        only, since the halos are exchanged again)."""
         if lp.handoff == "all":
             return out
         state = {self.plan.target: out}
         if lp.handoff == "target+carry":
+            part = batch.get("part")
             for ty in lp.carry:
-                state[ty] = h[ty]
+                state[ty] = (h[ty] if part is None
+                             else h[ty][:, : part["feats"][ty].shape[1]])
         return state
+
+    # ------------------------------------------------------------------
+    # partitioned flow: the halo exchange
+    # ------------------------------------------------------------------
+    def gather_halo(self, batch: Dict, h_own: Dict) -> Dict:
+        """The partitioned flow's exchange stage: each type's local source
+        table, ``concat(own, halo)`` along the rows, its halo rows
+        ``[K, H_max, ...]`` fetched from the partitions' owned tables (the
+        flat gather).  With residency, the entries whose global vertex is
+        hot (``halo_slot >= 0``) are selected from the partition-local
+        cache of hot rows instead — bitwise copies of owned rows, so the
+        bits are the same and those rows skip the exchange."""
+        part = batch["part"]
+        res = batch.get("residency")
+        out: Dict = {}
+        for t, h in h_own.items():
+            halo = dpart.gather_halo(h, part["halo_src"][t])
+            if res is not None and t in res["halo_slot"]:
+                slot = res["halo_slot"][t]  # [K, H_max] (-1 = cold or pad)
+                tail = tuple(h.shape[2:])
+                cache = h.reshape((-1,) + tail).index_select(
+                    0, res["hot_flat"][t])
+                sel = cache.index_select(0, slot.clamp(min=0).reshape(-1))
+                cond = (slot >= 0).reshape(tuple(slot.shape) + (1,) * len(tail))
+                halo = torch.where(cond, sel.reshape(halo.shape), halo)
+            out[t] = torch.cat([h, halo], dim=1)
+        return out
 
     # ------------------------------------------------------------------
     # Stage 3: Neighbor Aggregation
@@ -329,12 +396,14 @@ class StageGraphExecutor:
         tables address.  The hot sets are layer-invariant, so every layer
         reuses the same resident rows.  Uncached batches pass through."""
         res = batch.get("residency")
-        if res is None or t not in res["hot"]:
+        if res is None or t not in res.get("hot", {}):
             return x
         return torch.cat([x, x.index_select(0, res["hot"][t])])
 
     def na(self, params: Dict, batch: Dict, h):
         kind = self.plan.na.kind
+        if self.plan.partition is not None:
+            return self._na_partitioned(params, batch, h)
         if kind == "mean":
             return self._na_mean(params, batch, h)
         if kind == "instance":
@@ -479,6 +548,80 @@ class StageGraphExecutor:
         return [self._na_instance_one(params, batch, h, i)
                 for i in range(len(self.plan.metapaths))]
 
+    def _na_partitioned(self, params: Dict, batch: Dict, h_loc: Dict):
+        """NA over partition-local tables: destinations are each
+        partition's owned rows, sources its ``concat(own, halo)`` table
+        from ``gather_halo``.  The reference vmaps the plain padded bodies
+        over the partitions; here each partition goes through the arm the
+        unpartitioned layout takes, so with ``na.use_pallas`` on the card
+        it launches the same kernels: HAN one stacked ``gat_na`` a
+        partition, RGCN one ``segment_spmm`` a relation and partition, and
+        MAGNN, whose instances address no shared table once encoded, one
+        unstacked ``gat_na`` a metapath over every partition's rows."""
+        plan = self.plan
+        part = batch["part"]
+        t = plan.target
+        act = _ACT[plan.na.activation]
+        heads = self.cfg.n_heads
+
+        def own(ty):
+            return h_loc[ty][:, : part["feats"][ty].shape[1]]
+
+        if plan.na.kind == "gat":
+            n_own = part["feats"][t].shape[1]
+            pools = h_loc[t].reshape(h_loc[t].shape[0], h_loc[t].shape[1],
+                                     heads, -1)  # [K, n + halo, H, Dh]
+            stacked_fn = None
+            if plan.na.use_pallas:
+                stacked_fn = functools.partial(ops.gat_aggregate_stacked,
+                                               use_pallas=True)
+            z = act(torch.stack([
+                stages.gat_aggregate_padded_stacked(
+                    params["gat"], pool[:n_own], nbr, mask,
+                    stacked_fn=stacked_fn, h_src=pool)
+                for pool, nbr, mask in zip(pools, part["nbr"],
+                                           part["mask"])]))
+            return z.reshape(z.shape[0], z.shape[1], z.shape[2], -1)
+        if plan.na.kind == "mean":
+            agg_fn = stages.mean_aggregate_padded
+            if plan.na.use_pallas:
+                agg_fn = functools.partial(ops.segment_spmm, mean=True,
+                                           use_pallas=True)
+            # "__h__" rides along for the self-loop term in SA (rel_sum):
+            # every type's owned rows when every type updates (L > 1)
+            out: Dict = {"__h__": ({ty: own(ty) for ty in part["feats"]}
+                                   if plan.n_layers > 1 else own(t))}
+            for key in sorted(part["rels"]):
+                nbr, mask = part["rels"][key]
+                agg = torch.stack([agg_fn(pool, nn, mm) for pool, nn, mm
+                                   in zip(h_loc[key[0]], nbr, mask)])
+                out["|".join(key)] = agg @ params["w_rel"][key]  # [K, n, D]
+            return out
+        # instance (check_ported): the partitions' rows flattened, [K * n]
+        h_tgt = own(t)
+        k, n = h_tgt.shape[:2]
+        h_tgt = h_tgt.reshape(k * n, heads, -1)
+        k_idx = torch.arange(k, device=h_tgt.device)[:, None, None]
+        outs = []
+        for p_i, (nodes, mask), types in zip(params["att"], part["instances"],
+                                             plan.metapaths):
+            i, l = nodes.shape[2:]
+            h_path = torch.stack([h_loc[types[j]][k_idx, nodes[..., j].long()]
+                                  for j in range(l)], dim=3)  # [K,n,I,L,D]
+            enc = stages.rotate_encoder(
+                h_path.reshape(k * n, i, l, heads, -1))  # [K*n, I, H, Dh]
+            mask = mask.reshape(k * n, i)
+            if plan.na.use_pallas:
+                flat = enc.reshape(k * n * i, heads, enc.shape[-1])
+                nbr_inst = torch.arange(k * n * i, dtype=torch.int32,
+                                        device=flat.device).reshape(k * n, i)
+                z = ops.gat_aggregate(p_i, h_tgt, flat, nbr_inst, mask,
+                                      use_pallas=True)
+            else:
+                z = stages.instance_aggregate(p_i, h_tgt, enc, mask)
+            outs.append(act(z).reshape(k, n, -1))  # [K, n, D]
+        return outs
+
     # ------------------------------------------------------------------
     # Stage 4: Semantic Aggregation
     # ------------------------------------------------------------------
@@ -498,6 +641,8 @@ class StageGraphExecutor:
 
     def sa(self, params: Dict, batch: Dict, z):
         plan = self.plan
+        if plan.partition is not None:
+            return self._sa_partitioned(params, batch, z)
         if plan.sa.kind == "none":
             return z
         if plan.sa.kind == "rel_sum":
@@ -523,26 +668,56 @@ class StageGraphExecutor:
                                                      row_mask)
         return semantics.semantic_attention(params["sem"], z, row_mask)
 
+    def _sa_partitioned(self, params: Dict, batch: Dict, z):
+        """SA on the partition-local stacks: rel_sum partition-local (pad
+        rows stay zero: zero features, zero aggregates, relu(0)); attention
+        over HAN's ``[K, P, n, D]`` or MAGNN's list of ``[K, n, D]``, its
+        score means taken in global row order (``inv``).  The reference's
+        partitioned SA reads no ``row_mask``: a sampled batch's rung pads
+        are rows of the partitioned graph like any other."""
+        plan = self.plan
+        if plan.sa.kind == "rel_sum":
+            if plan.n_layers > 1:
+                return self._rel_sum(params, z["__h__"], z)
+            return self._rel_sum(params, {plan.target: z["__h__"]},
+                                 z)[plan.target]
+        if isinstance(z, list):
+            z = torch.stack(z, dim=1)  # [K, P, n, D]
+        return semantics.semantic_attention_partitioned(
+            params["sem"], z, batch["part"]["inv"])  # [K, n, D]
+
     # ------------------------------------------------------------------
     # head + forward
     # ------------------------------------------------------------------
     def head(self, params: Dict, z, batch: Dict = None) -> torch.Tensor:
+        """The classifier; partitioned, on each partition's owned target
+        rows (the multi-layer rel_sum returns every type: the target is
+        selected), then back to global row order through ``inv``."""
         head = self.plan.head
+        if self.plan.partition is not None:
+            if isinstance(z, dict):
+                z = z[self.plan.target]
+            out = z @ params[head.param]  # [K, n, C]
+            return out.reshape(-1, out.shape[-1]).index_select(
+                0, batch["part"]["inv"])
         if head.kind == "select_linear":
             return z[head.target] @ params[head.param]
         return z @ params[head.param]
 
     def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
         """The L-layer loop: layer 0 reads the prepared batch, hidden
-        layers the previous handoff."""
+        layers the previous handoff.  The partitioned flow exchanges the
+        updated halo rows every layer over the graph-invariant maps."""
         state = out = None
         for l, lp in enumerate(self.plan.layers):
             p_l = self._layer_params(params, l)
             h = (self.fp(params, batch) if l == 0
                  else self._fp_hidden(lp, p_l, state))
+            if self.plan.partition is not None:
+                h = self.gather_halo(batch, h)
             z = self.na(p_l, batch, h)
             out = self.sa(p_l, batch, z)
-            state = self._handoff(lp, h, out)
+            state = self._handoff(lp, batch, h, out)
         return self.head(params, out, batch)
 
     # ------------------------------------------------------------------
@@ -553,11 +728,15 @@ class StageGraphExecutor:
         ``name -> (fn, args)``, each run once here to make the next one's
         input (the reference's per-stage jits, ``:1032``; separate calls
         expose the NA→SA barrier, paper Fig. 5c).  A one-layer plan names
-        its stages ``FP``/``NA``/``SA``/``head``; an L-layer stack prefixes
-        every per-layer stage with ``L{i}.`` (1-based)."""
+        its stages ``FP``/``NA``/``SA``/``head`` (partitioned: ``FP``/
+        ``gather_halo``/``NA``/...); an L-layer stack prefixes every
+        per-layer stage with ``L{i}.`` (1-based)."""
         n_l = self.plan.n_layers
         fns: Dict[str, Tuple] = {}
         state = out = None
+        # one exchange callable shared by every layer, as in the reference
+        gh = (None if self.plan.partition is None
+              else (lambda hh: self.gather_halo(batch, hh)))
         with torch.inference_mode():
             for l, lp in enumerate(self.plan.layers):
                 pre = f"L{l + 1}." if n_l > 1 else ""
@@ -569,13 +748,16 @@ class StageGraphExecutor:
                             lp, self._layer_params(p, l), s), (params, state))
                 fn, args = fns[pre + "FP"]
                 h = fn(*args)
+                if gh is not None:
+                    fns[pre + "gather_halo"] = (gh, (h,))
+                    h = gh(h)
                 fns[pre + "NA"] = (lambda p, hh, l=l: self.na(
                     self._layer_params(p, l), batch, hh), (params, h))
                 z = fns[pre + "NA"][0](params, h)
                 fns[pre + "SA"] = (lambda p, zz, l=l: self.sa(
                     self._layer_params(p, l), batch, zz), (params, z))
                 out = fns[pre + "SA"][0](params, z)
-                state = self._handoff(lp, h, out)
+                state = self._handoff(lp, batch, h, out)
         fns["head"] = (lambda p, oo: self.head(p, oo, batch), (params, out))
         return fns
 
@@ -602,7 +784,14 @@ class StageGraphExecutor:
         ``sample_meta`` (request-path serving): the sampler's host-side
         batch metadata; adds the SAMPLE stage (``characterize.
         sample_traffic``, the Subgraph Build of a sampled batch) as the
-        first record, kept out of ``total``, which sums the device stages."""
+        first record, kept out of ``total``, which sums the device stages.
+
+        A partitioned plan adds a ``gather_halo`` stage a layer, each with
+        its ``halo_bytes`` and ``cut_edges``, and ``partition``, the
+        reference's ``characterize.partition_traffic`` over every layer's
+        exchange; with residency the hot-halo savings land on the
+        ``gather_halo`` records (``halo_bytes_saved_total`` in
+        ``partition``) instead of the NA records."""
         from repro_torch.core import characterize as ch
 
         dev = _batch_device(batch)
@@ -645,7 +834,8 @@ class StageGraphExecutor:
             # instead of re-read — comes from the deterministic counters;
             # the hot set is layer-invariant, so only the first cached stage
             # pays the fill
-            cached = [n for n in fns if n.endswith("NA")]
+            cached = [n for n in fns if n.endswith(
+                "gather_halo" if self.plan.partition is not None else "NA")]
             rr = ch.residency_record(res["counters"], 4 * self.cfg.hidden,
                                      layers=len(cached))
             for i, name in enumerate(cached):
@@ -664,12 +854,26 @@ class StageGraphExecutor:
         out = {"stages": recs, "total": total}
         if rr is not None:
             out["residency"] = rr
+        gh_names = [n for n in fns if n.endswith("gather_halo")]
+        if gh_names:
+            # every layer exchanges the updated rows over the same maps
+            for name in gh_names:
+                tr = ch.partition_traffic(batch["part"], fns[name][1][0])
+                recs[name]["halo_bytes"] = tr["halo_bytes"]
+                recs[name]["cut_edges"] = tr["cut_edges"]
+            out["partition"] = ch.partition_traffic(
+                batch["part"], fns[gh_names[0]][1][0], layers=len(gh_names))
+            if rr is not None:
+                out["partition"]["halo_bytes_saved_total"] = (
+                    rr["bytes_saved_total"])
         return out
 
 
 def _batch_device(batch: Dict) -> torch.device:
-    x = batch["x"] if "x" in batch else next(iter(batch["feats"].values()))
-    return x.device
+    if "x" in batch:
+        return batch["x"].device
+    feats = batch["feats"] if "feats" in batch else batch["part"]["feats"]
+    return next(iter(feats.values())).device
 
 
 def _to_device(tree, device):
@@ -706,15 +910,23 @@ class PlannedModel:
         raise NotImplementedError
 
     def _finalize(self, batch: Dict, device) -> Dict:
-        """End-of-``prepare`` hook (port of the single-device part of the
-        reference's ``_maybe_partition``): with ``plan.residency``, count
-        the references of the host index tables, pick the hot sets and
-        remap the tables into the cache-extended pool; then place the
-        batch on ``device``, once."""
+        """End-of-``prepare`` hook (port of the reference's
+        ``_maybe_partition``): with ``plan.residency``, pick the hot sets
+        from the *unpartitioned* tables (degree ordering is a property of
+        the whole graph); with ``plan.partition``, rewrite the batch into
+        the partitioned layout and attach the hot-halo overlay maps,
+        otherwise remap the tables into the cache-extended pool; then place
+        the batch on ``device``, once."""
         plan = self.plan()
-        if plan.residency is not None:
-            batch = residency.apply(plan, batch,
-                                    residency.build_tables(plan, batch))
+        tables = (residency.build_tables(plan, batch)
+                  if plan.residency is not None else None)
+        if plan.partition is not None:
+            batch = dpart.partition_batch(plan, batch)
+            if tables is not None:
+                batch["residency"] = residency.partition_overlay(tables,
+                                                                 batch)
+        elif tables is not None:
+            batch = residency.apply(plan, batch, tables)
         return _to_device(batch, device)
 
     def init(self, gen: torch.Generator, batch: Dict) -> Dict:

@@ -9,8 +9,9 @@ sharding rule tables (``batch_specs`` / ``param_specs`` and the mesh axis
 names) are dropped: the port runs on one device, where they are no-ops.
 
 The executor of the port serves the arms of HAN, RGCN, MAGNN and GCN,
-full-graph or sampled (``pipeline.check_ported``); a plan that names
-another arm raises ``NotImplementedError`` naming its ROADMAP item.
+full-graph or sampled, and graph-partitioned for the first three
+(``pipeline.check_ported``); a plan that names another arm raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -59,9 +60,21 @@ class HeadSpec:
 
 @dataclass(frozen=True)
 class PartitionSpec:
-    """Graph-partitioned execution (not ported yet: ROADMAP Queue 1 item 12)."""
+    """Graph-partitioned execution (:mod:`repro_torch.dist.partition`).
 
-    k: int
+    The vertex and feature tables are split into ``k`` edge-cut partitions
+    (metapath-aware target assignment, reference-majority source
+    assignment); FP and NA run a partition at a time on its owned rows,
+    and the one exchange between partitions is the ``gather_halo`` stage.
+    ``halo`` is the reference's exchange mode: ``"auto"`` and ``"xla"``
+    both take the flat gather on one device, as the reference does off a
+    mesh.  ``static_shapes`` pads every per-type table to
+    assignment-independent capacities (``ceil(n / k)`` owned rows,
+    ``n`` halo rows), so a sampled batch's partitioned shapes depend on its
+    rung alone (the serve engine sets it); the pads are zero rows under a
+    zero mask, so outputs keep their bits."""
+
+    k: int  # number of graph partitions (>= 1; 1 = trivial, empty halos)
     halo: str = "auto"
     static_shapes: bool = False
 

@@ -1,6 +1,5 @@
-"""Hot-feature residency on one device: a degree-ordered feature cache for
-the NA gathers (port of the single-device part of
-``repro/core/residency.py:60-231``), for every ported layout: HAN's
+"""Hot-feature residency: a degree-ordered feature cache for the NA
+gathers (port of ``repro/core/residency.py``), for every ported layout: HAN's
 ``stacked``, ``bucketed`` and ``csr`` GAT tables, RGCN's relation tables,
 MAGNN's instance positions and GCN's edge list.
 
@@ -15,10 +14,13 @@ and the remap are computed once from the layer-invariant index tables, so
 every layer of an L-layer stack reuses the same resident rows.
 
 Everything here is host-side numpy, run by ``prepare()`` before the batch
-is placed on its device.  ``graph_degrees`` and ``HotRowCache`` (port of
+is placed on its device.  ``partition_overlay`` (port of ``:234``) is
+the partitioned plans' arm: the hot sets still come from the
+unpartitioned tables, and each partition selects the hot rows of its halo
+from a partition-local cache instead of exchanging them (the executor's
+``gather_halo``).  ``graph_degrees`` and ``HotRowCache`` (port of
 ``:287-369``) are the serve engine's live per-type cache over the sampled
-frontier.  The reference's ``partition_overlay`` waits for graph
-partitioning (ROADMAP Queue 1 item 12).
+frontier.
 """
 from __future__ import annotations
 
@@ -198,6 +200,54 @@ def apply(plan: StagePlan, batch: Dict, tables: ResidencyTables) -> Dict:
     return out
 
 
+def partition_overlay(tables: ResidencyTables, batch: Dict) -> Dict:
+    """Partitioned residency (port of ``:234``): the per-partition overlay
+    tables of an already-partitioned batch, from hot sets chosen on the
+    unpartitioned tables.
+
+    ``hot_flat[t]``  [C] flat own-order indices (``owner * n_max + local``)
+                     of the hot rows: each partition-local cache row is a
+                     bitwise copy of an owned row.
+    ``halo_slot[t]`` [K, H_max] cache slot of each halo entry, -1 where the
+                     entry's global vertex is cold (or a pad).  The
+                     executor's ``gather_halo`` selects slot >= 0 entries
+                     from the cache, so hot halo rows skip the exchange.
+    """
+    part = batch["part"]
+    hot_flat: Dict = {}
+    halo_slot: Dict = {}
+    hits = rows = 0
+    for t, hot_g in tables.hot.items():
+        if t not in part.get("own", {}):
+            continue
+        own = np.asarray(part["own"][t])
+        om = np.asarray(part["own_mask"][t]).reshape(-1) > 0
+        of = own.reshape(-1)
+        n_t = tables.populations[t]
+        g2f = np.full(n_t, -1, np.int64)
+        g2f[of[om]] = np.nonzero(om)[0]
+        hf = g2f[hot_g]
+        if not (hf >= 0).all():
+            raise ValueError(f"hot rows of type {t!r} must all be owned")
+        rank = tables.rank[t]
+        hs = np.asarray(part["halo_src"][t])
+        hm = np.asarray(part["halo_mask"][t]) > 0
+        halo_g = of[hs.reshape(-1)].reshape(hs.shape)
+        slot = np.where(hm, rank[halo_g], -1).astype(np.int32)
+        hot_flat[t] = hf.astype(np.int32)
+        halo_slot[t] = slot
+        hits += int((slot >= 0).sum())
+        rows += int(hm.sum())
+    return {
+        "hot_flat": hot_flat,
+        "halo_slot": halo_slot,
+        "counters": {
+            "hits": hits,
+            "misses": rows - hits,
+            "rows": rows,
+            "cache_rows": int(sum(len(h) for h in tables.hot.values())),
+        },
+    }
 
 
 # ---------------------------------------------------------------------------

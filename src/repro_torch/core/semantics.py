@@ -1,5 +1,5 @@
 """Stage 4 — Semantic Aggregation (SA) (port of
-``repro/core/semantics.py:19-58``).
+``repro/core/semantics.py:19-77``).
 
 Baseline: the per-metapath NA results arrive as a list and are stacked
 explicitly (the paper's DR-Type concat).  Optimized: NA already produced
@@ -49,3 +49,25 @@ def semantic_attention_list(p: Dict[str, torch.Tensor],
                             ) -> torch.Tensor:
     """Baseline SA: explicit stack (DR-Type concat) then attention."""
     return semantic_attention(p, torch.stack(z_list, dim=0), mask)
+
+
+def semantic_attention_partitioned(p: Dict[str, torch.Tensor],
+                                   z: torch.Tensor,
+                                   inv: torch.Tensor) -> torch.Tensor:
+    """Semantic attention over partition-local stacks: ``z [K, P, n, D]``
+    (pad rows zero) -> ``[K, n, D]``.
+
+    ``inv [N]`` is the head's inverse permutation, global row -> flat
+    own-order slot, so it names every real row once and no pad row.  The
+    reference sums the masked scores over ``(K, n)`` (``:74``), an order
+    that depends on ``K``; here the scores go to global row order through
+    ``inv`` first and are averaged as the unpartitioned arm averages them,
+    so ``w`` does not depend on ``K`` or the assignment, and at ``K = 1``
+    it has the unpartitioned arm's bits.  The combine stays
+    partition-local, summed over ``p`` in order."""
+    s = torch.tanh(z @ p["W"] + p["b"])  # [K, P, n, H]   DM + EW
+    sc = s @ p["q"]  # [K, P, n]
+    k, n_p, n = sc.shape
+    sc = sc.transpose(0, 1).reshape(n_p, k * n).index_select(1, inv)
+    beta = torch.softmax(sc.mean(dim=1), dim=0)  # [P] over the N real rows
+    return ref.semantic_combine(z.transpose(0, 1), beta)  # [K, n, D]

@@ -20,6 +20,9 @@
       --dataset imdb --use-pallas --fuse-na-sa --fanout 8 --slots 8 \\
       --slot-targets 4 --requests 32 [--deadline-ms D] [--slo-ms S] \\
       [--max-queue Q] [--inject-faults SEED] [--slo-signal injected]
+  PYTHONPATH=src python -m repro_torch.launch.serve --hgnn han \\
+      --dataset imdb --use-pallas --partitions 4 [--layers L] \\
+      [--cache-rows C] [--characterize] [--fanout 8 --inject-faults SEED]
 
 runs on the CUDA device; ``--device cpu`` runs on the CPU (the kernels'
 plain versions).  Without ``--hgnn`` it serves the dense LM ``--arch`` (full
@@ -39,6 +42,7 @@ False)``, in both packages).  It prints the device, then the reference's
 line
 
   han/imdb [na=gat/stacked +fused-sa] logits (4278, 8) on single-device: ... ms/iter
+  han/imdb [na=gat/stacked +partitions=4] logits (4278, 8) on single-device: ... ms/iter
   han/imdb [na=gat/bucketed] logits (4278, 8) on single-device: ... ms/iter
   rgcn/imdb [na=mean/padded] logits (4278, 8) on single-device: ... ms/iter
   magnn/imdb [na=instance/instances] logits (4278, 8) on single-device: ... ms/iter
@@ -49,35 +53,47 @@ synchronised with the device, and with residency the reference's counters
 
   residency: cache_rows=... hits=... misses=... rows=... hit_rate=...
 
+``--partitions K`` (K >= 1) runs HAN, RGCN or MAGNN graph-partitioned
+over K partitions on the one device (the fused epilogue is off there, as
+in the reference).
+
 ``--characterize`` then prints the reference's line for each stage of
-``HGNNInferEngine.characterize`` (``FP``/``NA``/``SA``/``head``,
-``L{i}.``-prefixed with ``--layers``)
+the executor's ``stage_records`` (``FP``/``NA``/``SA``/``head``, with
+``gather_halo`` after ``FP`` when partitioned, ``L{i}.``-prefixed with
+``--layers``)
 
   FP: flops=... hbm_bytes=... bound=...
 
 and on the card, where the stages are timed, also ``time_us=...
 device_us=... DM=...% TB=...% EW=...% DR=...%`` (the device time's shares
-by kernel class) and ``OTHER=[...]`` naming any kernel left unclassed.
+by kernel class) and ``OTHER=[...]`` naming any kernel left unclassed; a
+``gather_halo`` line ends in ``halo_bytes=...``, and a partitioned run
+adds the reference's summary
+
+  partition: k=... cut_ratio=... halo_rows=... halo_bytes=... (xL layers = ... total)
 
 ``--fanout K`` (K >= 1) serves instead: ``--requests`` requests of 1 to
 ``2 * --slot-targets`` target ids drawn with ``default_rng(0)``, through
 ``HGNNSampler`` and ``HGNNServeEngine`` (``--slots`` slots), after the
 per-rung warmup, and prints the reference's lines
 
-  serve han/imdb requests=... targets=... slots=... slot_targets=...
-      fanout=... steps=... recompiles=0 frontier_bytes=... truncated=...
-      rung_hits=0:..;1:.. warmup_ms=... wall_ms=... step_ms=...
+  serve han/imdb[ +partitions=K] requests=... targets=... slots=...
+      slot_targets=... fanout=... steps=... recompiles=0
+      frontier_bytes=... truncated=... rung_hits=0:..;1:.. warmup_ms=...
+      wall_ms=... step_ms=...
   resilience: ok=... partial=... failed=... rejected=... shed=...
       retries=... failed_steps=... deadline_expired=... degrade_steps=...
-      max_degrade_level=... failovers=0
+      max_degrade_level=... failovers=...
 
 (``recompiles`` is ``compiles_after_warmup``), the residency line with
 ``--cache-rows``, and with ``--characterize`` the last step's ``SAMPLE``
 record and stage records.  ``--inject-faults SEED`` runs the reference's
-seeded chaos schedule through the serve loop.
+seeded chaos schedule through the serve loop; with ``--partitions K``
+(K > 1) the schedule also loses partition 0 at step 3, and the engine
+fails over to the K - 1 survivors (``failovers=1``; ``recompiles`` then
+counts the batches of the new shapes).
 
-The reference's device mesh, graph partitioning and the overlap schedule
-are not ported yet.
+The reference's device mesh and the overlap schedule are not ported yet.
 """
 from __future__ import annotations
 
@@ -128,19 +144,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def build_fault_injector(args) -> Any:
+def build_fault_injector(args, part) -> Any:
     """``--inject-faults SEED`` -> the chaos-smoke schedule: two transient
     sampler faults + one transient forward fault (absorbed by retries), one
-    persistent sampler fault (fails the step's requests) and injected
-    latency on three steps (drives the degradation ladder when --slo-ms is
-    set).  Deterministic per seed.  The reference's partition loss waits
-    for partitioned plans (ROADMAP Queue 1 item 12)."""
+    persistent sampler fault (fails the step's requests), injected latency
+    on three steps (drives the degradation ladder when --slo-ms is set),
+    and — partitioned runs only — one partition loss at step 3 (failover
+    re-partitions over the survivors).  Deterministic per seed."""
     from repro_torch.serve.faults import FaultInjector
 
     return FaultInjector.seeded(
         seed=args.inject_faults, n_steps=max(args.requests, 8),
         sampler=2, forward=1, persistent_sampler=1, latency_steps=3,
-        latency_s=(args.slo_ms or 50.0) / 250.0)
+        latency_s=(args.slo_ms or 50.0) / 250.0,
+        partition_loss_step=3 if part is not None and part.k > 1 else None,
+        partition=0)
 
 
 def request_queue(n_t: int, slot_targets: int, n_requests: int,
@@ -169,11 +187,12 @@ def run_hgnn_serve(args, cfg: HGNNConfig, hg, built: BuiltHGNNInfer):
     from repro_torch.serve.sampler import HGNNSampler
 
     sampler = HGNNSampler(built.plan, cfg, hg)
+    part = built.plan.partition
     res = ResilienceConfig(max_queue=args.max_queue,
                            deadline_ms=args.deadline_ms,
                            slo_ms=args.slo_ms,
                            slo_signal=args.slo_signal)
-    injector = (build_fault_injector(args)
+    injector = (build_fault_injector(args, part)
                 if args.inject_faults is not None else None)
     engine = HGNNServeEngine(built.executor, built.params, sampler,
                              slots=args.slots,
@@ -190,7 +209,8 @@ def run_hgnn_serve(args, cfg: HGNNConfig, hg, built: BuiltHGNNInfer):
     dt = time.time() - t0
     st = engine.stats()
     rungs = ";".join(f"{i}:{n}" for i, n in st["rung_hits"].items())
-    print(f"serve {cfg.model}/{cfg.dataset} "
+    print(f"serve {cfg.model}/{cfg.dataset}"
+          f"{f' +partitions={part.k}' if part is not None else ''} "
           f"requests={len(reqs)} targets={n_targets} slots={args.slots} "
           f"slot_targets={args.slot_targets} fanout={cfg.fanout} "
           f"steps={st['steps']} recompiles={st['compiles_after_warmup']} "
@@ -214,8 +234,9 @@ def run_hgnn_serve(args, cfg: HGNNConfig, hg, built: BuiltHGNNInfer):
               f"hit_rate={rd['hit_rate']:.3f} evictions={rd['evictions']}")
     if args.characterize:
         sb = engine.last_sb
+        # the batch as the forward ran it (partitioned under --partitions)
         recs = built.executor.stage_records(
-            built.params, engine.place(sb.batch),
+            built.params, engine.place(engine._forward_batch(sb.batch)),
             sample_meta=sb.meta)
         sm = recs["stages"]["SAMPLE"]
         print(f"  SAMPLE: rung={sm['rung']} n_targets={sm['n_targets']} "
@@ -239,7 +260,8 @@ def run_hgnn(args) -> None:
     cfg = HGNNConfig(model=args.hgnn, dataset=args.dataset, fused=True,
                      use_pallas=args.use_pallas,
                      degree_buckets=args.degree_buckets,
-                     fuse_na_sa=args.fuse_na_sa, layers=args.layers,
+                     fuse_na_sa=args.fuse_na_sa,
+                     partitions=args.partitions, layers=args.layers,
                      fanout=args.fanout, cache_rows=args.cache_rows)
     hg = make_dataset(args.dataset)
     built = build_hgnn_infer(cfg, hg, dev)
@@ -262,9 +284,11 @@ def run_hgnn(args) -> None:
             else "host CPU")
     print(f"device: {dev} ({name})")
     na = built.plan.na
+    part = built.plan.partition
     n_l = built.plan.n_layers
     print(f"{cfg.model}/{cfg.dataset} [na={na.kind}/{na.layout}"
           f"{' +fused-sa' if built.plan.sa.fuse_epilogue else ''}"
+          f"{f' +partitions={part.k}' if part is not None else ''}"
           f"{f' x{n_l}layers' if n_l > 1 else ''}] "
           f"logits {tuple(logits.shape)} on single-device: "
           f"{dt*1e3:.2f} ms/iter")
@@ -275,9 +299,19 @@ def run_hgnn(args) -> None:
               f"hits={ct['hits']} misses={ct['misses']} rows={ct['rows']} "
               f"hit_rate={ct['hits'] / max(ct['rows'], 1):.3f}")
     if args.characterize:
-        recs = engine.characterize(timed=dev.type == "cuda")
-        for stage, rec in recs.items():
+        # one stage_records call gives the stage lines and the partition
+        # summary
+        recs = built.executor.stage_records(built.params, built.batch,
+                                            timed=dev.type == "cuda")
+        for stage, rec in recs["stages"].items():
             print(f"  {stage}: {stage_line(rec)}")
+        if "partition" in recs:
+            pt = recs["partition"]
+            print(f"  partition: k={pt['k']} cut_ratio={pt['cut_ratio']:.3f} "
+                  f"halo_rows={pt['halo_rows']:.0f} "
+                  f"halo_bytes={pt['halo_bytes']:.3g} "
+                  f"(x{pt['layers']} layers = "
+                  f"{pt['halo_bytes_total']:.3g} total)")
 
 
 def stage_line(rec) -> str:
@@ -295,6 +329,8 @@ def stage_line(rec) -> str:
                  f"{shares}")
         if rec["other_kernels"]:
             line += f" OTHER={rec['other_kernels']}"
+    if "halo_bytes" in rec:
+        line += f" halo_bytes={rec['halo_bytes']:.3g}"
     return line
 
 
@@ -359,6 +395,11 @@ def main() -> None:
     ap.add_argument("--degree-buckets", type=int, default=0,
                     help="degree-bucketed padded NA layout with that many "
                          "buckets (HAN metapaths, RGCN relations)")
+    ap.add_argument("--partitions", type=int, default=0,
+                    help=">=1: graph-partitioned execution over that many "
+                         "edge-cut partitions on the one device (HAN "
+                         "stacked, RGCN padded, MAGNN), the halo rows "
+                         "exchanged by a gather_halo stage a layer")
     ap.add_argument("--cache-rows", type=int, default=0,
                     help="hot-feature residency: keep that many hot rows per "
                          "node type in a cache section of the gather pool")

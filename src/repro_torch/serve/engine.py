@@ -10,11 +10,12 @@ batching of :class:`HGNNRequest` objects over sampled, rung-padded
 minibatches (:mod:`repro_torch.serve.sampler`), with the reference's
 resilience policies (:mod:`repro_torch.serve.resilience`), fault hooks
 (:mod:`repro_torch.serve.faults`) and live hot-row caches, and every
-counter and status name of the reference's ``stats()``.  Two of the
-reference's parts wait for their ROADMAP items: the async sampler
-prefetch (``_SamplerPrefetcher``, reached only through ``plan.schedule``,
-item 14) and partition failover (``_maybe_failover``, partitioned plans
-only, item 12); the executor refuses both plans.
+counter and status name of the reference's ``stats()``.  Partitioned
+plans re-partition each sampled batch over a ``static_shapes`` spec and
+fail over to the surviving partitions when the fault injector reports a
+partition lost.  The reference's async sampler prefetch
+(``_SamplerPrefetcher``, reached only through ``plan.schedule``) waits for
+ROADMAP Queue 1 item 14; the executor refuses that plan.
 
 ``ServeEngine`` — LM serving over the prefill / decode step functions of
 ``nn/transformer.py``: each wave of up to ``batch_slots`` requests is
@@ -101,6 +102,20 @@ class HGNNRequest:
         return self.status in resilience.TERMINAL
 
 
+def _shapes(tree, path=()) -> tuple:
+    """Every array of a batch with its place, shape and dtype: two batches
+    with the same signature run the forward on the same shapes."""
+    if isinstance(tree, dict):
+        return tuple(x for k, v in tree.items()
+                     for x in _shapes(v, path + (k,)))
+    if isinstance(tree, (list, tuple)):
+        return tuple(x for i, v in enumerate(tree)
+                     for x in _shapes(v, path + (i,)))
+    if isinstance(tree, (np.ndarray, torch.Tensor)):
+        return ((path, tuple(tree.shape), str(tree.dtype)),)
+    return ()
+
+
 def _first_tensor(tree):
     if torch.is_tensor(tree):
         return tree
@@ -125,14 +140,25 @@ class HGNNServeEngine:
 
     ``warmup()`` runs one forward per ladder rung on an all-pad batch.
     The port runs eagerly, so there is no jit cache to diff:
-    ``stats()["compiles_after_warmup"]`` counts what can still be made at
-    run time after warmup — kernel-library loads and new or grown kernel
-    scratch buffers (``kernels/build.py``'s process-wide ``created``) —
-    summed over this engine's own forwards since warmup, so another
-    engine or kernel call in the process is not counted against it.  It
-    must stay 0, which holds because a batch's shapes are a pure function
-    of its rung.  Once the forward is captured as CUDA graphs (ROADMAP Queue 1
-    item 18), it will count the captures made after warmup too.
+    ``stats()["compiles_after_warmup"]`` counts, over this engine's own
+    forwards since warmup, each batch whose shapes no earlier forward had
+    (what the reference's jit would trace anew, and what a CUDA-graph
+    capture, ROADMAP Queue 1 item 18, would capture anew) plus what was
+    made at run time — kernel-library loads and new or grown kernel
+    scratch buffers (``kernels/build.py``'s process-wide ``created``), so
+    another engine or kernel call in the process is not counted against
+    it.  It stays 0 while a batch's shapes are a pure function of its
+    rung; a partition failover changes ``K`` and with it the partitioned
+    shapes, which counts one for each rung served after it, as in the
+    reference.
+
+    Partitioned plans (``plan.partition``) are served through a
+    ``static_shapes`` copy of the spec: every sampled batch is partitioned
+    on the host (``dist.partition_batch``) to tables whose shapes depend
+    on the rung and ``K`` alone.  When the injector reports a partition
+    lost, the next batches are partitioned over the survivors
+    (``dist.surviving_partition_spec``); the head's inverse permutation
+    keeps global row order, so the logits keep their bits.
 
     Resilience, as in the reference: admission control with per-request
     statuses, per-request deadlines (expired requests complete
@@ -141,8 +167,9 @@ class HGNNServeEngine:
     layer retries every exception, kernel errors included, so a run that
     must show its kernels ran checks ``failed_steps == 0`` and
     ``retries == 0``.  ``step_log`` entries add ``sample_s`` (the host
-    sampler) and ``forward_s`` (upload, forward and read-back) to the
-    reference's ``wall_s``.
+    sampler), ``forward_s`` (partitioning, upload, forward and read-back)
+    and ``partition_s`` (the host partitioner alone, about 0 unpartitioned)
+    to the reference's ``wall_s``.
     """
 
     def __init__(self, executor, params, sampler, slots: int = 8,
@@ -168,6 +195,15 @@ class HGNNServeEngine:
         self.injector = injector
         self.n_classes = int(executor.cfg.n_classes)
         self._made_after_warmup: Optional[int] = None
+        self._shapes_seen: set = set()
+        self.last_partition_s = 0.0
+        # failover swaps in a survivors-only spec; partitioned serving
+        # pins static table shapes (see the class docstring)
+        self._serve_plan = self.plan
+        if self.plan.partition is not None:
+            self._serve_plan = dataclasses.replace(
+                self.plan, partition=dataclasses.replace(
+                    self.plan.partition, static_shapes=True))
         self.step_log: List[Dict] = []
         self.last_sb = None
         # residency: live per-type hot-row caches over the sampled frontier,
@@ -190,6 +226,8 @@ class HGNNServeEngine:
             self.res, len(self.sampler.ladder), self.slot_targets)
         self.retry = RetryPolicy(self.res)
         self._deadline_expired = 0
+        self._failovers = 0
+        self._lost_partitions: List[int] = []
         self._status_counts: Dict[str, int] = {}
 
     def _cache_step(self, ids: np.ndarray, sb) -> None:
@@ -213,16 +251,50 @@ class HGNNServeEngine:
 
         return _to_device(batch, self.device)
 
+    def _forward_batch(self, batch: Dict) -> Dict:
+        """A sampled host batch in the layout the serve plan runs:
+        partitioned on the host over the current (static-shape) spec, or
+        as it is."""
+        if self._serve_plan.partition is None:
+            return batch
+        from repro_torch.dist.partition import partition_batch
+
+        return partition_batch(self._serve_plan, batch)
+
     def _forward(self, batch: Dict) -> np.ndarray:
-        """Upload a sampled host batch to the engine's device, run the
-        forward and read the logits back; after warmup, add what the
-        forward made (``build.created``'s change) to the engine's count."""
+        """Partition a sampled host batch if the plan says so, upload it to
+        the engine's device, run the forward and read the logits back;
+        after warmup, count a batch of new shapes and what the forward made
+        (``build.created``'s change).  The host partitioner's seconds go to
+        ``last_partition_s``."""
+        t0 = time.perf_counter()
+        batch = self._forward_batch(batch)
+        self.last_partition_s = time.perf_counter() - t0
+        sig = _shapes(batch)
         made = build.created
         with torch.inference_mode():
             out = self.fn(self.params, self.place(batch)).cpu().numpy()
         if self._made_after_warmup is not None:
-            self._made_after_warmup += build.created - made
+            self._made_after_warmup += (build.created - made
+                                        + (sig not in self._shapes_seen))
+        self._shapes_seen.add(sig)
         return out
+
+    def _maybe_failover(self, step: int) -> None:
+        """An injected partition loss: every later batch is partitioned over
+        the survivors (``surviving_partition_spec``)."""
+        if self.injector is None or self._serve_plan.partition is None:
+            return
+        lost = self.injector.partition_loss(step)
+        if lost is None:
+            return
+        from repro_torch.dist.partition import surviving_partition_spec
+
+        spec = surviving_partition_spec(self._serve_plan.partition, [lost])
+        self._serve_plan = dataclasses.replace(self._serve_plan,
+                                               partition=spec)
+        self._failovers += 1
+        self._lost_partitions.append(int(lost))
 
     def warmup(self) -> int:
         """One forward per ladder rung on an all-pad batch: builds the
@@ -292,6 +364,7 @@ class HGNNServeEngine:
                 n_union += take
             if not chunks:  # everything expired this pass
                 continue
+            self._maybe_failover(step)
             ids = np.concatenate([c[2] for c in chunks])
             t0 = time.perf_counter()
             inj = self.injector
@@ -364,6 +437,7 @@ class HGNNServeEngine:
                 "degrade_level": level_used,
                 "sample_s": t_sampled - t0,
                 "forward_s": t_end - t_sampled,
+                "partition_s": self.last_partition_s,
             })
             self.last_sb = sb
             step += 1
@@ -375,9 +449,7 @@ class HGNNServeEngine:
     def stats(self) -> Dict:
         """Deterministic serving counters (walls reported, never gated):
         the reference's keys.  ``compiles_after_warmup`` is ``None`` until
-        :meth:`warmup` has run; ``partition_failovers`` and
-        ``lost_partitions`` stay 0 and ``[]`` (no partitioned plan is
-        served yet)."""
+        :meth:`warmup` has run."""
         rung_hits: Dict[int, int] = {}
         for e in self.step_log:
             if e.get("failed"):
@@ -410,8 +482,8 @@ class HGNNServeEngine:
                 "partial_requests": int(
                     self._status_counts.get(PARTIAL, 0)),
                 "ok_requests": int(self._status_counts.get(OK, 0)),
-                "partition_failovers": 0,
-                "lost_partitions": [],
+                "partition_failovers": int(self._failovers),
+                "lost_partitions": list(self._lost_partitions),
                 "statuses": dict(self._status_counts),
                 "injected": inj_counts,
             },

@@ -19,9 +19,10 @@ consults it at fixed hook points:
   (the SLO/degradation signal) without sleeping, so latency-pressure tests
   and benchmarks stay fast and deterministic.
 * ``partition_loss(step)`` — the partition id lost at this step, or None;
-  the reference engine's failover re-assigns the lost partition's
-  vertices over the survivors; the port's engine serves no partitioned
-  plan yet (ROADMAP Queue 1 item 12), so it never consults this hook.
+  on a partitioned plan the engine's failover re-assigns the lost
+  partition's vertices over the survivors
+  (``repro_torch.dist.partition.surviving_partition_spec``); an
+  unpartitioned plan never consults it.
 
 ``FaultInjector.seeded`` derives a schedule from an integer seed with
 ``np.random.default_rng`` — same seed, same queue, same schedule, same

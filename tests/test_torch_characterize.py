@@ -473,7 +473,9 @@ def test_timed_records_raise_on_the_cpu(tiny_hg):
 def test_sampled_partitioned_and_overlap_paths_raise(tiny_hg):
     """The sampled path is ported (its SAMPLE record is the reference's
     ``sample_traffic``, ahead of the device stages and out of ``total``);
-    the partitioned and overlap plans still raise naming their items."""
+    so is the partitioned one (its records: tests/test_torch_partitioned
+    .py); the overlap plans, partitioned or not, still raise naming their
+    item."""
     m, p, b, recs = _records(tiny_hg, model="han", fused=True)
     meta = {"rung": (8, 64), "rung_index": 1, "n_targets": 5,
             "frontier_rows": 211, "frontier_bytes": 54016,
@@ -482,7 +484,8 @@ def test_sampled_partitioned_and_overlap_paths_raise(tiny_hg):
     assert list(sampled["stages"]) == ["SAMPLE"] + list(recs["stages"])
     assert sampled["stages"]["SAMPLE"] == ref_ch.sample_traffic(meta)
     assert sampled["total"] == recs["total"]
-    for kw, item in ((dict(partitions=4), 12), (dict(overlap=2), 14)):
+    for kw, item in ((dict(partitions=4, overlap=2), 14),
+                     (dict(overlap=2), 14)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             get_model(HGNNConfig(**TINY, model="han", fused=True,
                                  **kw)).plan()

@@ -151,12 +151,12 @@ def test_entry_points_need_a_device_without_cuda(tiny_hg, monkeypatch):
 @pytest.mark.parametrize("kw,item", [
     (dict(model="gcn", fanout=4, overlap=2), "item 14"),
     (dict(model="gcn", overlap=2), "item 14"),
-    (dict(partitions=2), "item 12"),
-    (dict(fanout=4, partitions=2), "item 12"),
-    (dict(cache_rows=8, partitions=2), "item 12"),
+    (dict(partitions=2, overlap=2), "item 14"),
+    (dict(fanout=4, partitions=2, overlap=2), "item 14"),
+    (dict(cache_rows=8, partitions=2, overlap=2), "item 14"),
     (dict(overlap=2), "item 14"),
-    (dict(model="rgcn", partitions=2), "item 12"),
-    (dict(model="magnn", fanout=4, partitions=2), "item 12"),
+    (dict(model="rgcn", partitions=2, overlap=2), "item 14"),
+    (dict(model="magnn", fanout=4, partitions=2, overlap=2), "item 14"),
     (dict(fused=False, fanout=4, overlap=2), "item 14"),
 ])
 def test_arms_outside_the_slice_raise(kw, item):
@@ -167,8 +167,12 @@ def test_arms_outside_the_slice_raise(kw, item):
 @pytest.mark.parametrize("edit,item", [
     (lambda pl: dataclasses.replace(pl, head=plan.HeadSpec(
         kind="select_linear", target="M")), "no model of the reference"),
-    (lambda pl: dataclasses.replace(pl, partition=plan.PartitionSpec(k=2)),
-     "item 12"),
+    (lambda pl: dataclasses.replace(pl, partition=plan.PartitionSpec(k=2),
+                                    layers=tuple(dataclasses.replace(
+                                        lp, sa=dataclasses.replace(
+                                            lp.sa, fuse_epilogue=True))
+                                        for lp in pl.layers)),
+     "no model of the reference"),
     (lambda pl: dataclasses.replace(pl, layers=tuple(
         dataclasses.replace(lp, na=dataclasses.replace(lp.na, kind="mean"))
         for lp in pl.layers)), "no model of the reference"),

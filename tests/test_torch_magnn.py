@@ -239,16 +239,18 @@ def _layers(pl, **kw):
 
 
 @pytest.mark.parametrize("edit,match", [
-    (lambda pl: dataclasses.replace(pl, partition=plan.PartitionSpec(k=2)),
-     "item 12"),
+    (lambda pl: dataclasses.replace(pl, partition=plan.PartitionSpec(k=2),
+                                    schedule=plan.ScheduleSpec()),
+     "item 14"),
     (lambda pl: dataclasses.replace(pl, sample=plan.SampleSpec(
         fanout=2, ladder=((8, 8),)), schedule=plan.ScheduleSpec()),
      "item 14"),
     (lambda pl: dataclasses.replace(pl, schedule=plan.ScheduleSpec()),
      "item 14"),
     (lambda pl: dataclasses.replace(
-        _layers(pl, residency=plan.ResidencySpec(cache_rows=3)),
-        partition=plan.PartitionSpec(k=2)), "residency .*item 12"),
+        _layers(pl, residency=plan.ResidencySpec(cache_rows=3),
+                sa=plan.SASpec(kind="attention", stacked=True)),
+        partition=plan.PartitionSpec(k=2)), "no model of the reference"),
     (lambda pl: _layers(pl, handoff="target"), "no model of the reference"),
     (lambda pl: _layers(pl, sa=plan.SASpec(kind="attention", stacked=True)),
      "no model of the reference"),
@@ -266,8 +268,8 @@ def test_executor_refuses_magnn_plans_outside_the_slice(edit, match):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(partitions=2), "item 12"),
-    (dict(fanout=4, partitions=2), "item 12"),
+    (dict(partitions=2, overlap=2), "item 14"),
+    (dict(fanout=4, partitions=2, overlap=2), "item 14"),
     (dict(overlap=2), "item 14"),
 ])
 def test_magnn_modes_outside_the_slice_raise(kw, item):
