@@ -55,7 +55,15 @@ partitioned batch, partitioned residency bitwise;
 ``bench_partition.py``'s sweep (counters equal ``BENCH_hgnn.json``'s
 ``partition`` and ``layers/*/halo`` rows, NA and ``gather_halo`` timed)
 and ``bench_resilience.py``'s failover serve (its row reproduced, bitwise
-the never-failed serve).  It imports nothing of jax or of the JAX package
+the never-failed serve).  Phase 3o is the async stage-graph schedule:
+``bench_overlap.py``'s cases (HAN/imdb on 3 degree buckets, MAGNN/imdb,
+HAN/imdb and RGCN/imdb at K = 4 and L = 2) and HAN/imdb ``csr`` through
+``forward_overlapped`` (sibling stages on side streams), bitwise the
+serial kernel arm with the same launches and ``BENCH_hgnn.json``'s
+``overlap`` counters, the forward walls of both in turns, the stage walls'
+critical path, the kernels that overlap in a profiled forward; then the
+sampler-prefetch serves (HAN/imdb, RGCN/imdb, the failover serve) bitwise
+the serves without it.  It imports nothing of jax or of the JAX package
 ``repro``.
 
 Output: progress lines, then the card's name and power limit as
@@ -617,7 +625,9 @@ def capture_segment_sums(fn) -> list:
     calls = []
     orig = ops.segment_sum
 
-    def record(vals, seg, n, idx=None, mean=False):
+    def record(vals, seg, n, idx=None, mean=False, hot=None):
+        if hot is not None:
+            raise ValueError("capture_segment_sums: a residency call")
         calls.append((vals, seg, n, idx, mean))
         return orig(vals, seg, n, idx=idx, mean=mean)
 
@@ -809,7 +819,9 @@ def capture_served_calls(fn) -> list:
         return orig["segment_spmm"](h_src, nbr, mask, mean=mean,
                                     use_pallas=use_pallas)
 
-    def ssum(vals, seg, n, idx=None, mean=False):
+    def ssum(vals, seg, n, idx=None, mean=False, hot=None):
+        if hot is not None:
+            raise ValueError("capture_served_calls: a residency call")
         calls.append(("segment_sum", (vals, seg, n, idx, mean)))
         return orig["segment_sum"](vals, seg, n, idx=idx, mean=mean)
 
@@ -1493,6 +1505,326 @@ def partitioned(hg, dev, main_counts: dict, results: dict) -> dict:
     out["failover"] = {"row": got, "steps": fail, "rungs": rungs,
                        "compiles_after_warmup": st["compiles_after_warmup"]}
     del b, eng, never, cpu_eng
+    torch.cuda.empty_cache()
+    return out
+
+
+# the async stage-graph schedule (phase 3o): benchmarks/bench_overlap.py's
+# cases at its settings, HAN's csr layout, and the sampler-prefetch serves
+OV_BENCH = dict(dataset="imdb", hidden=64, n_heads=8, n_classes=8,
+                max_degree=32, fused=True, use_pallas=True)
+# (BENCH_hgnn.json overlap row or a tag, model, config, main_counts key of
+# the NA kernel the case launches)
+OV_CASES = (("han/imdb/bucketed", "han", dict(degree_buckets=3),
+             ("gat_na", "gat_na_bucketed")),
+            ("magnn/imdb/base", "magnn", {}, ("gat_na", "gat_na_unstacked")),
+            ("han/imdb/k4L2", "han", dict(partitions=4, layers=2),
+             ("gat_na", "gat_na")),
+            ("rgcn/imdb/k4L2", "rgcn", dict(partitions=4, layers=2),
+             ("segment_spmm", "segment_spmm")),
+            ("han/imdb/csr", "han", dict(fused=False),
+             ("segment_sum", "segment_sum")))
+OV_REPS = 20  # forward walls a schedule, interleaved
+OV_DAG_KEYS = ("depth", "stages", "edges", "concurrent_pairs",
+               "overlapped_stages", "bitexact")
+
+
+def stream_overlap(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: the device time of its
+    kernels and copies summed, the time at least one ran, the time two or
+    more ran at once (kernels of two streams overlapping), the streams
+    they ran on, and the profiled wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace with no device event is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if evs:
+            break
+    else:
+        fail_now("three profiles of an overlapped forward held no device "
+                 "event")
+    edges = sorted([(e.time_range.start, 1) for e in evs]
+                   + [(e.time_range.end, -1) for e in evs])
+    busy = both = 0.0
+    live, last = 0, edges[0][0]
+    for t, d in edges:
+        if live >= 1:
+            busy += t - last
+        if live >= 2:
+            both += t - last
+        live, last = live + d, t
+    return {"device_us": float(sum(e.time_range.end - e.time_range.start
+                                   for e in evs)),
+            "busy_us": float(busy), "overlapped_us": float(both),
+            "busy_share": float(busy / wall) if wall else 0.0,
+            "wall_us": float(wall), "kernels": len(evs),
+            "streams": len({getattr(e, "device_resource_id", None)
+                            for e in evs})}
+
+
+def overlap_serve(tag, cfg, hg, dev, ov_counts: dict, out: dict,
+                  injector=None) -> None:
+    """One model served at ``--overlap 2`` (the sampler prefetch) on the
+    CLI's queue, and the same queue without it on the same parameters:
+    every request OK and bitwise the serve without prefetch, the same
+    launches, no failed step or retry; the prefetch counters equal those
+    of the same serve on the CPU (plain arm, prefetch on); the worker
+    stopped; then two timed serves of ``SERVE_TIMED_REQUESTS`` requests
+    each way, in turns, for the sampler's ms left on a step's path."""
+    import numpy as np
+    import torch
+    from repro_torch.core.models import get_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_hgnn_infer, request_queue
+    from repro_torch.serve.engine import HGNNServeEngine
+    from repro_torch.serve.sampler import HGNNSampler
+
+    b = build_hgnn_infer(cfg, hg, dev)
+    sampler = HGNNSampler(b.plan, cfg, hg)
+    no_pf = get_model(cfg.replace(overlap=0)).executor
+    pool = 48 if injector is not None else None
+
+    def serve(executor, n_req, fn=None, inj=None, params=None):
+        eng = HGNNServeEngine(executor, b.params if params is None
+                              else params, sampler, slots=SERVE_SLOTS,
+                              slot_targets=SERVE_SLOT_TARGETS, fn=fn,
+                              injector=inj() if inj else None)
+        reqs = request_queue(sampler.n_target_type, SERVE_SLOT_TARGETS,
+                             n_req, pool=pool)
+        ops.reset_launch_counts()
+        eng.warmup()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        return eng, reqs, ops.launch_counts()
+
+    eng, reqs, counts = serve(b.executor, SERVE_REQUESTS, fn=b.fn,
+                              inj=injector)
+    ref, ref_reqs, ref_counts = serve(no_pf, SERVE_REQUESTS, inj=injector)
+    st, rs = eng.stats(), eng.stats()["resilience"]
+    same = all(a.status == c.status == "OK"
+               and np.array_equal(a.logits, c.logits)
+               for a, c in zip(reqs, ref_reqs))
+    check(same and counts == ref_counts,
+          f"{tag}: every request OK and bitwise the serve without prefetch, "
+          f"launches {counts} the same")
+    check(rs["failed_steps"] == 0 and rs["retries"] == 0
+          and st["compiles_after_warmup"]
+          == ref.stats()["compiles_after_warmup"],
+          f"{tag}: failed_steps {rs['failed_steps']}, retries "
+          f"{rs['retries']}, compiles_after_warmup "
+          f"{st['compiles_after_warmup']} (without prefetch "
+          f"{ref.stats()['compiles_after_warmup']})")
+    cpu_eng, _, _ = serve(get_model(cfg.replace(use_pallas=False)).executor,
+                          SERVE_REQUESTS, inj=injector,
+                          params=to_device(b.params, "cpu"))
+    pf, cpu_pf = st["prefetch"], cpu_eng.stats()["prefetch"]
+    check(pf == cpu_pf and pf["hits"] > 0
+          and pf["hits"] + pf["mispredicts"] + pf["cold"] == st["steps"],
+          f"{tag}: prefetch {pf} equal the CPU serve's {cpu_pf}")
+    check(eng.prefetch._future is None and eng.prefetch._pool._shutdown,
+          f"{tag}: the prefetch worker drained and stopped")
+    for name in ("gat_na_fused_sa", "semantic_combine", "segment_spmm"):
+        ov_counts[name] += counts[name]
+    ov_counts["gat_na"] += counts["gat_na"] - counts["gat_na_fused_sa"]
+    timed = {"without": [], "with": []}
+    if injector is None:
+        for name in ("without", "with", "with", "without"):
+            e, _, _ = serve(no_pf if name == "without" else b.executor,
+                            SERVE_TIMED_REQUESTS,
+                            fn=None if name == "without" else b.fn)
+            timed[name].append(e)
+    else:
+        timed = {"without": [ref], "with": [eng]}
+    rec = {"prefetch": pf, "launches": counts}
+    for name, engines in timed.items():
+        logs = [x for e in engines for x in e.step_log]
+        walls = np.array([x["wall_s"] for x in logs]) * 1e3
+        rec[name] = {"sampler_ms": float(np.median([x["sample_s"] * 1e3
+                                                    for x in logs])),
+                     "step_wall_p50_ms": float(np.percentile(walls, 50)),
+                     "step_wall_p99_ms": float(np.percentile(walls, 99)),
+                     "steps": len(logs)}
+    a, w = rec["without"], rec["with"]
+    print(f"  {tag}: sampler ms on a step's path (median) "
+          f"{a['sampler_ms']:.3f} without prefetch -> {w['sampler_ms']:.3f} "
+          f"with; step wall p50 {a['step_wall_p50_ms']:.3f} -> "
+          f"{w['step_wall_p50_ms']:.3f} ms, p99 {a['step_wall_p99_ms']:.3f} "
+          f"-> {w['step_wall_p99_ms']:.3f} ms ({w['steps']} steps); "
+          f"prefetch {pf}", flush=True)
+    out[tag] = rec
+    del b, eng, ref, cpu_eng, timed
+    torch.cuda.empty_cache()
+
+
+def overlapped(hg, dev, main_counts: dict, results: dict) -> dict:
+    """Phase 3o.  Per case of ``OV_CASES`` at ``bench_overlap.py``'s
+    settings, on the overlapped build's batch and parameters: its logits
+    through ``HGNNInferEngine`` (``build_hgnn_infer`` serves
+    ``forward_overlapped``) bitwise the serial kernel arm's, ``depth=1``
+    bitwise with one stage in flight, launches over ITERS forwards (set
+    to 0 just before, read just after) equal to the serial forward's
+    kernel by kernel, the DAG counters and ``bitexact`` equal to
+    ``BENCH_hgnn.json``'s ``overlap`` row, no scratch buffer made after
+    the first forward; the overlapped and serial forward walls (median of
+    ``OV_REPS`` each, in turns), the stage walls by CUDA events folded
+    through ``characterize.overlap_accounting``, one profiled forward's
+    kernels that overlap in time, and the merge NA's device time beside
+    the serial partitioned NA's.  Then HAN/imdb and RGCN/imdb served at
+    ``--overlap 2 --fanout 8`` and ``bench_resilience.py``'s failover serve
+    with the prefetch on (:func:`overlap_serve`)."""
+    import functools
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import HGNNConfig
+    from repro_torch.core import characterize as ch
+    from repro_torch.core.models import get_model
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.serve import build_hgnn_infer
+    from repro_torch.serve.engine import HGNNInferEngine
+    from repro_torch.serve.faults import Fault, FaultInjector
+
+    bench = json.loads((ROOT / "BENCH_hgnn.json").read_text())["overlap"]
+    flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=dev)
+    out = {"forwards": {}, "serves": {}}
+    ov_counts = dict.fromkeys(main_counts, 0)  # this phase's launches
+    for case, model, kw, (kernel, key) in OV_CASES:
+        tag = f"overlap {case}"
+        cfg = HGNNConfig(model=model, overlap=2, **dict(OV_BENCH, **kw))
+        b = build_hgnn_infer(cfg, hg, dev)
+        eng = HGNNInferEngine(b.executor, b.params, b.batch, fn=b.fn)
+        check(b.fn == b.executor.forward_overlapped,
+              f"{tag}: build_hgnn_infer serves forward_overlapped")
+        serial_ex = get_model(cfg.replace(overlap=0)).executor
+        depth1 = get_model(cfg.replace(overlap=1)).executor
+
+        def serial():
+            return serial_ex.forward(b.params, b.batch)
+
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            want = serial()
+        torch.cuda.synchronize()
+        per = ops.launch_counts()
+        logits = eng.infer()
+        with torch.inference_mode():
+            one = depth1.forward_overlapped(b.params, b.batch)
+        # each executor owns its side streams, and a stream its scratch
+        made = build.created
+        ops.reset_launch_counts()
+        for _ in range(ITERS):
+            logits = eng.infer()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(counts == {n: v * ITERS for n, v in per.items()}
+              and per[kernel] > 0,
+              f"{tag}: launches {counts} over {ITERS} forwards = the serial "
+              f"forward's {per} x {ITERS}")
+        ov_counts[key] += counts[kernel]
+        bitwise = bool(torch.equal(logits, want))
+        check(bitwise and tuple(logits.shape) == (4278, 8),
+              f"{tag}: overlapped logits bitwise the serial kernel arm's "
+              f"(max |err| {max_err(logits, want):.3e})")
+        check(torch.equal(one, want)
+              and depth1.last_dispatch["max_inflight"] == 1,
+              f"{tag}: depth=1 bitwise, max_inflight "
+              f"{depth1.last_dispatch['max_inflight']}")
+        rec = dict(b.executor.overlap_record(), bitexact=int(bitwise))
+        rec.pop("pairs")
+        if case in bench:
+            row = {k: bench[case][k] for k in OV_DAG_KEYS}
+            got = {k: rec[k] for k in OV_DAG_KEYS}
+            check(got == row, f"{tag}: {got} equal BENCH_hgnn.json's "
+                              f"overlap row")
+        walls = {"serial": [], "overlapped": []}
+        with torch.inference_mode():
+            for _ in range(3):
+                serial()
+                eng.infer()
+            for _ in range(OV_REPS):
+                for name, fn in (("serial", serial),
+                                 ("overlapped", eng.infer)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls[name].append((time.perf_counter() - t0) * 1e3)
+        med = {n: float(np.median(v)) for n, v in walls.items()}
+        fns = b.executor.overlap_stage_fns(b.params, b.batch)
+        with torch.inference_mode():
+            stage_us = {n: ch.stage_time_us(functools.partial(f, *a))
+                        for n, (f, a) in fns.items()}
+            acct = ch.overlap_accounting(b.executor.schedule_edges(),
+                                         stage_us)
+            prof = stream_overlap(eng.infer)
+        rec.update(wall_ms=med, stage_us=stage_us, accounting=acct,
+                   profile=prof, launches=per)
+        if "partitions" in kw:
+            sfns = serial_ex.stage_fns(b.params, b.batch)
+            with torch.inference_mode():
+                merge = fns["L1.NA"]
+                rec["merge_na_ms"] = time_ms(lambda: merge[0](*merge[1]), 20,
+                                             flush)
+                own = fns["L1.NA.own"]
+                rec["own_na_ms"] = time_ms(lambda: own[0](*own[1]), 20,
+                                           flush)
+                na = sfns["L1.NA"]
+                rec["serial_na_ms"] = time_ms(lambda: na[0](*na[1]), 20,
+                                              flush)
+            print(f"  {tag}: L1 NA device time cold: merge "
+                  f"{rec['merge_na_ms']:.5f} ms + NA.own "
+                  f"{rec['own_na_ms']:.5f} ms, serial partitioned NA "
+                  f"{rec['serial_na_ms']:.5f} ms", flush=True)
+        check(build.created == made,
+              f"{tag}: no scratch buffer made after the first overlapped "
+              f"forward ({build.created - made} made)")
+        print(f"  {tag}: forward wall median of {OV_REPS} in turns: "
+              f"overlapped {med['overlapped']:.4f} ms, serial "
+              f"{med['serial']:.4f} ms; stages {rec['stages']}, "
+              f"concurrent pairs {rec['concurrent_pairs']}; stage walls: "
+              f"serial sum {acct['serial_sum_us']:.1f} us, critical path "
+              f"{acct['critical_path_us']:.1f} us, saved "
+              f"{acct['overlap_saved_us']:.1f} us; profiled forward: "
+              f"{prof['kernels']} device events on {prof['streams']} "
+              f"streams, {prof['overlapped_us']:.1f} us with two or more "
+              f"at once, busy {prof['busy_us']:.1f} of "
+              f"{prof['wall_us']:.1f} us ({100 * prof['busy_share']:.1f}%)",
+              flush=True)
+        out["forwards"][case] = rec
+        del b, eng, serial_ex, depth1, fns
+        torch.cuda.empty_cache()
+
+    serve_cfg = dict(dataset="imdb", fused=True, use_pallas=True,
+                     fanout=SERVE_FANOUT, overlap=2)
+    overlap_serve("serve han/imdb --overlap 2",
+                  HGNNConfig(model="han", fuse_na_sa=True, **serve_cfg), hg,
+                  dev, ov_counts, out["serves"])
+    overlap_serve("serve rgcn/imdb bucketed 3 --overlap 2",
+                  HGNNConfig(model="rgcn", degree_buckets=3, **serve_cfg),
+                  hg, dev, ov_counts, out["serves"])
+    overlap_serve("failover serve han/imdb K=3 --overlap 2",
+                  HGNNConfig(model="han", fanout=SERVE_FANOUT, partitions=3,
+                             overlap=2, **PART_BENCH), hg, dev, ov_counts,
+                  out["serves"],
+                  injector=lambda: FaultInjector([Fault(
+                      step=3, kind="partition", partition=0)]))
+    for name, n in ov_counts.items():
+        main_counts[name] += n
+    out["launches"] = {n: v for n, v in ov_counts.items() if v}
+    print(f"  phase 3o launches on its main paths: {out['launches']}",
+          flush=True)
+    del flush
     torch.cuda.empty_cache()
     return out
 
@@ -2455,6 +2787,12 @@ def main() -> None:
           "failover serve")
     part_rec = partitioned(hg, dev, main_counts, results)
 
+    print("phase 3o: the async stage-graph schedule on the card: "
+          "bench_overlap.py's cases (HAN/imdb 3 buckets, MAGNN/imdb, "
+          "HAN/imdb and RGCN/imdb K=4 L=2) and HAN/imdb csr, overlapped "
+          "against serial, then the sampler-prefetch serves")
+    ov_rec = overlapped(hg, dev, main_counts, results)
+
     # ---------------- phase 4: timing ----------------
     print("phase 4: kernel times (CUDA events, median; cold = L2 flushed)")
     flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -2754,6 +3092,7 @@ def main() -> None:
                       "characterization": char,
                       "serving": serve_rec,
                       "partitioned": part_rec,
+                      "overlap": ov_rec,
                       "profiles": profiles}))
     if failures:
         print(f"FAILED: {failures}", file=sys.stderr)

@@ -159,18 +159,19 @@ class HGNNConfig:
     # Fused NA→SA epilogue: the semantic-score pass-1 partial accumulates
     # inside the NA kernel, saving one full [P, N, D] read.  Stacked only.
     fuse_na_sa: bool = False
-    # Graph-partitioned execution (>= 1); not ported yet.
+    # Graph-partitioned execution over that many partitions (>= 1).
     partitions: int = 0
     # Stacked FP->NA->SA layers; the graph-side index tables are built once.
     layers: int = 1
     # Request-path sampled serving (>= 1): the per-hop fan-out cap.
     fanout: int = 0
     sample_ladder: Tuple[Tuple[int, int], ...] = ()
-    # Hot-feature residency (>= 1): hot rows kept per node type (one
-    # device, and the serve engine's live caches; the partitioned part is
-    # not ported yet).
+    # Hot-feature residency (>= 1): hot rows kept per node type (the
+    # gather pool's cache section, the partitioned hot-halo overlay, and
+    # the serve engine's live caches).
     cache_rows: int = 0
-    # Async stage-graph schedule (>= 1); not ported yet.
+    # Async stage-graph schedule (>= 1): the in-flight stage depth; 1 is
+    # the serial-degenerate baseline.
     overlap: int = 0
     seed: int = 0
 

@@ -12,8 +12,10 @@ layers (two segment means over the edge list, the fixed-order
 ``sa.kind="none"``), the head is the second Combination (``w2``).
 ``cfg.cache_rows`` turns on single-device hot-feature residency;
 ``cfg.fanout >= 1`` declares the plan's ``SampleSpec`` for request-path
-serving; the overlap schedule raises ``NotImplementedError`` naming its
-ROADMAP item, and ``partitions`` raises the reference's ``ValueError``.
+serving; ``cfg.overlap >= 1`` declares the async stage-graph schedule
+(one NA stage a layer, so nothing runs side by side; it drives the
+serving sampler prefetch), and ``partitions`` raises the reference's
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -23,10 +25,11 @@ from repro_torch.configs.base import HGNNConfig
 from repro_torch.core import metapath as mp
 from repro_torch.core import stages
 from repro_torch.core.hgraph import HeteroGraph
-from repro_torch.core.pipeline import PlannedModel, not_ported
+from repro_torch.core.pipeline import PlannedModel
 from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
                                    ResidencySpec, SASpec, SampleSpec,
-                                   StagePlan, default_sample_ladder)
+                                   ScheduleSpec, StagePlan,
+                                   default_sample_ladder)
 from repro_torch.data.synthetic import DATASET_TARGET
 from repro_torch.interop import resolve_device
 
@@ -41,8 +44,6 @@ class GCN(PlannedModel):
         if cfg.partitions >= 1:
             raise ValueError("gcn runs the homogeneous CSR baseline; it has "
                              "no partitioned execution layout")
-        if cfg.overlap >= 1:
-            raise not_ported("the async stage-graph schedule (overlap)", 14)
         sample = None
         if cfg.fanout >= 1:
             # each LayerPlan runs TWO csr aggregations -> 2 hops per layer
@@ -68,6 +69,8 @@ class GCN(PlannedModel):
                 for _ in range(cfg.layers)),
             head=HeadSpec(kind="linear", param="w2"),
             sample=sample,
+            schedule=(ScheduleSpec(depth=cfg.overlap)
+                      if cfg.overlap >= 1 else None),
         )
 
     def prepare(self, hg: HeteroGraph, device=None) -> Dict:

@@ -22,7 +22,11 @@ Layouts, as in the reference:
 declares graph-partitioned execution over ``K`` partitions (stacked
 layout only, with the epilogue off); ``cfg.fanout >= 1`` declares the
 plan's ``SampleSpec`` for request-path serving (:mod:`repro_torch.serve`).
-The overlap mode raises ``NotImplementedError`` naming its ROADMAP item.
+``cfg.overlap >= 1`` declares the async stage-graph schedule
+(``ScheduleSpec(depth=cfg.overlap)``): ``forward_overlapped`` runs the
+``bucketed`` and ``csr`` layouts' metapaths as stages of their own and
+splits partitioned NA at the gather, and serving prefetches the next
+step's sample.
 """
 from __future__ import annotations
 
@@ -34,10 +38,10 @@ from repro_torch.configs.base import HGNNConfig
 from repro_torch.core import metapath as mp
 from repro_torch.core import stages
 from repro_torch.core.hgraph import HeteroGraph
-from repro_torch.core.pipeline import PlannedModel, not_ported
+from repro_torch.core.pipeline import PlannedModel
 from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
                                    PartitionSpec, ResidencySpec, SASpec,
-                                   SampleSpec, StagePlan,
+                                   SampleSpec, ScheduleSpec, StagePlan,
                                    default_sample_ladder)
 from repro_torch.data.synthetic import DATASET_METAPATHS, DATASET_TARGET
 from repro_torch.interop import resolve_device
@@ -65,8 +69,6 @@ class HAN(PlannedModel):
                     "(fused=True, no degree buckets); got "
                     f"layout={layout!r}")
             part = PartitionSpec(k=cfg.partitions)
-        if cfg.overlap >= 1:
-            raise not_ported("the async stage-graph schedule (overlap)", 14)
         na = NASpec(kind="gat", layout=layout, activation="elu",
                     use_pallas=cfg.use_pallas)
         # the epilogue's score mean needs the single-table stack
@@ -101,6 +103,8 @@ class HAN(PlannedModel):
             metapaths=tuple(tuple(p) for p in self.metapaths),
             partition=part,
             sample=sample,
+            schedule=(ScheduleSpec(depth=cfg.overlap)
+                      if cfg.overlap >= 1 else None),
         )
 
     # ---------------- Stage 1: Subgraph Build (host) ----------------

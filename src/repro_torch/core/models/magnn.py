@@ -16,8 +16,10 @@ instances; ``cfg.cache_rows`` turns on hot-feature residency, whose
 single-device instance gathers go through the ``cached_gather`` kernel;
 ``cfg.partitions >= 1`` declares graph-partitioned execution over ``K``
 partitions; ``cfg.fanout >= 1`` declares the plan's ``SampleSpec`` for
-request-path serving (:mod:`repro_torch.serve`).  The overlap mode raises
-``NotImplementedError`` naming its ROADMAP item.
+request-path serving (:mod:`repro_torch.serve`); ``cfg.overlap >= 1``
+declares the async stage-graph schedule (``ScheduleSpec(depth=
+cfg.overlap)``: one NA stage a metapath, partitioned NA split at the
+gather, serving's sampler prefetch).
 """
 from __future__ import annotations
 
@@ -28,10 +30,10 @@ import numpy as np
 from repro_torch.configs.base import HGNNConfig
 from repro_torch.core import metapath as mp
 from repro_torch.core.hgraph import HeteroGraph
-from repro_torch.core.pipeline import PlannedModel, not_ported
+from repro_torch.core.pipeline import PlannedModel
 from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
                                    PartitionSpec, ResidencySpec, SASpec,
-                                   SampleSpec, StagePlan,
+                                   SampleSpec, ScheduleSpec, StagePlan,
                                    default_sample_ladder)
 from repro_torch.data.synthetic import DATASET_METAPATHS, DATASET_TARGET
 from repro_torch.interop import resolve_device
@@ -47,8 +49,6 @@ class MAGNN(PlannedModel):
         cfg = self.cfg
         part = (PartitionSpec(k=cfg.partitions) if cfg.partitions >= 1
                 else None)
-        if cfg.overlap >= 1:
-            raise not_ported("the async stage-graph schedule (overlap)", 14)
         na = NASpec(kind="instance", layout="instances", activation="elu",
                     use_pallas=cfg.use_pallas)
         sa = SASpec(kind="attention", stacked=False)
@@ -85,6 +85,8 @@ class MAGNN(PlannedModel):
             metapaths=tuple(tuple(p) for p in self.metapaths),
             partition=part,
             sample=sample,
+            schedule=(ScheduleSpec(depth=cfg.overlap)
+                      if cfg.overlap >= 1 else None),
         )
 
     # ---------------- Stage 1: Subgraph Build (host, sampled instances) ----

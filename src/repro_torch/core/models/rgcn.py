@@ -14,8 +14,10 @@ Execution is a :class:`StagePlan` run by the stage-graph executor
 padded and bucketed layouts; ``cfg.cache_rows`` turns on hot-feature
 residency; ``cfg.partitions >= 1`` declares graph-partitioned execution
 over ``K`` partitions (padded layout only); ``cfg.fanout >= 1`` declares
-the plan's ``SampleSpec`` for request-path serving.  The overlap mode
-raises ``NotImplementedError`` naming its ROADMAP item.
+the plan's ``SampleSpec`` for request-path serving; ``cfg.overlap >=
+1`` declares the async stage-graph schedule (``ScheduleSpec(depth=
+cfg.overlap)``: partitioned NA split at the gather, serving's sampler
+prefetch).
 """
 from __future__ import annotations
 
@@ -27,10 +29,10 @@ from repro_torch.configs.base import HGNNConfig
 from repro_torch.core import metapath as mp
 from repro_torch.core import stages
 from repro_torch.core.hgraph import HeteroGraph
-from repro_torch.core.pipeline import PlannedModel, not_ported
+from repro_torch.core.pipeline import PlannedModel
 from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
                                    PartitionSpec, ResidencySpec, SASpec,
-                                   SampleSpec, StagePlan,
+                                   SampleSpec, ScheduleSpec, StagePlan,
                                    default_sample_ladder)
 from repro_torch.data.synthetic import DATASET_TARGET
 from repro_torch.interop import resolve_device
@@ -57,8 +59,6 @@ class RGCN(PlannedModel):
                     "partitioned RGCN execution needs the padded per-relation "
                     f"layout (fused=True, no degree buckets); got {layout!r}")
             part = PartitionSpec(k=cfg.partitions)
-        if cfg.overlap >= 1:
-            raise not_ported("the async stage-graph schedule (overlap)", 14)
         na = NASpec(kind="mean", layout=layout, use_pallas=cfg.use_pallas)
         sample = None
         if cfg.fanout >= 1:
@@ -89,6 +89,8 @@ class RGCN(PlannedModel):
             head=HeadSpec(kind="select_linear", target=self.target),
             partition=part,
             sample=sample,
+            schedule=(ScheduleSpec(depth=cfg.overlap)
+                      if cfg.overlap >= 1 else None),
         )
 
     # ---------------- Stage 1: Relation Walk (host) ----------------

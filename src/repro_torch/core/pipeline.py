@@ -62,7 +62,20 @@ hot-feature residency, and HAN, RGCN and MAGNN graph-partitioned over
   (MAGNN) — SA averages its scores in global row order, and the head
   restores global row order through the inverse permutation ``inv``.
   Each row is reduced in a fixed order whatever ``K`` is, so ``K = 1``
-  gives the unpartitioned arm's bits.
+  gives the unpartitioned arm's bits;
+* the async stage-graph schedule (slice 13, ``plan.schedule``):
+  :meth:`~StageGraphExecutor.forward_overlapped` walks the plan's stage
+  DAG (:meth:`~StageGraphExecutor.schedule_edges`) stage by stage through
+  a bounded :class:`~repro_torch.kernels.streaming.InflightWindow`.  Where
+  the serial forward loops metapaths (HAN ``bucketed`` and ``csr``,
+  MAGNN), each metapath's NA is a stage of its own (``NA.p{i}``); a
+  partitioned plan splits NA at the gather: ``NA.own`` pre-gathers the
+  owned rows while ``gather_halo`` (the exchange alone) runs, and the
+  merge NA selects the halo rows in and runs the serial arm's kernels on
+  the merged rows.  On the card a sibling branch (``NA.p{i}`` for i > 0,
+  ``NA.own``) runs on a side stream of the executor's own, ordered by CUDA
+  events.  The split stages are row selections and elementwise
+  rearrangements, so the logits are bitwise the serial forward's.
 
 :func:`check_ported` accepts exactly HAN's, RGCN's, MAGNN's and GCN's
 combinations of these arms.  Arms of later slices raise
@@ -75,25 +88,21 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_flatten
 
 from repro_torch.core import residency, semantics, stages
 from repro_torch.core.plan import StagePlan
 from repro_torch.dist import partition as dpart
 from repro_torch.dist.partition import HALO_MODES
 from repro_torch.kernels import ops
+from repro_torch.kernels.streaming import InflightWindow
 
 _ACT = {None: lambda x: x, "elu": F.elu, "relu": F.relu}
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 item "
-        f"{item})")
 
 
 def no_such_arm(what: str) -> NotImplementedError:
@@ -193,12 +202,11 @@ def _check_partitioned(plan: StagePlan) -> None:
 def check_ported(plan: StagePlan) -> None:
     """Raise for any plan outside the ported slices (HAN's, RGCN's,
     MAGNN's and GCN's combinations of arms, each with or without
-    residency and sampling, the first three also graph-partitioned), so
-    that no arm is silently served by another one."""
+    residency, sampling and the async schedule, the first three also
+    graph-partitioned), so that no arm is silently served by another
+    one."""
     if plan.partition is not None:
         _check_partitioned(plan)
-    if plan.schedule is not None:
-        raise not_ported("the async stage-graph schedule", 14)
     kind = plan.na.kind
     if kind == "gat":
         _check_han_arms(plan)
@@ -222,6 +230,11 @@ class StageGraphExecutor:
         # sampled batches name pad rows and pad edges one past the table:
         # the bucketed and edge-list arms drop them into a sink row
         self._sink = plan.sample is not None
+        # the async schedule's side streams, a list a CUDA device (made at
+        # first use, kept, so their kernel scratch is made once)
+        self._streams: Dict = {}
+        # the last forward_overlapped's dispatch trace
+        self.last_dispatch: Dict = {}
 
     # ------------------------------------------------------------------
     # params
@@ -349,56 +362,63 @@ class StageGraphExecutor:
         metapath graphs are target->target, so only this layer's SA output)
         or ``target+carry`` (MAGNN: the SA output plus this layer's FP
         output ``h`` for the carried types; partitioned, their owned rows
-        only, since the halos are exchanged again)."""
+        only, since the halos are exchanged again, laid out contiguously as
+        whichever flow made ``h``, so the next FP's product is the same)."""
         if lp.handoff == "all":
             return out
         state = {self.plan.target: out}
         if lp.handoff == "target+carry":
             part = batch.get("part")
             for ty in lp.carry:
-                state[ty] = (h[ty] if part is None
-                             else h[ty][:, : part["feats"][ty].shape[1]])
+                state[ty] = (h[ty] if part is None else h[ty][
+                    :, : part["feats"][ty].shape[1]].contiguous())
         return state
 
     # ------------------------------------------------------------------
     # partitioned flow: the halo exchange
     # ------------------------------------------------------------------
+    def halo_exchange(self, batch: Dict, h_own: Dict) -> Dict:
+        """The exchange alone: each type's halo rows ``[K, H_max, ...]``
+        fetched from the partitions' owned tables by one flat gather, not
+        yet appended to the local tables (the async schedule runs it
+        beside NA's owned-rows pre-gather).  With residency, a hot halo
+        entry is read from the partition-local cache of hot rows, whose
+        merged index ``where(slot >= 0, hot_flat[slot], halo_src)``
+        (:func:`residency.partition_overlay`, on the host) names the same
+        flat owned row as ``halo_src``: the cached exchange is this same
+        one gather, bitwise."""
+        part = batch["part"]
+        return {t: dpart.gather_halo(h, part["halo_src"][t])
+                for t, h in h_own.items()}
+
     def gather_halo(self, batch: Dict, h_own: Dict) -> Dict:
         """The partitioned flow's exchange stage: each type's local source
-        table, ``concat(own, halo)`` along the rows, its halo rows
-        ``[K, H_max, ...]`` fetched from the partitions' owned tables (the
-        flat gather).  With residency, the entries whose global vertex is
-        hot (``halo_slot >= 0``) are selected from the partition-local
-        cache of hot rows instead — bitwise copies of owned rows, so the
-        bits are the same and those rows skip the exchange."""
-        part = batch["part"]
-        res = batch.get("residency")
-        out: Dict = {}
-        for t, h in h_own.items():
-            halo = dpart.gather_halo(h, part["halo_src"][t])
-            if res is not None and t in res["halo_slot"]:
-                slot = res["halo_slot"][t]  # [K, H_max] (-1 = cold or pad)
-                tail = tuple(h.shape[2:])
-                cache = h.reshape((-1,) + tail).index_select(
-                    0, res["hot_flat"][t])
-                sel = cache.index_select(0, slot.clamp(min=0).reshape(-1))
-                cond = (slot >= 0).reshape(tuple(slot.shape) + (1,) * len(tail))
-                halo = torch.where(cond, sel.reshape(halo.shape), halo)
-            out[t] = torch.cat([h, halo], dim=1)
-        return out
+        table, ``concat(own, halo)`` along the rows (:meth:`halo_exchange`
+        and a concat)."""
+        halos = self.halo_exchange(batch, h_own)
+        return {t: torch.cat([h, halos[t]], dim=1) for t, h in h_own.items()}
 
     # ------------------------------------------------------------------
     # Stage 3: Neighbor Aggregation
     # ------------------------------------------------------------------
+    @staticmethod
+    def _hot(batch: Dict, t: str):
+        """Type ``t``'s hot rows under residency, else None."""
+        res = batch.get("residency")
+        return None if res is None else res.get("hot", {}).get(t)
+
     def _res_pool(self, batch: Dict, t: str, x: torch.Tensor):
         """Residency arm: extend type ``t``'s source pool with the cache
         section — bitwise copies of the hot rows, which the remapped index
         tables address.  The hot sets are layer-invariant, so every layer
-        reuses the same resident rows.  Uncached batches pass through."""
-        res = batch.get("residency")
-        if res is None or t not in res.get("hot", {}):
+        reuses the same resident rows; an NA stage extends each type's
+        pool once.  Uncached batches pass through.  The edge-list mean
+        arms build no pool: their ``segment_sum`` reads a cache index
+        through the hot ids (:meth:`_hot`)."""
+        hot = self._hot(batch, t)
+        if hot is None:
             return x
-        return torch.cat([x, x.index_select(0, res["hot"][t])])
+        return torch.cat([x, x.index_select(0, hot)])
 
     def na(self, params: Dict, batch: Dict, h):
         kind = self.plan.na.kind
@@ -415,16 +435,17 @@ class StageGraphExecutor:
     def _na_gcn(self, batch: Dict, h: torch.Tensor):
         """GCN's two aggregation layers, both NA work (the paper's GNN
         comparison has no semantic stage): segment means over the edge
-        list, the second over the relu of the first.  The residency pool
-        covers both; the second re-gathers z over the same remapped table
-        (the inter-layer reuse)."""
+        list, the second over the relu of the first.  Residency covers
+        both: the second re-gathers z over the same remapped table (the
+        inter-layer reuse), each cache index read through the hot ids."""
         t = self.plan.target
+        hot = self._hot(batch, t)
         z = F.relu(stages.mean_aggregate_csr(
-            self._res_pool(batch, t, h), batch["seg"], batch["idx"],
-            h.shape[0], sink=self._sink))
+            h, batch["seg"], batch["idx"], h.shape[0], sink=self._sink,
+            hot=hot))
         return stages.mean_aggregate_csr(
-            self._res_pool(batch, t, z), batch["seg"], batch["idx"],
-            z.shape[0], sink=self._sink)
+            z, batch["seg"], batch["idx"], z.shape[0], sink=self._sink,
+            hot=hot)
 
     def _na_gat(self, params: Dict, batch: Dict, h: torch.Tensor):
         """HAN's NA: the ``csr`` baseline (one edge list a metapath,
@@ -438,20 +459,16 @@ class StageGraphExecutor:
         act = _ACT[plan.na.activation]
         pool = self._res_pool(batch, plan.target, h)
         if plan.na.layout == "csr":
-            outs = []
-            for p_i, (seg, idx) in zip(params["gat"], batch["edges"]):
-                z = stages.gat_aggregate_csr(p_i, h, pool, seg, idx,
-                                             h.shape[0])
-                outs.append(act(z).reshape(z.shape[0], -1))
-            return outs
+            return [act(z).reshape(z.shape[0], -1) for z in (
+                self._gat_metapath(p_i, batch, h, pool, i)
+                for i, p_i in enumerate(params["gat"]))]
         if plan.na.layout == "bucketed":
-            agg_fn = None
-            if plan.na.use_pallas:
-                agg_fn = functools.partial(ops.gat_aggregate, use_pallas=True)
-            z = act(torch.stack([
-                stages.gat_aggregate_bucketed(p_i, h, pool, bks,
-                                              agg_fn=agg_fn, sink=self._sink)
-                for p_i, bks in zip(params["gat"], batch["buckets"])]))
+            # the activation a metapath, then the stack, as the schedule's
+            # NA.p{i} stages apply it: elementwise, but the CPU's vectorised
+            # loop rounds the elements at a thread's chunk end by its
+            # scalar path, so the bits follow the tensor it is applied to
+            z = torch.stack([act(self._gat_metapath(p_i, batch, h, pool, i))
+                             for i, p_i in enumerate(params["gat"])])
             return z.reshape(z.shape[0], z.shape[1], -1)  # [P, N, D]
         stacked_fn = None
         if plan.na.use_pallas:
@@ -462,6 +479,22 @@ class StageGraphExecutor:
             stacked_fn=stacked_fn, h_src=pool)
         z = act(z)
         return z.reshape(z.shape[0], z.shape[1], -1)  # [P, N, D]
+
+    def _gat_metapath(self, p_i: Dict, batch: Dict, h: torch.Tensor,
+                      pool: torch.Tensor, i: int) -> torch.Tensor:
+        """Metapath ``i``'s GAT NA on the ``csr`` or ``bucketed`` layout,
+        before the activation: ``[N, H, Dh]`` (the serial loop's body and
+        the schedule's ``NA.p{i}`` stage)."""
+        if self.plan.na.layout == "csr":
+            seg, idx = batch["edges"][i]
+            return stages.gat_aggregate_csr(p_i, h, pool, seg, idx,
+                                            h.shape[0])
+        agg_fn = None
+        if self.plan.na.use_pallas:
+            agg_fn = functools.partial(ops.gat_aggregate, use_pallas=True)
+        return stages.gat_aggregate_bucketed(p_i, h, pool,
+                                             batch["buckets"][i],
+                                             agg_fn=agg_fn, sink=self._sink)
 
     def _na_gat_fused_sa(self, params: Dict, batch: Dict, h: torch.Tensor):
         """Stacked NA with the SA pass-1 epilogue fused in: returns
@@ -481,7 +514,9 @@ class StageGraphExecutor:
         type's rows over the incoming neighbours, projected by ``w_rel``.
         With ``na.use_pallas`` the padded and bucketed layouts run the
         ``segment_spmm`` kernel; ``csr`` is the ``segment_sum`` segment
-        mean."""
+        mean.  With residency each source type's pool is extended once
+        for all its relations; the ``csr`` arm reads the cache indices
+        through the hot ids instead."""
         plan = self.plan
         # "__h__" rides along for the self-loop term in SA (rel_sum)
         out: Dict = {"__h__": h}
@@ -489,19 +524,23 @@ class StageGraphExecutor:
         if plan.na.use_pallas and plan.na.layout != "csr":
             agg_fn = functools.partial(ops.segment_spmm, mean=True,
                                        use_pallas=True)
+        pools: Dict = {}
         for key in sorted(batch["rels"]):
             s, _, d = key
             rel = batch["rels"][key]
-            pool = self._res_pool(batch, s, h[s])
+            if plan.na.layout != "csr" and s not in pools:
+                pools[s] = self._res_pool(batch, s, h[s])
             if plan.na.layout == "csr":
-                agg = stages.mean_aggregate_csr(pool, rel[0], rel[1],
-                                                h[d].shape[0])
+                agg = stages.mean_aggregate_csr(h[s], rel[0], rel[1],
+                                                h[d].shape[0],
+                                                hot=self._hot(batch, s))
             elif plan.na.layout == "bucketed":
                 agg = stages.mean_aggregate_bucketed(
-                    pool, rel, h[d].shape[0], agg_fn=agg_fn, sink=self._sink)
+                    pools[s], rel, h[d].shape[0], agg_fn=agg_fn,
+                    sink=self._sink)
             else:  # padded
-                agg = (agg_fn or stages.mean_aggregate_padded)(pool, rel[0],
-                                                               rel[1])
+                agg = (agg_fn or stages.mean_aggregate_padded)(
+                    pools[s], rel[0], rel[1])
             out["|".join(key)] = agg @ params["w_rel"][key]
         return out
 
@@ -510,10 +549,11 @@ class StageGraphExecutor:
         """One metapath's instance-attention NA (MAGNN): gather each path
         position's projected rows — through the ``cached_gather`` kernel
         where the position's type is hot, whichever arm runs, since the
-        remapped ids address the cache section — encode the instances by
-        rotation, attend over them per target.  The kernel arm is the
-        unstacked ``gat_na`` with the encoded instances as the source pool
-        and an ``arange`` neighbour grid."""
+        remapped ids address the cache section, and through ``ops.
+        gather_rows`` elsewhere, which the records count by the same rule
+        — encode the instances by rotation, attend over them per target.
+        The kernel arm is the unstacked ``gat_na`` with the encoded
+        instances as the source pool and an ``arange`` neighbour grid."""
         plan, cfg = self.plan, self.cfg
         heads = cfg.n_heads
         res = batch.get("residency")
@@ -528,7 +568,8 @@ class StageGraphExecutor:
             if ty in hot:
                 return ops.cached_gather(h[ty], hot[ty], nodes[:, :, j],
                                          use_pallas=plan.na.use_pallas)
-            return h[ty][nodes[:, :, j].long()]
+            return ops.gather_rows(h[ty], nodes[:, :, j],
+                                   use_pallas=plan.na.use_pallas)
 
         h_path = torch.stack([gather(j) for j in range(l)], dim=2)
         h_path = h_path.reshape(n, i, l, heads, -1)  # [N, I, L, H, Dh]
@@ -548,6 +589,18 @@ class StageGraphExecutor:
         return [self._na_instance_one(params, batch, h, i)
                 for i in range(len(self.plan.metapaths))]
 
+    def _na_metapath(self, params: Dict, batch: Dict, h, i: int):
+        """Metapath ``i``'s NA as a stage of its own (the async schedule,
+        one device): the ``bucketed`` or ``csr`` GAT loop body, or one
+        MAGNN instance round, with the activation applied here, as the
+        serial loop applies it, so SA's re-stack (:meth:`_sa_entry`) has
+        the serial bits.  Returns ``[N, D]``."""
+        if self.plan.na.kind == "instance":
+            return self._na_instance_one(params, batch, h, i)
+        pool = self._res_pool(batch, self.plan.target, h)
+        z = self._gat_metapath(params["gat"][i], batch, h, pool, i)
+        return _ACT[self.plan.na.activation](z).reshape(z.shape[0], -1)
+
     def _na_partitioned(self, params: Dict, batch: Dict, h_loc: Dict):
         """NA over partition-local tables: destinations are each
         partition's owned rows, sources its ``concat(own, halo)`` table
@@ -565,7 +618,10 @@ class StageGraphExecutor:
         heads = self.cfg.n_heads
 
         def own(ty):
-            return h_loc[ty][:, : part["feats"][ty].shape[1]]
+            # the owned rows laid out as the schedule's merge gets them
+            # (FP's output): a product on a strided view of the local table
+            # is a batched product to cuBLAS, another kernel, other bits
+            return h_loc[ty][:, : part["feats"][ty].shape[1]].contiguous()
 
         if plan.na.kind == "gat":
             n_own = part["feats"][t].shape[1]
@@ -587,40 +643,173 @@ class StageGraphExecutor:
             if plan.na.use_pallas:
                 agg_fn = functools.partial(ops.segment_spmm, mean=True,
                                            use_pallas=True)
-            # "__h__" rides along for the self-loop term in SA (rel_sum):
-            # every type's owned rows when every type updates (L > 1)
-            out: Dict = {"__h__": ({ty: own(ty) for ty in part["feats"]}
-                                   if plan.n_layers > 1 else own(t))}
+            out = self._mean_self_rows(own, part["feats"])
             for key in sorted(part["rels"]):
                 nbr, mask = part["rels"][key]
                 agg = torch.stack([agg_fn(pool, nn, mm) for pool, nn, mm
                                    in zip(h_loc[key[0]], nbr, mask)])
                 out["|".join(key)] = agg @ params["w_rel"][key]  # [K, n, D]
             return out
-        # instance (check_ported): the partitions' rows flattened, [K * n]
-        h_tgt = own(t)
-        k, n = h_tgt.shape[:2]
+        # instance (check_ported)
+        k_idx = torch.arange(h_loc[t].shape[0],
+                             device=h_loc[t].device)[:, None, None]
+        return [self._instance_partitioned(
+            p_i, own(t), torch.stack([
+                h_loc[types[j]][k_idx, nodes[..., j].long()]
+                for j in range(nodes.shape[3])], dim=3), mask)
+            for p_i, (nodes, mask), types in zip(
+                params["att"], part["instances"], plan.metapaths)]
+
+    def _mean_self_rows(self, rows, types) -> Dict:
+        """The partitioned mean NA's ``"__h__"`` entry, for the rel_sum
+        self-loop: ``rows(ty)``, the owned rows of every type when every
+        type updates (L > 1), else of the target."""
+        if self.plan.n_layers > 1:
+            return {"__h__": {ty: rows(ty) for ty in types}}
+        return {"__h__": rows(self.plan.target)}
+
+    def _instance_partitioned(self, p_i: Dict, h_tgt: torch.Tensor,
+                              h_path: torch.Tensor, mask: torch.Tensor):
+        """One metapath's instance attention over every partition: the
+        partitions' rows flattened to ``[K * n]``, the gathered positions
+        ``h_path [K, n, I, L, D]`` rotation-encoded, then one unstacked
+        ``gat_na`` launch over the encoded instances (``na.use_pallas``)
+        or the plain attention.  Returns ``[K, n, D]``."""
+        heads = self.cfg.n_heads
+        k, n, i, l = h_path.shape[:4]
         h_tgt = h_tgt.reshape(k * n, heads, -1)
-        k_idx = torch.arange(k, device=h_tgt.device)[:, None, None]
-        outs = []
-        for p_i, (nodes, mask), types in zip(params["att"], part["instances"],
-                                             plan.metapaths):
-            i, l = nodes.shape[2:]
-            h_path = torch.stack([h_loc[types[j]][k_idx, nodes[..., j].long()]
-                                  for j in range(l)], dim=3)  # [K,n,I,L,D]
-            enc = stages.rotate_encoder(
-                h_path.reshape(k * n, i, l, heads, -1))  # [K*n, I, H, Dh]
-            mask = mask.reshape(k * n, i)
-            if plan.na.use_pallas:
-                flat = enc.reshape(k * n * i, heads, enc.shape[-1])
-                nbr_inst = torch.arange(k * n * i, dtype=torch.int32,
-                                        device=flat.device).reshape(k * n, i)
-                z = ops.gat_aggregate(p_i, h_tgt, flat, nbr_inst, mask,
-                                      use_pallas=True)
-            else:
-                z = stages.instance_aggregate(p_i, h_tgt, enc, mask)
-            outs.append(act(z).reshape(k, n, -1))  # [K, n, D]
-        return outs
+        enc = stages.rotate_encoder(
+            h_path.reshape(k * n, i, l, heads, -1))  # [K*n, I, H, Dh]
+        mask = mask.reshape(k * n, i)
+        if self.plan.na.use_pallas:
+            flat = enc.reshape(k * n * i, heads, enc.shape[-1])
+            nbr_inst = torch.arange(k * n * i, dtype=torch.int32,
+                                    device=flat.device).reshape(k * n, i)
+            z = ops.gat_aggregate(p_i, h_tgt, flat, nbr_inst, mask,
+                                  use_pallas=True)
+        else:
+            z = stages.instance_aggregate(p_i, h_tgt, enc, mask)
+        return _ACT[self.plan.na.activation](z).reshape(k, n, -1)
+
+    # ------------------------------------------------------------------
+    # partitioned flow, async schedule: the own/halo NA split.  The serial
+    # partitioned NA gathers from concat(own, halo), so it waits for the
+    # exchange.  A gather is a row selection, so it splits at the gather,
+    # never at a float reduction: the owned side pre-gathers against the
+    # owned table while the exchange runs, and the merge selects the halo
+    # rows in (stages.gather_own / gather_merge, bitwise the gather from
+    # the concatenation).  Every sum runs once, in the merge, on the same
+    # rows in the same order.
+    # ------------------------------------------------------------------
+    def _na_partitioned_own(self, params: Dict, batch: Dict, h_own: Dict):
+        """The owned-rows pre-gather: all that partitioned NA can do from
+        FP's output alone (it runs beside :meth:`halo_exchange`).  Per
+        partition: HAN the ``[P, n, Kd, H, Dh]`` rows (and, on the plain
+        arm, the source scores ``[P, n, Kd, H]``, row-local math), RGCN a
+        relation's ``[n_d, Kd, D]`` rows, MAGNN a metapath position's
+        ``[n, I, D]`` rows.  Returns what :meth:`_na_partitioned_merge`
+        takes."""
+        plan = self.plan
+        part = batch["part"]
+        t = plan.target
+        if plan.na.kind == "gat":
+            hs = h_own[t].reshape(h_own[t].shape[0], h_own[t].shape[1],
+                                  self.cfg.n_heads, -1)  # [K, n, H, Dh]
+            pre: Dict = {"hn": [stages.gather_own(hs_k, nbr_k)
+                                for hs_k, nbr_k in zip(hs, part["nbr"])]}
+            if not plan.na.use_pallas:
+                a_src = params["gat"]["a_src"]
+                pre["e"] = [torch.stack([
+                    stages.gather_own((hs_k * a_src[p]).sum(-1), nbr_k[p])
+                    for p in range(nbr_k.shape[0])])
+                    for hs_k, nbr_k in zip(hs, part["nbr"])]
+            return pre
+        if plan.na.kind == "mean":
+            return {"|".join(key): [
+                stages.gather_own(own_k, nbr_k) for own_k, nbr_k in zip(
+                    h_own[key[0]], part["rels"][key][0])]
+                for key in sorted(part["rels"])}
+        # instance (check_ported): per metapath, per position
+        return [[[stages.gather_own(own_k, idx_k) for own_k, idx_k in zip(
+            h_own[types[j]], nodes[..., j])] for j in range(nodes.shape[3])]
+            for (nodes, _), types in zip(part["instances"], plan.metapaths)]
+
+    def _na_partitioned_merge(self, params: Dict, batch: Dict, h_own: Dict,
+                              halos: Dict, pre):
+        """The merge: select the exchanged halo rows into the pre-gathered
+        owned rows, then the serial partitioned arm's aggregation on the
+        merged rows.  With ``na.use_pallas`` it runs the same kernels over
+        the merged rows laid flat, with an ``arange`` neighbour grid: HAN
+        one stacked ``gat_na`` a partition (``nbr[p]`` offset into the
+        flat ``[P * n * Kd]`` rows), RGCN one ``segment_spmm`` a relation
+        and partition; MAGNN as in the serial arm.  Bitwise
+        ``_na_partitioned(params, batch, gather_halo(batch, h_own))``."""
+        plan = self.plan
+        part = batch["part"]
+        t = plan.target
+        heads = self.cfg.n_heads
+        act = _ACT[plan.na.activation]
+
+        def n_of(ty):
+            return part["feats"][ty].shape[1]
+
+        if plan.na.kind == "gat":
+            def as_heads(x):
+                return x.reshape(x.shape[0], x.shape[1], heads, -1)
+
+            hd, hh = as_heads(h_own[t]), as_heads(halos[t])
+            zs = []
+            for k, (nbr_k, mask_k) in enumerate(zip(part["nbr"],
+                                                    part["mask"])):
+                hn = stages.gather_merge(pre["hn"][k], hh[k], nbr_k, n_of(t))
+                if plan.na.use_pallas:
+                    grid = torch.arange(nbr_k.numel(), dtype=torch.int32,
+                                        device=nbr_k.device
+                                        ).reshape(nbr_k.shape)
+                    zs.append(ops.gat_aggregate_stacked(
+                        params["gat"], hd[k], hn.reshape(
+                            (-1,) + tuple(hn.shape[3:])), grid, mask_k,
+                        use_pallas=True))
+                    continue
+                a_src = params["gat"]["a_src"]
+                zs.append(torch.stack([stages.gat_aggregate_padded(
+                    {n: v[p] for n, v in params["gat"].items()}, hd[k],
+                    None, None, mask_k[p], hn=hn[p],
+                    e_nbr=stages.gather_merge(
+                        pre["e"][k][p], (hh[k] * a_src[p]).sum(-1),
+                        nbr_k[p], n_of(t)))
+                    for p in range(nbr_k.shape[0])]))
+            z = act(torch.stack(zs))  # [K, P, n, H, Dh]
+            return z.reshape(z.shape[0], z.shape[1], z.shape[2], -1)
+        if plan.na.kind == "mean":
+            out = self._mean_self_rows(lambda ty: h_own[ty], part["feats"])
+            for key in sorted(part["rels"]):
+                s = key[0]
+                aggs = []
+                for k, (nbr_k, mask_k) in enumerate(zip(*part["rels"][key])):
+                    hn = stages.gather_merge(pre["|".join(key)][k],
+                                             halos[s][k], nbr_k, n_of(s))
+                    if plan.na.use_pallas:
+                        grid = torch.arange(nbr_k.numel(), dtype=torch.int32,
+                                            device=nbr_k.device
+                                            ).reshape(nbr_k.shape)
+                        aggs.append(ops.segment_spmm(
+                            hn.reshape(-1, hn.shape[-1]), grid, mask_k,
+                            mean=True, use_pallas=True))
+                    else:
+                        aggs.append(stages.mean_aggregate_padded(
+                            None, nbr_k, mask_k, hn=hn))
+                out["|".join(key)] = torch.stack(aggs) @ params["w_rel"][key]
+            return out
+        # instance (check_ported)
+        return [self._instance_partitioned(
+            p_i, h_own[t], torch.stack([torch.stack([
+                stages.gather_merge(pre_i[j][k], halos[types[j]][k],
+                                    nodes[k, ..., j], n_of(types[j]))
+                for k in range(nodes.shape[0])])
+                for j in range(nodes.shape[3])], dim=3), mask)
+            for p_i, (nodes, mask), types, pre_i in zip(
+                params["att"], part["instances"], plan.metapaths, pre)]
 
     # ------------------------------------------------------------------
     # Stage 4: Semantic Aggregation
@@ -667,6 +856,14 @@ class StageGraphExecutor:
             return semantics.semantic_attention_list(params["sem"], z,
                                                      row_mask)
         return semantics.semantic_attention(params["sem"], z, row_mask)
+
+    def _sa_entry(self, p_l: Dict, batch: Dict, z):
+        """SA as the schedule enters it: after per-metapath NA stages, a
+        stacked SA gets the metapaths' outputs re-stacked (the activation
+        already applied a metapath, as in the serial arm)."""
+        if self._split_metapaths() and self.plan.sa.stacked:
+            z = torch.stack(z)  # [P, N, D]
+        return self.sa(p_l, batch, z)
 
     def _sa_partitioned(self, params: Dict, batch: Dict, z):
         """SA on the partition-local stacks: rel_sum partition-local (pad
@@ -719,6 +916,237 @@ class StageGraphExecutor:
             out = self.sa(p_l, batch, z)
             state = self._handoff(lp, batch, h, out)
         return self.head(params, out, batch)
+
+    # ------------------------------------------------------------------
+    # the async stage-graph schedule (plan.schedule)
+    # ------------------------------------------------------------------
+    def _split_halo(self) -> bool:
+        """Does the schedule split partitioned NA into own/halo passes?"""
+        s = self.plan.schedule
+        return (s is not None and s.overlap_halo
+                and self.plan.partition is not None)
+
+    def _split_metapaths(self) -> bool:
+        """Does the schedule run each metapath's NA as a stage?  Only
+        where the serial arm loops metapaths (``bucketed`` / ``csr`` GAT,
+        MAGNN's instances): the stacked layout is one launch by design,
+        and one metapath has nothing to overlap."""
+        plan, s = self.plan, self.plan.schedule
+        return (s is not None and s.overlap_metapaths
+                and plan.partition is None
+                and len(plan.metapaths) > 1
+                and ((plan.na.kind == "gat"
+                      and plan.na.layout in ("csr", "bucketed"))
+                     or plan.na.kind == "instance"))
+
+    def schedule_edges(self) -> Dict[str, Tuple[str, ...]]:
+        """The plan's stage DAG: stage name -> the stages it waits for, in
+        topological order (the reference's, ``:861``).  The partitioned
+        split runs ``gather_halo`` (the exchange alone) and ``NA.own``
+        side by side and merges them in ``NA``; the metapath split fans
+        ``FP`` out into ``NA.p{i}`` stages that join at ``SA``."""
+        plan = self.plan
+        edges: Dict[str, Tuple[str, ...]] = {}
+        prev = None
+        for l in range(plan.n_layers):
+            pre = f"L{l + 1}." if plan.n_layers > 1 else ""
+            edges[pre + "FP"] = (prev,) if prev else ()
+            if plan.partition is not None:
+                edges[pre + "gather_halo"] = (pre + "FP",)
+                if self._split_halo():
+                    edges[pre + "NA.own"] = (pre + "FP",)
+                    edges[pre + "NA"] = (pre + "NA.own", pre + "gather_halo")
+                else:
+                    edges[pre + "NA"] = (pre + "gather_halo",)
+                sa_deps: Tuple[str, ...] = (pre + "NA",)
+            elif self._split_metapaths():
+                names = [pre + f"NA.p{i}"
+                         for i in range(len(plan.metapaths))]
+                for nm in names:
+                    edges[nm] = (pre + "FP",)
+                sa_deps = tuple(names)
+            else:
+                edges[pre + "NA"] = (pre + "FP",)
+                sa_deps = (pre + "NA",)
+            edges[pre + "SA"] = sa_deps
+            prev = pre + "SA"
+        edges["head"] = (prev,)
+        return edges
+
+    def overlap_record(self) -> Dict:
+        """The schedule's counters, pure functions of the plan (the
+        reference's, ``:897``): the DAG's size and the pairs of stages
+        that no path orders, the concurrency the schedule can use."""
+        edges = self.schedule_edges()
+        names = list(edges)
+        anc: Dict[str, set] = {}
+        for n in names:  # topological by construction
+            a = set()
+            for d in edges[n]:
+                a.add(d)
+                a |= anc[d]
+            anc[n] = a
+        pairs = [(a, b) for i, a in enumerate(names) for b in names[i + 1:]
+                 if a not in anc[b] and b not in anc[a]]
+        sched = self.plan.schedule
+        return {
+            "depth": sched.depth if sched is not None else 1,
+            "stages": len(names),
+            "edges": sum(len(d) for d in edges.values()),
+            "concurrent_pairs": len(pairs),
+            "overlapped_stages": len({s for p in pairs for s in p}),
+            "pairs": [f"{a}|{b}" for a, b in pairs],
+        }
+
+    def _walk_schedule(self, params: Dict, batch: Dict, emit):
+        """Walk the stage DAG in topological order, each stage through
+        ``emit(name, fn, args) -> value`` (``name`` as in
+        :meth:`schedule_edges`).  The async driver and the per-stage
+        timing walk this one graph."""
+        plan = self.plan
+        n_l = plan.n_layers
+        state = out = None
+        for l, lp in enumerate(plan.layers):
+            pre = f"L{l + 1}." if n_l > 1 else ""
+            if l == 0:
+                h = emit(pre + "FP", lambda p, b: self.fp(p, b),
+                         (params, batch))
+            else:
+                h = emit(pre + "FP",
+                         lambda p, s, lp=lp, l=l: self._fp_hidden(
+                             lp, self._layer_params(p, l), s),
+                         (params, state))
+            if plan.partition is not None:
+                if self._split_halo():
+                    # both read FP's output alone: they run side by side
+                    halos = emit(pre + "gather_halo",
+                                 lambda b, hh: self.halo_exchange(b, hh),
+                                 (batch, h))
+                    pre_g = emit(pre + "NA.own",
+                                 lambda p, b, hh, l=l:
+                                 self._na_partitioned_own(
+                                     self._layer_params(p, l), b, hh),
+                                 (params, batch, h))
+                    z = emit(pre + "NA",
+                             lambda p, b, hh, ha, pg, l=l:
+                             self._na_partitioned_merge(
+                                 self._layer_params(p, l), b, hh, ha, pg),
+                             (params, batch, h, halos, pre_g))
+                else:
+                    h = emit(pre + "gather_halo",
+                             lambda b, hh: self.gather_halo(b, hh),
+                             (batch, h))
+                    z = emit(pre + "NA", lambda p, b, hh, l=l: self.na(
+                        self._layer_params(p, l), b, hh), (params, batch, h))
+            elif self._split_metapaths():
+                z = [emit(pre + f"NA.p{i}",
+                          lambda p, b, hh, l=l, i=i: self._na_metapath(
+                              self._layer_params(p, l), b, hh, i),
+                          (params, batch, h))
+                     for i in range(len(plan.metapaths))]
+            else:
+                z = emit(pre + "NA", lambda p, b, hh, l=l: self.na(
+                    self._layer_params(p, l), b, hh), (params, batch, h))
+            out = emit(pre + "SA", lambda p, b, zz, l=l: self._sa_entry(
+                self._layer_params(p, l), b, zz), (params, batch, z))
+            if l + 1 < n_l:
+                # host-side repackaging of the owned rows, no stage
+                state = self._handoff(lp, batch, h, out)
+        return emit("head", lambda p, b, oo: self.head(p, oo, b),
+                    (params, batch, out))
+
+    @staticmethod
+    def _branch(name: str) -> int:
+        """The side stream a stage runs on, 0 for the current stream: a
+        sibling branch of the DAG (``NA.p{i}``, i > 0, beside ``NA.p0``;
+        ``NA.own`` beside ``gather_halo``) gets one of its own."""
+        layered = name[:1] == "L" and name[1:2].isdigit()
+        base = name.split(".", 1)[1] if layered else name
+        if base == "NA.own":
+            return 1
+        if base.startswith("NA.p") and base != "NA.p0":
+            return int(base[len("NA.p"):])
+        return 0
+
+    def _side_stream(self, dev: torch.device, i: int):
+        streams = self._streams.setdefault(dev, [])
+        while len(streams) < i:
+            streams.append(torch.cuda.Stream(dev))
+        return streams[i - 1]
+
+    def forward_overlapped(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """``forward``'s layer loop over the plan's stage DAG: each stage
+        admitted to an :class:`InflightWindow` of ``plan.schedule.depth``
+        (``depth=1``: every stage waited for, the serial baseline), the
+        window drained at the end.  On the card the stages of one branch
+        run on the current stream, and a sibling branch (:meth:`_branch`)
+        on a side stream of the executor's own; a stage waits for the
+        CUDA events of the stages it depends on and records its own, and
+        a tensor made on one stream and read on another is recorded on
+        the reader (``record_stream``), so the allocator cannot hand its
+        block out early.  The split stages are row selections and
+        elementwise rearrangements, so the logits are bitwise
+        :meth:`forward`'s.  ``last_dispatch`` keeps the stages in dispatch
+        order, ``max_inflight`` and ``depth``."""
+        sched = self.plan.schedule
+        win = InflightWindow(sched.depth if sched is not None else 1)
+        edges = self.schedule_edges()
+        dev = _batch_device(batch)
+        cuda = dev.type == "cuda"
+        main = torch.cuda.current_stream(dev) if cuda else None
+        done: Dict[str, Tuple] = {}  # stage -> (event, stream)
+
+        def emit(name, fn, args):
+            if not cuda:
+                return win.admit(name, fn(*args))
+            i = self._branch(name)
+            stream = main if i == 0 else self._side_stream(dev, i)
+            if stream is not main and self.plan.sa.fuse_epilogue:
+                # the epilogue's score sum launches with programmatic
+                # stream serialization; it stays on the current stream
+                raise AssertionError(f"stage {name} of a fused-epilogue "
+                                     "plan on a side stream")
+            for d in edges[name]:
+                event, d_stream = done[d]
+                if d_stream is not stream:
+                    stream.wait_event(event)
+            if stream is not main:
+                for x in _tensors([a for a in args
+                                   if a is not params and a is not batch]):
+                    x.record_stream(stream)
+            with torch.cuda.stream(stream):
+                out = fn(*args)
+                event = torch.cuda.Event()
+                event.record(stream)
+                win.admit(name, out)
+            if stream is not main:
+                for x in _tensors(out):
+                    x.record_stream(main)
+            done[name] = (event, stream)
+            return out
+
+        out = self._walk_schedule(params, batch, emit)
+        win.drain()
+        self.last_dispatch = {"dispatched": list(win.admitted),
+                              "max_inflight": win.max_inflight,
+                              "depth": win.depth}
+        return out
+
+    def overlap_stage_fns(self, params: Dict, batch: Dict
+                          ) -> Dict[str, Tuple]:
+        """One callable a node of :meth:`schedule_edges`, chained on
+        concrete intermediates (``name -> (fn, args)``, each run once
+        here, on the current stream): what the per-stage walls of
+        ``characterize.overlap_accounting`` time."""
+        fns: Dict[str, Tuple] = {}
+
+        def emit(name, fn, args):
+            fns[name] = (fn, args)
+            return fn(*args)
+
+        with torch.inference_mode():
+            self._walk_schedule(params, batch, emit)
+        return fns
 
     # ------------------------------------------------------------------
     # per-stage characterization hooks
@@ -854,6 +1282,10 @@ class StageGraphExecutor:
         out = {"stages": recs, "total": total}
         if rr is not None:
             out["residency"] = rr
+        if self.plan.schedule is not None:
+            # the DAG's counters (measured walls go through
+            # characterize.overlap_accounting, not the records)
+            out["overlap"] = self.overlap_record()
         gh_names = [n for n in fns if n.endswith("gather_halo")]
         if gh_names:
             # every layer exchanges the updated rows over the same maps
@@ -874,6 +1306,11 @@ def _batch_device(batch: Dict) -> torch.device:
         return batch["x"].device
     feats = batch["feats"] if "feats" in batch else batch["part"]["feats"]
     return next(iter(feats.values())).device
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    """Every tensor of a tree of dicts, lists and tuples."""
+    return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
 
 
 def _to_device(tree, device):
@@ -946,6 +1383,9 @@ class PlannedModel:
 
     def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
         return self.executor.forward(params, batch)
+
+    def forward_overlapped(self, params: Dict, batch: Dict) -> torch.Tensor:
+        return self.executor.forward_overlapped(params, batch)
 
     def stage_records(self, params: Dict, batch: Dict, n_chips: int = 1,
                       **kw) -> Dict:

@@ -110,7 +110,13 @@ class ResidencySpec:
 
 @dataclass(frozen=True)
 class ScheduleSpec:
-    """Async stage-graph schedule (not ported yet: Queue 1 item 14)."""
+    """Async stage-graph schedule (``StageGraphExecutor.
+    forward_overlapped``): ``depth`` stage results in flight (1: each
+    waited for, the serial baseline); ``overlap_halo`` splits partitioned
+    NA into an owned-rows pass beside the halo exchange and a merge;
+    ``overlap_metapaths`` runs each metapath's NA as a stage of its own
+    where the serial arm loops them; ``prefetch`` lets the serve engine
+    sample the next step on a worker thread."""
 
     depth: int = 2
     overlap_halo: bool = True

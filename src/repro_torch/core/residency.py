@@ -209,9 +209,15 @@ def partition_overlay(tables: ResidencyTables, batch: Dict) -> Dict:
                      of the hot rows: each partition-local cache row is a
                      bitwise copy of an owned row.
     ``halo_slot[t]`` [K, H_max] cache slot of each halo entry, -1 where the
-                     entry's global vertex is cold (or a pad).  The
-                     executor's ``gather_halo`` selects slot >= 0 entries
-                     from the cache, so hot halo rows skip the exchange.
+                     entry's global vertex is cold (or a pad): slot >= 0
+                     entries are read from the cache, so hot halo rows
+                     skip the exchange.
+
+    The cached exchange's index is merged here, on the host, once:
+    ``where(slot >= 0, hot_flat[slot], halo_src)``.  A hot entry's cache
+    row is its vertex's flat owned row, the row ``halo_src`` names, so the
+    merged index is ``halo_src`` itself (checked here) and the executor's
+    cached exchange is the uncached one flat gather, bit for bit.
     """
     part = batch["part"]
     hot_flat: Dict = {}
@@ -234,6 +240,10 @@ def partition_overlay(tables: ResidencyTables, batch: Dict) -> Dict:
         hm = np.asarray(part["halo_mask"][t]) > 0
         halo_g = of[hs.reshape(-1)].reshape(hs.shape)
         slot = np.where(hm, rank[halo_g], -1).astype(np.int32)
+        merged = np.where(slot >= 0, hf[np.maximum(slot, 0)], hs)
+        if not np.array_equal(merged, hs):
+            raise ValueError(f"type {t!r}: a hot halo entry's cache row is "
+                             "not the owned row its halo_src names")
         hot_flat[t] = hf.astype(np.int32)
         halo_slot[t] = slot
         hits += int((slot >= 0).sum())

@@ -69,15 +69,24 @@ def _leaky_relu(x, slope=0.2):
 def gat_aggregate_padded(
     p: Dict[str, torch.Tensor],
     h_dst: torch.Tensor,  # [N, H, Dh] projected features of target nodes
-    h_src: torch.Tensor,  # [M, H, Dh] projected neighbor pool
-    nbr: torch.Tensor,  # [N, K] int
+    h_src: Optional[torch.Tensor],  # [M, H, Dh] projected neighbor pool
+    nbr: Optional[torch.Tensor],  # [N, K] int (None with hn and e_nbr)
     mask: torch.Tensor,  # [N, K] float
+    hn: Optional[torch.Tensor] = None,  # [N, K, H, Dh] pre-gathered rows
+    e_nbr: Optional[torch.Tensor] = None,  # [N, K, H] pre-gathered scores
 ) -> torch.Tensor:
-    """GAT neighbor aggregation over a padded subgraph. Returns [N, H, Dh]."""
-    idx = nbr.long()
+    """GAT neighbor aggregation over a padded subgraph. Returns [N, H, Dh].
+
+    ``hn`` / ``e_nbr`` let the schedule's own/halo split hand in the two
+    gathers already merged (:func:`gather_own`, :func:`gather_merge`):
+    pure row selections, so the attention math below gives the bits of
+    the gather from ``h_src``."""
+    idx = nbr.long() if hn is None or e_nbr is None else None
     e_dst = (h_dst * p["a_dst"]).sum(-1)  # [N, H]   EW
-    hn = h_src[idx]  # [N, K, H, Dh]  TB gather
-    e_nbr = (h_src * p["a_src"]).sum(-1)[idx]  # [N, K, H]
+    if hn is None:
+        hn = h_src[idx]  # [N, K, H, Dh]  TB gather
+    if e_nbr is None:
+        e_nbr = (h_src * p["a_src"]).sum(-1)[idx]  # [N, K, H]
     e = _leaky_relu(e_dst[:, None, :] + e_nbr)
     e = torch.where(mask[..., None] > 0, e, torch.full_like(e, -1e9))
     e = e - e.amax(dim=1, keepdim=True)
@@ -212,12 +221,42 @@ def instance_aggregate(
     return torch.einsum("nih,nihd->nhd", alpha, enc)
 
 
-def mean_aggregate_padded(h_src: torch.Tensor, nbr: torch.Tensor,
-                          mask: torch.Tensor) -> torch.Tensor:
-    """Mean NA (RGCN). h_src [M, D] -> [N, D]."""
-    s = (h_src[nbr.long()] * mask[..., None]).sum(dim=1)  # [N, K, D] gather
+def mean_aggregate_padded(h_src: Optional[torch.Tensor], nbr: torch.Tensor,
+                          mask: torch.Tensor,
+                          hn: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean NA (RGCN). h_src [M, D] -> [N, D].  ``hn`` hands in the gather
+    already merged (the schedule's own/halo split): the same rows, the
+    same sum."""
+    if hn is None:
+        hn = h_src[nbr.long()]  # [N, K, D] gather
+    s = (hn * mask[..., None]).sum(dim=1)
     d = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
     return s / d
+
+
+def gather_own(own: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The owned half of a split own/halo gather (:func:`gather_merge`):
+    ``own[idx]`` with every index clamped into the owned table.  An index
+    past it names a halo row, and the merge takes the halo side there, so
+    the clamped row never reaches the output (ROADMAP Queue 3 check (a)).
+    It reads the owned table alone, so the schedule runs it while the
+    halo exchange is still in flight."""
+    return own[idx.long().clamp(0, own.shape[0] - 1)]
+
+
+def gather_merge(own_sel: torch.Tensor, halo: torch.Tensor,
+                 idx: torch.Tensor, n_own: int) -> torch.Tensor:
+    """Merge the split gather: ``concat([own, halo])[idx]`` as a select
+    between ``own_sel = gather_own(own, idx)`` and the halo rows
+    ``halo[idx - n_own]`` (clamped into ``[0, H_max)``).  Row copies only,
+    so bitwise the gather from the concatenated table; ``H_max = 0``
+    leaves ``own_sel`` as it is."""
+    if halo.shape[0] == 0:
+        return own_sel
+    v = idx.long()
+    halo_sel = halo[(v - n_own).clamp(0, halo.shape[0] - 1)]
+    cond = (v < n_own).reshape(tuple(v.shape) + (1,) * (halo.dim() - 1))
+    return torch.where(cond, own_sel, halo_sel)
 
 
 def mean_aggregate_bucketed(
@@ -249,7 +288,8 @@ def mean_aggregate_bucketed(
 
 def mean_aggregate_csr(h_src: torch.Tensor, seg: torch.Tensor,
                        idx: torch.Tensor, n_nodes: int,
-                       sink: bool = False) -> torch.Tensor:
+                       sink: bool = False,
+                       hot: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean NA over a flat edge list (the DGL-faithful baseline):
     ``segment_sum(h_src[idx], seg) / max(count, 1)``.  The sum is the
     fixed-order ``segment_sum`` (the CPU's plain version or the card's
@@ -258,8 +298,12 @@ def mean_aggregate_csr(h_src: torch.Tensor, seg: torch.Tensor,
     every run, and cached == uncached holds bitwise on the card too.
     ``sink``: the sampled edge lists' pad edges name segment ``n_nodes``
     (a sorted suffix, so the kernel's bound search still holds), summed
-    into one more segment that is sliced away."""
-    out = ops.segment_sum(h_src, seg, n_nodes + sink, idx=idx, mean=True)
+    into one more segment that is sliced away.  ``hot`` is the residency
+    arm: ``idx`` addresses ``concat(h_src, h_src[hot])`` and a cache index
+    ``v >= M`` reads ``h_src[hot[v - M]]``, the row the cache section
+    would hold, so no extended pool is built."""
+    out = ops.segment_sum(h_src, seg, n_nodes + sink, idx=idx, mean=True,
+                          hot=hot)
     return out[:n_nodes] if sink else out
 
 

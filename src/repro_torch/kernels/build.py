@@ -46,6 +46,8 @@ SIGNATURES: Dict[str, tuple] = {
     "segment_spmm_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "segment_spmm_geometry": ([_P], None),
     "segment_sum_launch": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "segment_sum_hot_launch": ([_P] * 3 + [_I] + [_P] * 4 + [_I] * 4 + [_P],
+                               _I),
     "segment_sum_long_edges": ([], _I),
     "fused_fp_na_launch": ([_P] * 7 + [_I] * 5 + [_P], _I),
     "fused_fp_na_slices": ([], _I),

@@ -3,6 +3,9 @@
 //   out[s, c] = sum over the edges e with seg[e] == s, in edge order, of
 //               v[e, c]            (the plain form: v = vals [E, C])
 //               table[idx[e], c]   (the gather form)
+//               table[hot[idx[e] - M], c] where idx[e] >= M (the gather
+//                                  form with residency: M table rows, and
+//                                  idx addresses concat(table, table[hot]))
 //   out[s, c] /= max(len_s, 1)     (mean only; len_s the segment's count)
 //
 // A port-only kernel: the reference computes jax.ops.segment_sum in XLA
@@ -122,6 +125,7 @@ __device__ __forceinline__ int lower_bound_warp(const int* __restrict__ seg,
 template <int NF>
 __global__ void __launch_bounds__(kThreads)
 segment_sum_kernel(const float* __restrict__ vals, const int* __restrict__ idx,
+                   const int* __restrict__ hot, int M,
                    const int* __restrict__ seg, float* __restrict__ out,
                    int* __restrict__ longs, int* __restrict__ ctr, int E,
                    int N, int C, int mean) {
@@ -161,7 +165,11 @@ segment_sum_kernel(const float* __restrict__ vals, const int* __restrict__ idx,
   for (int base = start; base < end; base += 32) {
     const int cnt = min(32, end - base);
     int my_row = base + lane;  // the plain form reads row e
-    if (idx != nullptr && lane < cnt) my_row = idx[base + lane];
+    if (idx != nullptr && lane < cnt) {
+      my_row = idx[base + lane];
+      // a cache index reads the hot row it names, as cached_gather does
+      if (hot != nullptr && my_row >= M) my_row = hot[my_row - M];
+    }
     for (int i = 0; i < cnt; i += B) {
       float v[B][NF];
 #pragma unroll
@@ -194,7 +202,9 @@ segment_sum_kernel(const float* __restrict__ vals, const int* __restrict__ idx,
 // the ring; thread t < 32 NF returns column c0 + t's sum in edge order.
 template <int NF>
 __device__ __forceinline__ float long_segment_sum(const float* __restrict__ vals,
-                                  const int* __restrict__ idx, float* ring,
+                                  const int* __restrict__ idx,
+                                  const int* __restrict__ hot, int M,
+                                  float* ring,
                                   int* ids, int start, int end, int c0, int C,
                                   bool vec16) {
   constexpr int CB = 32 * NF;          // columns a pass
@@ -220,7 +230,8 @@ __device__ __forceinline__ float long_segment_sum(const float* __restrict__ vals
   auto copy_rows = [&](int k) {
     const int e = start + k * R + my_r;
     if (k >= n_chunks || e >= end) return;
-    const int row = idx != nullptr ? ids[(k % kIds) * R + my_r] : e;
+    int row = idx != nullptr ? ids[(k % kIds) * R + my_r] : e;
+    if (hot != nullptr && row >= M) row = hot[row - M];
     const float* src = vals + (size_t)row * C + c0;
     float* dst = ring + (k % kStages) * kStageFloats + my_r * CB;
     if (vec16) {
@@ -292,7 +303,9 @@ __device__ __forceinline__ float long_segment_sum(const float* __restrict__ vals
 template <int NF>
 __global__ void __launch_bounds__(kThreads)
 segment_sum_long_kernel(const float* __restrict__ vals,
-                        const int* __restrict__ idx, float* __restrict__ out,
+                        const int* __restrict__ idx,
+                        const int* __restrict__ hot, int M,
+                        float* __restrict__ out,
                         const int* __restrict__ longs, int* __restrict__ ctr,
                         int C, int mean, int vec16) {
   extern __shared__ __align__(16) float ring[];  // [kStages][kStageFloats]
@@ -320,8 +333,8 @@ segment_sum_long_kernel(const float* __restrict__ vals,
               end = longs[3 * it + 2];
     const float len = mean ? fmaxf((float)(end - start), 1.f) : 1.f;
     for (int c0 = 0; c0 < C; c0 += 32 * NF) {
-      const float acc = long_segment_sum<NF>(vals, idx, ring, ids, start,
-                                             end, c0, C, vec16 != 0);
+      const float acc = long_segment_sum<NF>(vals, idx, hot, M, ring, ids,
+                                             start, end, c0, C, vec16 != 0);
       const int col = c0 + threadIdx.x;
       if (threadIdx.x < 32 * NF && col < C)
         out[(size_t)s * C + col] = mean ? __fdiv_rn(acc, len) : acc;
@@ -331,11 +344,11 @@ segment_sum_long_kernel(const float* __restrict__ vals,
 
 template <int NF>
 cudaError_t launch_one(cudaStream_t st, const float* vals, const int* idx,
-                       const int* seg, float* out, int* longs, int* ctr,
-                       int E, int N, int C, int mean) {
+                       const int* hot, int M, const int* seg, float* out,
+                       int* longs, int* ctr, int E, int N, int C, int mean) {
   const dim3 grid((N + kWarps - 1) / kWarps, (C + 32 * NF - 1) / (32 * NF));
-  segment_sum_kernel<NF><<<grid, kThreads, 0, st>>>(vals, idx, seg, out,
-                                                    longs, ctr, E, N, C,
+  segment_sum_kernel<NF><<<grid, kThreads, 0, st>>>(vals, idx, hot, M, seg,
+                                                    out, longs, ctr, E, N, C,
                                                     mean);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -364,7 +377,7 @@ cudaError_t launch_one(cudaStream_t st, const float* vals, const int* idx,
   const int cap = E / (kLong + 1) + 1;
   const bool vec16 = C % 4 == 0 && reinterpret_cast<uintptr_t>(vals) % 16 == 0;
   kernel<<<blocks < cap ? blocks : cap, kThreads, smem, st>>>(
-      vals, idx, out, longs, ctr, C, mean, vec16 ? 1 : 0);
+      vals, idx, hot, M, out, longs, ctr, C, mean, vec16 ? 1 : 0);
   return cudaGetLastError();
 }
 
@@ -373,25 +386,41 @@ cudaError_t launch_one(cudaStream_t st, const float* vals, const int* idx,
 extern "C" int segment_sum_long_edges() { return kLong; }
 
 // Launch on `stream`: out [N, C] from vals [E, C] (idx null) or from the
-// rows idx [E] of the table vals [M, C]; seg [E] sorted ascending.  N >= 1,
-// C >= 1, E >= 0.  longs holds 3 (E / (kLong + 1) + 1) ints, ctr 2 ints
-// that are 0 before the launch (the kernels leave them at 0).  Returns the
-// cudaError_t of the launches (0 on success).
-extern "C" int segment_sum_launch(const float* vals, const int* idx,
-                                  const int* seg, float* out, int* longs,
-                                  int* ctr, int E, int N, int C, int mean,
-                                  void* stream) {
+// rows idx [E] of the table vals [M, C]; seg [E] sorted ascending.  With
+// hot (the residency arm) idx addresses concat(table, table[hot]) and an
+// index v >= M reads table row hot[v - M].  N >= 1, C >= 1, E >= 0.
+// longs holds 3 (E / (kLong + 1) + 1) ints, ctr 2 ints that are 0 before
+// the launch (the kernels leave them at 0).  Returns the cudaError_t of
+// the launches (0 on success).
+extern "C" int segment_sum_hot_launch(const float* vals, const int* idx,
+                                      const int* hot, int M, const int* seg,
+                                      float* out, int* longs, int* ctr,
+                                      int E, int N, int C, int mean,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N < 1 || C < 1 || E < 0) return (int)cudaErrorInvalidValue;
   const int nf = (C < 32 * kMaxNF ? C + 31 : 32 * kMaxNF) / 32;
   cudaError_t err;
   if (nf <= 1)
-    err = launch_one<1>(st, vals, idx, seg, out, longs, ctr, E, N, C, mean);
+    err = launch_one<1>(st, vals, idx, hot, M, seg, out, longs, ctr, E, N, C,
+                        mean);
   else if (nf <= 2)
-    err = launch_one<2>(st, vals, idx, seg, out, longs, ctr, E, N, C, mean);
+    err = launch_one<2>(st, vals, idx, hot, M, seg, out, longs, ctr, E, N, C,
+                        mean);
   else if (nf <= 4)
-    err = launch_one<4>(st, vals, idx, seg, out, longs, ctr, E, N, C, mean);
+    err = launch_one<4>(st, vals, idx, hot, M, seg, out, longs, ctr, E, N, C,
+                        mean);
   else
-    err = launch_one<8>(st, vals, idx, seg, out, longs, ctr, E, N, C, mean);
+    err = launch_one<8>(st, vals, idx, hot, M, seg, out, longs, ctr, E, N, C,
+                        mean);
   return (int)err;
+}
+
+// The same without residency.
+extern "C" int segment_sum_launch(const float* vals, const int* idx,
+                                  const int* seg, float* out, int* longs,
+                                  int* ctr, int E, int N, int C, int mean,
+                                  void* stream) {
+  return segment_sum_hot_launch(vals, idx, nullptr, 0, seg, out, longs, ctr,
+                                E, N, C, mean, stream);
 }

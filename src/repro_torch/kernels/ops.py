@@ -72,18 +72,19 @@ def segment_spmm(h_src, nbr, mask, mean: bool = True,
     return ref.segment_spmm(h_src, nbr, mask, mean=mean)
 
 
-def segment_sum(vals, seg, n: int, idx=None, mean: bool = False
-                ) -> torch.Tensor:
+def segment_sum(vals, seg, n: int, idx=None, mean: bool = False,
+                hot=None) -> torch.Tensor:
     """Fixed-order segment sum over a sorted edge list (the ``csr`` arms'
     ``jax.ops.segment_sum``): ``vals [E, C]``, or the rows ``vals[idx]``,
     summed per segment in edge order -> ``[n, C]`` (``mean``: divided by
     each segment's edge count).  The reference's ``csr`` arms do not
     depend on ``use_pallas``, so this dispatches by the tensors' device
     alone: the CPU's plain version or the card's kernel.  The stages call
-    it here, so a harness can record their calls in one place."""
+    it here, so a harness can record their calls in one place.  ``hot``:
+    the residency arm's hot rows, read through the cache indices."""
     return declared(
-        "TB", lambda: _ssum.work(vals, seg, n, idx, mean),
-        _ssum.segment_sum, vals, seg, n, idx=idx, mean=mean)
+        "TB", lambda: _ssum.work(vals, seg, n, idx, mean, hot=hot),
+        _ssum.segment_sum, vals, seg, n, idx=idx, mean=mean, hot=hot)
 
 
 def fused_fp_na(x_src, w, nbr, mask, mean: bool = True,
@@ -117,6 +118,24 @@ def cached_gather(table, hot, idx, use_pallas: bool = False) -> torch.Tensor:
             "TB", lambda: _fc.work(table, hot, idx),
             _fc.cached_gather, table, hot, idx)
     return ref.cached_gather(table, hot, idx)
+
+
+def gather_rows(table, idx, use_pallas: bool = False) -> torch.Tensor:
+    """``table[idx]``, a plain row gather on every device (MAGNN's
+    instance positions of a type with no hot rows).  On the kernel arm it
+    is counted by :func:`cached_gather`'s rule, a row read an index, so
+    the records count the cached and the uncached gathers of one arm
+    alike; on the plain arm it is the aten op, as the plain cached gather
+    is."""
+    if use_pallas:
+        return declared(
+            "TB", lambda: _fc.work(table, idx.new_empty(0), idx),
+            _plain_gather, table, idx)
+    return _plain_gather(table, idx)
+
+
+def _plain_gather(table, idx):
+    return table[idx.long()]
 
 
 def gat_aggregate(p: Dict, h_dst, h_src, nbr, mask,

@@ -42,14 +42,18 @@ def segment_sum(
     n: int,  # segments
     idx: Optional[torch.Tensor] = None,  # [E] int rows of vals to gather
     mean: bool = False,
+    hot: Optional[torch.Tensor] = None,  # [C] int hot rows (residency)
 ) -> torch.Tensor:
     """``jax.ops.segment_sum(rows, seg, num_segments=n)`` with ``rows =
     vals`` or ``vals[idx]``, divided by ``max(len_s, 1)`` when ``mean``
     (``len_s`` the segment's edge count).  ``index_add_`` on a CPU tensor
     adds in index order, so every segment is summed in edge order, one
     rounded add after another: the order of the ``segment_sum`` kernel.
-    A segment with no edge comes out 0.  Returns ``[n, C]``."""
-    rows = vals if idx is None else vals[idx.long()]
+    A segment with no edge comes out 0.  With ``hot``, ``idx`` addresses
+    ``concat(vals, vals[hot])`` and is read as :func:`cached_gather`
+    reads it.  Returns ``[n, C]``."""
+    rows = (vals if idx is None else vals[idx.long()] if hot is None
+            else cached_gather(vals, hot, idx))
     seg = seg.long()
     out = torch.zeros((n,) + tuple(rows.shape[1:]), dtype=vals.dtype,
                       device=vals.device).index_add_(0, seg, rows)

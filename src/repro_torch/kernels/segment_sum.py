@@ -82,16 +82,31 @@ def segment_bounds_emulate(seg: np.ndarray, n: int):
     return starts, ends
 
 
+def _resolve(vals: torch.Tensor, idx: torch.Tensor,
+             hot: Optional[torch.Tensor]) -> torch.Tensor:
+    """The table row each index reads: ``hot[v - M]`` for a cache index
+    ``v >= M`` (``M`` the table's rows), else ``v``."""
+    v = idx.long()
+    if hot is None:
+        return v
+    m = vals.shape[0]
+    return torch.where(v >= m, hot.long()[(v - m).clamp(0, hot.numel() - 1)],
+                       v)
+
+
 def segment_sum_emulate(vals: torch.Tensor, seg: torch.Tensor, n: int,
                         idx: Optional[torch.Tensor] = None,
-                        mean: bool = False) -> torch.Tensor:
+                        mean: bool = False,
+                        hot: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The CUDA kernel's algorithm in PyTorch, for the CPU tests (the
     counterpart of running a Pallas kernel in interpret mode), every
     segment at once: the bounds by the kernel's searches, then the
     segment's k-th edge added at step k, ``acc = acc + row`` rounded step
     by step from ``+0``, then ``acc / max(len, 1)`` for the mean.  A
     segment of more than :data:`LONG` edges takes the block kernel on the
-    card, whose adds are the same, in the same order."""
+    card, whose adds are the same, in the same order.  With ``hot`` a
+    cache index reads the hot row it names."""
+    rows_of = None if idx is None else _resolve(vals, idx, hot)
     starts, ends = segment_bounds_emulate(seg.cpu().numpy(), n)
     starts = torch.as_tensor(starts, device=vals.device)
     lens = torch.as_tensor(ends, device=vals.device) - starts
@@ -100,14 +115,14 @@ def segment_sum_emulate(vals: torch.Tensor, seg: torch.Tensor, n: int,
     for k in range(int(lens.max()) if n else 0):
         on = lens > k
         e = (starts + k)[on]
-        rows = vals[(e if idx is None else idx[e]).long()]
+        rows = vals[e if rows_of is None else rows_of[e]]
         acc[on] = acc[on] + rows
     if mean:
         acc = acc / torch.clamp(lens.to(vals.dtype), min=1.0)[:, None]
     return acc
 
 
-def check_kernel_args(vals, seg, n, idx) -> None:
+def check_kernel_args(vals, seg, n, idx, hot=None) -> None:
     """Raise on what the CUDA kernel does not take.  That ``seg`` is
     sorted is the caller's contract (``stages.csr_to_edges`` makes it so);
     checking it would cost a device sync."""
@@ -125,7 +140,13 @@ def check_kernel_args(vals, seg, n, idx) -> None:
     if vals.dtype != torch.float32:
         raise ValueError(f"segment_sum: vals must be float32, got "
                          f"{vals.dtype}")
+    if hot is not None and (idx is None or hot.dim() != 1
+                            or hot.numel() == 0):
+        raise ValueError("segment_sum: hot needs idx and is a non-empty "
+                         "[C] list")
     ints = {"seg": seg} if idx is None else {"seg": seg, "idx": idx}
+    if hot is not None:
+        ints["hot"] = hot
     for name, t in ints.items():
         if t.dtype != torch.int32:
             raise ValueError(f"segment_sum: {name} must be int32, got "
@@ -137,19 +158,22 @@ def check_kernel_args(vals, seg, n, idx) -> None:
 
 def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int,
                 idx: Optional[torch.Tensor] = None,
-                mean: bool = False) -> torch.Tensor:
+                mean: bool = False,
+                hot: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[s] = sum`` over the edges of segment ``s`` (``seg`` sorted
     ascending) of ``vals[e]``, or of ``vals[idx[e]]`` with ``idx``, in edge
     order; divided by ``max(len_s, 1)`` when ``mean``.  Returns ``[n, C]``;
-    a segment with no edge comes out 0."""
-    ts = (vals, seg) if idx is None else (vals, seg, idx)
+    a segment with no edge comes out 0.  ``hot`` (residency): ``idx``
+    addresses ``concat(vals, vals[hot])``, and a cache index ``v >= M``
+    reads the table row ``hot[v - M]``, so no extended pool is built."""
+    ts = tuple(t for t in (vals, seg, idx, hot) if t is not None)
     dev = build.device_of("segment_sum", ts)
     if dev.type == "cpu":
-        return segment_sum_plain(vals, seg, n, idx=idx, mean=mean)
+        return segment_sum_plain(vals, seg, n, idx=idx, mean=mean, hot=hot)
     if dev.type != "cuda":
         raise ValueError(f"segment_sum: no kernel for device {dev}")
     lib = build.library()
-    check_kernel_args(vals, seg, n, idx)
+    check_kernel_args(vals, seg, n, idx, hot)
     c, e = vals.shape[1], seg.shape[0]
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -158,8 +182,9 @@ def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int,
     longs = build.scratch("segment_sum longs", 3 * (e // (LONG + 1) + 1),
                           torch.int32, dev, stream)
     ctr = build.scratch("segment_sum counters", 2, torch.int32, dev, stream)
-    err = lib.segment_sum_launch(
+    err = lib.segment_sum_hot_launch(
         vals.data_ptr(), None if idx is None else idx.data_ptr(),
+        None if hot is None else hot.data_ptr(), vals.shape[0],
         seg.data_ptr(), out.data_ptr(), longs.data_ptr(), ctr.data_ptr(), e,
         n, c, int(mean), stream)
     build.check(err, "segment_sum")
@@ -171,15 +196,19 @@ segment_sum.launches = 0
 
 
 def work(vals, seg, n: int, idx=None, mean: bool = False,
-         live_only: bool = False):
+         live_only: bool = False, hot=None):
     """``(bytes, operations)`` of one call: ``seg`` (and ``idx``) once,
     the rows summed, the output once; an add per edge and column, and a
     divide per output for the mean.  The plain form reads each value once.
     The gather form reads one table row an edge with ``live_only=False``
     (the characterization record, as the reference's HLO walker charges a
     gather) and each named row once with ``live_only=True`` (the roofline
-    bound)."""
+    bound).  With ``hot`` its ids once more, as ``cached_gather``'s
+    work counts them."""
     e, c = seg.shape[0], vals.shape[1]
-    rows = e if idx is None or not live_only else int(idx.unique().numel())
+    rows = e if idx is None or not live_only else int(
+        _resolve(vals, idx, hot).unique().numel())
     n_bytes = 4 * e * (1 if idx is None else 2) + 4 * rows * c + 4 * n * c
+    if hot is not None:
+        n_bytes += 4 * hot.numel()
     return n_bytes, e * c + (n * c if mean else 0)

@@ -23,6 +23,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --hgnn han \\
       --dataset imdb --use-pallas --partitions 4 [--layers L] \\
       [--cache-rows C] [--characterize] [--fanout 8 --inject-faults SEED]
+  PYTHONPATH=src python -m repro_torch.launch.serve --hgnn rgcn \
+      --dataset imdb --use-pallas --partitions 4 --layers 2 --overlap 2
 
 runs on the CUDA device; ``--device cpu`` runs on the CPU (the kernels'
 plain versions).  Without ``--hgnn`` it serves the dense LM ``--arch`` (full
@@ -93,7 +95,22 @@ seeded chaos schedule through the serve loop; with ``--partitions K``
 fails over to the K - 1 survivors (``failovers=1``; ``recompiles`` then
 counts the batches of the new shapes).
 
-The reference's device mesh and the overlap schedule are not ported yet.
+``--overlap D`` (D >= 1) declares the async stage-graph schedule: the
+forward runs through ``forward_overlapped`` (the stage DAG, ``D`` stage
+results in flight, sibling branches on side streams on the card; ``1`` is
+the serial baseline), the tag gains `` +overlap=D``, and the reference's
+line follows the timing line
+
+  overlap: depth=... stages=... edges=... concurrent_pairs=...
+      overlapped_stages=... max_inflight=...
+
+(the counters are pure functions of the plan); with ``--fanout`` the
+forward stays the serial one and the engine samples the next step on a
+worker thread, which adds the line
+
+  prefetch: issued=... hits=... mispredicts=... cold=...
+
+The reference's device mesh is not ported yet.
 """
 from __future__ import annotations
 
@@ -136,7 +153,13 @@ def build_hgnn_infer(cfg: HGNNConfig, hg, device: DeviceLike = None,
     if gen is None:
         gen = torch.Generator().manual_seed(cfg.seed)
     params = model.init(gen, batch)
-    return BuiltHGNNInfer(model.forward, params, batch, plan, model.executor)
+    # an async schedule serves the overlapped dispatcher (bitwise the
+    # serial forward); sampled serving keeps the serial forward, its
+    # overlap being the engine's sampler prefetch, as in the reference
+    fn = (model.executor.forward_overlapped
+          if plan.schedule is not None and plan.sample is None
+          else model.forward)
+    return BuiltHGNNInfer(fn, params, batch, plan, model.executor)
 
 
 def _sync(device: torch.device) -> None:
@@ -227,6 +250,10 @@ def run_hgnn_serve(args, cfg: HGNNConfig, hg, built: BuiltHGNNInfer):
           f"degrade_steps={rs['degrade_steps']} "
           f"max_degrade_level={rs['max_degrade_level']} "
           f"failovers={rs['partition_failovers']}")
+    if "prefetch" in st:
+        pf = st["prefetch"]
+        print(f"  prefetch: issued={pf['issued']} hits={pf['hits']} "
+              f"mispredicts={pf['mispredicts']} cold={pf['cold']}")
     if "residency" in st:
         rd = st["residency"]
         print(f"  residency: cache_rows={rd['cache_rows']} "
@@ -262,7 +289,8 @@ def run_hgnn(args) -> None:
                      degree_buckets=args.degree_buckets,
                      fuse_na_sa=args.fuse_na_sa,
                      partitions=args.partitions, layers=args.layers,
-                     fanout=args.fanout, cache_rows=args.cache_rows)
+                     fanout=args.fanout, cache_rows=args.cache_rows,
+                     overlap=args.overlap)
     hg = make_dataset(args.dataset)
     built = build_hgnn_infer(cfg, hg, dev)
     if args.fanout >= 1:
@@ -289,9 +317,18 @@ def run_hgnn(args) -> None:
     print(f"{cfg.model}/{cfg.dataset} [na={na.kind}/{na.layout}"
           f"{' +fused-sa' if built.plan.sa.fuse_epilogue else ''}"
           f"{f' +partitions={part.k}' if part is not None else ''}"
-          f"{f' x{n_l}layers' if n_l > 1 else ''}] "
+          f"{f' x{n_l}layers' if n_l > 1 else ''}"
+          f"{f' +overlap={cfg.overlap}' if built.plan.schedule else ''}] "
           f"logits {tuple(logits.shape)} on single-device: "
           f"{dt*1e3:.2f} ms/iter")
+    if built.plan.schedule is not None:
+        ov = built.executor.overlap_record()
+        d = built.executor.last_dispatch
+        print(f"  overlap: depth={ov['depth']} stages={ov['stages']} "
+              f"edges={ov['edges']} "
+              f"concurrent_pairs={ov['concurrent_pairs']} "
+              f"overlapped_stages={ov['overlapped_stages']} "
+              f"max_inflight={d.get('max_inflight', 1)}")
     res = built.batch.get("residency")
     if res is not None:
         ct = res["counters"]
@@ -405,6 +442,13 @@ def main() -> None:
                          "node type in a cache section of the gather pool")
     ap.add_argument("--layers", type=int, default=1,
                     help="stack that many FP->NA->SA layers")
+    ap.add_argument("--overlap", type=int, default=0,
+                    help=">=1: async stage-graph schedule with that "
+                         "in-flight stage depth: the halo exchange beside "
+                         "the owned-rows NA, one NA stage a metapath, side "
+                         "streams on the card, and serving samples the "
+                         "next step while the device computes (1 = the "
+                         "serial baseline)")
     ap.add_argument("--fanout", type=int, default=0,
                     help=">=1: request-path serving — neighbor-sampled "
                          "minibatch inference (per-hop fan-out cap) through "

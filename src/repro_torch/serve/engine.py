@@ -13,9 +13,9 @@ resilience policies (:mod:`repro_torch.serve.resilience`), fault hooks
 counter and status name of the reference's ``stats()``.  Partitioned
 plans re-partition each sampled batch over a ``static_shapes`` spec and
 fail over to the surviving partitions when the fault injector reports a
-partition lost.  The reference's async sampler prefetch
-(``_SamplerPrefetcher``, reached only through ``plan.schedule``) waits for
-ROADMAP Queue 1 item 14; the executor refuses that plan.
+partition lost.  A plan with an async schedule (``plan.schedule`` with
+``prefetch``) samples the predicted next step's batch on a worker thread
+while the current step's forward runs (``_SamplerPrefetcher``).
 
 ``ServeEngine`` — LM serving over the prefill / decode step functions of
 ``nn/transformer.py``: each wave of up to ``batch_slots`` requests is
@@ -128,6 +128,74 @@ def _first_tensor(tree):
     return None
 
 
+class _SamplerPrefetcher:
+    """Async host-side sampler refill (the reference's, ``:91``), one of
+    the stage-graph schedule's overlap sources (``ScheduleSpec.
+    prefetch``): while step ``t``'s forward runs, one worker thread
+    samples the *predicted* step ``t+1`` union batch (``HGNNServeEngine.
+    _predict_next``).  A wrong prediction (deadline expiry, a degradation
+    shift, a failed step) makes :meth:`take` discard the batch, and the
+    engine samples on its own thread instead.  Always correct:
+    ``HGNNSampler.sample`` is a pure function of ``(ids, rung)``, so a
+    discarded call changes nothing.  The worker runs the host numpy
+    sampler alone: it calls no kernel and touches no CUDA state (the
+    batch is placed on the card by the serving thread)."""
+
+    def __init__(self, sampler):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.sampler = sampler
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._future = None
+        self._key = None
+        self.counters: Dict[str, int] = {
+            "issued": 0, "hits": 0, "mispredicts": 0, "cold": 0}
+
+    @staticmethod
+    def _mk_key(ids: np.ndarray, rung_limit: int):
+        return (np.asarray(ids, np.int64).tobytes(), int(rung_limit))
+
+    def submit(self, ids: np.ndarray, rung_limit: int) -> None:
+        """Start sampling a speculative next-step batch (at most one in
+        flight; a pending one keeps its slot)."""
+        if self._future is not None:
+            return
+        self._key = self._mk_key(ids, rung_limit)
+        self.counters["issued"] += 1
+        self._future = self._pool.submit(
+            self.sampler.sample, np.asarray(ids, np.int64),
+            max_rung=int(rung_limit))
+
+    def take(self, ids: np.ndarray, rung_limit: int):
+        """The prefetched batch if it answers exactly ``(ids,
+        rung_limit)``; None (sample on the serving thread) otherwise."""
+        fut, self._future = self._future, None
+        if fut is None:
+            self.counters["cold"] += 1
+            return None
+        try:
+            sb = fut.result()
+        except Exception:  # noqa: BLE001 — the retried sync call re-raises
+            sb = None
+        if sb is None or self._key != self._mk_key(ids, rung_limit):
+            self.counters["mispredicts"] += 1
+            return None
+        self.counters["hits"] += 1
+        return sb
+
+    def drain(self) -> None:
+        """Wait for any speculation in flight and stop the worker: a serve
+        leaves no sampler thread running, whether it ended clean, expired
+        every request or failed over."""
+        if self._future is not None:
+            try:
+                self._future.result()
+            except Exception:  # noqa: BLE001 — speculation is disposable
+                pass
+            self._future = None
+        self._pool.shutdown(wait=True)
+
+
 class HGNNServeEngine:
     """Slot-based continuous batching for HGNN requests.
 
@@ -170,6 +238,11 @@ class HGNNServeEngine:
     sampler), ``forward_s`` (partitioning, upload, forward and read-back)
     and ``partition_s`` (the host partitioner alone, about 0 unpartitioned)
     to the reference's ``wall_s``.
+
+    With ``plan.schedule.prefetch`` the next step's batch is sampled on a
+    worker thread while this step's forward runs (``_SamplerPrefetcher``);
+    ``stats()["prefetch"]`` counts its hits, and the logits are bitwise
+    those of a serve without it.
     """
 
     def __init__(self, executor, params, sampler, slots: int = 8,
@@ -225,6 +298,11 @@ class HGNNServeEngine:
         self.degrade = DegradationController(
             self.res, len(self.sampler.ladder), self.slot_targets)
         self.retry = RetryPolicy(self.res)
+        # the schedule's sampler prefetch: step t+1 sampled while step t's
+        # forward runs
+        sched = self.plan.schedule
+        self.prefetch = (_SamplerPrefetcher(self.sampler)
+                         if sched is not None and sched.prefetch else None)
         self._deadline_expired = 0
         self._failovers = 0
         self._lost_partitions: List[int] = []
@@ -279,6 +357,47 @@ class HGNNServeEngine:
                                         + (sig not in self._shapes_seen))
         self._shapes_seen.add(sig)
         return out
+
+    def _predict_next(self, active, q, chunks):
+        """The next step's ``(union ids, rung limit)``, predicted by
+        running this step's completion forward (the reference's,
+        ``:281``): each chunk advances its request's cursor, exhausted
+        slots refill from the queue in slot order, and the chunking runs
+        again at the current degradation level.  A guess only: deadline
+        expiry, a degradation shift or a failed step makes it wrong, and
+        ``_SamplerPrefetcher.take`` then discards the batch.  None when
+        no step would follow."""
+        done = {id(r): start + len(cids) for r, start, cids in chunks}
+        qi = list(q)
+        qpos = 0
+        cursors = []
+        for r in active:
+            cur = None
+            if r is not None:
+                d = done.get(id(r), r._done)
+                if d < len(r._serve_ids):
+                    cur = (r, d)
+            if cur is None and qpos < len(qi):
+                cur = (qi[qpos], qi[qpos]._done)
+                qpos += 1
+            cursors.append(cur)
+        chunk = self.degrade.chunk()
+        rung_limit = self.degrade.rung_limit()
+        t_budget = self.sampler.ladder[rung_limit][0]
+        parts = []
+        n_union = 0
+        for cur in cursors:
+            if cur is None:
+                continue
+            if n_union >= t_budget:
+                break
+            r, d = cur
+            take = min(chunk, t_budget - n_union, len(r._serve_ids) - d)
+            parts.append(np.asarray(r._serve_ids[d: d + take], np.int64))
+            n_union += take
+        if not parts:
+            return None
+        return np.concatenate(parts), rung_limit
 
     def _maybe_failover(self, step: int) -> None:
         """An injected partition loss: every later batch is partitioned over
@@ -369,13 +488,24 @@ class HGNNServeEngine:
             t0 = time.perf_counter()
             inj = self.injector
             t_sampled = t0
+            # a prefetched batch stands in for the sampler call, under the
+            # same retry policy and fault hook, so injected sampler faults
+            # fire alike whether the batch was prefetched or not
+            sb_pre = (self.prefetch.take(ids, rung_limit)
+                      if self.prefetch is not None else None)
+            sample_call = ((lambda: sb_pre) if sb_pre is not None else
+                           (lambda: self.sampler.sample(
+                               ids, max_rung=rung_limit)))
             try:
                 sb = retry.run(
-                    "sampler",
-                    lambda: self.sampler.sample(ids, max_rung=rung_limit),
+                    "sampler", sample_call,
                     hook=(lambda a: inj.check("sampler", step, a))
                     if inj else None)
                 t_sampled = time.perf_counter()
+                if self.prefetch is not None:
+                    nxt = self._predict_next(active, q, chunks)
+                    if nxt is not None:
+                        self.prefetch.submit(*nxt)
                 out = retry.run(
                     "forward", lambda: self._forward(sb.batch),
                     hook=(lambda a: inj.check("forward", step, a))
@@ -441,6 +571,8 @@ class HGNNServeEngine:
             })
             self.last_sb = sb
             step += 1
+        if self.prefetch is not None:
+            self.prefetch.drain()
         for r in requests:
             self._status_counts[r.status] = (
                 self._status_counts.get(r.status, 0) + 1)
@@ -488,6 +620,9 @@ class HGNNServeEngine:
                 "injected": inj_counts,
             },
         }
+        if self.prefetch is not None:
+            out["prefetch"] = {k: int(v)
+                               for k, v in self.prefetch.counters.items()}
         if self.caches is not None:
             hits = sum(c.hits for c in self.caches.values())
             misses = sum(c.misses for c in self.caches.values())

@@ -230,39 +230,48 @@ def test_fused_epilogue_saves_an_hbm_pass(tiny_hg, use_pallas):
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(fuse_na_sa=True),
-                                dict(degree_buckets=3)])
+                                dict(degree_buckets=3),
+                                dict(model="rgcn", fused=False),
+                                dict(partitions=4), dict(model="magnn")])
 def test_cached_stage_records_na_bytes_strictly_decrease(tiny_hg, kw):
-    """With the cache, every NA stage's bytes strictly decrease (hits ×
-    row bytes saved; the fill charged once, at the first cached stage) and
-    no other stage's record moves: HAN's kernel arms, whose ``gat_na``
-    declares its gathers a row a slot with or without the cache.  The
-    other cached arms of the port do not decrease on this graph: the
-    extended pool is copied whole on every NA call (RGCN: a relation), and
-    MAGNN's and the plain arms' uncached gathers are aten ``index`` ops,
-    whose table is counted once (ROADMAP Queue 3 check (f))."""
-    model, use_pallas = "han", True
-    kw = dict(fused=True, **kw)
+    """With the cache, every cached stage's bytes strictly decrease (hits
+    × row bytes saved; the fill charged once, at the first cached stage)
+    and no other stage's record moves: the reference's cases (HAN, RGCN
+    ``fused=False`` and HAN ``partitions=4``, whose ``gather_halo``
+    records carry the savings) on the kernel arm, and MAGNN's.  It holds
+    because the code does no extra work for the cache: HAN's ``gat_na``
+    reads a row a slot with or without it, RGCN's ``csr`` mean reads a
+    cache index through the hot ids instead of an extended pool, the
+    cached halo exchange is the uncached one gather, and MAGNN's cached
+    and uncached gathers are counted by one rule.  The padded RGCN and
+    the plain arms still copy the extended pool once a type and layer
+    (ROADMAP Queue 3 check (f))."""
+    kw = {"model": "han", "fused": True, **kw}
+    model = kw.pop("model")
+    suffix = "gather_halo" if kw.get("partitions") else "NA"
     m0, p, b0, r0 = _records(tiny_hg, model=model, layers=2,
-                             use_pallas=use_pallas, **kw)
+                             use_pallas=True, **kw)
     m1 = get_model(HGNNConfig(**dict(TINY, model=model, layers=2,
-                                     use_pallas=use_pallas, cache_rows=12,
+                                     use_pallas=True, cache_rows=12,
                                      **kw)))
     b1 = m1.prepare(_graphs("han-stacked", tiny_hg, None)[1], device="cpu")
     r1 = m1.stage_records(p, b1)
     rr = r1["residency"]
     assert rr["hits"] > 0
     assert rr["hit_rate"] == rr["hits"] / rr["rows"]
-    names = [n for n in r1["stages"] if n.endswith("NA")]
+    names = [n for n in r1["stages"] if n.endswith(suffix)]
     assert len(names) == 2
     for i, n in enumerate(names):
         assert r1["stages"][n]["hbm_bytes"] < r0["stages"][n]["hbm_bytes"]
         assert r1["stages"][n]["residency_bytes_saved"] == \
             rr["bytes_saved_per_layer"] - (rr["fill_bytes"] if i == 0 else 0)
     for n in r1["stages"]:
-        if not n.endswith("NA"):
+        if not n.endswith(suffix):
             assert r1["stages"][n]["hbm_bytes"] == r0["stages"][n]["hbm_bytes"]
     assert r1["total"]["hbm_bytes"] < r0["total"]["hbm_bytes"]
     _sums_to_totals(r1)
+    with torch.inference_mode():
+        assert torch.equal(m1.forward(p, b1), m0.forward(p, b0))
 
 
 def test_characterizer_reproduces_paper_stage_structure(tiny_hg):
@@ -473,9 +482,10 @@ def test_timed_records_raise_on_the_cpu(tiny_hg):
 def test_sampled_partitioned_and_overlap_paths_raise(tiny_hg):
     """The sampled path is ported (its SAMPLE record is the reference's
     ``sample_traffic``, ahead of the device stages and out of ``total``);
-    so is the partitioned one (its records: tests/test_torch_partitioned
-    .py); the overlap plans, partitioned or not, still raise naming their
-    item."""
+    so are the partitioned one (its records: tests/test_torch_partitioned
+    .py) and the overlap plans, partitioned or not, which the reference
+    runs too: their records add the reference's ``overlap`` counters and
+    keep the serial stages' records."""
     m, p, b, recs = _records(tiny_hg, model="han", fused=True)
     meta = {"rung": (8, 64), "rung_index": 1, "n_targets": 5,
             "frontier_rows": 211, "frontier_bytes": 54016,
@@ -486,9 +496,15 @@ def test_sampled_partitioned_and_overlap_paths_raise(tiny_hg):
     assert sampled["total"] == recs["total"]
     for kw, item in ((dict(partitions=4, overlap=2), 14),
                      (dict(overlap=2), 14)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            get_model(HGNNConfig(**TINY, model="han", fused=True,
-                                 **kw)).plan()
+        m1, p1, b1, r1 = _records(tiny_hg, model="han", fused=True, **kw)
+        m0, _, b0, r0 = _records(tiny_hg, model="han", fused=True,
+                                 **dict(kw, overlap=0))
+        assert m1.plan().schedule.depth == 2
+        assert r1["overlap"] == m1.executor.overlap_record()
+        assert r1["stages"] == r0["stages"] and r1["total"] == r0["total"]
+        with torch.inference_mode():
+            assert torch.equal(m1.executor.forward_overlapped(p1, b1),
+                               m0.forward(p1, b0))
 
 
 def test_roofline_at_the_h100_rates():

@@ -142,9 +142,28 @@ def test_engine_runs_gcn_without_a_launch_on_cpu(reddit):
     (dict(fanout=4, overlap=2), NotImplementedError, "item 14"),
     (dict(overlap=2), NotImplementedError, "item 14"),
 ])
-def test_gcn_modes_outside_the_slice_raise(kw, err, match):
-    with pytest.raises(err, match=match):
-        get_model(HGNNConfig(**SMALL, **kw)).plan()
+def test_gcn_modes_outside_the_slice_raise(reddit, kw, err, match):
+    """``partitions`` raises the reference's ``ValueError``.  The overlap
+    cases (the async schedule, ROADMAP Queue 1 item 14, which ``match``
+    names) are ported: the plan declares the reference's schedule, and the
+    overlapped forward is bitwise the serial one (GCN's chain has no
+    sibling stages, so nothing runs side by side)."""
+    if match != "item 14":
+        with pytest.raises(err, match=match):
+            get_model(HGNNConfig(**SMALL, **kw)).plan()
+        return
+    ref_plan = ref_get_model(RefConfig(**SMALL, **kw)).plan()
+    m = get_model(HGNNConfig(**SMALL, **kw))
+    pl = m.plan()
+    assert pl.schedule.depth == ref_plan.schedule.depth == 2
+    assert (pl.sample is None) == (ref_plan.sample is None)
+    assert m.executor.schedule_edges() == ref_get_model(
+        RefConfig(**SMALL, **kw)).executor.schedule_edges()
+    b = m.prepare(reddit[1], device="cpu")
+    p = m.init(torch.Generator().manual_seed(0), b)
+    with torch.inference_mode():
+        assert torch.equal(m.executor.forward_overlapped(p, b),
+                           m.forward(p, b))
 
 
 def _cli(*args):

@@ -159,9 +159,29 @@ def test_entry_points_need_a_device_without_cuda(tiny_hg, monkeypatch):
     (dict(model="magnn", fanout=4, partitions=2, overlap=2), "item 14"),
     (dict(fused=False, fanout=4, overlap=2), "item 14"),
 ])
-def test_arms_outside_the_slice_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        get_model(HGNNConfig(**dict(SMALL, **kw))).plan()
+def test_arms_outside_the_slice_raise(tiny_hg, kw, item):
+    """These configs declare the async schedule (``item``: ROADMAP Queue
+    1 item 14, ported): each plan carries the reference's schedule and
+    stage DAG, and runs as the reference does with it — a full-graph
+    plan's overlapped forward bitwise its serial forward; a sampled plan
+    serves through the engine's prefetch (tests/test_torch_overlap.py
+    holds those serves bitwise and against the JAX engine)."""
+    cfg = dict(SMALL, **kw)
+    if cfg.get("model") == "gcn":
+        cfg["dataset"] = "reddit"
+    ref_m = ref_get_model(RefConfig(**cfg))
+    m = get_model(HGNNConfig(**cfg))
+    pl = m.plan()
+    assert pl.schedule == plan.ScheduleSpec(depth=2) and item == "item 14"
+    assert m.executor.schedule_edges() == ref_m.executor.schedule_edges()
+    assert m.executor.overlap_record() == ref_m.executor.overlap_record()
+    if pl.sample is not None or pl.na.kind == "gcn":
+        return
+    b = m.prepare(_port_hg(tiny_hg), device="cpu")
+    p = m.init(torch.Generator().manual_seed(0), b)
+    with torch.inference_mode():
+        assert torch.equal(m.executor.forward_overlapped(p, b),
+                           m.forward(p, b))
 
 
 @pytest.mark.parametrize("edit,item", [

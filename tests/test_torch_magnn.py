@@ -260,9 +260,20 @@ def _layers(pl, **kw):
         kind="select_linear", target="M")), "no model of the reference"),
 ])
 def test_executor_refuses_magnn_plans_outside_the_slice(edit, match):
+    """A plan ``MAGNN.plan()`` would not make raises.  The schedule cases
+    (``match``: ROADMAP Queue 1 item 14, ported) are accepted, as the
+    reference's executor accepts them, with the reference's DAG shape."""
     cfg = HGNNConfig(**SMALL, layers=2)
     good = get_model(cfg).plan()
     StageGraphExecutor(good, cfg)
+    if match == "item 14":
+        edited = edit(good)
+        edges = StageGraphExecutor(edited, cfg).schedule_edges()
+        if edited.partition is not None:  # the own/halo split
+            assert edges["L1.NA"] == ("L1.NA.own", "L1.gather_halo")
+        else:  # one NA stage a metapath
+            assert edges["L1.SA"] == ("L1.NA.p0", "L1.NA.p1")
+        return
     with pytest.raises(NotImplementedError, match=match):
         StageGraphExecutor(edit(good), cfg)
 
@@ -272,9 +283,24 @@ def test_executor_refuses_magnn_plans_outside_the_slice(edit, match):
     (dict(fanout=4, partitions=2, overlap=2), "item 14"),
     (dict(overlap=2), "item 14"),
 ])
-def test_magnn_modes_outside_the_slice_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        get_model(HGNNConfig(**dict(SMALL, **kw))).plan()
+def test_magnn_modes_outside_the_slice_raise(tiny_hg, kw, item):
+    """These modes declare the async schedule (``item``: ROADMAP Queue 1
+    item 14, ported): the plan carries the reference's schedule and DAG,
+    and a full-graph plan's overlapped forward is bitwise its serial
+    forward (sampled serving with prefetch: tests/test_torch_overlap.py)."""
+    cfg = HGNNConfig(**dict(SMALL, **kw))
+    ref_m = ref_get_model(RefConfig(**dict(SMALL, **kw)))
+    m = get_model(cfg)
+    pl = m.plan()
+    assert pl.schedule == plan.ScheduleSpec(depth=2) and item == "item 14"
+    assert m.executor.schedule_edges() == ref_m.executor.schedule_edges()
+    if pl.sample is not None:
+        return
+    b = m.prepare(_port_hg(tiny_hg), device="cpu")
+    p = m.init(torch.Generator().manual_seed(0), b)
+    with torch.inference_mode():
+        assert torch.equal(m.executor.forward_overlapped(p, b),
+                           m.forward(p, b))
 
 
 def test_cli_prints_the_reference_magnn_lines_on_cpu():

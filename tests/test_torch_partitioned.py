@@ -244,9 +244,11 @@ def test_executor_accepts_partitioned_plans(model, cache_rows):
     pl = get_model(cfg).plan()
     assert pl.partition == plan.PartitionSpec(k=2)
     StageGraphExecutor(pl, cfg)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        StageGraphExecutor(dataclasses.replace(
-            pl, schedule=plan.ScheduleSpec()), cfg)
+    # with the async schedule (ported), as the reference's executor: its
+    # DAG splits NA at the gather
+    ex = StageGraphExecutor(dataclasses.replace(
+        pl, schedule=plan.ScheduleSpec()), cfg)
+    assert ex.schedule_edges()["NA"] == ("NA.own", "gather_halo")
 
 
 @pytest.mark.parametrize("kw,match", [

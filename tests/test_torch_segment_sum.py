@@ -101,6 +101,37 @@ def test_emulation_bitwise_equal_to_plain(kind, gather, mean):
     assert torch.equal(tss.segment_sum(v, s, n, idx=i, mean=mean), want)
 
 
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("kind", KINDS)
+def test_hot_indices_read_the_rows_they_name(kind, mean):
+    """Residency: with ``hot``, ``idx`` addresses ``concat(table,
+    table[hot])`` and a cache index reads the hot row it names, so the
+    sum is bitwise the sum over the extended pool (the plain version, the
+    emulation and the CPU wrapper alike), and bitwise the sum over the
+    original indices, whose rows are the same."""
+    _, seg, idx, table, n = _case(kind, seed=2)
+    rng = np.random.default_rng(3)
+    m = table.shape[0]
+    hot = rng.choice(m, size=min(5, m), replace=False).astype(np.int32)
+    slot = {int(v): i for i, v in enumerate(hot)}
+    remapped = np.array([m + slot[int(v)] if int(v) in slot else v
+                         for v in idx], np.int32)
+    v, s = torch.from_numpy(table), torch.from_numpy(seg)
+    h, r = torch.from_numpy(hot), torch.from_numpy(remapped)
+    pool = torch.cat([v, v[h.long()]])
+    want = tss.segment_sum_plain(pool, s, n, idx=r, mean=mean)
+    assert torch.equal(want, tss.segment_sum_plain(
+        v, s, n, idx=torch.from_numpy(idx), mean=mean))
+    assert torch.equal(tss.segment_sum_plain(v, s, n, idx=r, mean=mean,
+                                             hot=h), want)
+    assert torch.equal(tss.segment_sum_emulate(v, s, n, idx=r, mean=mean,
+                                               hot=h), want)
+    assert torch.equal(ops.segment_sum(v, s, n, idx=r, mean=mean, hot=h),
+                       want)
+    assert tss.work(v, s, n, r, mean, hot=h)[0] == \
+        tss.work(v, s, n, r, mean)[0] + 4 * len(hot)
+
+
 @pytest.mark.parametrize("e", [0, 1, 31, 32, 33, 1023, 1024, 1025, 70000])
 def test_kernel_search_finds_each_segment(e):
     """The kernel's 32-ary search (emulated) against np.searchsorted, with
