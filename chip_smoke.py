@@ -63,7 +63,16 @@ serial kernel arm with the same launches and ``BENCH_hgnn.json``'s
 ``overlap`` counters, the forward walls of both in turns, the stage walls'
 critical path, the kernels that overlap in a profiled forward; then the
 sampler-prefetch serves (HAN/imdb, RGCN/imdb, the failover serve) bitwise
-the serves without it.  It imports nothing of jax or of the JAX package
+the serves without it.  Phase 6 is LM training of smollm-360m: the
+embedding's gradient through ``segment_sum`` bitwise its CPU version and
+the chunked attention's backward against the CPU at smollm's shapes; the
+model at full width with 2 layers in fp32, its gradients and one
+``make_train_step`` step against the CPU, the three remat modes bitwise,
+checkpoints bitwise; then the full 32-layer bf16 model through
+``launch.train``'s step (seq 2048, global batch 8 as 2 microbatches):
+a falling loss on a repeated batch, two runs bitwise, exact
+``segment_sum`` launches, step ms, tokens/s, model TFLOP/s, peak memory
+and a profiled step.  It imports nothing of jax or of the JAX package
 ``repro``.
 
 Output: progress lines, then the card's name and power limit as
@@ -260,9 +269,14 @@ def bound(n_bytes: float, n_ops: float, peak_flops: float = PEAK_FP32_FLOPS,
 
 def device_kernels(fn) -> list:
     """Names of the device kernels (and copies) that one call of ``fn``
-    runs, by torch.profiler, after a warm-up call.  A profile that holds
-    no device event at all (a call runs at least one kernel) is a failed
-    trace, not an answer: it is taken again, up to three times."""
+    runs, by torch.profiler, after a warm-up call.  The device trace can
+    start late and miss the first kernels launched after the profiler is
+    switched on, so each profile first runs a lead-in kernel
+    (``torch.cuda._sleep``, named ``spin_kernel``) and waits for it, then
+    calls ``fn``: the answer is the device events after the lead-in.  A
+    profile that lacks the lead-in, or holds nothing after it (a call runs
+    at least one kernel), is a failed trace, not an answer: it is taken
+    again, up to three times, and the last one's events are returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -272,13 +286,17 @@ def device_kernels(fn) -> list:
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == DeviceType.CUDA]
-        if names:
-            break
-        print(f"  (profile {attempt + 1} held no device event: again)")
+        lead = [i for i, n in enumerate(names) if "spin_kernel" in n]
+        if lead and names[lead[0] + 1:]:
+            return names[lead[0] + 1:]
+        print(f"  (profile {attempt + 1} lacks the lead-in or the call: "
+              f"{names}; again)")
     return names
 
 
@@ -2300,6 +2318,320 @@ def lm_kernel_times(dev, flush, results: dict, main_counts: dict) -> list:
     return entries
 
 
+# LM training (phase 6): smollm-360m, the default --arch of the train CLI
+SMOLLM = "smollm-360m"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB = 2048, 8, 2  # cut from train_4k (4096, 256)
+TRAIN_WARMUP, TRAIN_TIMED = 2, 8  # steps on the repeated batch: 10 in all
+
+
+def train_pieces_vs_plain(dev, flush) -> dict:
+    """Phase 6a: the embedding's gradient through ``segment_sum`` at the
+    shapes phase 6c's microbatch gives it (V 49,152, d 960, 4 x 2048 =
+    8192 ids, a bf16 table as the full config has), bitwise the plain
+    version on the CPU and timed at that call, and the
+    chunked attention's backward at smollm's full shapes (16 q and 16 kv
+    heads after padding, Dh 64, S 2048, chunk 1024, causal): dQ, dK, dV on
+    the card against the same call on the CPU."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.nn import attention as tattn
+    from repro_torch.nn import transformer as tf
+
+    cfg = get_config(SMOLLM)
+    gen = torch.Generator(device="cpu").manual_seed(60)
+    out = {}
+    # one microbatch of phase 6c: the ids one _EmbedGather backward sums
+    ids = torch.randint(0, cfg.vocab, (TRAIN_BATCH // TRAIN_MB * TRAIN_SEQ,),
+                        generator=gen, dtype=torch.int32)
+    table = (torch.randn((cfg.vocab, cfg.d_model), generator=gen) * 0.02
+             ).to(torch.bfloat16)
+    dx = (torch.randn((ids.numel(), cfg.d_model), generator=gen) * 1e-3
+          ).to(torch.bfloat16)
+
+    def embed_grad(device):
+        t = table.to(device).requires_grad_()
+        y = tf._EmbedGather.apply(t, ids.to(device))
+        (g,) = torch.autograd.grad(y, t, grad_outputs=dx.to(device))
+        return g
+
+    got = embed_grad(dev)
+    want = embed_grad("cpu")
+    again = embed_grad(dev)
+    torch.cuda.synchronize()
+    err = max_err(got.cpu(), want)
+    check(torch.equal(got.cpu(), want),
+          f"embedding gradient via segment_sum, table {tuple(table.shape)} "
+          f"bf16, {ids.numel()} ids ({int(ids.unique().numel())} distinct): "
+          f"bitwise the plain version on the CPU (max |err| {err:.3e})")
+    check(torch.equal(got, again),
+          "embedding gradient: two runs give the same bits")
+    out["embed_grad_max_abs_err"] = err
+    # the training call form timed beside its bound (the kernels line's
+    # segment_sum entry keeps phase 4's GCN/Reddit call)
+    sorted_ids, order = torch.sort(ids.to(dev), stable=True)
+    call = (dx.to(dev).float().contiguous(), sorted_ids.to(torch.int32),
+            cfg.vocab, order.to(torch.int32), False)
+    with torch.inference_mode():
+        rec = segment_sum_timing(call, flush)
+    rec.pop("sparse_mm_ms", None)  # a mean's weights: not this call's sum
+    print(f"  segment_sum, the embedding-gradient form (vals [{ids.numel()}, "
+          f"{cfg.d_model}] fp32, N {cfg.vocab}): {rec['ms']:.5f} ms cold, "
+          f"{rec['warm_ms']:.5f} ms warm (plain {rec['plain_ms']:.5f} ms, "
+          f"bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}, index_add_ "
+          f"{rec['library_ms']:.5f} ms)")
+    out["segment_sum_embed_grad"] = rec
+
+    h, kvh = tattn._heads(cfg)
+    dh = cfg.resolved_head_dim
+    q, k, v = (torch.randn(shape, generator=gen) * 0.5 for shape in
+               ((1, TRAIN_SEQ, h, dh), (1, TRAIN_SEQ, kvh, dh),
+                (1, TRAIN_SEQ, kvh, dh)))
+    w = torch.randn((1, TRAIN_SEQ, h, dh), generator=gen)
+    chunk = tattn._chunk_for(TRAIN_SEQ, cfg.attn_chunk)
+
+    def attn_grads(device):
+        xs = [x.to(device).requires_grad_() for x in (q, k, v)]
+        o = tattn.chunked_attention(*xs, causal=True, chunk_q=chunk,
+                                    chunk_k=chunk)
+        return torch.autograd.grad((o * w.to(device)).sum(), xs)
+
+    t0 = time.perf_counter()
+    got = attn_grads(dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    want = attn_grads("cpu")
+    errs = []
+    for name, a, b in zip(("dQ", "dK", "dV"), got, want):
+        err = max_err(a.cpu(), b)
+        errs.append(err)
+        check(close(a.cpu(), b, **TOL_CPU),
+              f"chunked attention backward {name} {tuple(a.shape)} (H {h}, "
+              f"KVH {kvh}, Dh {dh}, S {TRAIN_SEQ}, chunk {chunk}, causal) on "
+              f"the card vs the CPU: max |err| {err:.3e} of max "
+              f"{float(b.abs().max()):.3e} (tol {TOL_CPU})")
+    print(f"  chunked attention forward + backward on the card: "
+          f"{1e3 * card_s:.1f} ms (first call)")
+    out["chunked_backward_max_abs_err"] = max(errs)
+    return out
+
+
+def train_two_layers(dev) -> dict:
+    """Phase 6b: smollm-360m at full width, 2 layers, fp32, seq 2048 (the
+    chunked arm), batch 1.  The gradients and one ``make_train_step`` step
+    on the card against the same on the CPU from the same state; the three
+    remat modes bitwise on the card; save -> restore bitwise for an fp32
+    and a bf16 copy of the state after the step."""
+    import shutil
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.loader import synth_batch
+    from repro_torch.nn import attention as tattn
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch import tree
+    from repro_torch.train.optimizer import build_optimizer, lr_schedule
+    from repro_torch.train.train_step import (init_train_state, loss_fn_for,
+                                              make_train_step, value_and_grad)
+
+    cfg = get_config(SMOLLM).replace(n_layers=2, dtype="float32",
+                                     param_dtype="float32")
+    total_steps = 10
+    opt = build_optimizer(cfg, total_steps=total_steps)
+    state_cpu = init_train_state(torch.Generator().manual_seed(0), cfg, opt)
+    state = tree.map(lambda x: x.to(dev), state_cpu)
+    batch_np = synth_batch(cfg, ShapeConfig("6b", TRAIN_SEQ, 1, "train"), 0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch_np.items()}
+    batch_cpu = {k: torch.as_tensor(v) for k, v in batch_np.items()}
+    out = {}
+
+    loss_fn = loss_fn_for(cfg)
+    loss, grads = value_and_grad(loss_fn, state.params, batch)
+    loss_c, grads_c = value_and_grad(loss_fn, state_cpu.params, batch_cpu)
+    err = max(max_err(a.cpu(), b) for a, b in zip(tree.leaves(grads),
+                                                   tree.leaves(grads_c)))
+    ok = all(close(a.cpu(), b, **TOL_CPU) for a, b in zip(
+        tree.leaves(grads), tree.leaves(grads_c)))
+    check(ok and close(loss.cpu(), loss_c, **TOL_CPU),
+          f"smollm 2-layer fp32 (d_model {cfg.d_model}, heads padded to "
+          f"{'/'.join(map(str, tattn._heads(cfg)))}, seq {TRAIN_SEQ}): loss {float(loss):.6f} (CPU "
+          f"{float(loss_c):.6f}) and all {len(tree.leaves(grads))} gradient "
+          f"leaves on the card vs the CPU: max |err| {err:.3e} (tol "
+          f"{TOL_CPU})")
+    out["grads_max_abs_err"] = err
+    for mode in ("full", "dots"):
+        l2, g2 = value_and_grad(loss_fn_for(cfg.replace(remat=mode)),
+                                state.params, batch)
+        same = torch.equal(l2, loss) and all(torch.equal(a, b) for a, b in
+                                             zip(tree.leaves(g2),
+                                                 tree.leaves(grads)))
+        check(same, f"smollm 2-layer: remat {mode} gives remat none's loss "
+                    f"and gradients bitwise")
+    del grads, grads_c
+
+    step = make_train_step(cfg, opt)
+    new, m = step(state, batch)
+    new_c, m_c = make_train_step(cfg, opt)(state_cpu, batch_cpu)
+    lr = float(lr_schedule(total_steps)(0))
+    for key in ("loss", "grad_norm"):
+        check(close(m[key].cpu(), m_c[key], **TOL_CPU),
+              f"smollm 2-layer train step: {key} {float(m[key]):.6f} on the "
+              f"card, {float(m_c[key]):.6f} on the CPU (tol {TOL_CPU})")
+    perr = max(max_err(a.cpu(), b) for a, b in zip(tree.leaves(new.params),
+                                                    tree.leaves(new_c.params)))
+    check(perr <= lr, f"smollm 2-layer train step: params after the step "
+                      f"on the card vs the CPU: max |err| {perr:.3e} (atol "
+                      f"the step's lr {lr:.3e})")
+    out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               params_max_abs_err=perr)
+    del state_cpu, new_c
+
+    root = ROOT / "build" / "train_ckpt_smoke"
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            snap = tree.map(lambda x: x.to(dtype)
+                            if x.is_floating_point() else x, new)
+            t0 = time.perf_counter()
+            ckpt.save(snap, str(root), step=1)
+            save_s = time.perf_counter() - t0
+            got = ckpt.restore(str(root), snap, device=dev)
+            same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                       zip(tree.leaves(got), tree.leaves(snap)))
+            n_bytes = sum(x.numel() * x.element_size()
+                          for x in tree.leaves(snap))
+            check(same, f"checkpoint save -> restore of the {dtype} state "
+                        f"({n_bytes / 2 ** 20:.1f} MiB, saved in "
+                        f"{save_s:.2f} s): bitwise")
+            shutil.rmtree(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_full(dev, ops, profiles: dict) -> dict:
+    """Phase 6c: smollm-360m as its config gives it (32 layers, bf16, remat
+    full, heads padded 15 -> 16 and 5 -> 16) through ``launch.train``'s
+    setup and step, seq 2048, global batch 8 as 2 microbatches of 4.  Ten
+    steps on one repeated batch (the loss must fall; the last 8 timed),
+    two runs of the same 3 steps from one state (bitwise), exact
+    ``segment_sum`` launches, the peak memory and a profiled step."""
+    import gc
+    import math
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.loader import synth_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.nn import attention as tattn
+    from repro_torch.nn import transformer as tf
+    from repro_torch import tree
+
+    gc.collect()  # the earlier phases' autograd cycles
+    torch.cuda.empty_cache()
+    cfg = get_config(SMOLLM)
+    t_phase = t0 = time.perf_counter()
+    run = launch_train.setup(cfg, steps=TRAIN_WARMUP + TRAIN_TIMED,
+                             seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                             microbatches=TRAIN_MB, device=dev)
+    torch.cuda.synchronize()
+    n_params = tf.param_count(run.state.params)
+    h, kvh = tattn._heads(cfg)
+    print(f"  smollm-360m: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} padded to {h}/{kvh}, Dh "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.param_dtype}, remat {cfg.remat}, {cfg.optimizer} "
+          f"({cfg.opt_state_dtype} moments): {n_params} parameters, state "
+          f"drawn in {time.perf_counter() - t0:.2f} s; allocated "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    batch = launch_train.to_device(synth_batch(cfg, run.shape, 0), dev)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, losses, walls = run.state, [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = run.step_fn(state, batch)
+        losses.append(float(m["loss"]))  # the launcher's one read a step
+        torch.cuda.synchronize()  # the optimizer's update too
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    check(counts == dict(dict.fromkeys(counts, 0),
+                         segment_sum=TRAIN_MB * n_steps),
+          f"smollm train: launches {counts} (want {TRAIN_MB * n_steps} "
+          f"segment_sum: {TRAIN_MB} microbatches x {n_steps} steps)")
+    check(all(math.isfinite(x) for x in losses),
+          f"smollm train: all {n_steps} losses finite")
+    check(losses[-1] < losses[0],
+          f"smollm train, one batch repeated: loss {losses[0]:.4f} at step "
+          f"1 -> {losses[-1]:.4f} at step {n_steps} (falls)")
+    print("  losses: " + " ".join(f"{x:.4f}" for x in losses))
+    timed = sorted(walls[TRAIN_WARMUP:])
+    med = timed[len(timed) // 2]
+    attn_flops = 12 * cfg.n_layers * h * cfg.resolved_head_dim * TRAIN_SEQ
+    flops = tokens * (6 * n_params + attn_flops)
+    print(f"  smollm train step (global batch {TRAIN_BATCH} x {TRAIN_SEQ} = "
+          f"{tokens} tokens, {TRAIN_MB} microbatches): {med:.2f} ms median "
+          f"[{timed[0]:.2f}, {timed[-1]:.2f}] of {TRAIN_TIMED} steps after "
+          f"{TRAIN_WARMUP} warm-up (first {walls[0]:.2f} ms); "
+          f"{tokens / med * 1e3:.1f} tokens/s; model "
+          f"{flops / med / 1e9:.2f} TFLOP/s (6 x {n_params} params x "
+          f"{tokens} tokens + 12 x {cfg.n_layers} layers x {h} heads x "
+          f"{cfg.resolved_head_dim} Dh x {TRAIN_SEQ} seq x {tokens} tokens "
+          f"= {flops:.4e} FLOP a step; {100 * flops / med / 1e9 / 989:.2f}% "
+          f"of 989 TFLOP/s bf16)")
+    print(f"  peak memory allocated over the {n_steps} steps "
+          f"(torch.cuda.max_memory_allocated): {peak:.2f} GiB, of which "
+          f"{held:.2f} GiB held before the first step (the state at step 0, "
+          f"which this script keeps for the runs below); "
+          f"{time.perf_counter() - t_phase:.1f} s so far")
+    del state
+
+    runs, run_counts = [], []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        s, ls = run.state, []
+        for i in range(3):
+            s, m = run.step_fn(s, launch_train.to_device(
+                synth_batch(cfg, run.shape, i), dev))
+            ls.append(m["loss"])
+        torch.cuda.synchronize()
+        run_counts.append(ops.launch_counts()["segment_sum"])
+        runs.append((torch.stack(ls), s))
+        del s
+    check(torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(a, b) for a, b in zip(tree.leaves(runs[0][1]),
+                                          tree.leaves(runs[1][1]))),
+          f"smollm train: two runs of the same 3 steps give the same losses "
+          f"{runs[0][0].tolist()} and parameters, bitwise")
+    check(run_counts == [3 * TRAIN_MB] * 2,
+          f"smollm train, 3 steps: segment_sum launches {run_counts} (want "
+          f"{3 * TRAIN_MB} each)")
+    s = runs[0][1]
+    del runs
+    print(f"  {time.perf_counter() - t_phase:.1f} s so far")
+    # one "forward" of the profile below is one whole train step
+    prof = profile_forward(types.SimpleNamespace(
+        infer=lambda: run.step_fn(s, batch)), "smollm train step", reps=1,
+        warmup=0)
+    profiles["smollm train step"] = prof
+    busy = prof["device_busy_ms"] / prof["wall_ms"]
+    print(f"  {time.perf_counter() - t_phase:.1f} s with the profiled step")
+    return {"step_ms_median": med, "step_ms_min": timed[0],
+            "step_ms_max": timed[-1], "step_ms_all": walls,
+            "tokens_per_s": tokens / med * 1e3,
+            "model_tflops_per_s": flops / med / 1e9,
+            "flop_per_step": flops, "params": n_params,
+            "peak_gib": peak, "held_gib": held, "busy_share": busy,
+            "losses": losses,
+            "launches": counts["segment_sum"]}
+
+
 def characterization(hg, hg_r, dev) -> dict:
     """Phase 3l: ``stage_records(timed=True)`` through
     ``HGNNInferEngine.characterize`` on HAN/imdb's baseline (``csr``) and
@@ -2395,6 +2727,7 @@ def main() -> None:
     from repro_torch.kernels import segment_sum as tss
     from repro_torch.kernels import semantic_attn as tsem
     from repro_torch.launch.serve import build_hgnn_infer
+    from repro_torch.launch import train as launch_train  # noqa: F401
     from repro_torch.nn import transformer  # noqa: F401
     from repro_torch.serve.engine import HGNNInferEngine  # noqa: F401
     from repro_torch.serve.engine import HGNNServeEngine  # noqa: F401
@@ -3075,6 +3408,28 @@ def main() -> None:
           "flushed)")
     kernels += lm_kernel_times(dev, flush, lm_results, lm_counts)
 
+    # ---------------- phase 6: LM training (smollm-360m) ----------------
+    t6 = time.perf_counter()
+    print("phase 6a: the embedding gradient (segment_sum) and the chunked "
+          "attention's backward at smollm-360m's shapes, card vs CPU")
+    train_pieces = train_pieces_vs_plain(dev, flush)
+    print("phase 6b: smollm-360m at full width, 2 layers, fp32, seq 2048: "
+          "gradients and one train step, card vs CPU; remat modes; "
+          "checkpoints")
+    train_small = train_two_layers(dev)
+    print("phase 6c: smollm-360m, 32 layers, bf16, remat full, through "
+          "launch.train's step (seq 2048, global batch 8, 2 microbatches)")
+    print(f"  card: {card_line()}")
+    train_rec = train_full(dev, ops, profiles)
+    check(train_rec["launches"] > 0,
+          f"segment_sum launched {train_rec['launches']} times on the "
+          f"training path")
+    for entry in kernels:
+        if entry["name"] == "segment_sum":
+            entry["launches"] += train_rec["launches"]
+            entry["training_call"] = train_pieces["segment_sum_embed_grad"]
+    print(f"phase 6: {time.perf_counter() - t6:.1f} s")
+
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
@@ -3089,6 +3444,9 @@ def main() -> None:
                       "fig5c_han_na_device_ms": fig5c,
                       "lm": {"granite_2_layers_fp32": two_layers,
                              "granite_serve": serve},
+                      "lm_train": {"pieces": train_pieces,
+                                   "smollm_2_layers_fp32": train_small,
+                                   "smollm_full": train_rec},
                       "characterization": char,
                       "serving": serve_rec,
                       "partitioned": part_rec,

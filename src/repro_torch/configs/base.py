@@ -83,7 +83,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
-    # Optimizer / memory knobs of training (not ported yet).
+    # Optimizer and memory knobs of training (train/optimizer.py's
+    # build_optimizer; nn/transformer.py's _remat).
     optimizer: str = "adamw"  # adamw | adafactor
     opt_state_dtype: str = "float32"
     remat: str = "full"  # none | dots | full

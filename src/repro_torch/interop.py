@@ -15,6 +15,9 @@ buffer behind a JAX array is read-only) and handed to ``torch.from_numpy``.
 numpy has no bfloat16 of its own: a leaf whose dtype is named
 ``bfloat16`` goes through float32 (exact) into a ``torch.bfloat16``
 tensor.  Python scalars (``n_nodes``, ``feat_dims``) stay as they are.
+``state_from_numpy`` carries a reference ``TrainState`` (step, parameters,
+AdamW or Adafactor state) into the port's, so the two packages can train
+from one state.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ from typing import Any, Optional, Union
 
 import numpy as np
 import torch
+
+from repro_torch.tree import map as map_leaves
 
 DeviceLike = Optional[Union[str, torch.device]]
 
@@ -39,19 +44,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return torch.device(device)
 
 
-def _tree(x: Any, device: torch.device):
-    if isinstance(x, dict):
-        return {k: _tree(v, device) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return type(x)(_tree(v, device) for v in x)
-    if x is None or isinstance(x, (bool, int, float, str, np.integer,
-                                   np.floating)):
+def _leaf(x: Any, device: torch.device):
+    if isinstance(x, (bool, int, float, str, np.integer, np.floating)):
         return x
     a = np.array(x)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
     return torch.from_numpy(a).to(device)
+
+
+def _tree(x: Any, device: torch.device):
+    return map_leaves(lambda leaf: _leaf(leaf, device), x)
 
 
 def params_from_numpy(tree: Any, device: DeviceLike = None):
@@ -63,3 +67,20 @@ def batch_from_numpy(batch: Any, device: DeviceLike = None):
     """Map a prepared batch (dict of arrays, nested dicts and lists, Python
     scalars) to torch tensors on ``device``."""
     return _tree(batch, resolve_device(device))
+
+
+def state_from_numpy(state: Any, device: DeviceLike = None):
+    """A reference ``TrainState(step, params, opt)`` (numpy or JAX arrays)
+    as the port's ``train_step.TrainState``: ``step`` a 0-d int32 tensor,
+    the parameters as :func:`params_from_numpy` maps them, the optimizer
+    state (``AdamWState(mu, nu)`` or ``AdafactorState(vr, vc, v)``) as the
+    port's NamedTuple of the same name and fields."""
+    from repro_torch.train import optimizer, train_step
+
+    device = resolve_device(device)
+    # the reference's NamedTuple becomes the port's of the same name
+    opt = getattr(optimizer, type(state.opt).__name__)(
+        *_tree(tuple(state.opt), device))
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=device)
+    return train_step.TrainState(step, _tree(state.params, device), opt)

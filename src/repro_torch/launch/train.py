@@ -1,0 +1,124 @@
+"""Training launcher (port of ``repro/launch/train.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+      --reduced --steps 50 --ckpt-dir /tmp/ckpt [--device cpu]
+
+The reference's flags, plus ``--device``: the run is on the CUDA device
+unless ``--device cpu`` asks for the CPU (there is no silent fallback).
+The weights are drawn from seed 0 on the device (``init_lm_params``; the
+reference's come from ``jax.random``, so the two runs start from other
+weights).  One line names the device, then one line a step, as the
+reference prints it; the host reads the loss back once a step.
+``--distributed`` (one process a host over a device mesh) waits for
+ROADMAP Queue 1 item 19.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.registry import get_config, get_reduced
+from repro_torch.data.loader import PrefetchLoader
+from repro_torch.interop import DeviceLike, resolve_device
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.elastic import StepTimer
+from repro_torch.train.optimizer import Optimizer, build_optimizer
+from repro_torch.train.train_step import (TrainState, init_train_state,
+                                          make_train_step)
+
+
+class TrainRun(NamedTuple):
+    """What the launcher trains: the config, the batch shape, the
+    optimizer, the step function and the initial state."""
+    cfg: ModelConfig
+    shape: ShapeConfig
+    optimizer: Optimizer
+    step_fn: Callable
+    state: TrainState
+
+
+def setup(cfg: ModelConfig, steps: int, seq_len: int, batch: int,
+          microbatches: int = 1, device: DeviceLike = None) -> TrainRun:
+    """The launcher's model, optimizer (``build_optimizer`` over
+    ``max(steps, 10)`` steps), step and state at step 0 on ``device``."""
+    dev = resolve_device(device)
+    shape = ShapeConfig("custom", seq_len, batch, "train")
+    opt = build_optimizer(cfg, total_steps=max(steps, 10))
+    step_fn = make_train_step(cfg, opt, n_microbatches=microbatches)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                             opt)
+    return TrainRun(cfg, shape, opt, step_fn, state)
+
+
+def to_device(batch, device: torch.device):
+    """A loader batch (numpy arrays) as tensors on ``device``."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--reduced", action="store_true",
+                    help="CPU-runnable reduced config")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--distributed", action="store_true",
+                    help="multi-host training (not ported: item 19)")
+    ap.add_argument("--device", default=None,
+                    help="cpu to run on the CPU; default: the CUDA device")
+    args = ap.parse_args()
+
+    if args.distributed:
+        ap.error("--distributed: multi-host training over a device mesh is "
+                 "not ported yet (ROADMAP Queue 1 item 19)")
+    dev = resolve_device(args.device)
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "host CPU")
+    print(f"device: {dev.type} ({name})", flush=True)
+
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    run = setup(cfg, args.steps, args.seq_len, args.batch, args.microbatches,
+                dev)
+    state = run.state
+    start = 0
+    if (args.resume and args.ckpt_dir
+            and ckpt.latest_step(args.ckpt_dir) is not None):
+        state = ckpt.restore(args.ckpt_dir, state, device=dev)
+        start = int(state.step)
+        print(f"resumed from step {start}")
+
+    saver = ckpt.AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
+    timer = StepTimer()
+    loader = PrefetchLoader(cfg, run.shape, start_step=start)
+    try:
+        for i in range(start, start + args.steps):
+            batch = to_device(next(loader), dev)
+            t0 = time.time()
+            state, metrics = run.step_fn(state, batch)
+            loss = float(metrics["loss"])
+            dt = time.time() - t0
+            straggler = timer.observe(dt)
+            print(f"step {i:5d} loss {loss:8.4f} gnorm "
+                  f"{float(metrics['grad_norm']):7.3f} {dt*1e3:7.1f} ms"
+                  + ("  [straggler]" if straggler else ""), flush=True)
+            if saver and (i + 1) % args.ckpt_every == 0:
+                saver.submit(state, i + 1)
+        if saver:
+            saver.submit(state, start + args.steps)
+    finally:
+        loader.close()
+        if saver:
+            saver.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,17 +1,22 @@
-"""GQA attention of the LM (port of ``repro/nn/attention.py``, self-attention
-and decode; the cross-attention of the encdec family and the chunked
-path's backward are not ported yet).
+"""GQA attention of the LM (port of ``repro/nn/attention.py``, self-attention,
+its backward and decode; the cross-attention of the encdec family is not
+ported yet).
 
 Execution paths, one semantics (oracle: ``kernels/ref.py``):
 
 * plain — ``ref.mha_attention`` with materialized scores, up to 1024
-  tokens (the reference's plain arm, ``:292-295``);
-* chunked — the reference's pure-JAX FlashAttention-2 forward
-  (``_fwd_scan``, ``:55-100``): q chunks outside, kv chunks inside, online
-  softmax over every chunk pair, above 1024 tokens;
+  tokens (the reference's plain arm, ``:292-295``); autograd differentiates
+  it;
+* chunked — the reference's pure-JAX FlashAttention-2 (``_chunked5``,
+  ``:55-189``), above 1024 tokens: q chunks outside, kv chunks inside,
+  online softmax over every chunk pair; a ``torch.autograd.Function``
+  saves only ``q, k, v``, the output and the row log-sum-exp, and its
+  backward recomputes the score tiles in fp32, as the reference's
+  ``custom_vjp`` does;
 * the hand-written ``flash_attention`` kernel when ``cfg.use_pallas``
   (``ops.flash_attention``: the kernel on a CUDA tensor, the plain oracle
-  on a CPU tensor);
+  on a CPU tensor).  It has no backward, nor has the reference's, so
+  ``attention_block`` refuses to record a graph through it;
 * decode — ``ops.decode_attention`` over the KV cache, the kernel under
   ``cfg.use_pallas`` and ``ref.decode_attention`` otherwise.
 
@@ -35,7 +40,7 @@ NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
-# chunked flash attention (plain PyTorch, forward only)
+# chunked flash attention (plain PyTorch, with its backward)
 # ---------------------------------------------------------------------------
 
 
@@ -57,29 +62,16 @@ def _mask(rows, cols, causal: bool, window: int) -> torch.Tensor:
     return m
 
 
-def chunked_attention(
-    q: torch.Tensor,  # [B, Sq, H, Dh]
-    k: torch.Tensor,  # [B, Sk, KVH, Dh]
-    v: torch.Tensor,
-    causal: bool = True,
-    window: int = 0,
-    chunk_q: int = 1024,
-    chunk_k: int = 1024,
-) -> torch.Tensor:
-    """Online-softmax attention over ``[chunk_q, chunk_k]`` score tiles, the
-    reference's forward scan: fp32 scores (``* scale`` after the dot), every
-    chunk pair visited, ``p`` cast to ``v.dtype`` before ``p @ v``."""
-    b, sq, h, dh = q.shape
-    kvh, sk = k.shape[2], k.shape[1]
-    cq, ck = min(chunk_q, sq), min(chunk_k, sk)
-    assert sq % cq == 0 and sk % ck == 0, (sq, cq, sk, ck)
-    g = h // kvh
-    dev = q.device
-    q5 = q.permute(0, 2, 1, 3).reshape(b, kvh, g, sq, dh)
-    k4 = k.permute(0, 2, 1, 3)
-    v4 = v.permute(0, 2, 1, 3)
-    scale = 1.0 / math.sqrt(dh)
-    out = torch.empty((b, kvh, g, sq, dh), dtype=q.dtype, device=dev)
+def _fwd_scan(q5, k4, v4, causal, window, cq, ck, scale):
+    """The reference's forward scan (``:55-100``): q5 ``[B, KVH, G, Sq,
+    Dh]``; k4/v4 ``[B, KVH, Sk, Dh]`` -> ``(out5, lse [B, KVH, G, Sq])``.
+    fp32 scores (``* scale`` after the dot), every chunk pair visited,
+    ``p`` cast to ``v.dtype`` before ``p @ v``."""
+    b, kvh, g, sq, dh = q5.shape
+    sk = k4.shape[2]
+    dev = q5.device
+    out = torch.empty_like(q5)
+    lse = torch.empty((b, kvh, g, sq), device=dev)
     for q0 in range(0, sq, cq):
         rows = torch.arange(q0, q0 + cq, device=dev)
         qc = q5[:, :, :, q0:q0 + cq].float()
@@ -100,8 +92,111 @@ def chunked_attention(
                 "bkgqt,bktd->bkgqd", p.to(vc.dtype).float(), vc.float())
             m = m_new
         l_safe = torch.clamp(l, min=1e-30)
-        out[:, :, :, q0:q0 + cq] = (acc / l_safe[..., None]).to(q.dtype)
-    return out.reshape(b, h, sq, dh).permute(0, 2, 1, 3)
+        out[:, :, :, q0:q0 + cq] = (acc / l_safe[..., None]).to(q5.dtype)
+        lse[:, :, :, q0:q0 + cq] = m + torch.log(l_safe)
+    return out, lse
+
+
+def _bwd_scan(q5, k4, v4, out, lse, dout, causal, window, cq, ck, scale):
+    """The reference's ``_chunked5_bwd`` (``:116-186``): score tiles
+    recomputed in fp32 under the same mask, ``delta = sum(dout * out)``;
+    pass 1 gives dQ (each q chunk scans the kv chunks), pass 2 dK and dV
+    (each kv chunk scans the q chunks).  Returns ``(dq, dk, dv)`` in the
+    inputs' dtypes."""
+    b, kvh, g, sq, dh = q5.shape
+    sk = k4.shape[2]
+    dev = q5.device
+    dout = dout.float()
+    delta = (dout * out.float()).sum(dim=-1)  # [B, KVH, G, Sq]
+
+    def p_tile(qc, kc, rows, cols, lse_c):
+        s = torch.einsum("bkgqd,bktd->bkgqt", qc, kc) * scale
+        msk = _mask(rows[:, None], cols[None, :], causal, window)
+        p = torch.exp(torch.where(msk, s, NEG_INF) - lse_c[..., None])
+        return torch.where(msk, p, 0.0)
+
+    def q_chunk(q0):
+        sl = slice(q0, q0 + cq)
+        return (torch.arange(q0, q0 + cq, device=dev),
+                q5[:, :, :, sl].float(), dout[:, :, :, sl],
+                lse[:, :, :, sl], delta[:, :, :, sl])
+
+    def kv_chunk(k0):
+        return (torch.arange(k0, k0 + ck, device=dev),
+                k4[:, :, k0:k0 + ck].float(), v4[:, :, k0:k0 + ck].float())
+
+    # pass 1: dQ -- for each q chunk, scan the kv chunks
+    dq = torch.empty((b, kvh, g, sq, dh), device=dev)
+    for q0 in range(0, sq, cq):
+        rows, qc, do, lse_c, d_c = q_chunk(q0)
+        dqc = torch.zeros((b, kvh, g, cq, dh), device=dev)
+        for k0 in range(0, sk, ck):
+            cols, kc, vc = kv_chunk(k0)
+            p = p_tile(qc, kc, rows, cols, lse_c)
+            dp = torch.einsum("bkgqd,bktd->bkgqt", do, vc)
+            ds = p * (dp - d_c[..., None])
+            dqc = dqc + scale * torch.einsum("bkgqt,bktd->bkgqd", ds, kc)
+        dq[:, :, :, q0:q0 + cq] = dqc
+
+    # pass 2: dK, dV -- for each kv chunk, scan the q chunks
+    dk = torch.empty((b, kvh, sk, dh), device=dev)
+    dv = torch.empty((b, kvh, sk, dh), device=dev)
+    for k0 in range(0, sk, ck):
+        cols, kc, vc = kv_chunk(k0)
+        dkc = torch.zeros((b, kvh, ck, dh), device=dev)
+        dvc = torch.zeros((b, kvh, ck, dh), device=dev)
+        for q0 in range(0, sq, cq):
+            rows, qc, do, lse_c, d_c = q_chunk(q0)
+            p = p_tile(qc, kc, rows, cols, lse_c)
+            dvc = dvc + torch.einsum("bkgqt,bkgqd->bktd", p, do)
+            dp = torch.einsum("bkgqd,bktd->bkgqt", do, vc)
+            ds = p * (dp - d_c[..., None])
+            dkc = dkc + scale * torch.einsum("bkgqt,bkgqd->bktd", ds, qc)
+        dk[:, :, k0:k0 + ck] = dkc
+        dv[:, :, k0:k0 + ck] = dvc
+    return dq.to(q5.dtype), dk.to(k4.dtype), dv.to(v4.dtype)
+
+
+class _Chunked5(torch.autograd.Function):
+    """The reference's ``_chunked5`` custom VJP: the forward saves only
+    ``q, k, v``, the output and the row log-sum-exp, and the backward
+    recomputes the score tiles from them."""
+
+    @staticmethod
+    def forward(ctx, q5, k4, v4, causal, window, cq, ck):
+        scale = 1.0 / math.sqrt(q5.shape[-1])
+        out, lse = _fwd_scan(q5, k4, v4, causal, window, cq, ck, scale)
+        ctx.save_for_backward(q5, k4, v4, out, lse)
+        ctx.tiling = (causal, window, cq, ck, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q5, k4, v4, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd_scan(q5, k4, v4, out, lse, dout, *ctx.tiling)
+        return dq, dk, dv, None, None, None, None
+
+
+def chunked_attention(
+    q: torch.Tensor,  # [B, Sq, H, Dh]
+    k: torch.Tensor,  # [B, Sk, KVH, Dh]
+    v: torch.Tensor,
+    causal: bool = True,
+    window: int = 0,
+    chunk_q: int = 1024,
+    chunk_k: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over ``[chunk_q, chunk_k]`` score tiles,
+    differentiable through :class:`_Chunked5`."""
+    b, sq, h, dh = q.shape
+    kvh, sk = k.shape[2], k.shape[1]
+    cq, ck = min(chunk_q, sq), min(chunk_k, sk)
+    assert sq % cq == 0 and sk % ck == 0, (sq, cq, sk, ck)
+    q5 = q.permute(0, 2, 1, 3).reshape(b, kvh, h // kvh, sq, dh)
+    k4 = k.permute(0, 2, 1, 3)
+    v4 = v.permute(0, 2, 1, 3)
+    o5 = _Chunked5.apply(q5, k4, v4, causal, window, cq, ck)
+    return o5.reshape(b, h, sq, dh).permute(0, 2, 1, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +262,13 @@ def attention_block(params: Dict, cfg, x: torch.Tensor,
     q, k, v = qkv(params, cfg, x, positions)
     window = cfg.sliding_window
     if cfg.use_pallas:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise NotImplementedError(
+                "attention_block: the flash_attention kernel has no backward "
+                "(nor has the reference's Pallas kernel), so training under "
+                "cfg.use_pallas is not ported (ROADMAP Queue 1 item 17); "
+                "train with use_pallas=False")
         o = ops.flash_attention(q, k, v, causal=causal, window=window,
                                 use_pallas=True)
     elif s <= 1024:

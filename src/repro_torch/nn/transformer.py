@@ -1,26 +1,44 @@
-"""Decoder-only transformer, dense family (port of the serving part of
-``repro/nn/transformer.py``).
+"""Decoder-only transformer, dense family (port of
+``repro/nn/transformer.py``): the forward, the training loss and the
+serving entry points.
 
 Layers are stacked ``[L, ...]`` tensors, one stack per homogeneous run
 (``layer_runs``), as in the reference, so a parameter tree made by the
 reference's ``init_lm_params`` carries across one to one
 (``interop.params_from_numpy``).  A Python loop over the layers replaces
-``lax.scan``.  The KV cache is preallocated ``[L, B, S, KVH, Dh]``; prefill
-writes it per layer and each decode step writes one row in place.
+``lax.scan``; each run's stack is unbound once, so the gradient of a stack
+is one ``stack`` of its layers' gradients.  The KV cache is preallocated
+``[L, B, S, KVH, Dh]``; prefill writes it per layer and each decode step
+writes one row in place.
 
-Public entry points: ``init_lm_params``, ``lm_forward``, ``lm_prefill``,
-``init_kv_caches`` + ``graft_prefill_caches``, ``lm_decode_step``.  The MoE,
-SSM, hybrid and VLM families, and training (``lm_loss``), are not ported
+Training (``lm_loss``) differentiates the backbone with autograd.  Each
+layer is rematerialised as ``cfg.remat`` says (``_remat``): ``none``,
+``full`` (``torch.utils.checkpoint`` around the layer) or ``dots`` (the
+layer's matmul outputs saved, the rest recomputed); the mode changes
+memory only, not a bit of the loss or the gradients.  The cross-entropy is
+taken a chunk of tokens at a time, each chunk checkpointed, so ``[B, S,
+V]`` is never held in fp32 (``chunked_ce``).  The embedding's gradient is
+summed in a fixed order by the ``segment_sum`` kernel on the card
+(``_EmbedGather``), so no float atomic is on the training path.
+
+Public entry points: ``init_lm_params``, ``lm_forward``, ``lm_loss``,
+``lm_prefill``, ``init_kv_caches`` + ``graft_prefill_caches``,
+``lm_decode_step``.  The MoE, SSM, hybrid and VLM families are not ported
 yet (ROADMAP Queue 1 item 17).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.nn import attention as attn
 from repro_torch.nn.mlp import init_mlp, mlp_block, normal
 from repro_torch.nn.norm import init_rmsnorm, rmsnorm
@@ -37,6 +55,32 @@ def layer_runs(cfg: ModelConfig) -> List[Tuple[str, int]]:
     raise ValueError(f"layer_runs: unsupported family {fam}")
 
 
+# the matmuls whose outputs the "dots" mode saves: products with no batch
+# dimension (``x @ W``), as the reference's
+# ``checkpoint_dots_with_no_batch_dims``; the attention's batched products
+# (``bmm``) are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str):
+    """``fn`` under the remat ``mode`` (``cfg.remat``; the reference's
+    ``:62-69``); a call with no graph being recorded runs ``fn`` as it
+    is."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn
+    if mode == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts,
+                                    _save_dots)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=context)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
 def _init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     return {
@@ -48,15 +92,18 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     }
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _layer(stack: Dict, j: int) -> Dict:
     """Layer ``j`` of a stacked run (views)."""
-    return _map(lambda x: x[j], stack)
+    return tree.map(lambda x: x[j], stack)
+
+
+def _unbind(stack: Dict, count: int) -> List[Dict]:
+    """The ``count`` layers of a stacked run, each a dict of views, made by
+    one ``unbind`` a leaf (whose backward stacks the layers' gradients)."""
+    if isinstance(stack, dict):
+        parts = {k: _unbind(v, count) for k, v in stack.items()}
+        return [{k: parts[k][j] for k in stack} for j in range(count)]
+    return stack.unbind(0)
 
 
 def init_lm_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
@@ -76,35 +123,16 @@ def init_lm_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
         params["lm_head"] = normal(gen, (d, v), d ** -0.5, pd)
     for kind, count in layer_runs(cfg):
         first = _init_block(gen, cfg)
-        stack = _map(lambda x: x.new_empty((count,) + x.shape), first)
+        stack = tree.map(lambda x: x.new_empty((count,) + x.shape), first)
         for j in range(count):
             block = first if j == 0 else _init_block(gen, cfg)
-            _copy_into(_layer(stack, j), block)
+            tree.map(lambda dst, src: dst.copy_(src), _layer(stack, j), block)
         params["runs"].append(stack)
     return params
 
 
-def _copy_into(dst, src) -> None:
-    if isinstance(dst, dict):
-        for k in dst:
-            _copy_into(dst[k], src[k])
-    else:
-        dst.copy_(src)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def param_count(params) -> int:
-    return sum(x.numel() for x in _leaves(params))
+    return sum(x.numel() for x in tree.leaves(params))
 
 
 # ---------------------------------------------------------------------------
@@ -112,10 +140,48 @@ def param_count(params) -> int:
 # ---------------------------------------------------------------------------
 
 
+class _EmbedGather(torch.autograd.Function):
+    """``table[ids]``, whose backward sums the rows' gradients into the
+    table in a fixed order: the ids sorted stably, each id's rows added in
+    token order in fp32 by ``ops.segment_sum`` (the hand kernel on the card,
+    its plain version on the CPU), then cast to the table's dtype.  The
+    ``index_select`` backward would add them with float atomics on the
+    card (ROADMAP Queue 3 check (d))."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.dtype = table.shape[0], table.dtype
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, dx):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (ids,) = ctx.saved_tensors
+        sorted_ids, order = torch.sort(ids, stable=True)
+        grad = ops.segment_sum(dx.float().contiguous(),
+                               sorted_ids.to(torch.int32), ctx.rows,
+                               idx=order.to(torch.int32))
+        return grad.to(ctx.dtype), None
+
+
 def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor
                   ) -> torch.Tensor:
-    x = params["embed"].index_select(0, tokens.reshape(-1))
+    x = _EmbedGather.apply(params["embed"], tokens.reshape(-1))
     return x.reshape(*tokens.shape, -1).to(getattr(torch, cfg.dtype))
+
+
+def _block(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor, causal: bool):
+    """One dense layer: attention, then the MLP, each on the RMS-normed
+    residual stream.  Returns ``(x, (k, v))``, the layer's keys and values
+    after RoPE."""
+    eps = cfg.norm_eps
+    h, kv = attn.attention_block(p["attn"], cfg, rmsnorm(p["ln1"], x, eps),
+                                 positions, causal, return_kv=True)
+    x = x + h
+    return x + mlp_block(p["mlp"], rmsnorm(p["ln2"], x, eps)), kv
 
 
 def lm_backbone(params, cfg: ModelConfig, x: torch.Tensor,
@@ -125,16 +191,11 @@ def lm_backbone(params, cfg: ModelConfig, x: torch.Tensor,
     with ``collect_kv`` each run's keys and values (after RoPE) are written
     into one ``[L, B, S, KVH, Dh]`` pair per run."""
     caches = [] if collect_kv else None
-    eps = cfg.norm_eps
+    body = _remat(_block, cfg.remat)
     for (kind, count), stack in zip(layer_runs(cfg), params["runs"]):
         kv = None
-        for j in range(count):
-            p = _layer(stack, j)
-            h, (k, v) = attn.attention_block(
-                p["attn"], cfg, rmsnorm(p["ln1"], x, eps), positions, causal,
-                return_kv=True)
-            x = x + h
-            x = x + mlp_block(p["mlp"], rmsnorm(p["ln2"], x, eps))
+        for j, p in enumerate(_unbind(stack, count)):
+            x, (k, v) = body(p, cfg, x, positions, causal)
             if collect_kv:
                 if kv is None:
                     kv = {"k": k.new_empty((count,) + k.shape),
@@ -158,6 +219,56 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor):
     positions = torch.arange(x.shape[1], device=x.device)
     h, aux, _ = lm_backbone(params, cfg, x, positions)
     return lm_logits(params, cfg, h), aux
+
+
+# ---------------------------------------------------------------------------
+# loss (sequence-chunked cross-entropy: never materializes [B,S,V] in fp32)
+# ---------------------------------------------------------------------------
+
+
+def _ce_chunk(h_c, head, labels_c, mask_c) -> torch.Tensor:
+    """The masked sum of one chunk's token losses, in fp32."""
+    logits = (h_c @ head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
+    return ((lse - gold) * mask_c).sum()
+
+
+def chunked_ce(h, head, labels, mask, chunk_tokens: int) -> torch.Tensor:
+    """Mean token loss over the unmasked tokens (the reference's
+    ``:246-269``): the sequence in chunks of ``c`` positions (the largest
+    divisor of ``S`` up to ``chunk_tokens``), each chunk's ``[B, c, V]``
+    logits made, reduced and dropped, and made again in the backward
+    (``checkpoint``); the chunks' sums added in order."""
+    b, s, d = h.shape
+    c = max(1, min(s, chunk_tokens))
+    while s % c:
+        c -= 1
+    ce = _remat(_ce_chunk, "full")
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, c):
+        tot = tot + ce(h[:, i:i + c], head, labels[:, i:i + c],
+                       mask[:, i:i + c])
+        cnt = cnt + mask[:, i:i + c].sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+    """batch: ``tokens [B, S]``, ``labels [B, S]`` (-1 = pad).  The mean
+    cross-entropy of the unmasked tokens, ``+ 0.01 * aux`` (0 for the
+    dense family)."""
+    tokens = batch["tokens"]
+    x = _embed_inputs(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    h, aux, _ = lm_backbone(params, cfg, x, positions)
+    h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    chunk_tokens = max(8, int(2 ** 24 / max(cfg.vocab, 1)))
+    loss = chunked_ce(h, head, torch.clamp(labels, min=0), mask, chunk_tokens)
+    return loss + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
