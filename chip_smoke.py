@@ -72,8 +72,17 @@ checkpoints bitwise; then the full 32-layer bf16 model through
 ``launch.train``'s step (seq 2048, global batch 8 as 2 microbatches):
 a falling loss on a repeated batch, two runs bitwise, exact
 ``segment_sum`` launches, step ms, tokens/s, model TFLOP/s, peak memory
-and a profiled step.  It imports nothing of jax or of the JAX package
-``repro``.
+and a profiled step.  Phase 7 is the MoE, SSM and hybrid LM families:
+phi3.5-moe and zamba2 at full width with 2 layers in fp32, the kernel arm
+against the plain arm teacher-forced (2 x 1536 prompts, 8 steps; exact
+``flash_attention`` / ``decode_attention`` launches), mamba2-2.7b with 2
+layers on the card against the CPU; then mamba2-2.7b and zamba2-1.2b
+whole and phi3.5-moe at full width with 24 of its 32 layers, bf16,
+through ``ServeEngine.generate`` (4 prompts of 2048 tokens, 32 greedy
+tokens, twice, bitwise, exact launches), with prefill and decode times,
+peak memory, a profiled prefill and decode step, and one zamba2 wave
+sampled at temperature 0.7 twice from one seed.  It imports nothing of
+jax or of the JAX package ``repro``.
 
 Output: progress lines, then the card's name and power limit as
 ``nvidia-smi`` prints them, a ``{"kernels": [...]}`` JSON line, and as the
@@ -1919,6 +1928,14 @@ def lm_kernels_vs_plain(dev) -> dict:
          "float32"),
         ("granite tail S=2000 fp32", 1, 2000, 32, 8, 128, True, 0,
          "float32"),
+        # zamba2's shared block (phase 7b): no GQA, Dh 64, the bf16
+        # kernel's m64n64k16 P.V branch
+        ("zamba2 prefill bf16", 4, 2048, 32, 32, 64, True, 0, "bfloat16"),
+    ]
+    decode_cases = [  # (tag, cache B, S, KVH, Dh, dtype); H 32
+        ("granite", 4, 2080, 8, 128, "bfloat16"),
+        ("granite", 4, 2080, 8, 128, "float32"),
+        ("zamba2", 4, 2080, 32, 64, "bfloat16"),
     ]
     with torch.inference_mode():
         for tag, b, s, h, kvh, dh, causal, window, dt in cases:
@@ -1933,16 +1950,17 @@ def lm_kernels_vs_plain(dev) -> dict:
             hold("flash_attention", f"{tag} {tuple(q.shape)}", dt, flash,
                  flash_plain, (q, k, v), lambda: flash(q, k, v))
             del q, k, v
-        for dt in ("bfloat16", "float32"):
-            q, k, v = attn_inputs(gen, 4, 2080, 32, 8, 128,
-                                  getattr(torch, dt), decode=True)
-            kv_len = torch.tensor([1, 1000, 2049, 2080], dtype=torch.int32,
-                                  device=dev)
+        kv_len = torch.tensor([1, 1000, 2049, 2080], dtype=torch.int32,
+                              device=dev)
+        for tag, b, s, kvh, dh, dt in decode_cases:
+            q, k, v = attn_inputs(gen, b, s, 32, kvh, dh, getattr(torch, dt),
+                                  decode=True)
             hold("decode_attention",
-                 f"granite {dt} q {tuple(q.shape)} cache {tuple(k.shape)} "
+                 f"{tag} {dt} q {tuple(q.shape)} cache {tuple(k.shape)} "
                  f"kv_len {kv_len.tolist()}", dt, tdec.decode_attention,
                  tdec.decode_attention_plain, (q, k, v, kv_len),
                  lambda: tdec.decode_attention(q, k, v, kv_len))
+            del q, k, v
     return out
 
 
@@ -1966,16 +1984,15 @@ def teacher_forced(tf, params, cfg, prompts, feed, max_len):
     return torch.stack(steps)
 
 
-def granite_two_layers(dev, ops) -> dict:
-    """granite-8b at full width, 2 layers, fp32: the kernel arm against the
+def arms_two_layers(dev, ops, cfg, tag: str, flash: int, decode: int
+                    ) -> dict:
+    """``cfg`` (full width, 2 layers, fp32): the kernel arm against the
     plain arm on the same weights, prefill of 2 x 1536 tokens then 8 decode
-    steps teacher-forced on the same tokens."""
+    steps teacher-forced on the same tokens; ``flash`` flash_attention
+    launches a prefill and ``decode`` decode_attention launches a step."""
     import torch
-    from repro_torch.configs.registry import get_config
     from repro_torch.nn import transformer as tf
 
-    cfg = get_config(GRANITE).replace(n_layers=2, dtype="float32",
-                                      param_dtype="float32")
     params = tf.init_lm_params(torch.Generator(device=dev).manual_seed(0),
                                cfg)
     rng = torch.Generator(device=dev).manual_seed(1)
@@ -1988,13 +2005,13 @@ def granite_two_layers(dev, ops) -> dict:
                           forced, 1544)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    check(counts == dict(dict.fromkeys(counts, 0), flash_attention=2,
-                         decode_attention=2 * 8),
-          f"granite 2-layer fp32 kernel arm: launches {counts} (want 2 "
-          f"flash_attention, 16 decode_attention)")
+    check(counts == dict(dict.fromkeys(counts, 0), flash_attention=flash,
+                         decode_attention=decode * 8),
+          f"{tag} 2-layer fp32 kernel arm: launches {counts} (want {flash} "
+          f"flash_attention, {decode * 8} decode_attention)")
     err = max_err(kern, plain)
     check(bool(torch.isfinite(kern).all()) and close(kern, plain, **TOL_LM),
-          f"granite 2-layer fp32 (d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{tag} 2-layer fp32 (d_model {cfg.d_model}, {cfg.n_heads}/"
           f"{cfg.n_kv_heads} heads, Dh {cfg.resolved_head_dim}, prefill "
           f"2x1536 + 8 teacher-forced steps): logits kernel arm vs "
           f"plain arm max |err| {err:.3e} of max |logit| "
@@ -2004,29 +2021,78 @@ def granite_two_layers(dev, ops) -> dict:
     return {"max_abs_err": err, "tolerance": TOL_LM, "launches": counts}
 
 
+def granite_two_layers(dev, ops) -> dict:
+    """granite-8b at full width, 2 layers, fp32: the kernel arm against the
+    plain arm (``arms_two_layers``)."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(GRANITE).replace(n_layers=2, dtype="float32",
+                                      param_dtype="float32")
+    return arms_two_layers(dev, ops, cfg, "granite", 2, 2)
+
+
 def granite_serve(dev, ops, profiles: dict) -> dict:
     """granite-8b, full config (36 layers, bf16), through
-    ``ServeEngine.generate``: 4 requests of 2048-token prompts and 32 greedy
-    tokens, twice; exact launch counts; the plain arm teacher-forced on the
-    kernel arm's tokens (its largest logit difference is recorded, not
-    gated)."""
+    ``ServeEngine.generate`` (``lm_serve``)."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(GRANITE).replace(use_pallas=True)
+    return lm_serve(dev, ops, profiles, cfg, "granite", cfg.n_layers)
+
+
+class DecodeStepAsForward:
+    """One decode step of ``cfg`` on a grafted 4 x 2048 prompt, as a
+    ``profile_forward`` "engine": each ``infer()`` runs the step at the
+    same position (it rewrites the same cache row)."""
+
+    def __init__(self, params, cfg, prompts):
+        import torch
+        from repro_torch.nn import transformer as tf
+
+        self.tf, self.params, self.cfg = tf, params, cfg
+        t0 = prompts.shape[1]
+        with torch.inference_mode():
+            lg, pf = tf.lm_prefill(params, cfg, prompts)
+            self.caches = tf.graft_prefill_caches(
+                cfg, tf.init_kv_caches(cfg, prompts.shape[0], t0 + LM_NEW,
+                                       prompts.device), pf, t0)
+        self.token = lg[:, 0].argmax(dim=-1)[:, None]
+        self.pos = t0
+
+    def infer(self):
+        import torch
+
+        with torch.inference_mode():
+            self.tf.lm_decode_step(self.params, self.cfg, self.token,
+                                   self.caches, self.pos)
+
+
+def lm_serve(dev, ops, profiles: dict, cfg, tag: str, attn_layers: int,
+             sampled: bool = False) -> dict:
+    """``cfg`` (``use_pallas``) through ``ServeEngine.generate``: 4 requests
+    of 2048-token prompts and 32 greedy tokens, twice; exact launch counts
+    (``attn_layers`` flash_attention a prefill and decode_attention a
+    step); the peak memory; the plain arm teacher-forced on the kernel
+    arm's tokens where there is attention (its largest logit difference is
+    recorded, not gated); a profiled prefill and decode step (busy share,
+    top device ops); with ``sampled`` one more wave on the same weights,
+    sampled at a temperature (``sampled_wave``)."""
     import numpy as np
     import torch
-    from repro_torch.configs.registry import get_config
     from repro_torch.nn import transformer as tf
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = get_config(GRANITE).replace(use_pallas=True)
     t0 = time.perf_counter()
     params = tf.init_lm_params(torch.Generator(device=dev).manual_seed(0),
                                cfg)
     torch.cuda.synchronize()
     n_params = tf.param_count(params)
-    print(f"  granite-8b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, Dh {cfg.head_dim}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}: {n_params} "
-          f"parameters drawn on the card in {time.perf_counter() - t0:.2f} "
-          f"s; memory allocated "
+    print(f"  {cfg.name}: {cfg.n_layers} layers "
+          f"{tf.layer_runs(cfg)}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, Dh "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.param_dtype}: {n_params} parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; memory allocated "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
@@ -2034,6 +2100,7 @@ def granite_serve(dev, ops, profiles: dict) -> dict:
     max_len = LM_PROMPT + LM_NEW
     engine = ServeEngine(cfg, params, batch_slots=LM_SLOTS, max_len=max_len)
     runs, counts = [], []
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         ops.reset_launch_counts()
         done = engine.generate([Request(prompt=p, max_tokens=LM_NEW)
@@ -2041,31 +2108,33 @@ def granite_serve(dev, ops, profiles: dict) -> dict:
         torch.cuda.synchronize()
         counts.append(ops.launch_counts())
         runs.append([r.out_tokens for r in done])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = LM_NEW - 1
     for i, c in enumerate(counts):
-        check(c == dict(dict.fromkeys(c, 0), flash_attention=cfg.n_layers,
-                        decode_attention=cfg.n_layers * steps),
-              f"granite serve run {i}: launches {c} (want {cfg.n_layers} "
-              f"flash_attention a prefill, {cfg.n_layers} decode_attention "
+        check(c == dict(dict.fromkeys(c, 0), flash_attention=attn_layers,
+                        decode_attention=attn_layers * steps),
+              f"{tag} serve run {i}: launches {c} (want {attn_layers} "
+              f"flash_attention a prefill, {attn_layers} decode_attention "
               f"a step x {steps} steps)")
     toks = runs[0]
     check(all(len(t) == LM_NEW and all(0 <= x < cfg.vocab for x in t)
               for t in toks),
-          f"granite serve: {LM_SLOTS} x {LM_NEW} token ids in [0, "
+          f"{tag} serve: {LM_SLOTS} x {LM_NEW} token ids in [0, "
           f"{cfg.vocab})")
-    check(runs[1] == toks, "granite serve: the same tokens on a second run")
+    check(runs[1] == toks, f"{tag} serve: the same tokens on a second run")
     timings = engine.timings[-1]
     prefill_ms = timings["prefill_s"] * 1e3
     decode_ms = timings["decode_s"] * 1e3 / max(timings["decode_steps"], 1)
     n_tok = LM_SLOTS * LM_NEW
     wall = timings["prefill_s"] + timings["decode_s"]
-    print(f"  granite serve (run 2): prefill {LM_SLOTS}x{LM_PROMPT} "
+    print(f"  {tag} serve (run 2): prefill {LM_SLOTS}x{LM_PROMPT} "
           f"{prefill_ms:.2f} ms to the first token; decode "
           f"{decode_ms:.3f} ms a token (one step of {LM_SLOTS} slots); "
           f"{n_tok} tokens "
           f"in {wall:.3f} s ({n_tok / wall:.1f} tok/s); run 1: prefill "
           f"{engine.timings[0]['prefill_s'] * 1e3:.2f} ms, decode "
-          f"{engine.timings[0]['decode_s'] * 1e3 / steps:.3f} ms a step")
+          f"{engine.timings[0]['decode_s'] * 1e3 / steps:.3f} ms a step; "
+          f"peak memory allocated {peak:.2f} GiB")
     print(f"  tokens req0: {toks[0]}")
 
     # logits: the kernel arm replayed teacher-forced on its own tokens (the
@@ -2075,28 +2144,46 @@ def granite_serve(dev, ops, profiles: dict) -> dict:
     tt = torch.as_tensor(toks, device=dev)
     kern = teacher_forced(tf, params, cfg, tp, tt[:, :-1], max_len)
     check(bool(torch.isfinite(kern).all()),
-          f"granite serve: all {tuple(kern.shape)} logits finite")
+          f"{tag} serve: all {tuple(kern.shape)} logits finite")
     check(torch.equal(kern.argmax(dim=-1).T, tt),
-          "granite serve: the kernel arm's teacher-forced argmax gives the "
+          f"{tag} serve: the kernel arm's teacher-forced argmax gives the "
           "engine's tokens")
-    plain = teacher_forced(tf, params, cfg.replace(use_pallas=False), tp,
-                           tt[:, :-1], max_len)
-    err = max_err(kern, plain)
-    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
-    print(f"  granite serve: logits kernel arm vs plain arm (teacher-forced, "
-          f"bf16, recorded, not gated): max |err| {err:.4e} of max |logit| "
-          f"{float(plain.abs().max()):.3f}; argmax agreement {agree:.4f}")
-    del kern, plain
-    profiles["granite serve"] = profile_forward(
-        types.SimpleNamespace(infer=lambda: engine.generate(
-            [Request(prompt=p, max_tokens=LM_NEW) for p in prompts])),
-        "granite serve (one generate)", reps=1, warmup=0)
-    return {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
-            "tokens_per_s": n_tok / wall, "tokens": n_tok,
-            "run1": engine.timings[0], "run2": timings,
-            "logits_plain_vs_kernel_max_abs_err": err,
-            "argmax_agreement": agree, "launches": counts[0],
-            "params": n_params}
+    err = agree = None
+    if attn_layers:
+        plain = teacher_forced(tf, params, cfg.replace(use_pallas=False), tp,
+                               tt[:, :-1], max_len)
+        err = max_err(kern, plain)
+        agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+        print(f"  {tag} serve: logits kernel arm vs plain arm "
+              f"(teacher-forced, bf16, recorded, not gated): max |err| "
+              f"{err:.4e} of max |logit| {float(plain.abs().max()):.3f}; "
+              f"argmax agreement {agree:.4f}")
+        del plain
+    del kern
+    busy = {}
+
+    def prefill():
+        with torch.inference_mode():
+            tf.lm_prefill(params, cfg, tp)
+
+    profiles[f"{tag} prefill"] = prof = profile_forward(
+        types.SimpleNamespace(infer=prefill), f"{tag} prefill", reps=1,
+        warmup=1)
+    busy["prefill_busy_share"] = prof["device_busy_ms"] / prof["wall_ms"]
+    step = DecodeStepAsForward(params, cfg, tp)
+    profiles[f"{tag} decode step"] = prof = profile_forward(
+        step, f"{tag} decode step", reps=5, warmup=2)
+    busy["decode_busy_share"] = prof["device_busy_ms"] / prof["wall_ms"]
+    del step
+    rec = {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+           "tokens_per_s": n_tok / wall, "tokens": n_tok,
+           "run1": engine.timings[0], "run2": timings,
+           "logits_plain_vs_kernel_max_abs_err": err,
+           "argmax_agreement": agree, "launches": counts[0],
+           "params": n_params, "peak_gib": peak, **busy}
+    if sampled:
+        rec["sampled"] = sampled_wave(dev, cfg, params)
+    return rec
 
 
 SASS_KERNELS = ("flash_attention_tc_kernel", "decode_split_kernel",
@@ -2316,6 +2403,112 @@ def lm_kernel_times(dev, flush, results: dict, main_counts: dict) -> list:
                   f"(plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms by {b_by}, "
                   f"SDPA {lib_ms:.5f} ms)")
     return entries
+
+
+# the MoE, SSM and hybrid LM families (phase 7)
+PHI_MOE, MAMBA2, ZAMBA2 = "phi3.5-moe-42b-a6.6b", "mamba2-2.7b", "zamba2-1.2b"
+PHI_LAYERS = 24  # of 32: 58.6 GiB of bf16 weights, room for the serve
+FAMILY_TEMPERATURE = 0.7  # the sampled zamba2 wave
+
+
+def families_two_layers(dev, ops) -> dict:
+    """Phase 7a: phi3.5-moe and zamba2 at full width, 2 layers, fp32, the
+    kernel arm against the plain arm (``arms_two_layers``; zamba2 as 2
+    Mamba layers then one shared block application); mamba2-2.7b at full
+    width, 2 layers, fp32, the card against the CPU on a 1 x 256 prompt
+    and 4 teacher-forced decode steps."""
+    import gc
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.nn import transformer as tf
+
+    fp32 = dict(n_layers=2, dtype="float32", param_dtype="float32")
+    out = {"phi3.5-moe": arms_two_layers(
+        dev, ops, get_config(PHI_MOE).replace(**fp32), "phi3.5-moe", 2, 2)}
+    out["zamba2"] = arms_two_layers(
+        dev, ops, get_config(ZAMBA2).replace(shared_attn_period=2, **fp32),
+        "zamba2", 1, 1)
+    cfg = get_config(MAMBA2).replace(**fp32)
+    params = tf.init_lm_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    rng = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (1, 256 + 4), generator=rng,
+                         device=dev)
+    card = teacher_forced(tf, params, cfg, toks[:, :256], toks[:, 256:], 260)
+    host = teacher_forced(tf, to_device(params, torch.device("cpu")), cfg,
+                          toks[:, :256].cpu(), toks[:, 256:].cpu(), 260)
+    err = max_err(card.cpu(), host)
+    check(bool(torch.isfinite(card).all())
+          and close(card.cpu(), host, **TOL_LM),
+          f"mamba2 2-layer fp32 (d_model {cfg.d_model}, d_state "
+          f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}, prefill 1x256 + 4 "
+          f"teacher-forced steps): logits card vs CPU max |err| {err:.3e} "
+          f"of max |logit| {float(host.abs().max()):.3f} (tol {TOL_LM})")
+    out["mamba2"] = {"max_abs_err": err, "tolerance": TOL_LM}
+    del params, card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sampled_wave(dev, cfg, params) -> dict:
+    """One wave of 4 x 2048-token prompts and 32 tokens sampled at
+    ``FAMILY_TEMPERATURE``, by two engines from the same seed: the tokens
+    are in the vocabulary and equal."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+               for _ in range(LM_SLOTS)]
+    runs = []
+    for _ in range(2):
+        engine = ServeEngine(cfg, params, batch_slots=LM_SLOTS,
+                             max_len=LM_PROMPT + LM_NEW, rng_seed=7)
+        done = engine.generate([Request(prompt=p, max_tokens=LM_NEW,
+                                        temperature=FAMILY_TEMPERATURE)
+                                for p in prompts])
+        torch.cuda.synchronize()
+        runs.append([r.out_tokens for r in done])
+    check(all(len(t) == LM_NEW and all(0 <= x < cfg.vocab for x in t)
+              for t in runs[0]),
+          f"{cfg.name} sampled at temperature {FAMILY_TEMPERATURE}: "
+          f"{LM_SLOTS} x {LM_NEW} token ids in [0, {cfg.vocab})")
+    check(runs[1] == runs[0],
+          f"{cfg.name} sampled at temperature {FAMILY_TEMPERATURE}: two "
+          f"waves from the same engine seed give the same tokens")
+    print(f"  sampled tokens req0: {runs[0][0]}")
+    return {"temperature": FAMILY_TEMPERATURE, "tokens_req0": runs[0][0]}
+
+
+def families_serve(dev, ops, profiles: dict) -> dict:
+    """Phase 7b: mamba2-2.7b (64 layers) and zamba2-1.2b (38 Mamba layers,
+    the shared block twice) whole, and phi3.5-moe at full width with
+    ``PHI_LAYERS`` layers, bf16, through ``lm_serve``; then one zamba2 wave
+    sampled at a temperature."""
+    import gc
+
+    import torch
+    from repro_torch.configs.registry import get_config
+
+    out = {}
+    for tag, cfg, attn_layers in (
+            ("mamba2", get_config(MAMBA2), 0),
+            ("zamba2", get_config(ZAMBA2), 2),
+            ("phi3.5-moe", get_config(PHI_MOE).replace(n_layers=PHI_LAYERS),
+             PHI_LAYERS)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg = cfg.replace(use_pallas=True)
+        out[tag] = lm_serve(dev, ops, profiles, cfg, tag, attn_layers,
+                            sampled=tag == "zamba2")
+        print(f"  {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # LM training (phase 6): smollm-360m, the default --arch of the train CLI
@@ -3392,7 +3585,8 @@ def main() -> None:
 
     # ---------------- phase 5: LM serving (granite-8b) ----------------
     print("phase 5: flash_attention and decode_attention against their "
-          "plain versions (granite-8b and h2o-danube-3-4b shapes)")
+          "plain versions (granite-8b, h2o-danube-3-4b and zamba2-1.2b "
+          "shapes)")
     lm_results = lm_kernels_vs_plain(dev)
     print("phase 5b: granite-8b at full width, 2 layers, fp32: the kernel "
           "arm against the plain arm")
@@ -3430,6 +3624,26 @@ def main() -> None:
             entry["training_call"] = train_pieces["segment_sum_embed_grad"]
     print(f"phase 6: {time.perf_counter() - t6:.1f} s")
 
+    # ---------------- phase 7: the MoE, SSM and hybrid families ----------
+    t7 = time.perf_counter()
+    print("phase 7a: phi3.5-moe and zamba2 at full width, 2 layers, fp32: "
+          "the kernel arm against the plain arm; mamba2-2.7b, 2 layers, "
+          "card vs CPU")
+    fam_small = families_two_layers(dev, ops)
+    print("phase 7b: mamba2-2.7b, zamba2-1.2b and phi3.5-moe "
+          f"({PHI_LAYERS} layers), bf16, through ServeEngine.generate")
+    print(f"  card: {card_line()}")
+    fam_serve = families_serve(dev, ops, profiles)
+    for entry in kernels:
+        if entry["name"] in ("flash_attention", "decode_attention"):
+            n = sum(rec["launches"][entry["name"]]
+                    for rec in fam_serve.values())
+            check(n > 0, f"{entry['name']} launched {n} times on the LM "
+                  f"families' serving paths")
+            entry["launches"] += n
+            entry["families_launches"] = n
+    print(f"phase 7: {time.perf_counter() - t7:.1f} s")
+
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
@@ -3444,6 +3658,8 @@ def main() -> None:
                       "fig5c_han_na_device_ms": fig5c,
                       "lm": {"granite_2_layers_fp32": two_layers,
                              "granite_serve": serve},
+                      "lm_families": {"two_layers_fp32": fam_small,
+                                      "serve": fam_serve},
                       "lm_train": {"pieces": train_pieces,
                                    "smollm_2_layers_fp32": train_small,
                                    "smollm_full": train_rec},

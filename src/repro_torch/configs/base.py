@@ -5,9 +5,10 @@ Two families, as in the reference:
 * ``ModelConfig`` (with ``MoEConfig``, ``SSMConfig``) — the ten LM
   architectures; one module per arch under ``repro_torch.configs`` exposes
   ``config()`` (full size) and ``reduced()`` (CPU smoke), looked up by
-  ``registry.get_config`` / ``get_reduced``.  The port runs the ``dense``
-  family; the others are data only until their model code is ported
-  (ROADMAP Queue 1 item 17).
+  ``registry.get_config`` / ``get_reduced``.  The port runs the
+  ``dense``, ``moe``, ``ssm`` and ``hybrid`` families; ``vlm`` and
+  ``encdec`` are data only until their model code is ported (ROADMAP
+  Queue 1 item 17).
 * ``HGNNConfig`` — the paper's HGNN workloads.
 
 Field names, defaults and ``__post_init__`` equal the reference's, so one
@@ -33,7 +34,7 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Mixture-of-experts block config (not run by the port yet)."""
+    """Mixture-of-experts block config (``nn/moe.py``)."""
 
     n_experts: int
     top_k: int
@@ -45,7 +46,7 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
-    """Mamba2 (SSD) block config (not run by the port yet)."""
+    """Mamba2 (SSD) block config (``nn/ssm.py``)."""
 
     d_state: int
     head_dim: int = 64

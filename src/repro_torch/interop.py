@@ -8,8 +8,14 @@ model (``jax.random`` streams cannot be reproduced in torch): the HGNN trees
 for HAN's ``csr`` and ``bucketed`` layouts, a list of ``P`` such dicts of
 ``[H, Dh]`` — ``sem{W, b, q}``, ``layers[l-1]{fp, gat, sem}``; GCN's
 ``w1``, ``w2``, ``layers[l-1]{fp}``) and the LM tree (``embed``,
-``ln_f``, ``lm_head``, ``runs[i]{ln1, attn{wq, wk, wv, wo}, ln2, mlp{...}}``
-stacked ``[L, ...]``).  ``batch_from_numpy`` does the same for a prepared
+``ln_f``, ``lm_head``, ``runs[i]`` stacked ``[L, ...]``: ``{ln1, attn{wq,
+wk, wv, wo}, ln2, mlp{w_gate, w_up, w_down}}`` for a dense run, ``mlp``
+replaced by ``moe{router, w_gate, w_up, w_down[, dense{...}]}`` (experts
+``[L, E, ...]``) for a MoE run, ``{ln1, mamba{w_z, w_x, w_B, w_C, w_dt,
+conv_x, conv_B, conv_C, conv_bias, A_log, D, dt_bias, norm_g, out_proj}}``
+for a Mamba run, and ``{}`` for each application of zamba2's ``shared``
+block, whose one unstacked ``{ln1, attn, ln2, mlp}`` sits beside
+``runs``).  ``batch_from_numpy`` does the same for a prepared
 batch.  Leaves are copied with ``np.array`` (not ``np.asarray``, whose
 buffer behind a JAX array is read-only) and handed to ``torch.from_numpy``.
 numpy has no bfloat16 of its own: a leaf whose dtype is named

@@ -27,14 +27,15 @@
       --dataset imdb --use-pallas --partitions 4 --layers 2 --overlap 2
 
 runs on the CUDA device; ``--device cpu`` runs on the CPU (the kernels'
-plain versions).  Without ``--hgnn`` it serves the dense LM ``--arch`` (full
-size, or ``--reduced``) through ``ServeEngine`` with random weights from
-seed 0, and prints the reference's ``reqN: [...]`` lines and ``N tokens in
-Xs (Y tok/s)``.  ``--use-pallas`` sets ``ModelConfig.use_pallas`` there:
+plain versions).  Without ``--hgnn`` it serves the decoder-only LM
+``--arch`` (dense, moe, ssm or hybrid; full size, or ``--reduced``)
+through ``ServeEngine`` with random weights from seed 0, and prints the
+reference's ``reqN: [...]`` lines and ``N tokens in Xs (Y tok/s)``.  ``--use-pallas`` sets ``ModelConfig.use_pallas`` there:
 prefill through the ``flash_attention`` kernel and decode through
 ``decode_attention`` (the reference's flag reaches only its HGNN branch).
-The encdec family exits as the reference does; the other non-dense
-families raise ``NotImplementedError``.
+The encdec family exits as the reference does; the vlm family raises
+``NotImplementedError``.  An SSM or hybrid prompt longer than the SSD
+chunk (256 at full size) must be a multiple of it, as in the reference.
 
 With ``--hgnn``, ``--cache-rows C`` turns on hot-feature residency for
 any of the four models; ``--hgnn gcn`` needs ``--dataset reddit`` (the

@@ -1,15 +1,19 @@
-"""Decoder-only transformer, dense family (port of
-``repro/nn/transformer.py``): the forward, the training loss and the
+"""Decoder-only transformer composition: dense / MoE / SSM / hybrid (port
+of ``repro/nn/transformer.py``): the forward, the training loss and the
 serving entry points.
 
 Layers are stacked ``[L, ...]`` tensors, one stack per homogeneous run
 (``layer_runs``), as in the reference, so a parameter tree made by the
 reference's ``init_lm_params`` carries across one to one
-(``interop.params_from_numpy``).  A Python loop over the layers replaces
-``lax.scan``; each run's stack is unbound once, so the gradient of a stack
-is one ``stack`` of its layers' gradients.  The KV cache is preallocated
-``[L, B, S, KVH, Dh]``; prefill writes it per layer and each decode step
-writes one row in place.
+(``interop.params_from_numpy``).  zamba2's shared attention block has ONE
+param set (``params["shared"]``, an empty ``{}`` in ``runs`` at each of
+its applications) referenced at every application, each application with
+its own KV cache.  A Python loop over the layers replaces ``lax.scan``;
+each run's stack is unbound once, so the gradient of a stack is one
+``stack`` of its layers' gradients.  The KV cache is preallocated ``[L,
+B, S, KVH, Dh]``; prefill writes it per layer and each decode step writes
+one row in place; a Mamba run's cache is a ``MambaCache`` stacked ``[L,
+...]``, which each decode step overwrites in place.
 
 Training (``lm_loss``) differentiates the backbone with autograd.  Each
 layer is rematerialised as ``cfg.remat`` says (``_remat``): ``none``,
@@ -17,13 +21,15 @@ layer is rematerialised as ``cfg.remat`` says (``_remat``): ``none``,
 layer's matmul outputs saved, the rest recomputed); the mode changes
 memory only, not a bit of the loss or the gradients.  The cross-entropy is
 taken a chunk of tokens at a time, each chunk checkpointed, so ``[B, S,
-V]`` is never held in fp32 (``chunked_ce``).  The embedding's gradient is
-summed in a fixed order by the ``segment_sum`` kernel on the card
-(``_EmbedGather``), so no float atomic is on the training path.
+V]`` is never held in fp32 (``chunked_ce``); the MoE layers' aux losses
+enter it as ``+ 0.01 * aux``.  The embedding's gradient is summed in a
+fixed order by the ``segment_sum`` kernel on the card (``_EmbedGather``)
+and the MoE's dispatch and combine are gathers both ways
+(``nn/moe.py``), so no float atomic is on the training path.
 
 Public entry points: ``init_lm_params``, ``lm_forward``, ``lm_loss``,
 ``lm_prefill``, ``init_kv_caches`` + ``graft_prefill_caches``,
-``lm_decode_step``.  The MoE, SSM, hybrid and VLM families are not ported
+``lm_decode_step``.  The VLM family (frontend embeddings) is not ported
 yet (ROADMAP Queue 1 item 17).
 """
 from __future__ import annotations
@@ -41,17 +47,36 @@ from repro_torch.interop import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.nn import attention as attn
 from repro_torch.nn.mlp import init_mlp, mlp_block, normal
+from repro_torch.nn.moe import init_moe, moe_block
 from repro_torch.nn.norm import init_rmsnorm, rmsnorm
+from repro_torch.nn.ssm import (MambaCache, init_mamba2, init_mamba_cache,
+                                mamba2_block)
 
 
 def layer_runs(cfg: ModelConfig) -> List[Tuple[str, int]]:
     fam = cfg.family
     if fam == "dense":
         return [("attn", cfg.n_layers)]
-    if fam in ("moe", "ssm", "hybrid", "vlm"):
+    if fam == "moe":
+        return [("moe", cfg.n_layers)]
+    if fam == "ssm":
+        return [("mamba", cfg.n_layers)]
+    if fam == "hybrid":
+        runs: List[Tuple[str, int]] = []
+        period = cfg.shared_attn_period or cfg.n_layers
+        left = cfg.n_layers
+        while left > 0:
+            k = min(period, left)
+            runs.append(("mamba", k))
+            left -= k
+            if left > 0 or k == period:
+                runs.append(("shared_attn", 1))
+        return runs
+    if fam == "vlm":
         raise NotImplementedError(
-            f"layer_runs: the {fam} family is not ported yet (ROADMAP Queue "
-            "1 item 17); the port runs the dense family")
+            "layer_runs: the vlm family (frontend embeddings, extra_embeds) "
+            "is not ported yet (ROADMAP Queue 1 item 17); the port runs the "
+            "dense, moe, ssm and hybrid families")
     raise ValueError(f"layer_runs: unsupported family {fam}")
 
 
@@ -81,15 +106,22 @@ def _remat(fn, mode: str):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Dict:
     d = cfg.d_model
-    return {
-        "ln1": init_rmsnorm(d, gen.device),
-        "attn": attn.init_attention(gen, cfg),
-        "ln2": init_rmsnorm(d, gen.device),
-        "mlp": init_mlp(gen, d, cfg.d_ff, cfg.n_layers,
-                        getattr(torch, cfg.param_dtype)),
-    }
+    pd = getattr(torch, cfg.param_dtype)
+    if kind == "mamba":
+        return {"ln1": init_rmsnorm(d, gen.device),
+                "mamba": init_mamba2(gen, d, cfg.ssm, cfg.n_layers, pd)}
+    if kind not in ("attn", "shared_attn", "moe"):
+        raise ValueError(kind)
+    block = {"ln1": init_rmsnorm(d, gen.device),
+             "attn": attn.init_attention(gen, cfg),
+             "ln2": init_rmsnorm(d, gen.device)}
+    if kind == "moe":
+        block["moe"] = init_moe(gen, d, cfg.moe, cfg.n_layers, pd)
+    else:
+        block["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.n_layers, pd)
+    return block
 
 
 def _layer(stack: Dict, j: int) -> Dict:
@@ -110,8 +142,10 @@ def init_lm_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     """Random weights drawn on ``gen``'s device, in fp32 and then cast to
     ``cfg.param_dtype``, with the reference's distributions: embed ``N(0,
     0.02^2)``, lm_head ``N(0, 1/d)``, the block weights of
-    ``nn/attention.py`` and ``nn/mlp.py``.  Each layer is drawn straight
-    into its slot of the stack, so a full-size model is never held twice."""
+    ``nn/attention.py``, ``nn/mlp.py``, ``nn/moe.py`` and ``nn/ssm.py``.
+    Each layer is drawn straight into its slot of the stack, so a
+    full-size model is never held twice.  The shared block (hybrid) is
+    drawn once, at its first application, into ``params["shared"]``."""
     d, v = cfg.d_model, cfg.vocab
     pd = getattr(torch, cfg.param_dtype)
     params: Dict = {
@@ -122,10 +156,15 @@ def init_lm_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(gen, (d, v), d ** -0.5, pd)
     for kind, count in layer_runs(cfg):
-        first = _init_block(gen, cfg)
+        if kind == "shared_attn":
+            if "shared" not in params:
+                params["shared"] = _init_block(gen, cfg, kind)
+            params["runs"].append({})  # placeholder (weights in 'shared')
+            continue
+        first = _init_block(gen, cfg, kind)
         stack = tree.map(lambda x: x.new_empty((count,) + x.shape), first)
         for j in range(count):
-            block = first if j == 0 else _init_block(gen, cfg)
+            block = first if j == 0 else _init_block(gen, cfg, kind)
             tree.map(lambda dst, src: dst.copy_(src), _layer(stack, j), block)
         params["runs"].append(stack)
     return params
@@ -172,39 +211,90 @@ def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor
     return x.reshape(*tokens.shape, -1).to(getattr(torch, cfg.dtype))
 
 
+def _ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor):
+    """The feed-forward half of an attention layer on the RMS-normed
+    residual stream: the MLP, or the routed experts of a MoE layer.
+    Returns ``(x, aux | None)``."""
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if "moe" in p:
+        hh, aux = moe_block(p["moe"], h, cfg.moe)
+        return x + hh, aux
+    return x + mlp_block(p["mlp"], h), None
+
+
 def _block(p: Dict, cfg: ModelConfig, x: torch.Tensor,
            positions: torch.Tensor, causal: bool):
-    """One dense layer: attention, then the MLP, each on the RMS-normed
-    residual stream.  Returns ``(x, (k, v))``, the layer's keys and values
-    after RoPE."""
-    eps = cfg.norm_eps
-    h, kv = attn.attention_block(p["attn"], cfg, rmsnorm(p["ln1"], x, eps),
+    """One dense or MoE layer (or the shared block): attention, then
+    ``_ffn``.  Returns ``(x, (k, v), aux | None)``, the layer's keys and
+    values after RoPE."""
+    h, kv = attn.attention_block(p["attn"], cfg,
+                                 rmsnorm(p["ln1"], x, cfg.norm_eps),
                                  positions, causal, return_kv=True)
-    x = x + h
-    return x + mlp_block(p["mlp"], rmsnorm(p["ln2"], x, eps)), kv
+    x, aux = _ffn(p, cfg, x + h)
+    return x, kv, aux
+
+
+def _mamba_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                 return_state: bool):
+    """One Mamba2 layer.  Returns ``(x, MambaCache | None, None)``."""
+    h, cache = mamba2_block(p["mamba"], cfg,
+                            rmsnorm(p["ln1"], x, cfg.norm_eps),
+                            return_state=return_state)
+    return x + h, cache, None
+
+
+def _new_stack(count: int, cache):
+    """An empty ``[count, ...]`` run cache shaped after one layer's:
+    ``{"k", "v"}`` from ``(k, v)``, or a ``MambaCache``."""
+    if isinstance(cache, MambaCache):
+        return MambaCache(*[f.new_empty((count,) + f.shape) for f in cache])
+    k, v = cache
+    return {"k": k.new_empty((count,) + k.shape),
+            "v": v.new_empty((count,) + v.shape)}
+
+
+def _write_layer(stack, j: int, cache) -> None:
+    """Layer ``j``'s cache into its slot of a run's stack."""
+    if isinstance(stack, MambaCache):
+        for dst, src in zip(stack, cache):
+            dst[j] = src
+    else:
+        stack["k"][j], stack["v"][j] = cache
 
 
 def lm_backbone(params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, causal: bool = True,
                 collect_kv: bool = False):
-    """Run all layer runs.  Returns ``(hidden, aux, kv_caches | None)``;
-    with ``collect_kv`` each run's keys and values (after RoPE) are written
-    into one ``[L, B, S, KVH, Dh]`` pair per run."""
+    """Run all layer runs.  Returns ``(hidden, aux, caches | None)``: the
+    MoE layers' aux losses summed in layer order; with ``collect_kv`` each
+    attention run's keys and values (after RoPE) in one ``[L, B, S, KVH,
+    Dh]`` pair (``[1, ...]`` for each application of the shared block),
+    and each Mamba run's prefill ``MambaCache`` stacked ``[L, ...]``."""
     caches = [] if collect_kv else None
-    body = _remat(_block, cfg.remat)
-    for (kind, count), stack in zip(layer_runs(cfg), params["runs"]):
-        kv = None
-        for j, p in enumerate(_unbind(stack, count)):
-            x, (k, v) = body(p, cfg, x, positions, causal)
-            if collect_kv:
-                if kv is None:
-                    kv = {"k": k.new_empty((count,) + k.shape),
-                          "v": v.new_empty((count,) + v.shape)}
-                kv["k"][j] = k
-                kv["v"][j] = v
-        if collect_kv:
-            caches.append(kv)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for (kind, count), stack in zip(layer_runs(cfg), params["runs"]):
+        if kind == "shared_attn":  # one param set, no remat (:180-192)
+            x, (k, v), _ = _block(params["shared"], cfg, x, positions,
+                                  causal)
+            if collect_kv:
+                caches.append({"k": k[None], "v": v[None]})
+            continue
+        run_cache = None
+        for j, p in enumerate(_unbind(stack, count)):
+            if kind == "mamba":
+                x, c, a = _remat(_mamba_layer, cfg.remat)(p, cfg, x,
+                                                          collect_kv)
+            else:
+                x, c, a = _remat(_block, cfg.remat)(p, cfg, x, positions,
+                                                    causal)
+            if a is not None:
+                aux = aux + a
+            if collect_kv:
+                if run_cache is None:
+                    run_cache = _new_stack(count, c)
+                _write_layer(run_cache, j, c)
+        if collect_kv:
+            caches.append(run_cache)
     return x, aux, caches
 
 
@@ -256,8 +346,8 @@ def chunked_ce(h, head, labels, mask, chunk_tokens: int) -> torch.Tensor:
 
 def lm_loss(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
     """batch: ``tokens [B, S]``, ``labels [B, S]`` (-1 = pad).  The mean
-    cross-entropy of the unmasked tokens, ``+ 0.01 * aux`` (0 for the
-    dense family)."""
+    cross-entropy of the unmasked tokens, ``+ 0.01 * aux`` (the MoE
+    layers' Switch loss; 0 for the other families)."""
     tokens = batch["tokens"]
     x = _embed_inputs(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -277,20 +367,30 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
 
 
 def init_kv_caches(cfg: ModelConfig, batch: int, max_len: int,
-                   device=None) -> List[Dict]:
-    """Zeroed decode caches ``[L, B, S, KVH, Dh]`` per run on ``device``
-    (default: the CUDA device; there is no silent CPU fallback); ``S`` is
-    ``min(max_len, window)`` under a sliding window (a ring)."""
+                   device=None) -> List:
+    """Zeroed decode caches per run on ``device`` (default: the CUDA
+    device; there is no silent CPU fallback): ``{"k", "v"}`` of ``[L, B,
+    S, KVH, Dh]`` for an attention run, where ``S`` is ``min(max_len,
+    window)`` under a sliding window (a ring); a ``MambaCache`` stacked
+    ``[L, ...]`` for a Mamba run."""
     dh = cfg.resolved_head_dim
     _, kvh = attn._heads(cfg)
     dt = getattr(torch, cfg.dtype)
     device = resolve_device(device)
     s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    return [{"k": torch.zeros((count, batch, s, kvh, dh), dtype=dt,
-                              device=device),
-             "v": torch.zeros((count, batch, s, kvh, dh), dtype=dt,
-                              device=device)}
-            for _, count in layer_runs(cfg)]
+    caches: List = []
+    for kind, count in layer_runs(cfg):
+        if kind == "mamba":
+            c0 = init_mamba_cache(cfg, batch, dt, device)
+            caches.append(MambaCache(*[f.new_zeros((count,) + f.shape)
+                                       for f in c0]))
+        else:
+            caches.append({
+                "k": torch.zeros((count, batch, s, kvh, dh), dtype=dt,
+                                 device=device),
+                "v": torch.zeros((count, batch, s, kvh, dh), dtype=dt,
+                                 device=device)})
+    return caches
 
 
 def graft_prefill_caches(cfg: ModelConfig, skeleton, prefill, t0: int):
@@ -299,8 +399,12 @@ def graft_prefill_caches(cfg: ModelConfig, skeleton, prefill, t0: int):
 
     Under a sliding window the cache is a ring: slot ``r`` holds the newest
     prompt position ``p = r (mod W)``; a slot with no valid position stays
-    zero (``kv_len`` masks it until it is overwritten)."""
-    for sk, pf in zip(skeleton, prefill):
+    zero (``kv_len`` masks it until it is overwritten).  A Mamba run's
+    prefill ``MambaCache`` takes its skeleton's place as it is."""
+    for i, (sk, pf) in enumerate(zip(skeleton, prefill)):
+        if isinstance(pf, MambaCache):
+            skeleton[i] = pf
+            continue
         smax = sk["k"].shape[2]
         if not cfg.sliding_window:
             for name in ("k", "v"):
@@ -333,15 +437,26 @@ def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
     Returns ``(logits [B, 1, V], caches)``."""
     x = _embed_inputs(params, cfg, token)  # [B, 1, d]
     eps = cfg.norm_eps
+    step = None  # the attention runs' step-wide values, made once
     for (kind, count), stack, cache in zip(layer_runs(cfg), params["runs"],
                                            caches):
-        step = attn.decode_step(cfg, pos, x.shape[0], cache["k"].shape[2],
-                                x.device)
+        if kind == "mamba":
+            for j in range(count):
+                p = _layer(stack, j)
+                c = MambaCache(*[f[j] for f in cache])
+                h, new = mamba2_block(p["mamba"], cfg,
+                                      rmsnorm(p["ln1"], x, eps), cache=c)
+                x = x + h
+                for dst, src in zip(c, new):
+                    dst.copy_(src)
+            continue
+        if step is None:
+            step = attn.decode_step(cfg, pos, x.shape[0],
+                                    cache["k"].shape[2], x.device)
         for j in range(count):
-            p = _layer(stack, j)
+            p = params["shared"] if kind == "shared_attn" else _layer(stack, j)
             h, _, _ = attn.decode_attention_block(
                 p["attn"], cfg, rmsnorm(p["ln1"], x, eps), cache["k"][j],
                 cache["v"][j], step)
-            x = x + h
-            x = x + mlp_block(p["mlp"], rmsnorm(p["ln2"], x, eps))
+            x, _ = _ffn(p, cfg, x + h)
     return lm_logits(params, cfg, x), caches

@@ -100,7 +100,7 @@ def test_cli_families_outside_the_slice(capsys):
     with pytest.raises(SystemExit, match="decoder-only"):
         tserve.run_lm(_args(arch="seamless-m4t-medium"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.run_lm(_args(arch="phi3.5-moe-42b-a6.6b"))
+        tserve.run_lm(_args(arch="internvl2-76b"))
     tserve.run_lm(_args(arch="granite-8b", use_pallas=True))
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("req0: [") and out[1].startswith("req1: [")

@@ -297,7 +297,7 @@ def test_embedding_gradient_is_the_index_select_gradient():
 
 
 def test_other_families_raise_citing_item_17():
-    cfg = t_get_reduced("phi3.5-moe-42b-a6.6b")
+    cfg = t_get_reduced("internvl2-76b")
     with pytest.raises(NotImplementedError, match="item 17"):
         tts.make_train_step(cfg.replace(family="encdec"),
                             topt.build_optimizer(cfg))
