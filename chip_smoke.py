@@ -81,8 +81,22 @@ whole and phi3.5-moe at full width with 24 of its 32 layers, bf16,
 through ``ServeEngine.generate`` (4 prompts of 2048 tokens, 32 greedy
 tokens, twice, bitwise, exact launches), with prefill and decode times,
 peak memory, a profiled prefill and decode step, and one zamba2 wave
-sampled at temperature 0.7 twice from one seed.  It imports nothing of
-jax or of the JAX package ``repro``.
+sampled at temperature 0.7 twice from one seed.  Phase 5e serves
+h2o-danube3-4b whole past its 4096-token window (4 prompts of 4608
+tokens: the ring cache wraps).  Phase 8 is the VLM and encoder-decoder
+families: internvl2-76b (256 frontend embeddings before the tokens) and
+seamless-m4t-medium (an encoder over 1024 audio frames, a decoder with
+cross-attention, the ``flash_attention`` kernel's cross form) at full
+width with 2 (+ 2) layers in fp32, the kernel arm against the plain arm
+(seamless also prefill + 253 teacher-forced decode steps against the
+forward); then internvl2-76b with 32 of its 80 layers and
+seamless-m4t-medium whole, bf16: a wave of 4 (256 embeddings + 1024
+tokens, 32 greedy tokens; 1024 frames, a 2-token prefix, 64 greedy
+tokens) twice, bitwise, exact launches, prefill and decode times, peak
+memory, the plain arm teacher-forced on the served tokens (its logit
+difference recorded), a profiled prefill and decode step.  Phase 5 holds
+both kernels at every shape phases 5e, 7b and 8b serve.  It imports
+nothing of jax or of the JAX package ``repro``.
 
 Output: progress lines, then the card's name and power limit as
 ``nvidia-smi`` prints them, a ``{"kernels": [...]}`` JSON line, and as the
@@ -1869,16 +1883,18 @@ TOL_LM = dict(atol=1e-4, rtol=1e-4)  # 2 layers fp32: kernel vs plain arm
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 
 
-def attn_inputs(gen, b, s, h, kvh, dh, dtype, decode=False):
+def attn_inputs(gen, b, s, h, kvh, dh, dtype, decode=False, sk=None):
     """q, k, v drawn on the card: ``N(0, 1)``, the scale of RoPE'd
-    projections of RMS-normed activations."""
+    projections of RMS-normed activations; k and v of ``sk`` rows (the
+    cross form) or ``s``."""
     import torch
 
     def draw(*shape):
         return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
 
     q = draw(b, h, dh) if decode else draw(b, s, h, dh)
-    return q, draw(b, s, kvh, dh), draw(b, s, kvh, dh)
+    sk = s if sk is None else sk
+    return q, draw(b, sk, kvh, dh), draw(b, sk, kvh, dh)
 
 
 def lm_kernels_vs_plain(dev) -> dict:
@@ -1919,7 +1935,7 @@ def lm_kernels_vs_plain(dev) -> dict:
                               "checked": []})
         out[name]["checked"].append(rec)
 
-    cases = [  # (tag, B, S, H, KVH, Dh, causal, window, dtype)
+    cases = [  # (tag, B, S, H, KVH, Dh, causal, window, dtype[, Sk])
         ("granite prefill bf16", 4, 2048, 32, 8, 128, True, 0, "bfloat16"),
         ("granite prefill fp32", 1, 2048, 32, 8, 128, True, 0, "float32"),
         ("danube window 4096 bf16", 1, 4608, 32, 8, 120, True, 4096,
@@ -1932,14 +1948,44 @@ def lm_kernels_vs_plain(dev) -> dict:
         # kernel's m64n64k16 P.V branch
         ("zamba2 prefill bf16", 4, 2048, 32, 32, 64, True, 0, "bfloat16"),
     ]
-    decode_cases = [  # (tag, cache B, S, KVH, Dh, dtype); H 32
-        ("granite", 4, 2080, 8, 128, "bfloat16"),
-        ("granite", 4, 2080, 8, 128, "float32"),
-        ("zamba2", 4, 2080, 32, 64, "bfloat16"),
+    for dt in ("bfloat16", "float32"):  # phase 8's shapes
+        cases += [
+            # internvl2's prefill: 256 embeddings + 1024 tokens, G 8
+            (f"internvl2 prefill {dt}", 4, 1280, 64, 8, 128, True, 0, dt),
+            # seamless's encoder: bidirectional, Dh 64, no GQA
+            (f"seamless encoder {dt}", 4, 1024, 16, 16, 64, False, 0, dt),
+            # the cross form: the decoder's queries over the encoder's
+            # keys, ragged, and fewer keys than queries
+            (f"seamless cross {dt}", 4, 256, 16, 16, 64, False, 0, dt, 1024),
+            (f"cross ragged {dt}", 4, 130, 16, 16, 64, False, 0, dt, 1000),
+            (f"cross Sk < Sq {dt}", 4, 1024, 16, 16, 64, False, 0, dt, 200),
+        ]
+    cases += [  # phase 8b's seamless prefill: the 2-token target prefix,
+        # causal, and its cross form over the 1024 frames (2 of a q tile's
+        # 64 rows live)
+        ("seamless prefix S=2 bfloat16", 4, 2, 16, 16, 64, True, 0,
+         "bfloat16"),
+        ("seamless prefix cross bfloat16", 4, 2, 16, 16, 64, False, 0,
+         "bfloat16", 1024),
+    ]
+    granite_len = (1, 1000, 2049, 2080)
+    decode_cases = [  # (tag, cache B, S, H, KVH, Dh, dtype, kv_len)
+        ("granite", 4, 2080, 32, 8, 128, "bfloat16", granite_len),
+        ("granite", 4, 2080, 32, 8, 128, "float32", granite_len),
+        ("zamba2", 4, 2080, 32, 32, 64, "bfloat16", granite_len),
+        # phase 8b's internvl2 after its 1280-row prefill: G 8, the
+        # kernel's two-pass branch
+        ("internvl2", 4, 1312, 64, 8, 128, "bfloat16", (1, 700, 1281, 1312)),
+        # phase 5e's danube ring of 4096 rows (wrapped: every row live)
+        ("danube ring", 4, 4096, 32, 8, 120, "bfloat16",
+         (1, 2049, 4095, 4096)),
+        # phase 8b's seamless decoder self-attention: 2 + 64 rows
+        ("seamless", 4, 66, 16, 16, 64, "bfloat16", (1, 2, 33, 66)),
     ]
     with torch.inference_mode():
-        for tag, b, s, h, kvh, dh, causal, window, dt in cases:
-            q, k, v = attn_inputs(gen, b, s, h, kvh, dh, getattr(torch, dt))
+        for tag, b, s, h, kvh, dh, causal, window, dt, *sk in cases:
+            q, k, v = attn_inputs(gen, b, s, h, kvh, dh, getattr(torch, dt),
+                                  sk=sk[0] if sk else None)
 
             def flash(q, k, v, fn=tflash.flash_attention):
                 return fn(q, k, v, causal=causal, window=window)
@@ -1947,13 +1993,13 @@ def lm_kernels_vs_plain(dev) -> dict:
             def flash_plain(q, k, v):
                 return flash(q, k, v, fn=tflash.flash_attention_plain)
 
-            hold("flash_attention", f"{tag} {tuple(q.shape)}", dt, flash,
+            hold("flash_attention", f"{tag} {tuple(q.shape)}"
+                 + (f" over k/v {tuple(k.shape)}" if sk else ""), dt, flash,
                  flash_plain, (q, k, v), lambda: flash(q, k, v))
             del q, k, v
-        kv_len = torch.tensor([1, 1000, 2049, 2080], dtype=torch.int32,
-                              device=dev)
-        for tag, b, s, kvh, dh, dt in decode_cases:
-            q, k, v = attn_inputs(gen, b, s, 32, kvh, dh, getattr(torch, dt),
+        for tag, b, s, h, kvh, dh, dt, lens in decode_cases:
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            q, k, v = attn_inputs(gen, b, s, h, kvh, dh, getattr(torch, dt),
                                   decode=True)
             hold("decode_attention",
                  f"{tag} {dt} q {tuple(q.shape)} cache {tuple(k.shape)} "
@@ -1964,14 +2010,18 @@ def lm_kernels_vs_plain(dev) -> dict:
     return out
 
 
-def teacher_forced(tf, params, cfg, prompts, feed, max_len):
-    """Prefill on ``prompts [B, T0]``, then one decode step per column of
-    ``feed [B, N]``: the ``1 + N`` steps' logits ``[1 + N, B, V]``, fp32."""
+def teacher_forced(tf, params, cfg, prompts, feed, max_len,
+                   extra_embeds=None):
+    """Prefill on ``prompts [B, T0]`` (after ``extra_embeds [B, E, d]``,
+    if given), then one decode step per column of ``feed [B, N]``: the
+    ``1 + N`` steps' logits ``[1 + N, B, V]``, fp32."""
     import torch
 
-    t0 = prompts.shape[1]
+    t0 = prompts.shape[1] + (0 if extra_embeds is None
+                             else extra_embeds.shape[1])
     with torch.inference_mode():
-        lg, pf = tf.lm_prefill(params, cfg, prompts)
+        lg, pf = tf.lm_prefill(params, cfg, prompts,
+                               extra_embeds=extra_embeds)
         caches = tf.graft_prefill_caches(
             cfg, tf.init_kv_caches(cfg, prompts.shape[0], max_len,
                                    prompts.device), pf, t0)
@@ -1982,6 +2032,52 @@ def teacher_forced(tf, params, cfg, prompts, feed, max_len):
                                            caches, t0 + i)
             steps.append(lg[:, 0].float())
     return torch.stack(steps)
+
+
+def teacher_forced_encdec(ed, params, cfg, frames, prefix, feed, max_len):
+    """``encdec_prefill`` on ``frames`` and ``prefix [B, T0]``, then one
+    ``encdec_decode_step`` per column of ``feed [B, N]``: the ``1 + N``
+    steps' logits ``[1 + N, B, V]``, fp32."""
+    import torch
+
+    t0 = prefix.shape[1]
+    with torch.inference_mode():
+        lg, pf = ed.encdec_prefill(params, cfg, frames, prefix)
+        caches = ed.graft_encdec_caches(cfg, pf, max_len)
+        del pf
+        steps = [lg[:, 0].float()]
+        for i in range(feed.shape[1]):
+            lg, caches = ed.encdec_decode_step(params, cfg, feed[:, i:i + 1],
+                                               caches, t0 + i)
+            steps.append(lg[:, 0].float())
+    return torch.stack(steps)
+
+
+def arms_vs_tokens(tag, kern_arm, plain_arm, toks) -> dict:
+    """The kernel arm replayed teacher-forced on a served wave's tokens
+    ``toks [B, N]`` (``kern_arm()`` -> logits ``[N, B, V]``, the served
+    computation, so its argmax must give those tokens), then the plain arm
+    on the same tokens, where there is one: their largest logit difference
+    and argmax agreement, recorded, not gated."""
+    import torch
+
+    kern = kern_arm()
+    check(bool(torch.isfinite(kern).all()),
+          f"{tag}: all {tuple(kern.shape)} teacher-forced logits finite")
+    check(torch.equal(kern.argmax(dim=-1).T, toks),
+          f"{tag}: the kernel arm's teacher-forced argmax gives the served "
+          "tokens")
+    if plain_arm is None:
+        return {"logits_plain_vs_kernel_max_abs_err": None,
+                "argmax_agreement": None}
+    plain = plain_arm()
+    err = max_err(kern, plain)
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f"  {tag}: logits kernel arm vs plain arm (teacher-forced, bf16, "
+          f"recorded, not gated): max |err| {err:.4e} of max |logit| "
+          f"{float(plain.abs().max()):.3f}; argmax agreement {agree:.4f}")
+    return {"logits_plain_vs_kernel_max_abs_err": err,
+            "argmax_agreement": agree}
 
 
 def arms_two_layers(dev, ops, cfg, tag: str, flash: int, decode: int
@@ -2040,6 +2136,28 @@ def granite_serve(dev, ops, profiles: dict) -> dict:
     return lm_serve(dev, ops, profiles, cfg, "granite", cfg.n_layers)
 
 
+DANUBE = "h2o-danube-3-4b"
+DANUBE_PROMPT = 4608  # past the 4096 window: the ring cache wraps
+
+
+def danube_serve(dev, ops, profiles: dict) -> dict:
+    """h2o-danube3-4b whole (24 layers, bf16, sliding window 4096) through
+    ``ServeEngine.generate`` (``lm_serve``) with prompts of
+    ``DANUBE_PROMPT`` tokens: the prefill's windowed kernel, the graft into
+    a ring of 4096 rows that has wrapped, and 31 decode steps over it."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(DANUBE).replace(use_pallas=True)
+    ring = min(DANUBE_PROMPT + LM_NEW, cfg.sliding_window)
+    check(ring < DANUBE_PROMPT,
+          f"danube: a ring of {ring} cache rows for {DANUBE_PROMPT}-token "
+          f"prompts (window {cfg.sliding_window}): the graft wraps it")
+    rec = lm_serve(dev, ops, profiles, cfg, "danube", cfg.n_layers,
+                   prompt_len=DANUBE_PROMPT)
+    rec.update(ring_rows=ring, prompt_len=DANUBE_PROMPT)
+    return rec
+
+
 class DecodeStepAsForward:
     """One decode step of ``cfg`` on a grafted 4 x 2048 prompt, as a
     ``profile_forward`` "engine": each ``infer()`` runs the step at the
@@ -2067,14 +2185,36 @@ class DecodeStepAsForward:
                                    self.caches, self.pos)
 
 
+def busy_shares(tag, prefill, step, profiles: dict) -> dict:
+    """One profiled prefill and five profiled decode steps (after warm-ups):
+    their busy shares."""
+    import torch
+
+    def quiet(fn):
+        def run():
+            with torch.inference_mode():
+                fn()
+        return types.SimpleNamespace(infer=run)
+
+    out = {}
+    for name, key, fn, reps, warmup in (
+            ("prefill", "prefill", prefill, 1, 1),
+            ("decode step", "decode", step, 5, 2)):
+        prof = profile_forward(quiet(fn), f"{tag} {name}", reps=reps,
+                               warmup=warmup)
+        profiles[f"{tag} {name}"] = prof
+        out[f"{key}_busy_share"] = prof["device_busy_ms"] / prof["wall_ms"]
+    return out
+
+
 def lm_serve(dev, ops, profiles: dict, cfg, tag: str, attn_layers: int,
-             sampled: bool = False) -> dict:
+             sampled: bool = False, prompt_len: int = LM_PROMPT) -> dict:
     """``cfg`` (``use_pallas``) through ``ServeEngine.generate``: 4 requests
-    of 2048-token prompts and 32 greedy tokens, twice; exact launch counts
-    (``attn_layers`` flash_attention a prefill and decode_attention a
-    step); the peak memory; the plain arm teacher-forced on the kernel
-    arm's tokens where there is attention (its largest logit difference is
-    recorded, not gated); a profiled prefill and decode step (busy share,
+    of ``prompt_len``-token prompts and 32 greedy tokens, twice; exact
+    launch counts (``attn_layers`` flash_attention a prefill and
+    decode_attention a step); the peak memory; the plain arm teacher-forced
+    on the kernel arm's tokens where there is attention
+    (``arms_vs_tokens``); a profiled prefill and decode step (busy share,
     top device ops); with ``sampled`` one more wave on the same weights,
     sampled at a temperature (``sampled_wave``)."""
     import numpy as np
@@ -2095,9 +2235,9 @@ def lm_serve(dev, ops, profiles: dict, cfg, tag: str, attn_layers: int,
           f"{time.perf_counter() - t0:.2f} s; memory allocated "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+    prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
                for _ in range(LM_SLOTS)]
-    max_len = LM_PROMPT + LM_NEW
+    max_len = prompt_len + LM_NEW
     engine = ServeEngine(cfg, params, batch_slots=LM_SLOTS, max_len=max_len)
     runs, counts = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -2127,7 +2267,7 @@ def lm_serve(dev, ops, profiles: dict, cfg, tag: str, attn_layers: int,
     decode_ms = timings["decode_s"] * 1e3 / max(timings["decode_steps"], 1)
     n_tok = LM_SLOTS * LM_NEW
     wall = timings["prefill_s"] + timings["decode_s"]
-    print(f"  {tag} serve (run 2): prefill {LM_SLOTS}x{LM_PROMPT} "
+    print(f"  {tag} serve (run 2): prefill {LM_SLOTS}x{prompt_len} "
           f"{prefill_ms:.2f} ms to the first token; decode "
           f"{decode_ms:.3f} ms a token (one step of {LM_SLOTS} slots); "
           f"{n_tok} tokens "
@@ -2137,49 +2277,23 @@ def lm_serve(dev, ops, profiles: dict, cfg, tag: str, attn_layers: int,
           f"peak memory allocated {peak:.2f} GiB")
     print(f"  tokens req0: {toks[0]}")
 
-    # logits: the kernel arm replayed teacher-forced on its own tokens (the
-    # engine's computation, so its argmax must give the engine's tokens),
-    # then the plain arm on the same tokens
     tp = torch.as_tensor(np.stack(prompts), device=dev)
     tt = torch.as_tensor(toks, device=dev)
-    kern = teacher_forced(tf, params, cfg, tp, tt[:, :-1], max_len)
-    check(bool(torch.isfinite(kern).all()),
-          f"{tag} serve: all {tuple(kern.shape)} logits finite")
-    check(torch.equal(kern.argmax(dim=-1).T, tt),
-          f"{tag} serve: the kernel arm's teacher-forced argmax gives the "
-          "engine's tokens")
-    err = agree = None
-    if attn_layers:
-        plain = teacher_forced(tf, params, cfg.replace(use_pallas=False), tp,
-                               tt[:, :-1], max_len)
-        err = max_err(kern, plain)
-        agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
-        print(f"  {tag} serve: logits kernel arm vs plain arm "
-              f"(teacher-forced, bf16, recorded, not gated): max |err| "
-              f"{err:.4e} of max |logit| {float(plain.abs().max()):.3f}; "
-              f"argmax agreement {agree:.4f}")
-        del plain
-    del kern
-    busy = {}
 
-    def prefill():
-        with torch.inference_mode():
-            tf.lm_prefill(params, cfg, tp)
+    def arm(c):
+        return lambda: teacher_forced(tf, params, c, tp, tt[:, :-1], max_len)
 
-    profiles[f"{tag} prefill"] = prof = profile_forward(
-        types.SimpleNamespace(infer=prefill), f"{tag} prefill", reps=1,
-        warmup=1)
-    busy["prefill_busy_share"] = prof["device_busy_ms"] / prof["wall_ms"]
+    arms = arms_vs_tokens(f"{tag} serve", arm(cfg),
+                          arm(cfg.replace(use_pallas=False))
+                          if attn_layers else None, tt)
     step = DecodeStepAsForward(params, cfg, tp)
-    profiles[f"{tag} decode step"] = prof = profile_forward(
-        step, f"{tag} decode step", reps=5, warmup=2)
-    busy["decode_busy_share"] = prof["device_busy_ms"] / prof["wall_ms"]
+    busy = busy_shares(tag, lambda: tf.lm_prefill(params, cfg, tp),
+                       step.infer, profiles)
     del step
     rec = {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
            "tokens_per_s": n_tok / wall, "tokens": n_tok,
            "run1": engine.timings[0], "run2": timings,
-           "logits_plain_vs_kernel_max_abs_err": err,
-           "argmax_agreement": agree, "launches": counts[0],
+           **arms, "launches": counts[0],
            "params": n_params, "peak_gib": peak, **busy}
     if sampled:
         rec["sampled"] = sampled_wave(dev, cfg, params)
@@ -2402,7 +2516,55 @@ def lm_kernel_times(dev, flush, results: dict, main_counts: dict) -> list:
             print(f"  {name}: {ms:.5f} ms cold, {warm_ms:.5f} ms warm "
                   f"(plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms by {b_by}, "
                   f"SDPA {lib_ms:.5f} ms)")
+        entries[0]["cross_form"] = cross_form_times(gen, flush)
     return entries
+
+
+def cross_form_times(gen, flush) -> dict:
+    """The kernel's cross form, bf16, non-causal, over the encoder's k/v
+    [4, 1024, 16, 64]: at phase 8a's 256 target queries, and at phase 8b's
+    served prefill (the 2-token prefix: one q tile, 2 of its 64 rows
+    live); each timed cold and warm beside its bound, its plain version
+    and SDPA (which takes ``Sq != Sk`` when not causal)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tflash
+
+    out = {}
+    for key, sq in (("st256", 256), ("served", 2)):
+        q, k, v = attn_inputs(gen, 4, sq, 16, 16, 64, torch.bfloat16,
+                              sk=1024)
+
+        def kern():
+            return tflash.flash_attention(q, k, v, causal=False)
+
+        def plain():
+            return tflash.flash_attention_plain(q, k, v, causal=False)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+
+        err = max_err(sdpa().transpose(1, 2), kern())
+        n_bytes, n_ops = tflash.work(q, k, causal=False)
+        b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_FLOPS)
+        rec = {"shape": f"seamless cross: q [4, {sq}, 16, 64], k/v [4, 1024, "
+                        "16, 64], non-causal, bf16",
+               "ms": time_ms(kern, 20, flush), "warm_ms": time_ms(kern, 20),
+               "plain_ms": time_ms(plain, 5, flush),
+               "library_ms": time_ms(sdpa, 20, flush), "bound_ms": b_ms,
+               "bound_by": b_by, "bytes": n_bytes, "operations": n_ops,
+               "sdpa_max_abs_err": err,
+               "library": "F.scaled_dot_product_attention (Sq != Sk, no "
+                          "mask)"}
+        print(f"  flash_attention cross form, {rec['shape']}: "
+              f"{rec['ms']:.5f} ms cold, {rec['warm_ms']:.5f} ms warm (plain "
+              f"{rec['plain_ms']:.5f} ms, bound {b_ms:.5f} ms by {b_by}, SDPA "
+              f"{rec['library_ms']:.5f} ms; SDPA vs kernel max |err| "
+              f"{err:.3e})")
+        out[key] = rec
+        del q, k, v
+    return out
 
 
 # the MoE, SSM and hybrid LM families (phase 7)
@@ -2509,6 +2671,352 @@ def families_serve(dev, ops, profiles: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# the VLM and encoder-decoder families (phase 8)
+INTERNVL2, SEAMLESS = "internvl2-76b", "seamless-m4t-medium"
+# of 80: 32 layers hold 54.9 GiB of bf16 weights (embedding and head
+# included); all 80 would be 131.4 GiB
+INTERNVL2_LAYERS = 32
+VLM_TEXT, VLM_NEW = 1024, 32  # 256 image embeddings + 1024 text tokens
+SRC_LEN, TGT_NEW = 1024, 64  # 1024 audio frames, 64 greedy tokens
+# a translation decode starts from BOS and a target-language tag; the
+# weights are random, so the tag is a fixed id standing for one
+BOS, LANG_TAG = 0, 256047
+
+
+def frontend_embeds(cfg, b, e, seed, dev):
+    """``[b, e, d]`` seeded frontend stubs, ``N(0, 1) * 0.1`` as the
+    loader draws them (``data/loader.py``), in ``cfg.dtype``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((b, e, cfg.d_model)) * 0.1).astype(np.float32)
+    return torch.as_tensor(x, device=dev).to(getattr(torch, cfg.dtype))
+
+
+def vlm_encdec_two_layers(dev, ops) -> dict:
+    """Phase 8a: internvl2-76b at full width, 2 layers, fp32: ``lm_forward``
+    of 256 embeddings + 256 tokens, the kernel arm against the plain arm;
+    seamless-m4t-medium at full width, 2 + 2 layers, fp32: ``encdec_forward``
+    of 1024 frames and 256 target tokens, kernel arm against plain arm,
+    then the kernel arm's ``encdec_prefill`` of 2 tokens and 254
+    teacher-forced ``encdec_decode_step``s against the plain arm's forward
+    at every position; exact launches."""
+    import gc
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.nn import encdec as ed
+    from repro_torch.nn import transformer as tf
+
+    fp32 = dict(dtype="float32", param_dtype="float32")
+    out = {}
+
+    def arms(tag, run, cfg, flash, decode=0):
+        plain = run(cfg)
+        ops.reset_launch_counts()
+        kern = run(cfg.replace(use_pallas=True))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(counts == dict(dict.fromkeys(counts, 0), flash_attention=flash,
+                             decode_attention=decode),
+              f"{tag}: launches {counts} (want {flash} flash_attention, "
+              f"{decode} decode_attention)")
+        return kern, plain, counts
+
+    cfg = get_config(INTERNVL2).replace(n_layers=2, **fp32)
+    params = tf.init_lm_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    e = cfg.n_frontend_embeds
+    extra = frontend_embeds(cfg, 2, e, 3, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 256), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+
+    def vlm_forward(c):
+        with torch.inference_mode():
+            return tf.lm_forward(params, c, toks, extra_embeds=extra)[0]
+
+    kern, plain, counts = arms("internvl2 2-layer fp32 lm_forward",
+                               vlm_forward, cfg, 2)
+    err = max_err(kern, plain)
+    check(kern.shape == (2, 256, cfg.vocab) and bool(
+        torch.isfinite(kern).all()) and close(kern, plain, **TOL_LM),
+          f"internvl2 2-layer fp32 (d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, {e} embeddings + 256 tokens): logits "
+          f"kernel arm vs plain arm max |err| {err:.3e} of max |logit| "
+          f"{float(plain.abs().max()):.3f} (tol {TOL_LM})")
+    out["internvl2"] = {"max_abs_err": err, "tolerance": TOL_LM,
+                        "launches": counts}
+    del params, kern, plain, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config(SEAMLESS).replace(enc_layers=2, dec_layers=2, **fp32)
+    params = ed.init_encdec_params(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    frames = frontend_embeds(cfg, 2, SRC_LEN, 5, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 256), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(6))
+
+    def forward(c):
+        with torch.inference_mode():
+            return ed.encdec_forward(params, c, frames, toks)
+
+    kern, plain, counts = arms("seamless 2+2-layer fp32 encdec_forward",
+                               forward, cfg, 2 + 2 * 2)
+    err = max_err(kern, plain)
+    check(bool(torch.isfinite(kern).all()) and close(kern, plain, **TOL_LM),
+          f"seamless 2+2-layer fp32 (d_model {cfg.d_model}, Ss {SRC_LEN}, "
+          f"St 256): logits kernel arm vs plain arm max |err| {err:.3e} of "
+          f"max |logit| {float(plain.abs().max()):.3f} (tol {TOL_LM})")
+    rec = {"max_abs_err": err, "tolerance": TOL_LM, "launches": counts}
+    del kern
+
+    ops.reset_launch_counts()
+    steps = teacher_forced_encdec(  # positions 1 .. 254
+        ed, params, cfg.replace(use_pallas=True), frames, toks[:, :2],
+        toks[:, 2:255], 256).transpose(0, 1)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts == dict(dict.fromkeys(counts, 0), flash_attention=6,
+                         decode_attention=2 * 253),
+          f"seamless teacher-forced: launches {counts} (want 6 "
+          f"flash_attention, {2 * 253} decode_attention)")
+    err_tf = max_err(steps, plain[:, 1:255])
+    check(close(steps, plain[:, 1:255], **TOL_LM),
+          f"seamless 2+2-layer fp32: encdec_prefill of 2 tokens + 253 "
+          f"teacher-forced encdec_decode_steps (kernel arm) vs the plain "
+          f"arm's encdec_forward at every position: max |err| "
+          f"{err_tf:.3e} (tol {TOL_LM})")
+    rec.update(teacher_forced_max_abs_err=err_tf,
+               teacher_forced_launches=counts)
+    out["seamless"] = rec
+    del params, plain, steps, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def greedy_waves(tag, prefill, decode, n_new, want_flash, want_decode, ops
+                 ) -> dict:
+    """Two greedy waves: ``prefill()`` -> ``(logits [B, 1, V], state)``,
+    then ``n_new - 1`` steps ``decode(token [B, 1], state, i)`` -> logits
+    (``i`` the step's index); tokens argmaxed on the card and read once at
+    the end, as positions stay on the card, so no step waits for the
+    host.  Gates:
+    the two waves' tokens and prefill logits bitwise, launches exact
+    (``want_flash`` a prefill, ``want_decode`` a step).  Returns the
+    second wave's prefill ms (to the first token), decode ms a step,
+    tokens/s, peak memory and the first request's tokens, and the wave's
+    tokens ``[B, n_new]`` on the card."""
+    import torch
+
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            lg, state = prefill()
+            tok = lg[:, 0].argmax(dim=-1)[:, None]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            first = ops.launch_counts()
+            outs = [tok]
+            for i in range(n_new - 1):
+                tok = decode(tok, state, i)[:, 0].argmax(dim=-1)[:, None]
+                outs.append(tok)
+            toks = torch.cat(outs, dim=1).tolist()
+        t2 = time.perf_counter()
+        counts = ops.launch_counts()
+        runs.append({"prefill_ms": (t1 - t0) * 1e3,
+                     "decode_ms_per_step": (t2 - t1) * 1e3 / (n_new - 1),
+                     "tokens": toks, "logits": lg, "first": first,
+                     "counts": counts, "wall_s": t2 - t0})
+        del state
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = n_new - 1
+    for i, r in enumerate(runs):
+        want = dict(dict.fromkeys(r["counts"], 0),
+                    flash_attention=want_flash,
+                    decode_attention=want_decode * steps)
+        check(r["counts"] == want
+              and r["first"]["flash_attention"] == want_flash
+              and r["first"]["decode_attention"] == 0,
+              f"{tag} run {i}: launches {r['counts']} (want {want_flash} "
+              f"flash_attention a prefill, {want_decode} decode_attention a "
+              f"step x {steps})")
+    check(runs[1]["tokens"] == runs[0]["tokens"]
+          and torch.equal(runs[1]["logits"], runs[0]["logits"]),
+          f"{tag}: two waves give the same prefill logits and tokens")
+    r = runs[1]
+    b = len(r["tokens"])
+    check(all(len(t) == n_new for t in r["tokens"])
+          and bool(torch.isfinite(r["logits"]).all()),
+          f"{tag}: {b} x {n_new} tokens, finite prefill logits")
+    n_tok = b * n_new
+    rec = {"prefill_ms": r["prefill_ms"],
+           "decode_ms_per_step": r["decode_ms_per_step"],
+           "tokens_per_s": n_tok / r["wall_s"], "tokens": n_tok,
+           "run1": {k: runs[0][k] for k in ("prefill_ms",
+                                            "decode_ms_per_step")},
+           "launches": r["counts"], "peak_gib": peak,
+           "tokens_req0": r["tokens"][0]}
+    print(f"  {tag} (run 2): prefill {r['prefill_ms']:.2f} ms to the first "
+          f"token; decode {r['decode_ms_per_step']:.3f} ms a step; {n_tok} "
+          f"tokens in {r['wall_s']:.3f} s ({rec['tokens_per_s']:.1f} tok/s); "
+          f"run 1: prefill {runs[0]['prefill_ms']:.2f} ms, decode "
+          f"{runs[0]['decode_ms_per_step']:.3f} ms a step; peak memory "
+          f"allocated {peak:.2f} GiB")
+    print(f"  tokens req0: {r['tokens'][0]}")
+    return rec, torch.tensor(r["tokens"], device=r["logits"].device)
+
+
+def vlm_serve(dev, ops, profiles: dict) -> dict:
+    """Phase 8b: internvl2-76b at full width with ``INTERNVL2_LAYERS`` of
+    its 80 layers, bf16: one wave of 4 requests, each 256 seeded image
+    embeddings plus 1024 text tokens, then 32 greedy tokens, through
+    ``lm_prefill(extra_embeds=...)`` -> ``graft_prefill_caches`` ->
+    ``lm_decode_step`` at positions from 1280 (``greedy_waves``)."""
+    import gc
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.nn import transformer as tf
+
+    cfg = get_config(INTERNVL2).replace(n_layers=INTERNVL2_LAYERS,
+                                        use_pallas=True)
+    t0 = time.perf_counter()
+    params = tf.init_lm_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    torch.cuda.synchronize()
+    n_params = tf.param_count(params)
+    print(f"  {cfg.name}: {cfg.n_layers} of 80 layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, Dh "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.param_dtype}: {n_params} parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; memory allocated "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    e = cfg.n_frontend_embeds
+    b = LM_SLOTS
+    extra = frontend_embeds(cfg, b, e, 7, dev)
+    toks = torch.randint(0, cfg.vocab, (b, VLM_TEXT), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(8))
+    t_first = e + VLM_TEXT
+    max_len = t_first + VLM_NEW
+
+    def prefill():
+        lg, pf = tf.lm_prefill(params, cfg, toks, extra_embeds=extra)
+        caches = tf.graft_prefill_caches(
+            cfg, tf.init_kv_caches(cfg, b, max_len, dev), pf, t_first)
+        return lg, caches
+
+    first_pos = torch.tensor(t_first, device=dev)
+
+    def decode(tok, caches, i):  # the position stays on the card
+        return tf.lm_decode_step(params, cfg, tok, caches, first_pos + i)[0]
+
+    rec, served = greedy_waves(f"internvl2 ({cfg.n_layers} layers) {b}x("
+                               f"{e}+{VLM_TEXT})", prefill, decode, VLM_NEW,
+                               cfg.n_layers, cfg.n_layers, ops)
+
+    def arm(c):
+        return lambda: teacher_forced(tf, params, c, toks, served[:, :-1],
+                                      max_len, extra_embeds=extra)
+
+    rec.update(arms_vs_tokens("internvl2", arm(cfg),
+                              arm(cfg.replace(use_pallas=False)), served))
+    with torch.inference_mode():
+        _, caches = prefill()
+    tok = torch.zeros((b, 1), dtype=torch.long, device=dev)
+    rec.update(busy_shares(
+        "internvl2", lambda: tf.lm_prefill(params, cfg, toks,
+                                           extra_embeds=extra),
+        lambda: decode(tok, caches, 0), profiles))
+    rec.update(params=n_params, layers=cfg.n_layers, embeds=e,
+               text_tokens=VLM_TEXT)
+    del params, caches, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def encdec_serve(dev, ops, profiles: dict) -> dict:
+    """Phase 8b: seamless-m4t-medium whole, bf16: 4 clips of 1024 seeded
+    frames, the target prefix (BOS, a language tag), then 64 greedy
+    tokens through ``encdec_prefill`` -> ``init_encdec_caches`` ->
+    ``encdec_decode_step`` (``examples/serve_decode.py``'s loop,
+    ``greedy_waves``); the encoder alone timed too."""
+    import gc
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.nn import encdec as ed
+    from repro_torch.nn import transformer as tf
+
+    cfg = get_config(SEAMLESS).replace(use_pallas=True)
+    params = ed.init_encdec_params(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = tf.param_count(params)
+    print(f"  {cfg.name}: {cfg.enc_layers} + {cfg.dec_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads, Dh "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab}, {cfg.param_dtype}: "
+          f"{n_params} parameters", flush=True)
+    b = LM_SLOTS
+    frames = frontend_embeds(cfg, b, SRC_LEN, 9, dev)
+    prefix = torch.tensor([[BOS, LANG_TAG]] * b, device=dev)
+    t_prefix = prefix.shape[1]
+
+    def prefill():
+        lg, pf = ed.encdec_prefill(params, cfg, frames, prefix)
+        return lg, ed.graft_encdec_caches(cfg, pf, t_prefix + TGT_NEW)
+
+    first_pos = torch.tensor(t_prefix, device=dev)
+
+    def decode(tok, caches, i):  # the position stays on the card
+        return ed.encdec_decode_step(params, cfg, tok, caches,
+                                     first_pos + i)[0]
+
+    n_layers = cfg.enc_layers + 2 * cfg.dec_layers
+    rec, served = greedy_waves(f"seamless {b}x{SRC_LEN} frames, {TGT_NEW} "
+                               f"tokens", prefill, decode, TGT_NEW, n_layers,
+                               cfg.dec_layers, ops)
+
+    def arm(c):
+        return lambda: teacher_forced_encdec(ed, params, c, frames, prefix,
+                                             served[:, :-1],
+                                             t_prefix + TGT_NEW)
+
+    rec.update(arms_vs_tokens("seamless", arm(cfg),
+                              arm(cfg.replace(use_pallas=False)), served))
+
+    def encode():
+        with torch.inference_mode():
+            ed.encode(params, cfg, frames)
+        torch.cuda.synchronize()
+
+    encode()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        encode()
+    rec["encode_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"  seamless encode {b}x{SRC_LEN} frames: {rec['encode_ms']:.2f} "
+          f"ms (of the prefill's {rec['prefill_ms']:.2f})")
+    with torch.inference_mode():
+        _, caches = prefill()
+    tok = prefix[:, 1:]
+    rec.update(busy_shares(
+        "seamless", lambda: ed.encdec_prefill(params, cfg, frames, prefix),
+        lambda: decode(tok, caches, 0), profiles))
+    rec.update(params=n_params, src_len=SRC_LEN, prefix=t_prefix)
+    del params, caches, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 # LM training (phase 6): smollm-360m, the default --arch of the train CLI
@@ -3594,7 +4102,13 @@ def main() -> None:
     print("phase 5c: granite-8b, 36 layers, bf16, through "
           "ServeEngine.generate")
     serve = granite_serve(dev, ops, profiles)
-    lm_counts = {name: serve["launches"][name]
+    print("phase 5e: h2o-danube3-4b, 24 layers, bf16, 4 x "
+          f"{DANUBE_PROMPT}-token prompts past its 4096 window, through "
+          "ServeEngine.generate")
+    t5e = time.perf_counter()
+    danube = danube_serve(dev, ops, profiles)
+    print(f"phase 5e: {time.perf_counter() - t5e:.1f} s")
+    lm_counts = {name: serve["launches"][name] + danube["launches"][name]
                  for name in ("flash_attention", "decode_attention")}
     for name, n in lm_counts.items():
         check(n > 0, f"{name} launched {n} times on the main path")
@@ -3644,6 +4158,26 @@ def main() -> None:
             entry["families_launches"] = n
     print(f"phase 7: {time.perf_counter() - t7:.1f} s")
 
+    # ---------------- phase 8: the VLM and encoder-decoder families -------
+    t8 = time.perf_counter()
+    print("phase 8a: internvl2-76b and seamless-m4t-medium at full width, 2 "
+          "(+ 2) layers, fp32: the kernel arm against the plain arm")
+    ved_small = vlm_encdec_two_layers(dev, ops)
+    print(f"phase 8b: internvl2-76b ({INTERNVL2_LAYERS} of 80 layers) and "
+          "seamless-m4t-medium, bf16, prefill and greedy decode")
+    print(f"  card: {card_line()}")
+    ved_serve = {"internvl2": vlm_serve(dev, ops, profiles),
+                 "seamless": encdec_serve(dev, ops, profiles)}
+    for entry in kernels:
+        if entry["name"] in ("flash_attention", "decode_attention"):
+            n = sum(rec["launches"][entry["name"]]
+                    for rec in ved_serve.values())
+            check(n > 0, f"{entry['name']} launched {n} times on the VLM and "
+                  f"encdec serving paths")
+            entry["launches"] += n
+            entry["vlm_encdec_launches"] = n
+    print(f"phase 8: {time.perf_counter() - t8:.1f} s")
+
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
@@ -3657,7 +4191,10 @@ def main() -> None:
                       "segment_sum_shapes": segment_sum_shapes,
                       "fig5c_han_na_device_ms": fig5c,
                       "lm": {"granite_2_layers_fp32": two_layers,
-                             "granite_serve": serve},
+                             "granite_serve": serve,
+                             "danube_serve": danube},
+                      "lm_vlm_encdec": {"two_layers_fp32": ved_small,
+                                        "serve": ved_serve},
                       "lm_families": {"two_layers_fp32": fam_small,
                                       "serve": fam_serve},
                       "lm_train": {"pieces": train_pieces,

@@ -6,7 +6,8 @@ on the CPU: the host work an eager decode step issues, whatever the width.
 
 For each arch (its reduced config: the op count of a layer does not depend
 on the width), one decode step after a 4 x 16 prefill is profiled at 1 and
-at 4 layers; the difference over 3 is the calls a layer.  Views and
+at 4 layers (decoder layers for an encoder-decoder arch, after a 16-token
+prefix over 24 frames); the difference over 3 is the calls a layer.  Views and
 reshapes count too (they cost host time but launch nothing), so the
 figure bounds the layer's kernel launches from above.  Prints one line an
 arch, then one JSON line.
@@ -23,16 +24,31 @@ def decode_calls(tf, cfg, n_layers: int) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = cfg.replace(n_layers=n_layers)
-    params = tf.init_lm_params(torch.Generator().manual_seed(0), cfg)
+    from repro_torch.nn import encdec as ed
+
     toks = torch.randint(0, cfg.vocab, (4, 16),
                          generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
-        lg, pf = tf.lm_prefill(params, cfg, toks)
-        caches = tf.graft_prefill_caches(
-            cfg, tf.init_kv_caches(cfg, 4, 20, "cpu"), pf, 16)
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            tf.lm_decode_step(params, cfg, toks[:, :1], caches, 16)
+        if cfg.family == "encdec":
+            cfg = cfg.replace(dec_layers=n_layers)
+            params = ed.init_encdec_params(torch.Generator().manual_seed(0),
+                                           cfg)
+            frames = torch.randn((4, 24, cfg.d_model),
+                                 generator=torch.Generator().manual_seed(2))
+            _, pf = ed.encdec_prefill(params, cfg, frames, toks)
+            caches = ed.init_encdec_caches(cfg, 4, 20, 24, "cpu")
+            for name, t in pf.items():
+                caches[name][:, :, :t.shape[2]] = t
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                ed.encdec_decode_step(params, cfg, toks[:, :1], caches, 16)
+        else:
+            cfg = cfg.replace(n_layers=n_layers)
+            params = tf.init_lm_params(torch.Generator().manual_seed(0), cfg)
+            lg, pf = tf.lm_prefill(params, cfg, toks)
+            caches = tf.graft_prefill_caches(
+                cfg, tf.init_kv_caches(cfg, 4, 20, "cpu"), pf, 16)
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                tf.lm_decode_step(params, cfg, toks[:, :1], caches, 16)
     return sum(1 for e in prof.events()
                if e.name.startswith("aten::") and e.cpu_parent is None)
 

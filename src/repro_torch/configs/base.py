@@ -5,10 +5,9 @@ Two families, as in the reference:
 * ``ModelConfig`` (with ``MoEConfig``, ``SSMConfig``) — the ten LM
   architectures; one module per arch under ``repro_torch.configs`` exposes
   ``config()`` (full size) and ``reduced()`` (CPU smoke), looked up by
-  ``registry.get_config`` / ``get_reduced``.  The port runs the
-  ``dense``, ``moe``, ``ssm`` and ``hybrid`` families; ``vlm`` and
-  ``encdec`` are data only until their model code is ported (ROADMAP
-  Queue 1 item 17).
+  ``registry.get_config`` / ``get_reduced``.  The port runs all six
+  families: ``dense``, ``moe``, ``ssm``, ``hybrid`` and ``vlm``
+  (``nn/transformer.py``), ``encdec`` (``nn/encdec.py``).
 * ``HGNNConfig`` — the paper's HGNN workloads.
 
 Field names, defaults and ``__post_init__`` equal the reference's, so one

@@ -15,7 +15,10 @@ replaced by ``moe{router, w_gate, w_up, w_down[, dense{...}]}`` (experts
 conv_x, conv_B, conv_C, conv_bias, A_log, D, dt_bias, norm_g, out_proj}}``
 for a Mamba run, and ``{}`` for each application of zamba2's ``shared``
 block, whose one unstacked ``{ln1, attn, ln2, mlp}`` sits beside
-``runs``).  ``batch_from_numpy`` does the same for a prepared
+``runs``; a vlm's tree is a dense one), and the encdec tree (``embed``,
+``enc`` stacked ``[L, ...]`` ``{ln1, attn, ln2, mlp}``, ``dec`` stacked
+``{ln1, self_attn, ln2, cross_attn, ln3, mlp}``, ``ln_enc``, ``ln_f``,
+``lm_head``).  ``batch_from_numpy`` does the same for a prepared
 batch.  Leaves are copied with ``np.array`` (not ``np.asarray``, whose
 buffer behind a JAX array is read-only) and handed to ``torch.from_numpy``.
 numpy has no bfloat16 of its own: a leaf whose dtype is named

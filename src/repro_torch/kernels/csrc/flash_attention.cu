@@ -2,7 +2,8 @@
 //
 //   out[b, i, h] = sum_j p_ij v[b, j, h / G],
 //   p_i = softmax_j(q_i . k_j * scale)
-//   over the live pairs (j <= i when causal, i - j < window when windowed)
+//   over the live pairs (j <= i when causal, i - j < window when windowed,
+//   j < Skv)
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (:83; body _kernel :30).  The TPU kernel walks the kv
@@ -19,6 +20,14 @@
 // each output is reduced by one thread in one order, the same bits on
 // every run.  Q tiles are taken longest-first (block x = 0 is the last q
 // tile, which has the most live kv tiles under a causal mask).
+//
+// Cross-attention (the encdec decoder's, over the encoder's keys): k and v
+// may hold Skv rows where q holds S, when neither causal nor windowed.
+// The q side (tiles, output rows) stays on S; the kv side (base pointers,
+// the tile walk [0, Skv), the row and column bounds) runs on Skv.  The TPU
+// kernel takes its kv length from q (`b, s, h, dh = q.shape`, a kv grid of
+// s // block_k), so it has no such form: the function this one computes is
+// the reference's CPU arm, nn/attention.py::_plain_cross.
 //
 // What bounds it on an H100: operations.  Granite prefill (B 4, S 2048,
 // H 32, Dh 128, causal, bf16) needs 4 * Dh operations a live pair, 1.37e11,
@@ -105,8 +114,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int S,
-                       int H, int KVH, int D, int causal, int window,
-                       float scale) {
+                       int Skv, int H, int KVH, int D, int causal,
+                       int window, float scale) {
   extern __shared__ float smem[];
   const int ld = row_stride(D);
   float* Qs = smem;  // [kBQ][ld], scaled
@@ -123,8 +132,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t q_step = (size_t)H * D;  // between sequence positions
   const size_t kv_step = (size_t)KVH * D;
   const T* qb = q + (size_t)b * S * q_step + (size_t)h * D;
-  const T* kb = k + (size_t)b * S * kv_step + (size_t)kvh * D;
-  const T* vb = v + (size_t)b * S * kv_step + (size_t)kvh * D;
+  const T* kb = k + (size_t)b * Skv * kv_step + (size_t)kvh * D;
+  const T* vb = v + (size_t)b * Skv * kv_step + (size_t)kvh * D;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, d = e - r * D;
@@ -143,7 +152,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // the kv tiles holding a live pair for some row of this block
-  const int k_end = causal ? min(S, q0 + kBQ) : S;
+  const int k_end = causal ? min(S, q0 + kBQ) : Skv;
   int kt = 0;
   if (window && q0 - window + 1 > 0) kt = (q0 - window + 1) / kBK;
   const int kt_end = (k_end + kBK - 1) / kBK;
@@ -154,7 +163,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, d = e - r * D;
       const int row = k0 + r;
-      const bool ok = row < S;
+      const bool ok = row < Skv;
       Ks[r * ld + d] = ok ? to_f32(kb[(size_t)row * kv_step + d]) : 0.f;
       Vs[r * ld + d] = ok ? to_f32(vb[(size_t)row * kv_step + d]) : 0.f;
     }
@@ -187,7 +196,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tc + 16 * j;
-        bool ok = col < S;
+        bool ok = col < Skv;
         if (causal) ok = ok && row >= col;
         if (window) ok = ok && row - col < window;
         live[i][j] = ok;
@@ -479,8 +488,8 @@ __global__ void __launch_bounds__(kTcThreads, 3)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ out, int S, int H,
-                          int KVH, int D, int causal, int window,
+                          __nv_bfloat16* __restrict__ out, int S, int Skv,
+                          int H, int KVH, int D, int causal, int window,
                           float scale) {
   static_assert(DP == 64 || DP == 128, "DP is 64 or 128");
   constexpr int kTile = kBK * DP;  // elements of a Q, K or V tile
@@ -501,17 +510,17 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t q_step = (size_t)H * D;
   const size_t kv_step = (size_t)KVH * D;
   const __nv_bfloat16* qb = q + (size_t)b * S * q_step + (size_t)h * D;
-  const __nv_bfloat16* kb = k + (size_t)b * S * kv_step + (size_t)kvh * D;
-  const __nv_bfloat16* vb = v + (size_t)b * S * kv_step + (size_t)kvh * D;
+  const __nv_bfloat16* kb = k + (size_t)b * Skv * kv_step + (size_t)kvh * D;
+  const __nv_bfloat16* vb = v + (size_t)b * Skv * kv_step + (size_t)kvh * D;
 
   // the kv tiles holding a live pair for some row of this block
-  const int k_end = causal ? min(S, q0 + kBQ) : S;
+  const int k_end = causal ? min(S, q0 + kBQ) : Skv;
   int kt = 0;
   if (window && q0 - window + 1 > 0) kt = (q0 - window + 1) / kBK;
   const int kt_end = (k_end + kBK - 1) / kBK;
 
   load_tile<kBQ, DP, VEC>(Qs, qb, q_step, q0, S, D, tid);
-  load_tile<kBK, DP, VEC>(Ks, kb, kv_step, kt * kBK, S, D, tid);
+  load_tile<kBK, DP, VEC>(Ks, kb, kv_step, kt * kBK, Skv, D, tid);
   cp_async_commit();
 
   float o[DP / 2];  // accumulator of O: element 4 n + e is row
@@ -534,11 +543,11 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // every thread; the V tile and K's stage st ^ 1 are free
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    load_tile<kBK, DP, VEC>(Vs, vb, kv_step, kt * kBK, S, D, tid);
+    load_tile<kBK, DP, VEC>(Vs, vb, kv_step, kt * kBK, Skv, D, tid);
     cp_async_commit();  // V of tile kt: lands during S and the softmax
     if (kt + 1 < kt_end)
       load_tile<kBK, DP, VEC>(Ks + (st ^ 1) * kTile, kb, kv_step,
-                              (kt + 1) * kBK, S, D, tid);
+                              (kt + 1) * kBK, Skv, D, tid);
     cp_async_commit();  // K of tile kt + 1: lands during this tile
     const int k0 = kt * kBK;
     const uint64_t dk = st ? dk1 : dk0;
@@ -559,12 +568,12 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
     // mask, online softmax on the unscaled dots; a tile every pair of
     // which is live for this warp (most of them) skips the mask
-    const bool all_live = (!causal || k0 + kBK - 1 <= w0) && k0 + kBK <= S &&
+    const bool all_live = (!causal || k0 + kBK - 1 <= w0) && k0 + kBK <= Skv &&
                           (!window || w0 + 15 - k0 < window);
     auto live = [&](int e, int j) {
       const int row = w0 + g + 8 * (e >> 1);
       const int col = k0 + 8 * j + 2 * t + (e & 1);
-      bool ok = col < S;
+      bool ok = col < Skv;
       if (causal) ok = ok && row >= col;
       if (window) ok = ok && row - col < window;
       return ok;
@@ -668,8 +677,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 int launch_fp32(const void* q, const void* k, const void* v, void* out,
-                int B, int S, int H, int KVH, int D, int causal, int window,
-                float scale, cudaStream_t stream) {
+                int B, int S, int Skv, int H, int KVH, int D, int causal,
+                int window, float scale, cudaStream_t stream) {
   const size_t smem =
       ((size_t)(kBQ + kBK) * row_stride(D) + kp_floats(D)) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -679,14 +688,14 @@ int launch_fp32(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<float><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, H, KVH, D,
-      causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), S, Skv, H, KVH,
+      D, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int DP, int VEC>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
-              int S, int H, int KVH, int D, int causal, int window,
+              int S, int Skv, int H, int KVH, int D, int causal, int window,
               float scale, cudaStream_t stream) {
   // Q, two stages of K, V, and the slack to align them to 1024 bytes
   const size_t smem = (size_t)(2 + kStages) * kBK * DP * 2 + 1024;
@@ -699,50 +708,53 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), S, H, KVH, D, causal, window, scale);
+      static_cast<__nv_bfloat16*>(out), S, Skv, H, KVH, D, causal, window,
+      scale);
   return (int)cudaGetLastError();
 }
 
 template <int DP>
 int launch_tc_vec(const void* q, const void* k, const void* v, void* out,
-                  int B, int S, int H, int KVH, int D, int causal, int window,
-                  float scale, cudaStream_t stream) {
+                  int B, int S, int Skv, int H, int KVH, int D, int causal,
+                  int window, float scale, cudaStream_t stream) {
   // the widest copy that every row start of q, k and v is aligned to
   const uintptr_t at = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
   if (D % 8 == 0 && at % 16 == 0)
-    return launch_tc<DP, 8>(q, k, v, out, B, S, H, KVH, D, causal, window,
-                            scale, stream);
+    return launch_tc<DP, 8>(q, k, v, out, B, S, Skv, H, KVH, D, causal,
+                            window, scale, stream);
   if (D % 2 == 0 && at % 4 == 0)
-    return launch_tc<DP, 2>(q, k, v, out, B, S, H, KVH, D, causal, window,
-                            scale, stream);
-  return launch_tc<DP, 1>(q, k, v, out, B, S, H, KVH, D, causal, window,
+    return launch_tc<DP, 2>(q, k, v, out, B, S, Skv, H, KVH, D, causal,
+                            window, scale, stream);
+  return launch_tc<DP, 1>(q, k, v, out, B, S, Skv, H, KVH, D, causal, window,
                           scale, stream);
 }
 
 }  // namespace
 
-// q/out [B, S, H, D], k/v [B, S, KVH, D], contiguous, all fp32 (bf16 = 0,
-// the FMA kernel) or all bf16 (bf16 = 1, the tensor-core kernel); H a
-// multiple of KVH; 1 <= D <= 128; window 0 = none.  Launches on `stream`
-// and returns the cudaError_t of the launch (0 on success;
+// q/out [B, S, H, D], k/v [B, Skv, KVH, D], contiguous, all fp32 (bf16 =
+// 0, the FMA kernel) or all bf16 (bf16 = 1, the tensor-core kernel); H a
+// multiple of KVH; 1 <= D <= 128; window 0 = none; Skv != S only when
+// neither causal nor windowed (cross-attention).  Launches on `stream` and
+// returns the cudaError_t of the launch (0 on success;
 // cudaErrorInvalidValue for a shape it does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
-                                      int H, int KVH, int D, int causal,
-                                      int window, float scale, int bf16,
-                                      void* stream) {
+                                      int Skv, int H, int KVH, int D,
+                                      int causal, int window, float scale,
+                                      int bf16, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  if (D < 1 || D > kMaxD || KVH < 1 || H % KVH != 0 || window < 0)
+  if (D < 1 || D > kMaxD || KVH < 1 || H % KVH != 0 || window < 0 ||
+      Skv < 1 || ((causal || window) && Skv != S))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!bf16)
-    return launch_fp32(q, k, v, out, B, S, H, KVH, D, causal, window, scale,
-                       st);
+    return launch_fp32(q, k, v, out, B, S, Skv, H, KVH, D, causal, window,
+                       scale, st);
   if (D <= 64)
-    return launch_tc_vec<64>(q, k, v, out, B, S, H, KVH, D, causal, window,
-                             scale, st);
-  return launch_tc_vec<128>(q, k, v, out, B, S, H, KVH, D, causal, window,
-                            scale, st);
+    return launch_tc_vec<64>(q, k, v, out, B, S, Skv, H, KVH, D, causal,
+                             window, scale, st);
+  return launch_tc_vec<128>(q, k, v, out, B, S, Skv, H, KVH, D, causal,
+                            window, scale, st);
 }
 
 // The tensor-core instruction of the bf16 kernel.

@@ -1,11 +1,18 @@
-"""Causal / windowed GQA flash attention (the LM's prefill): Hopper CUDA
-kernels + wrapper.
+"""GQA flash attention (the LM's prefill, the encoder's bidirectional
+self-attention, the decoder's cross-attention): Hopper CUDA kernels +
+wrapper.
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py::
 flash_attention`` (``:83``; body ``_kernel :30``): online-softmax attention
-of ``q [B, S, H, Dh]`` over ``k, v [B, S, KVH, Dh]`` (query head ``h``
+of ``q [B, S, H, Dh]`` over ``k, v [B, Sk, KVH, Dh]`` (query head ``h``
 reads KV head ``h // G``), causal and/or within a sliding window, output
-in ``q.dtype``.  The CUDA source is ``csrc/flash_attention.cu``; its header
+in ``q.dtype``.  ``Sk`` differs from ``S`` only in the cross form, which
+is neither causal nor windowed.  The TPU kernel takes its kv length from q
+(``b, s, h, dh = q.shape``, a kv grid of ``s // block_k``, ``:96-121``),
+so under ``use_pallas`` its cross-attention would see only the first ``S``
+keys (or read past k when ``Sk < S``): the function these kernels compute
+is the reference's CPU arm, ``nn/attention.py::_plain_cross`` (ROADMAP
+Queue 3 check (i)).  The CUDA source is ``csrc/flash_attention.cu``; its header
 says how the kernels work.  In short: one block per (64-row query tile,
 head, batch), the kv tiles that hold no live pair for the block never
 loaded, and two kernels picked by the input type:
@@ -47,9 +54,10 @@ NEG_INF = -1e30
 
 def kv_tiles(q0: int, s: int, causal: bool, window: int) -> range:
     """The kv tiles the kernels visit for the query tile starting at row
-    ``q0``: every tile holding a live pair for some row of the tile.  A
-    causal tile entirely in the future, or a tile entirely outside the
-    window, is skipped (the TPU kernel's ``run`` test, ``:47-51``)."""
+    ``q0`` over ``s`` keys (the query length too when causal or windowed):
+    every tile holding a live pair for some row of the tile.  A causal
+    tile entirely in the future, or a tile entirely outside the window, is
+    skipped (the TPU kernel's ``run`` test, ``:47-51``)."""
     k_end = min(s, q0 + BLOCK_Q) if causal else s
     first = q0 - window + 1
     lo = first // BLOCK_K if window and first > 0 else 0
@@ -80,7 +88,7 @@ def flash_attention_emulate(q: torch.Tensor, k: torch.Tensor,
     no live pair would leave ``m``, ``l`` and ``acc`` as they are (``alpha =
     1``, ``p = 0``), so skipping it keeps the bits."""
     b, s, h, dh = q.shape
-    g = h // k.shape[2]
+    sk, g = k.shape[1], h // k.shape[2]
     scale = 1.0 / dh ** 0.5
     tc = q.dtype == torch.bfloat16  # the tensor-core kernel's numbers
     cl = scale * LOG2E
@@ -96,9 +104,9 @@ def flash_attention_emulate(q: torch.Tensor, k: torch.Tensor,
         m = torch.full((b, h, len(rows), 1), NEG_INF, device=q.device)
         l = torch.zeros((b, h, len(rows), 1), device=q.device)
         acc = torch.zeros((b, h, len(rows), dh), device=q.device)
-        for kt in kv_tiles(q0, s, causal, window):
+        for kt in kv_tiles(q0, sk, causal, window):
             k0 = kt * BLOCK_K
-            cols = torch.arange(k0, min(k0 + BLOCK_K, s), device=q.device)
+            cols = torch.arange(k0, min(k0 + BLOCK_K, sk), device=q.device)
             sc = qt @ kf[:, :, k0:k0 + BLOCK_K].transpose(-1, -2)
             live = torch.ones((len(rows), len(cols)), dtype=torch.bool,
                               device=q.device)
@@ -125,16 +133,22 @@ def flash_attention_emulate(q: torch.Tensor, k: torch.Tensor,
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
-def check_kernel_args(q, k, v, window: int = 0) -> None:
+def check_kernel_args(q, k, v, window: int = 0, causal: bool = True
+                      ) -> None:
     """Raise on what the CUDA kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: needs q [B, S, H, Dh] and k/v "
-                         f"[B, S, KVH, Dh], got {tuple(q.shape)} / "
+                         f"[B, Sk, KVH, Dh], got {tuple(q.shape)} / "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
     b, s, h, dh = q.shape
-    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, dh):
+    if (k.shape[0], k.shape[3]) != (b, dh) or k.shape[1] < 1:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
-                         f"match q {tuple(q.shape)} (self-attention only)")
+                         f"match q {tuple(q.shape)}")
+    if k.shape[1] != s and (causal or window):
+        raise ValueError(f"flash_attention: {k.shape[1]} keys for {s} "
+                         f"queries is the cross form, which is neither "
+                         f"causal nor windowed (causal={causal}, "
+                         f"window={window})")
     if h % k.shape[2]:
         raise ValueError(f"flash_attention: {h} query heads are not a "
                          f"multiple of {k.shape[2]} KV heads")
@@ -156,21 +170,23 @@ def check_kernel_args(q, k, v, window: int = 0) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """``q [B, S, H, Dh]``, ``k, v [B, S, KVH, Dh]`` -> ``[B, S, H, Dh]``
-    in ``q.dtype``; ``window`` 0 means no window."""
+    """``q [B, S, H, Dh]``, ``k, v [B, Sk, KVH, Dh]`` -> ``[B, S, H, Dh]``
+    in ``q.dtype``; ``window`` 0 means no window; ``Sk != S`` only when
+    neither causal nor windowed."""
     dev = build.device_of("flash_attention", (q, k, v))
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
-    check_kernel_args(q, k, v, window)
+    check_kernel_args(q, k, v, window, causal)
     lib = build.library()
     b, s, h, dh = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-        k.shape[2], dh, int(causal), int(window), 1.0 / dh ** 0.5,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+        k.shape[1], h, k.shape[2], dh, int(causal), int(window),
+        1.0 / dh ** 0.5,
         int(q.dtype == torch.bfloat16), stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
@@ -183,11 +199,12 @@ flash_attention.launches = 0
 def work(q, k, causal: bool = True, window: int = 0):
     """``(bytes, operations)`` of one call: q, k, v read once and the
     output written once; a dot and a multiply-add per head dim per live
-    (query, key) pair: 4 Dh."""
+    (query, key) pair: 4 Dh (``S x Sk`` pairs in the cross form)."""
     b, s, h, dh = q.shape
+    sk = k.shape[1]
     rows = range(s)
     lo = [max(0, i - window + 1) if window else 0 for i in rows]
-    hi = [i + 1 if causal else s for i in rows]
+    hi = [i + 1 if causal else sk for i in rows]
     pairs = sum(max(0, e - a) for a, e in zip(lo, hi))
     n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     return n_bytes, 4 * b * h * dh * pairs

@@ -177,8 +177,10 @@ def semantic_combine(z, beta, use_pallas: bool = False) -> torch.Tensor:
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     use_pallas: bool = False) -> torch.Tensor:
-    """Causal / windowed GQA attention: ``q [B, S, H, Dh]``, ``k, v [B, S,
-    KVH, Dh]`` -> ``[B, S, H, Dh]`` (the LM's prefill)."""
+    """GQA attention: ``q [B, S, H, Dh]``, ``k, v [B, Sk, KVH, Dh]`` ->
+    ``[B, S, H, Dh]``, causal and/or windowed (the LM's prefill) or neither
+    (the encoder's self-attention; with ``Sk != S`` the decoder's
+    cross-attention)."""
     if use_pallas:
         return declared(
             "DM", lambda: _flash.work(q, k, causal, window),

@@ -157,20 +157,25 @@ def _attention_probs(scores: torch.Tensor, dh: int, valid: torch.Tensor,
 
 def mha_attention(
     q: torch.Tensor,  # [B, S, H, Dh]
-    k: torch.Tensor,  # [B, S, KVH, Dh]
-    v: torch.Tensor,  # [B, S, KVH, Dh]
+    k: torch.Tensor,  # [B, Sk, KVH, Dh]
+    v: torch.Tensor,  # [B, Sk, KVH, Dh]
     causal: bool = True,
     window: int = 0,  # 0 = full; else sliding window size
 ) -> torch.Tensor:
     """GQA/MHA attention oracle (fp32 softmax).  The scores are computed in
     ``q.dtype`` and the probabilities cast back to it before ``p @ v``, as
-    the reference's oracle does."""
+    the reference's oracle does.  ``Sk`` may differ from ``S`` only when
+    neither causal nor windowed (cross-attention: every key live), where
+    it computes the reference's ``nn/attention.py::_plain_cross``."""
     b, s, h, dh = q.shape
-    kvh = k.shape[2]
+    kvh, sk = k.shape[2], k.shape[1]
+    if sk != s and (causal or window):
+        raise ValueError(f"mha_attention: {sk} keys for {s} queries needs "
+                         f"causal=False and window=0")
     qg = q.reshape(b, s, kvh, h // kvh, dh)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k)
     ids = torch.arange(s, device=q.device)
-    m = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    m = torch.ones((s, sk), dtype=torch.bool, device=q.device)
     if causal:
         m = m & (ids[:, None] >= ids[None, :])
     if window:

@@ -28,13 +28,15 @@
 
 runs on the CUDA device; ``--device cpu`` runs on the CPU (the kernels'
 plain versions).  Without ``--hgnn`` it serves the decoder-only LM
-``--arch`` (dense, moe, ssm or hybrid; full size, or ``--reduced``)
+``--arch`` (dense, moe, ssm, hybrid or vlm; full size, or ``--reduced``)
 through ``ServeEngine`` with random weights from seed 0, and prints the
 reference's ``reqN: [...]`` lines and ``N tokens in Xs (Y tok/s)``.  ``--use-pallas`` sets ``ModelConfig.use_pallas`` there:
 prefill through the ``flash_attention`` kernel and decode through
 ``decode_attention`` (the reference's flag reaches only its HGNN branch).
-The encdec family exits as the reference does; the vlm family raises
-``NotImplementedError``.  An SSM or hybrid prompt longer than the SSD
+A vlm serves as the reference's CLI serves it, as its dense stack with
+no frontend embeddings (the engine passes none); the encdec family exits
+as the reference does (``nn/encdec.py`` serves it: ``encdec_prefill``,
+``encdec_decode_step``).  An SSM or hybrid prompt longer than the SSD
 chunk (256 at full size) must be a multiple of it, as in the reference.
 
 With ``--hgnn``, ``--cache-rows C`` turns on hot-feature residency for

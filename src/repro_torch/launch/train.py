@@ -5,9 +5,10 @@
 
 The reference's flags, plus ``--device``: the run is on the CUDA device
 unless ``--device cpu`` asks for the CPU (there is no silent fallback).
-The weights are drawn from seed 0 on the device (``init_lm_params``; the
-reference's come from ``jax.random``, so the two runs start from other
-weights).  One line names the device, then one line a step, as the
+The weights are drawn from seed 0 on the device (``init_lm_params``, or
+``init_encdec_params`` for seamless; the reference's come from
+``jax.random``, so the two runs start from other weights).  The loader's
+batches carry internvl2's ``extra_embeds`` and seamless's ``frames``.  One line names the device, then one line a step, as the
 reference prints it; the host reads the loss back once a step.
 ``--distributed`` (one process a host over a device mesh) waits for
 ROADMAP Queue 1 item 19.

@@ -1,11 +1,13 @@
-"""GQA attention of the LM (port of ``repro/nn/attention.py``, self-attention,
-its backward and decode; the cross-attention of the encdec family is not
-ported yet).
+"""GQA attention of the LM (port of ``repro/nn/attention.py``): causal
+self-attention, the encoder's bidirectional self-attention, the decoder's
+cross-attention over the encoder's keys (``kv_override``, rope-free), its
+backward, and decode.
 
 Execution paths, one semantics (oracle: ``kernels/ref.py``):
 
 * plain — ``ref.mha_attention`` with materialized scores, up to 1024
-  tokens (the reference's plain arm, ``:292-295``); autograd differentiates
+  queries and 1024 keys (the reference's plain arm, ``:292-295``, and its
+  ``_plain_cross`` when the two lengths differ); autograd differentiates
   it;
 * chunked — the reference's pure-JAX FlashAttention-2 (``_chunked5``,
   ``:55-189``), above 1024 tokens: q chunks outside, kv chunks inside,
@@ -15,19 +17,22 @@ Execution paths, one semantics (oracle: ``kernels/ref.py``):
   ``custom_vjp`` does;
 * the hand-written ``flash_attention`` kernel when ``cfg.use_pallas``
   (``ops.flash_attention``: the kernel on a CUDA tensor, the plain oracle
-  on a CPU tensor).  It has no backward, nor has the reference's, so
-  ``attention_block`` refuses to record a graph through it;
+  on a CPU tensor), cross-attention included: the kernel takes ``Sk !=
+  Sq`` when not causal, where the reference's Pallas kernel has one length
+  (ROADMAP Queue 3 check (i)).  It has no backward, nor has the
+  reference's, so ``attention_block`` refuses to record a graph through
+  it;
 * decode — ``ops.decode_attention`` over the KV cache, the kernel under
   ``cfg.use_pallas`` and ``ref.decode_attention`` otherwise.
 
-Layouts: q ``[B, S, H, Dh]``; k/v ``[B, S, KVH, Dh]``.  The reference's
+Layouts: q ``[B, S, H, Dh]``; k/v ``[B, Sk, KVH, Dh]``.  The reference's
 sharding constraints are no-ops on one device and are dropped.  The decode
 step writes the new key and value into the cache in place.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -240,26 +245,46 @@ def init_attention(gen: torch.Generator, cfg) -> Dict:
     }
 
 
+def _project(x: torch.Tensor, w: torch.Tensor, heads: int, cfg,
+             positions: torch.Tensor, use_rope: bool) -> torch.Tensor:
+    """``x @ w`` as ``[B, S, heads, Dh]``, rotated when ``use_rope``."""
+    b, s, _ = x.shape
+    y = (x @ w).reshape(b, s, heads, cfg.resolved_head_dim)
+    return apply_rope(y, positions, cfg.rope_theta) if use_rope else y
+
+
 def qkv(params: Dict, cfg, x: torch.Tensor, positions: torch.Tensor):
     """Project + rope. x ``[B, S, d]`` -> q ``[B, S, H, Dh]``, k/v ``[B, S,
     KVH, Dh]``."""
-    b, s, _ = x.shape
-    dh = cfg.resolved_head_dim
     h, kvh = _heads(cfg)
-    q = (x @ params["wq"]).reshape(b, s, h, dh)
-    k = (x @ params["wk"]).reshape(b, s, kvh, dh)
-    v = (x @ params["wv"]).reshape(b, s, kvh, dh)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return (_project(x, params["wq"], h, cfg, positions, True),
+            _project(x, params["wk"], kvh, cfg, positions, True),
+            _project(x, params["wv"], kvh, cfg, positions, False))
 
 
 def attention_block(params: Dict, cfg, x: torch.Tensor,
                     positions: torch.Tensor, causal: bool = True,
-                    return_kv: bool = False):
-    """Full-sequence self-attention (prefill)."""
+                    kv_override: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
+                    return_kv: bool = False, use_rope: bool = True):
+    """Full-sequence attention (prefill, encoder, cross).  With
+    ``kv_override = (k, v)`` (``[B, Sk, KVH, Dh]``, the encoder's) the
+    queries of ``x`` attend over those keys; ``x``'s own keys and values,
+    which the reference computes and drops, are not computed.
+    ``use_rope=False`` (rope-free queries) is the cross path's; the
+    self-attention path always rotates, as every caller of either package
+    asks."""
     b, s, _ = x.shape
-    q, k, v = qkv(params, cfg, x, positions)
+    if kv_override is None:
+        if not use_rope:
+            raise ValueError("attention_block: use_rope=False is the cross "
+                             "path's (kv_override)")
+        q, k, v = qkv(params, cfg, x, positions)
+    else:  # cross-attention: kv from the encoder
+        q = _project(x, params["wq"], _heads(cfg)[0], cfg, positions,
+                     use_rope)
+        k, v = kv_override
+    sk = k.shape[1]
     window = cfg.sliding_window
     if cfg.use_pallas:
         if torch.is_grad_enabled() and any(t.requires_grad
@@ -271,12 +296,12 @@ def attention_block(params: Dict, cfg, x: torch.Tensor,
                 "train with use_pallas=False")
         o = ops.flash_attention(q, k, v, causal=causal, window=window,
                                 use_pallas=True)
-    elif s <= 1024:
+    elif s <= 1024 and sk <= 1024:  # Sk != S: the reference's _plain_cross
         o = kref.mha_attention(q, k, v, causal=causal, window=window)
     else:
-        c = _chunk_for(s, cfg.attn_chunk)
         o = chunked_attention(q, k, v, causal=causal, window=window,
-                              chunk_q=c, chunk_k=c)
+                              chunk_q=_chunk_for(s, cfg.attn_chunk),
+                              chunk_k=_chunk_for(sk, cfg.attn_chunk))
     out = o.reshape(b, s, -1) @ params["wo"]
     if return_kv:
         return out, (k, v)

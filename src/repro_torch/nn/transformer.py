@@ -1,6 +1,10 @@
-"""Decoder-only transformer composition: dense / MoE / SSM / hybrid (port
-of ``repro/nn/transformer.py``): the forward, the training loss and the
-serving entry points.
+"""Decoder-only transformer composition: dense / MoE / SSM / hybrid / VLM
+(port of ``repro/nn/transformer.py``): the forward, the training loss and
+the serving entry points.  A VLM is the dense stack with precomputed
+frontend embeddings (``extra_embeds [B, E, d]``, the vision stub)
+prepended to the token embeddings; ``lm_forward`` and ``lm_loss`` drop
+their ``E`` positions from the output, and a decode after a VLM prefill
+continues at position ``E + S``.
 
 Layers are stacked ``[L, ...]`` tensors, one stack per homogeneous run
 (``layer_runs``), as in the reference, so a parameter tree made by the
@@ -29,13 +33,12 @@ and the MoE's dispatch and combine are gathers both ways
 
 Public entry points: ``init_lm_params``, ``lm_forward``, ``lm_loss``,
 ``lm_prefill``, ``init_kv_caches`` + ``graft_prefill_caches``,
-``lm_decode_step``.  The VLM family (frontend embeddings) is not ported
-yet (ROADMAP Queue 1 item 17).
+``lm_decode_step``.  The encoder-decoder family is ``nn/encdec.py``.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -55,7 +58,7 @@ from repro_torch.nn.ssm import (MambaCache, init_mamba2, init_mamba_cache,
 
 def layer_runs(cfg: ModelConfig) -> List[Tuple[str, int]]:
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         return [("attn", cfg.n_layers)]
     if fam == "moe":
         return [("moe", cfg.n_layers)]
@@ -72,11 +75,6 @@ def layer_runs(cfg: ModelConfig) -> List[Tuple[str, int]]:
             if left > 0 or k == period:
                 runs.append(("shared_attn", 1))
         return runs
-    if fam == "vlm":
-        raise NotImplementedError(
-            "layer_runs: the vlm family (frontend embeddings, extra_embeds) "
-            "is not ported yet (ROADMAP Queue 1 item 17); the port runs the "
-            "dense, moe, ssm and hybrid families")
     raise ValueError(f"layer_runs: unsupported family {fam}")
 
 
@@ -124,6 +122,18 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Dict:
     return block
 
 
+def stacked(gen: torch.Generator, count: int, init_one) -> Dict:
+    """``count`` blocks of ``init_one(gen)`` stacked ``[count, ...]``, each
+    drawn straight into its slot, so a full-size model is never held
+    twice."""
+    first = init_one(gen)
+    stack = tree.map(lambda x: x.new_empty((count,) + x.shape), first)
+    for j in range(count):
+        block = first if j == 0 else init_one(gen)
+        tree.map(lambda dst, src: dst.copy_(src), _layer(stack, j), block)
+    return stack
+
+
 def _layer(stack: Dict, j: int) -> Dict:
     """Layer ``j`` of a stacked run (views)."""
     return tree.map(lambda x: x[j], stack)
@@ -161,12 +171,8 @@ def init_lm_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
                 params["shared"] = _init_block(gen, cfg, kind)
             params["runs"].append({})  # placeholder (weights in 'shared')
             continue
-        first = _init_block(gen, cfg, kind)
-        stack = tree.map(lambda x: x.new_empty((count,) + x.shape), first)
-        for j in range(count):
-            block = first if j == 0 else _init_block(gen, cfg, kind)
-            tree.map(lambda dst, src: dst.copy_(src), _layer(stack, j), block)
-        params["runs"].append(stack)
+        params["runs"].append(stacked(
+            gen, count, lambda g, kind=kind: _init_block(g, cfg, kind)))
     return params
 
 
@@ -205,10 +211,16 @@ class _EmbedGather(torch.autograd.Function):
         return grad.to(ctx.dtype), None
 
 
-def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor
+def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  extra_embeds: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
+    """The tokens' embeddings in ``cfg.dtype``, after ``extra_embeds [B,
+    E, d]`` (the modality frontend stub) when given."""
     x = _EmbedGather.apply(params["embed"], tokens.reshape(-1))
-    return x.reshape(*tokens.shape, -1).to(getattr(torch, cfg.dtype))
+    x = x.reshape(*tokens.shape, -1).to(getattr(torch, cfg.dtype))
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def _ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor):
@@ -304,10 +316,15 @@ def lm_logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return h @ head  # [B, S, V]
 
 
-def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor):
-    x = _embed_inputs(params, cfg, tokens)
+def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+               extra_embeds: Optional[torch.Tensor] = None):
+    """``(logits [B, S, V], aux)`` of the tokens; with ``extra_embeds [B,
+    E, d]`` prepended, the logits of the ``S`` token positions only."""
+    x = _embed_inputs(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     h, aux, _ = lm_backbone(params, cfg, x, positions)
+    if extra_embeds is not None:
+        h = h[:, extra_embeds.shape[1]:]
     return lm_logits(params, cfg, h), aux
 
 
@@ -345,13 +362,17 @@ def chunked_ce(h, head, labels, mask, chunk_tokens: int) -> torch.Tensor:
 
 
 def lm_loss(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
-    """batch: ``tokens [B, S]``, ``labels [B, S]`` (-1 = pad).  The mean
-    cross-entropy of the unmasked tokens, ``+ 0.01 * aux`` (the MoE
-    layers' Switch loss; 0 for the other families)."""
+    """batch: ``tokens [B, S]``, ``labels [B, S]`` (-1 = pad), optional
+    ``extra_embeds [B, E, d]`` (vision / audio stub, prepended and carrying
+    no label).  The mean cross-entropy of the unmasked tokens, ``+ 0.01 *
+    aux`` (the MoE layers' Switch loss; 0 for the other families)."""
     tokens = batch["tokens"]
-    x = _embed_inputs(params, cfg, tokens)
+    extra = batch.get("extra_embeds")
+    x = _embed_inputs(params, cfg, tokens, extra)
     positions = torch.arange(x.shape[1], device=x.device)
     h, aux, _ = lm_backbone(params, cfg, x, positions)
+    if extra is not None:
+        h = h[:, extra.shape[1]:]
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     labels = batch["labels"]
@@ -421,10 +442,12 @@ def graft_prefill_caches(cfg: ModelConfig, skeleton, prefill, t0: int):
     return skeleton
 
 
-def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
+def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+               extra_embeds: Optional[torch.Tensor] = None):
     """Full-sequence forward returning the last position's logits ``[B, 1,
-    V]`` and the caches."""
-    x = _embed_inputs(params, cfg, tokens)
+    V]`` and the caches (of ``E + S`` positions with ``extra_embeds [B, E,
+    d]`` prepended; the next decode position is ``E + S``)."""
+    x = _embed_inputs(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     h, _, caches = lm_backbone(params, cfg, x, positions, collect_kv=True)
     return lm_logits(params, cfg, h[:, -1:]), caches

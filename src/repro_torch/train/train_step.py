@@ -32,9 +32,9 @@ class TrainState(NamedTuple):
 
 def loss_fn_for(cfg: ModelConfig) -> Callable:
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            "loss_fn_for: encdec_loss (the encdec family) is not ported yet "
-            "(ROADMAP Queue 1 item 17)")
+        from repro_torch.nn.encdec import encdec_loss
+
+        return functools.partial(encdec_loss, cfg=cfg)
     from repro_torch.nn.transformer import lm_loss
 
     return functools.partial(lm_loss, cfg=cfg)
@@ -42,12 +42,17 @@ def loss_fn_for(cfg: ModelConfig) -> Callable:
 
 def init_train_state(gen: torch.Generator, cfg: ModelConfig,
                      optimizer: Optimizer) -> TrainState:
-    """Step 0, the weights of ``init_lm_params`` drawn on ``gen``'s device,
-    and the optimizer's zero state beside them."""
-    from repro_torch.nn.transformer import init_lm_params
+    """Step 0, the weights of ``init_encdec_params`` (the encdec family) or
+    ``init_lm_params`` drawn on ``gen``'s device, and the optimizer's zero
+    state beside them."""
+    if cfg.family == "encdec":
+        from repro_torch.nn.encdec import init_encdec_params
 
-    loss_fn_for(cfg)  # the families the port does not train raise here
-    params = init_lm_params(gen, cfg)
+        params = init_encdec_params(gen, cfg)
+    else:
+        from repro_torch.nn.transformer import init_lm_params
+
+        params = init_lm_params(gen, cfg)
     return TrainState(torch.zeros((), dtype=torch.int32, device=gen.device),
                       params, optimizer.init(params))
 

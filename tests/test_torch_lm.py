@@ -260,9 +260,15 @@ def test_bf16_tree_carries_across_bitwise(tiny_cfg_base):
 
 @pytest.mark.parametrize("family", ["vlm"])
 def test_other_families_are_not_ported_yet(tiny_cfg_base, family):
+    """Every family is ported: a vlm runs the dense stack, and the encdec
+    family, which ``nn/encdec.py`` runs, has no layer runs: both packages'
+    ``layer_runs`` raise ``ValueError`` for it."""
     cfg = tbase.ModelConfig(name="x", family=family, **tiny_cfg_base)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.layer_runs(cfg)
+    jcfg = jbase.ModelConfig(name="x", family=family, **tiny_cfg_base)
+    assert ttf.layer_runs(cfg) == jtf.layer_runs(jcfg) == [
+        ("attn", cfg.n_layers)]
+    with pytest.raises(ValueError):
+        jtf.layer_runs(jcfg.replace(family="encdec"))
     with pytest.raises(ValueError):
         ttf.layer_runs(cfg.replace(family="encdec"))
 

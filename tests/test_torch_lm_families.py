@@ -48,6 +48,7 @@ from repro_torch.interop import params_from_numpy, state_from_numpy
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as tlaunch
 from repro_torch.nn import moe as tmoe
+from repro_torch.nn import encdec as ted
 from repro_torch.nn import ssm as tssm
 from repro_torch.nn import transformer as ttf
 from repro_torch.serve.engine import Request, ServeEngine
@@ -289,10 +290,6 @@ def test_mamba2_block_prefill_then_decode_matches_reference():
 def test_layer_runs_equal_the_reference(name, reduced):
     j = j_get_reduced(name) if reduced else j_get_config(name)
     t = t_get_reduced(name) if reduced else t_get_config(name)
-    if t.family == "vlm":
-        with pytest.raises(NotImplementedError, match="item 17"):
-            ttf.layer_runs(t)
-        return
     try:
         want = jtf.layer_runs(j)
     except ValueError:  # encdec: the reference's raise
@@ -535,10 +532,14 @@ def test_train_step_from_the_reference_state(name):
 
 
 def test_loss_fn_for_raises_only_for_encdec():
-    for name in FAMILIES:
-        assert tts.loss_fn_for(t_get_reduced(name)) is not None
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tts.loss_fn_for(t_get_reduced("seamless-m4t-medium"))
+    """Every family has a loss now: ``lm_loss`` for the decoder-only
+    ones, ``encdec_loss`` for seamless (``tests/test_torch_lm_vlm_encdec.py``
+    holds it against the reference)."""
+    for name in sorted(J_ARCHS):
+        fn = tts.loss_fn_for(t_get_reduced(name))
+        want = (ted.encdec_loss if t_get_reduced(name).family == "encdec"
+                else ttf.lm_loss)
+        assert fn.func is want, name
 
 
 # ---------------------------------------------------------------------------
