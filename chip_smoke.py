@@ -95,8 +95,15 @@ tokens, 32 greedy tokens; 1024 frames, a 2-token prefix, 64 greedy
 tokens) twice, bitwise, exact launches, prefill and decode times, peak
 memory, the plain arm teacher-forced on the served tokens (its logit
 difference recorded), a profiled prefill and decode step.  Phase 5 holds
-both kernels at every shape phases 5e, 7b and 8b serve.  It imports
-nothing of jax or of the JAX package ``repro``.
+both kernels at every shape phases 5e, 7b and 8b serve.  Phase 9 is the
+device mesh: a 1-rank NCCL process group and a ``(data=1, model=1)``
+mesh, HAN/imdb through ``build_hgnn_infer(mesh=...)`` (9a) and granite-8b
+whole through ``launch/steps``' prefill and decode steps (9b, 4 x 2048
+tokens and 32 greedy steps) bitwise the mesh-less paths with the same
+launches, each timed beside them; then the granite-8b dry run on the
+16x16 production mesh over the fake process group (9c, a subprocess a
+shape, no device memory).  It imports nothing of jax or of the JAX
+package ``repro``.
 
 Output: progress lines, then the card's name and power limit as
 ``nvidia-smi`` prints them, a ``{"kernels": [...]}`` JSON line, and as the
@@ -290,37 +297,66 @@ def bound(n_bytes: float, n_ops: float, peak_flops: float = PEAK_FP32_FLOPS,
 
 
 
-def device_kernels(fn) -> list:
+LEAD_IN = 64  # lead-in kernels a profile starts with (a late trace drops
+# its first events: 36 of a granite decode step late in a run)
+# the host calls that put one event each on the card's queue
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy",
+                "cudaMemset")
+
+
+def device_kernels(fn, whole: bool = False):
     """Names of the device kernels (and copies) that one call of ``fn``
-    runs, by torch.profiler, after a warm-up call.  The device trace can
-    start late and miss the first kernels launched after the profiler is
-    switched on, so each profile first runs a lead-in kernel
-    (``torch.cuda._sleep``, named ``spin_kernel``) and waits for it, then
-    calls ``fn``: the answer is the device events after the lead-in.  A
-    profile that lacks the lead-in, or holds nothing after it (a call runs
-    at least one kernel), is a failed trace, not an answer: it is taken
-    again, up to three times, and the last one's events are returned."""
+    runs, in time order, by torch.profiler, after a warm-up call.  The
+    device trace can start late and drop the first events after the
+    profiler is switched on, so each profile first runs ``LEAD_IN``
+    lead-in kernels (``torch.cuda._sleep``, named ``spin_kernel``) and
+    waits for them, then calls ``fn``, then runs one more and waits: the
+    answer is the device events between the last lead-in that the trace
+    kept and that tail.  A profile that lost every lead-in or the tail, or
+    holds nothing between them (a call runs at least one kernel), is a
+    failed trace, not an answer: it is taken again, up to three times, and
+    the last one's events are returned.  With ``whole``, a trace that
+    holds fewer events of the call than the call made launch and copy
+    calls on the host fails too, and the answer is ``(names, whether the
+    last trace was whole)``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    ok = False
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(100_000)
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(100_000)
             torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        lead = [i for i, n in enumerate(names) if "spin_kernel" in n]
-        if lead and names[lead[0] + 1:]:
-            return names[lead[0] + 1:]
-        print(f"  (profile {attempt + 1} lacks the lead-in or the call: "
-              f"{names}; again)")
-    return names
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+        evs = prof.events()
+        names = [e.name for e in sorted(
+            (e for e in evs if e.device_type == DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        calls = sum(1 for e in evs if e.device_type != DeviceType.CUDA
+                    and e.name.startswith(LAUNCH_CALLS))
+        spins = [i for i, n in enumerate(names) if "spin_kernel" in n]
+        ok = (len(spins) >= 2 and spins[-1] == len(names) - 1
+              and spins[-1] - spins[-2] > 1)
+        # the call's own events against the call's own launches (the
+        # lead-ins and the tail made LEAD_IN + 1 of the calls)
+        if ok and (not whole
+                   or spins[-1] - spins[-2] - 1 >= calls - LEAD_IN - 1):
+            names = names[spins[-2] + 1:spins[-1]]
+            break
+        ok = False
+        print(f"  (profile {attempt + 1} lacks a lead-in, the tail or the "
+              f"call{', or events' if whole else ''}: {len(names)} device "
+              f"events for {calls} launch and copy calls, lead-in and tail "
+              f"at {spins[:2]}..{spins[-1:]}; again)")
+    return (names, ok) if whole else names
 
 
 def bucket_times(h_src, nbr, mask, flush) -> list:
@@ -3333,6 +3369,374 @@ def train_full(dev, ops, profiles: dict) -> dict:
             "launches": counts["segment_sum"]}
 
 
+# ---------------------------------------------------------------------------
+# the device mesh (phase 9): a 1-rank NCCL mesh (data=1, model=1) on the
+# card, the mesh paths bitwise the mesh-less ones, and the dry run
+# ---------------------------------------------------------------------------
+
+MESH_REPS = 10  # interleaved forwards a 9a path is timed over
+MESH_DECODE_STEPS = 32
+DRYRUN_TIMEOUT_S = 240
+
+
+def wall_median_ms(fns: dict, reps: int) -> dict:
+    """Host wall of each callable, synchronised, median over ``reps``
+    calls made in turns (one of each a round)."""
+    import statistics
+
+    import torch
+
+    walls = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in walls.items()}
+
+
+def mesh_overheads(tag: str, plain, meshed, extra_ms: float) -> dict:
+    """What the 1-rank mesh adds to one call of ``meshed`` over ``plain``
+    (the same work off the mesh): the c10d collectives the mesh call
+    issues (``CommDebugMode``), the ops it dispatches on DTensors (a
+    dispatch mode that counts them and hands them on), ``extra_ms`` (the
+    mesh call's wall less the plain one's) over that count, and the device
+    kernels of each call (``device_kernels(whole=True)``).  Checked: no
+    collective and no NCCL kernel on the mesh (DTensor skips the size-1
+    mesh dims), and, where both traces kept every event, the same device
+    kernels, copies included, on and off the mesh: the mesh moves and
+    copies nothing.  A trace that dropped events in all three tries
+    decides nothing, and the line says so."""
+    import collections
+
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class DTensorOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                self.ops[func._overloadpacket.__name__] += 1
+                return NotImplemented
+            return func(*args, **(kwargs or {}))
+
+    names, whole_plain = device_kernels(plain, whole=True)
+    k_plain = collections.Counter(names)
+    names, whole_mesh = device_kernels(meshed, whole=True)
+    k_mesh = collections.Counter(names)
+    comm = CommDebugMode()
+    with comm:
+        meshed()
+    torch.cuda.synchronize()
+    counter = DTensorOps()
+    with counter:
+        meshed()
+    torch.cuda.synchronize()
+    n_ops = sum(counter.ops.values())
+    n_coll = comm.get_total_counts()
+    nccl = sum(n for k, n in k_mesh.items() if "nccl" in k.lower())
+
+    def copies(c):
+        return sum(n for k, n in c.items()
+                   if "copy" in k.lower() or "memcpy" in k.lower())
+
+    check(nccl == 0 and n_coll == 0,
+          f"{tag}: the 1-rank mesh call issues {n_coll} c10d collectives "
+          f"and launches {nccl} NCCL kernels (0 each)")
+    more, fewer = k_mesh - k_plain, k_plain - k_mesh
+    line = (f"{tag}: device kernels on the mesh {sum(k_mesh.values())} "
+            f"({copies(k_mesh)} copies), off it {sum(k_plain.values())} "
+            f"({copies(k_plain)} copies); more on the mesh "
+            f"{dict(more.most_common(6))}, fewer {dict(fewer.most_common(6))}")
+    whole = whole_plain and whole_mesh
+    if whole:
+        check(not more and not fewer, f"the same device kernels: {line}")
+    else:
+        print(f"  {line} (a trace dropped events: not decided)")
+    per_op_us = extra_ms * 1e3 / n_ops if n_ops else float("nan")
+    print(f"  {tag} a call: {n_ops} ops dispatched on DTensors "
+          f"(top {dict(counter.ops.most_common(8))}); the mesh adds "
+          f"{extra_ms:.4f} ms of wall, {per_op_us:.2f} us a DTensor op")
+    return {"dtensor_ops": n_ops, "collectives": n_coll,
+            "nccl_kernels": nccl, "traces_whole": whole,
+            "kernels": {"mesh": sum(k_mesh.values()),
+                        "plain": sum(k_plain.values())},
+            "copies": {"mesh": copies(k_mesh), "plain": copies(k_plain)},
+            "same_kernels": not more and not fewer,
+            "extra_ms": extra_ms, "us_per_dtensor_op": per_op_us}
+
+
+def mesh_han(dev, ops, hg, mesh) -> dict:
+    """9a: HAN/imdb full graph (fused, kernels, the NA->SA epilogue)
+    through ``build_hgnn_infer(mesh=...)`` against the mesh-less build:
+    the same weights (both from ``cfg.seed``), logits bitwise, the same
+    ``gat_na`` (sem=) and ``semantic_combine`` launches."""
+    import torch
+    from repro_torch.configs.base import HGNNConfig
+    from repro_torch.launch.serve import build_hgnn_infer
+
+    cfg = HGNNConfig(model="han", dataset="imdb", fused=True,
+                     use_pallas=True, fuse_na_sa=True)
+    plain = build_hgnn_infer(cfg, hg, dev)
+    meshed = build_hgnn_infer(cfg, hg, dev, mesh=mesh)
+    runs = {}
+    for tag, b in (("mesh-less", plain), ("mesh", meshed)):
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            out = b.fn(b.params, b.batch)
+        torch.cuda.synchronize()
+        runs[tag] = (out, ops.launch_counts())
+    want, c_plain = runs["mesh-less"]
+    got, c_mesh = runs["mesh"]
+    check(type(got).__name__ == "DTensor",
+          f"9a: the mesh forward returns a DTensor ({type(got).__name__})")
+    got = got.full_tensor()
+    check(got.shape == want.shape == (4278, 8)
+          and bool(torch.isfinite(got).all()),
+          f"9a: logits {tuple(got.shape)} finite")
+    check(torch.equal(got, want),
+          "9a: HAN/imdb mesh logits bitwise the mesh-less forward (max "
+          f"|diff| {max_err(got, want):.3g})")
+    check(c_mesh == c_plain and c_plain["gat_na_fused_sa"] == 1
+          and c_plain["semantic_combine"] == 1,
+          f"9a: launches on the mesh {c_mesh} = mesh-less {c_plain} (one "
+          "gat_na sem= and one semantic_combine a forward)")
+
+    def fwd(b):
+        def go():
+            with torch.inference_mode():
+                b.fn(b.params, b.batch)
+        return go
+
+    ms = wall_median_ms({"mesh-less": fwd(plain), "mesh": fwd(meshed)},
+                        MESH_REPS)
+    print(f"  9a HAN/imdb forward wall (median of {MESH_REPS}, in turns): "
+          f"mesh {ms['mesh']:.4f} ms, mesh-less {ms['mesh-less']:.4f} ms; "
+          f"launches {c_mesh['gat_na_fused_sa']} gat_na (sem=) + "
+          f"{c_mesh['semantic_combine']} semantic_combine a forward")
+    over = mesh_overheads("9a HAN/imdb forward", fwd(plain), fwd(meshed),
+                          ms["mesh"] - ms["mesh-less"])
+    return {"forward_ms": ms, "overheads": over, "launches": {
+        "gat_na_fused_sa": c_mesh["gat_na_fused_sa"],
+        "semantic_combine": c_mesh["semantic_combine"]}}
+
+
+def mesh_granite(dev, ops, mesh) -> dict:
+    """9b: granite-8b at full width (36 layers, bf16, the kernels): the
+    prefill of 4 x 2048 tokens and 32 greedy decode steps through
+    ``build_prefill_step`` / ``build_decode_step`` (``jit_step``) on the
+    mesh against ``lm_prefill`` / ``lm_decode_step`` called directly:
+    logits and tokens bitwise, the same flash_attention and
+    decode_attention launches (36 a prefill, 36 a step); then one more
+    step through the step function on each path (``mesh_overheads``)."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist.sharding import distribute_tree
+    from repro_torch.launch.steps import (build_decode_step,
+                                          build_prefill_step, jit_step)
+    from repro_torch.nn import transformer as tf
+
+    cfg = get_config(GRANITE).replace(use_pallas=True)
+    b, s, n = LM_SLOTS, LM_PROMPT, MESH_DECODE_STEPS
+    params = tf.init_lm_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    rng = np.random.default_rng(9)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)).astype(
+        np.int32), device=dev)
+    pre = build_prefill_step(cfg, ShapeConfig("p", s, b, "prefill"), mesh)
+    dec = build_decode_step(cfg, ShapeConfig("d", s + n, b, "decode"), mesh)
+    with torch.inference_mode():  # DTensor views: inference tensors
+        # laid out once, not a call
+        p_mesh = distribute_tree(params, pre.in_shardings[0])
+    prefill, decode = jit_step(pre), jit_step(dec)
+
+    def wave(meshed: bool):
+        logits_all, toks = [], []
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            if meshed:
+                lg, pf = prefill(p_mesh, {"tokens": tokens})
+                lg = lg.full_tensor()
+                pf = tree.map(lambda c: c.full_tensor(), pf)
+            else:
+                lg, pf = tf.lm_prefill(params, cfg, tokens)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            caches = tf.graft_prefill_caches(
+                cfg, tf.init_kv_caches(cfg, b, s + n, dev), pf, s)
+            if meshed:
+                caches = distribute_tree(caches, dec.in_shardings[2])
+            del pf
+            c_pre = ops.launch_counts()
+            tok = lg[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+            logits_all.append(lg)
+            toks.append(tok)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i in range(n):
+                pos = torch.tensor(s + i, dtype=torch.int32, device=dev)
+                if meshed:
+                    lg, caches = decode(p_mesh, tok, caches, pos)
+                    lg = lg.full_tensor()
+                else:
+                    lg, caches = tf.lm_decode_step(params, cfg, tok, caches,
+                                                   pos)
+                tok = lg[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+                logits_all.append(lg)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            t_dec = time.perf_counter() - t1
+        c_all = ops.launch_counts()
+        return (logits_all, torch.cat(toks, dim=1), c_pre, c_all,
+                t_pre * 1e3, t_dec * 1e3 / n, (tok, caches))
+
+    direct = wave(False)
+    meshed = wave(True)
+    direct2 = wave(False)  # the mesh-less times again, after the mesh's
+    check(all(torch.equal(a, c) for a, c in zip(meshed[0], direct[0])),
+          f"9b: granite logits on the mesh bitwise the direct calls over "
+          f"the prefill and {n} decode steps")
+    check(torch.equal(meshed[1], direct[1]) and torch.equal(direct2[1],
+                                                             direct[1]),
+          "9b: the same greedy tokens")
+    layers = cfg.n_layers
+    want_pre = dict(flash_attention=layers, decode_attention=0)
+    want_all = dict(flash_attention=layers, decode_attention=layers * n)
+    for tag, r in (("mesh", meshed), ("direct", direct)):
+        pre_c = {k: r[2][k] for k in want_pre}
+        all_c = {k: r[3][k] for k in want_all}
+        check(pre_c == want_pre and all_c == want_all,
+              f"9b {tag}: launches prefill {pre_c}, whole {all_c} (want "
+              f"{want_pre}, {want_all})")
+    meshed_ms, direct_ms, direct2_ms = (r[4:6] for r in (meshed, direct,
+                                                         direct2))
+    launches = {k: meshed[3][k] for k in want_all}
+    print(f"  9b granite-8b 4x{s} prefill: mesh {meshed[4]:.2f} ms, direct "
+          f"{direct[4]:.2f} / {direct2[4]:.2f} ms (before / after); decode "
+          f"a step: mesh {meshed[5]:.3f} ms, direct {direct[5]:.3f} / "
+          f"{direct2[5]:.3f} ms; launches on the mesh "
+          f"{meshed[3]['flash_attention']} flash_attention + "
+          f"{meshed[3]['decode_attention']} decode_attention")
+    print(f"  tokens req0 (mesh): {meshed[1][0].tolist()}")
+    # one decode step more at the last position, on each wave's caches:
+    # the step function itself (dec.fn), its token and position laid out
+    # once as jit_step lays them out each call
+    last = torch.tensor(s + n - 1, dtype=torch.int32, device=dev)
+
+    def step(meshed_step: bool):
+        tok, caches = (meshed if meshed_step else direct2)[6]
+        if meshed_step:
+            with torch.inference_mode():
+                tok, pos = (distribute_tree(x, sh) for x, sh in zip(
+                    (tok, last), (dec.in_shardings[1], dec.in_shardings[3])))
+
+        def go():
+            with torch.inference_mode():
+                if meshed_step:
+                    dec.fn(p_mesh, tok, caches, pos)
+                else:
+                    tf.lm_decode_step(params, cfg, tok, caches, last)
+        return go
+
+    over = mesh_overheads("9b granite-8b decode step", step(False),
+                          step(True), meshed[5] - direct2[5])
+    del p_mesh, params, direct, meshed, direct2
+    torch.cuda.empty_cache()
+    return {"prefill_ms": {"mesh": meshed_ms[0], "direct": direct_ms[0],
+                           "direct_after": direct2_ms[0]},
+            "decode_ms_per_step": {"mesh": meshed_ms[1],
+                                   "direct": direct_ms[1],
+                                   "direct_after": direct2_ms[1]},
+            "decode_overheads": over, "launches": launches}
+
+
+def mesh_dryrun() -> dict:
+    """9c: ``python -m repro_torch.launch.dryrun --arch granite-8b`` over
+    its three shapes on 16x16 (the fake process group, no device memory):
+    one subprocess a shape, the three at once, each under a timeout; one
+    line a cell."""
+    import os
+
+    out_dir = ROOT / "build" / "dryrun"  # git-ignored
+    if out_dir.is_dir():
+        for f in out_dir.glob("granite-8b__*.json"):
+            f.unlink()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    shapes = ("train_4k", "prefill_32k", "decode_32k")
+    t0 = time.perf_counter()
+    procs = {shape: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "granite-8b", "--shape", shape, "--out", str(out_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for shape in shapes}
+    cells = {}
+    for shape, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=max(
+                1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        check(proc.returncode == 0, f"9c: the {shape} dry run exited "
+              f"{proc.returncode}: {out[-3000:]}")
+        path = out_dir / f"granite-8b__{shape}__16x16.json"
+        if not check(path.is_file(), f"9c: {path.name} written"):
+            continue
+        rep = json.loads(path.read_text())
+        dev_rec = rep["per_device"]
+        cells[shape] = {
+            "argument_gib": dev_rec["argument_bytes"] / 2 ** 30,
+            "output_gib": dev_rec["output_bytes"] / 2 ** 30,
+            "flops": dev_rec["total_flops"],
+            "hbm_bytes": dev_rec["total_hbm_bytes"],
+            "collective_bytes": dev_rec["collective_bytes"],
+            "bound": rep["roofline"]["bound"],
+            "step_time_s": rep["roofline"]["step_time_s"],
+            "run_s": rep["run_s"]}
+        c = cells[shape]
+        print(f"  9c granite-8b {shape} 16x16, per device: arguments "
+              f"{c['argument_gib']:.4f} GiB, FLOPs {c['flops']:.6g}, HBM "
+              f"bytes {c['hbm_bytes']:.6g}, collective bytes "
+              f"{c['collective_bytes']:.6g}, bound {c['bound']} "
+              f"({c['step_time_s'] * 1e3:.4f} ms at the H100's rates; "
+              f"{c['run_s']} s on the host)")
+    dt = time.perf_counter() - t0
+    print(f"  9c dry run: {dt:.1f} s (three processes at once)")
+    return {"cells": cells, "seconds": dt}
+
+
+def mesh_phase(dev, ops, hg) -> dict:
+    """Phase 9: a 1-rank NCCL process group (``HashStore``) and a ``(data=
+    1, model=1)`` mesh for 9a and 9b, destroyed at the end of them; then
+    9c, which needs no card."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_smoke_mesh(data=1, model=1)
+        print(f"  mesh: {mesh}")
+        rec = {"han": mesh_han(dev, ops, hg, mesh)}
+        rec["granite"] = mesh_granite(dev, ops, mesh)
+    finally:
+        dist.destroy_process_group()
+    rec["dryrun"] = mesh_dryrun()
+    return rec
+
+
 def characterization(hg, hg_r, dev) -> dict:
     """Phase 3l: ``stage_records(timed=True)`` through
     ``HGNNInferEngine.characterize`` on HAN/imdb's baseline (``csr``) and
@@ -3428,6 +3832,8 @@ def main() -> None:
     from repro_torch.kernels import segment_sum as tss
     from repro_torch.kernels import semantic_attn as tsem
     from repro_torch.launch.serve import build_hgnn_infer
+    from repro_torch.launch import dryrun  # noqa: F401
+    from repro_torch.launch import steps  # noqa: F401
     from repro_torch.launch import train as launch_train  # noqa: F401
     from repro_torch.nn import transformer  # noqa: F401
     from repro_torch.serve.engine import HGNNInferEngine  # noqa: F401
@@ -4178,6 +4584,24 @@ def main() -> None:
             entry["vlm_encdec_launches"] = n
     print(f"phase 8: {time.perf_counter() - t8:.1f} s")
 
+    # ---------------- phase 9: the device mesh ----------------
+    t9 = time.perf_counter()
+    print("phase 9: a 1-rank NCCL mesh (data=1, model=1): 9a HAN/imdb and "
+          "9b granite-8b through the mesh entry points, bitwise the "
+          "mesh-less paths; 9c the granite-8b dry run on 16x16")
+    print(f"  card: {card_line()}")
+    mesh_rec = mesh_phase(dev, ops, hg)
+    mesh_launches = {**mesh_rec["han"]["launches"],
+                     **mesh_rec["granite"]["launches"]}
+    for entry in kernels:
+        if entry["name"] in mesh_launches:
+            n = mesh_launches[entry["name"]]
+            check(n > 0, f"{entry['name']} launched {n} times on the mesh "
+                  f"paths")
+            entry["launches"] += n
+            entry["mesh_launches"] = n
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s")
+
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
@@ -4204,6 +4628,7 @@ def main() -> None:
                       "serving": serve_rec,
                       "partitioned": part_rec,
                       "overlap": ov_rec,
+                      "mesh": mesh_rec,
                       "profiles": profiles}))
     if failures:
         print(f"FAILED: {failures}", file=sys.stderr)

@@ -9,9 +9,10 @@ sorted segment ids drawn from a seed, N 4278, C 8), which runs two kernels,
 the segments then the long ones.  Each round takes two captures in turn:
 
 - ``bare``: ``fn`` once under the profiler, the device events as they come;
-- ``lead_in``: ``chip_smoke.device_kernels(fn)``, which runs a lead-in
-  kernel first and counts only what follows it, retrying a capture that
-  lacks the lead-in or the call.
+- ``lead_in``: ``chip_smoke.device_kernels(fn)``, which runs lead-in
+  kernels first and a tail kernel after, and counts only what lies
+  between the last lead-in kept and the tail, retrying a capture that
+  lacks them or the call.
 
 A capture is short when it does not hold the two kernels in order.  Prints
 the count of short captures of each kind, then one JSON line.

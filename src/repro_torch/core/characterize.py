@@ -45,6 +45,13 @@ so:
   and its name is kept.
 
 :func:`roofline` takes the reference's keys with the H100's constants.
+
+The LM records (the reference's ``:558-644``): :func:`analytic_param_counts`
+from a meta-device init, :func:`model_flops`, and :func:`analyze_step`, the
+counterpart of ``analyze_compiled`` / ``analyze_jitted``: a built step
+(``launch/steps.py``) runs on meta DTensors under its mesh inside a
+:class:`MeshRecorder`, which lets DTensor turn each op into its local op
+and collectives and counts those, so every number is one rank's.
 The pure-Python records (:func:`partition_traffic`,
 :func:`sample_traffic`, :func:`residency_record`,
 :func:`resilience_record`, :func:`overlap_accounting`) are the
@@ -163,7 +170,9 @@ def _tensors(tree) -> List[torch.Tensor]:
 
 
 def _storage(t: torch.Tensor):
-    return t.untyped_storage().data_ptr() if t.numel() else None
+    if not t.numel() or t.device.type == "meta":  # meta: no storage to share
+        return None
+    return t.untyped_storage().data_ptr()
 
 
 class Recorder(TorchDispatchMode):
@@ -260,6 +269,25 @@ class Recorder(TorchDispatchMode):
                 "collective_bytes": 0.0, "op_counts": dict(self.count),
                 "total_flops": float(sum(flops.values())),
                 "total_hbm_bytes": float(sum(hbm.values()))}
+
+
+@contextlib.contextmanager
+def repeated(n: int):
+    """Count what runs inside ``n`` times over, in every recorder in use
+    (a loop whose ``n`` iterations do the same work on meta tensors runs
+    one of them: the dry run's tile loops).  Without a recorder, a no-op."""
+    snaps = [(r, {k: dict(getattr(r, k)) for k in ("flops", "hbm", "count")},
+              getattr(r, "coll_bytes", 0.0)) for r in _recorders]
+    try:
+        yield
+    finally:
+        for r, snap, coll in snaps:
+            for k in ("flops", "hbm", "count"):
+                acc = getattr(r, k)
+                for c, v in list(acc.items()):
+                    acc[c] = snap[k].get(c, 0) + (v - snap[k].get(c, 0)) * n
+            if hasattr(r, "coll_bytes"):
+                r.coll_bytes = coll + (r.coll_bytes - coll) * n
 
 
 def declared(cls: str, work: Callable[[], Tuple[float, float]], fn,
@@ -603,3 +631,137 @@ def overlap_accounting(edges: Dict[str, Tuple[str, ...]],
         "overlap_saved_us": float(serial - crit),
         "exposure_us": {n: float(crit - _crit_without(n)) for n in edges},
     }
+
+
+# ---------------------------------------------------------------------------
+# the LM records: parameter counts, model FLOPs, one rank of a sharded step
+# ---------------------------------------------------------------------------
+
+
+def analytic_param_counts(cfg) -> Tuple[float, float]:
+    """``(total params, active params)`` of a config, from a meta-device
+    init (no storage); the active count takes ``top_k / n_experts`` of the
+    expert weights (``w_gate`` / ``w_up`` / ``w_down`` under ``moe``)."""
+    import math
+
+    from repro_torch import tree
+    from repro_torch.launch.steps import _params_abstract
+
+    params = _params_abstract(cfg)
+    total = expert = 0.0
+
+    def visit(path, leaf):
+        nonlocal total, expert
+        n = float(math.prod(leaf.shape))
+        total += n
+        names = [k.key for k in path if isinstance(k, tree.DictKey)]
+        if "moe" in names and names[-1] in ("w_gate", "w_up", "w_down"):
+            expert += n
+
+    tree.map_with_path(visit, params)
+    active = total - expert
+    if cfg.moe is not None and expert > 0:
+        active += expert * cfg.moe.top_k / cfg.moe.n_experts
+    return total, active
+
+
+def model_flops(cfg, shape, n_total: float, n_active: float) -> float:
+    """MODEL_FLOPS: ``6·N·D`` to train (``N`` active for a MoE), ``2·N·D``
+    forward; a decode step makes one token a sequence."""
+    if shape.kind == "train":
+        return 6.0 * n_active * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n_active * shape.global_batch * shape.seq_len
+    return 2.0 * n_active * shape.global_batch
+
+
+class MeshRecorder(Recorder):
+    """A :class:`Recorder` of one rank's work on a mesh: an op on DTensors
+    is handed back to DTensor (``NotImplemented``, as ``CommDebugMode``
+    does), which runs it as local ops and collectives on this rank's
+    shards, and those are what is counted.  A collective's result bytes
+    are its collective bytes (the reference's HLO rule), kept apart from
+    the HBM bytes."""
+
+    def __init__(self):
+        super().__init__()
+        self.coll_bytes = 0.0
+        self.coll_ops: Dict[str, float] = defaultdict(float)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if any(issubclass(t, FakeTensor) for t in types):
+            # DTensor's sharding propagation computing shapes: no work
+            return func(*args, **(kwargs or {}))
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+    def _count(self, func, args, kwargs, out) -> None:
+        name = f"{func.namespace}::{func._overloadpacket.__name__}"
+        if op_class(name) != "COLL":
+            return super()._count(func, args, kwargs, out)
+        if any(r.alias_info is not None and not r.alias_info.is_write
+               for r in func._schema.returns):
+            return  # wait_tensor: the collective was counted at its start
+        n = float(sum(map(_nbytes, _tensors(out))))
+        self.coll_bytes += n
+        self.coll_ops[_base(name)] += n
+        self.count["COLL"] += 1
+
+    def report(self) -> Dict:
+        rep = super().report()
+        rep["collective_bytes"] = self.coll_bytes
+        rep["collective_bytes_by_op"] = dict(self.coll_ops)
+        return rep
+
+
+def _local_bytes(values) -> int:
+    """Bytes of this rank's shards of the tensors in ``values``."""
+    total = 0
+    for x in _tensors(values):
+        loc = x.to_local() if hasattr(x, "to_local") else x
+        total += _nbytes(loc)
+    return total
+
+
+def analyze_step(built, cfg=None, shape=None, mesh=None) -> Dict:
+    """One rank's record of a built step (``launch/steps.build_step``) on
+    ``mesh`` (a mesh with a ``DeviceMesh``; the dry run's is over the
+    fake process group): the step's meta inputs laid out by its
+    ``in_shardings``, the step run and its outputs laid out by its
+    ``out_shardings`` inside a :class:`MeshRecorder`.  Keys: the
+    recorder's (``total_flops``, ``total_hbm_bytes``, ``collective_bytes``,
+    by class and by op), ``argument_bytes`` / ``output_bytes`` (this
+    rank's shards of the inputs and outputs), ``roofline`` at the H100's
+    rates (``cfg.dtype``'s peak), with ``params_total`` / ``params_active``
+    and the model FLOPs when ``cfg`` and ``shape`` are given."""
+    from repro_torch.dist.sharding import distribute_tree
+
+    n_chips = mesh.size if mesh is not None else 1
+    args = tuple(distribute_tree(a, s) for a, s in zip(built.in_specs,
+                                                        built.in_shardings))
+    rec = MeshRecorder()
+    with torch.no_grad() if shape is not None and shape.kind != "train" \
+            else contextlib.nullcontext():
+        with rec:
+            out = distribute_tree(built.fn(*args), built.out_shardings)
+    rep = rec.report()
+    rep["argument_bytes"] = float(_local_bytes(args))
+    rep["output_bytes"] = float(_local_bytes(out))
+    record = {"per_device": rep}
+    dtype = torch.float32
+    mf = 0.0
+    if cfg is not None:
+        dtype = getattr(torch, cfg.dtype)
+        if shape is not None:
+            n_total, n_active = analytic_param_counts(cfg)
+            mf = model_flops(cfg, shape, n_total, n_active)
+            record["params_total"] = n_total
+            record["params_active"] = n_active
+    record["roofline"] = roofline(rep, n_chips, mf,
+                                  dtype=dtype if dtype in PEAK_FLOPS
+                                  else torch.float32)
+    return record

@@ -39,9 +39,12 @@ from repro_torch.core import metapath as mp
 from repro_torch.core import stages
 from repro_torch.core.hgraph import HeteroGraph
 from repro_torch.core.pipeline import PlannedModel
-from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
-                                   PartitionSpec, ResidencySpec, SASpec,
-                                   SampleSpec, ScheduleSpec, StagePlan,
+from repro_torch.core.plan import (BUCKETED_BATCH_SPECS,
+                                   PARTITION_BATCH_SPECS,
+                                   STACKED_BATCH_SPECS, FPSpec, HeadSpec,
+                                   LayerPlan, NASpec, PartitionSpec,
+                                   ResidencySpec, SASpec, SampleSpec,
+                                   ScheduleSpec, StagePlan,
                                    default_sample_ladder)
 from repro_torch.data.synthetic import DATASET_METAPATHS, DATASET_TARGET
 from repro_torch.interop import resolve_device
@@ -101,6 +104,9 @@ class HAN(PlannedModel):
                 for l in range(cfg.layers)),
             head=HeadSpec(kind="linear"),
             metapaths=tuple(tuple(p) for p in self.metapaths),
+            batch_specs=(PARTITION_BATCH_SPECS if part is not None
+                         else BUCKETED_BATCH_SPECS if layout == "bucketed"
+                         else STACKED_BATCH_SPECS),
             partition=part,
             sample=sample,
             schedule=(ScheduleSpec(depth=cfg.overlap)

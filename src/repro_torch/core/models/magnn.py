@@ -31,7 +31,9 @@ from repro_torch.configs.base import HGNNConfig
 from repro_torch.core import metapath as mp
 from repro_torch.core.hgraph import HeteroGraph
 from repro_torch.core.pipeline import PlannedModel
-from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
+from repro_torch.core.plan import (INSTANCE_BATCH_SPECS,
+                                   PARTITION_BATCH_SPECS, FPSpec, HeadSpec,
+                                   LayerPlan, NASpec,
                                    PartitionSpec, ResidencySpec, SASpec,
                                    SampleSpec, ScheduleSpec, StagePlan,
                                    default_sample_ladder)
@@ -83,6 +85,8 @@ class MAGNN(PlannedModel):
                 for _ in range(cfg.layers)),
             head=HeadSpec(kind="linear"),
             metapaths=tuple(tuple(p) for p in self.metapaths),
+            batch_specs=(PARTITION_BATCH_SPECS if part is not None
+                         else INSTANCE_BATCH_SPECS),
             partition=part,
             sample=sample,
             schedule=(ScheduleSpec(depth=cfg.overlap)

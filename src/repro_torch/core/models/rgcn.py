@@ -30,7 +30,9 @@ from repro_torch.core import metapath as mp
 from repro_torch.core import stages
 from repro_torch.core.hgraph import HeteroGraph
 from repro_torch.core.pipeline import PlannedModel
-from repro_torch.core.plan import (FPSpec, HeadSpec, LayerPlan, NASpec,
+from repro_torch.core.plan import (PARTITION_BATCH_SPECS,
+                                   RELATION_BATCH_SPECS, FPSpec, HeadSpec,
+                                   LayerPlan, NASpec,
                                    PartitionSpec, ResidencySpec, SASpec,
                                    SampleSpec, ScheduleSpec, StagePlan,
                                    default_sample_ladder)
@@ -87,6 +89,8 @@ class RGCN(PlannedModel):
                     residency=residency)
                 for l in range(cfg.layers)),
             head=HeadSpec(kind="select_linear", target=self.target),
+            batch_specs=(PARTITION_BATCH_SPECS if part is not None
+                         else RELATION_BATCH_SPECS),
             partition=part,
             sample=sample,
             schedule=(ScheduleSpec(depth=cfg.overlap)

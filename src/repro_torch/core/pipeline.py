@@ -81,8 +81,17 @@ hot-feature residency, and HAN, RGCN and MAGNN graph-partitioned over
 combinations of these arms.  Arms of later slices raise
 ``NotImplementedError`` naming their ROADMAP item, and combinations that
 no model of the reference declares raise too; no arm is served by another
-one.  The reference's sharding constraints are no-ops on one device and
-are dropped.
+one.
+
+On a device mesh (``dist.sharding.use_mesh``, DTensor parameters and
+batch: ``launch/serve.build_hgnn_infer(mesh=...)``) the executor applies
+the reference's ``shard`` constraints at its sites (FP ``:195-238``, the
+fused epilogue ``:400-407``, the padded mean ``:437``, the instance NA
+``:455-487``, the partitioned NA ``:543``, the stacked SA ``:766``) and
+each kernel call runs on a rank's shards (``local_map``): NA's destination
+rows and neighbour tables over the ``BATCH`` axes, its source pool
+replicated; the fused epilogue's score means are averaged over the ranks
+in rank order.  Off a mesh every constraint is a no-op.
 """
 from __future__ import annotations
 
@@ -98,6 +107,8 @@ from torch.utils._pytree import tree_flatten
 from repro_torch.core import residency, semantics, stages
 from repro_torch.core.plan import StagePlan
 from repro_torch.dist import partition as dpart
+from repro_torch.dist.sharding import (BATCH, MODEL, current_mesh,
+                                       is_dtensor, local, shard, split_heads)
 from repro_torch.dist.partition import HALO_MODES
 from repro_torch.kernels import ops
 from repro_torch.kernels.streaming import InflightWindow
@@ -326,16 +337,36 @@ class StageGraphExecutor:
         ``[N, H, Dh]``; otherwise every type's ``[N_t, D]`` table.  GCN's
         ``dense`` FP is its first combination, ``x @ w1``.  Partitioned:
         every type's owned rows, ``[K, n_t, F_t] @ W_t``."""
-        if self.plan.partition is not None:
-            return {t: f @ params["fp"][t]
+        plan = self.plan
+        if plan.partition is not None:
+            return {t: shard(f @ self._fp_w(plan.fp, params["fp"][t]),
+                             BATCH, None, MODEL)
                     for t, f in batch["part"]["feats"].items()}
-        if self.plan.fp.kind == "dense":
+        if plan.fp.kind == "dense":
             return batch["x"] @ params["w1"]
-        if self.plan.fp.heads:  # the other types' tables are not used
-            t = self.plan.target
-            ht = batch["feats"][t] @ params["fp"][t]
-            return ht.reshape(ht.shape[0], self.cfg.n_heads, -1)
+        if plan.fp.heads:  # the other types' tables are not used
+            t = plan.target
+            ht = batch["feats"][t] @ self._fp_w(plan.fp, params["fp"][t])
+            if plan.fp.sharded:
+                ht = shard(ht, *stages.HGNN_STAGE_SPECS["fp_out"])
+            return self._heads(ht)
+        if plan.fp.sharded:
+            return stages.feature_projection_sharded(params["fp"],
+                                                     batch["feats"])
         return stages.feature_projection(params["fp"], batch["feats"])
+
+    @staticmethod
+    def _fp_w(fp, w):
+        """An FP weight under the stage-aware constraint (``fp.sharded``)."""
+        if fp.sharded:
+            return shard(w, *stages.HGNN_STAGE_SPECS["fp_weight"])
+        return w
+
+    def _heads(self, h):
+        """``[N, D]`` as ``[N, H, Dh]`` (on a mesh, the heads over
+        ``'model'`` where they divide it)."""
+        return split_heads(h, self.cfg.n_heads,
+                           h.shape[-1] // self.cfg.n_heads, lead=(BATCH,))
 
     def _fp_hidden(self, lp, p_l: Dict, state: Dict):
         """Layers >= 1: ``identity`` passes the carried tables through
@@ -347,13 +378,18 @@ class StageGraphExecutor:
         if lp.fp.kind == "identity":
             return state
         if lp.fp.kind == "per_type":
-            return stages.feature_projection(p_l["fp"], state)
+            project = (stages.feature_projection_sharded if lp.fp.sharded
+                       else stages.feature_projection)
+            return project(p_l["fp"], state)
         t = self.plan.target
+        w = self._fp_w(lp.fp, p_l["fp"])
         if self.plan.partition is not None:
-            return {t: state[t] @ p_l["fp"]}
-        h = state[t] @ p_l["fp"]
+            return {t: shard(state[t] @ w, BATCH, None, MODEL)}
+        h = state[t] @ w
+        if lp.fp.sharded:
+            h = shard(h, *stages.HGNN_STAGE_SPECS["fp_out"])
         if lp.fp.heads:
-            return h.reshape(h.shape[0], self.cfg.n_heads, -1)
+            return self._heads(h)
         return h
 
     def _handoff(self, lp, batch: Dict, h, out) -> Dict:
@@ -503,11 +539,54 @@ class StageGraphExecutor:
             # the kernel epilogue bakes the NA activation in (elu)
             raise ValueError("sa.fuse_epilogue requires na.activation='elu' "
                              f"(got {self.plan.na.activation!r})")
-        z4, wp = ops.gat_aggregate_stacked_fused_sa(
-            params["gat"], h, self._res_pool(batch, self.plan.target, h),
-            batch["nbr"], batch["mask"], params["sem"],
-            use_pallas=self.plan.na.use_pallas)
+        pool = self._res_pool(batch, self.plan.target, h)
+        if current_mesh() is None or not is_dtensor(batch["nbr"]):
+            z4, wp = ops.gat_aggregate_stacked_fused_sa(
+                params["gat"], h, pool, batch["nbr"], batch["mask"],
+                params["sem"], use_pallas=self.plan.na.use_pallas)
+        else:
+            z4, wp = self._fused_sa_on_mesh(params["gat"], params["sem"], h,
+                                            pool, batch["nbr"], batch["mask"])
         return z4.reshape(z4.shape[0], z4.shape[1], -1), wp
+
+    def _fused_sa_on_mesh(self, p: Dict, sem: Dict, h, pool, nbr, mask):
+        """The fused NA→SA epilogue on a mesh: destination rows and their
+        neighbour tables over ``BATCH``, the pool and the weights
+        replicated, one kernel call a rank on its rows (``local``).  Each
+        rank's ``w`` is the score mean over its rows; the ranks hold equal
+        row counts (else the rows stay replicated), so the global mean is
+        the mean of the ranks' means, added in rank order after they are
+        gathered (one rank: its ``w`` as it is)."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        specs = stages.HGNN_STAGE_SPECS
+        h, pool, nbr, mask = stages.na_inputs(h, pool, nbr, mask,
+                                              lead=(None,))
+        pk, sk = list(p), list(sem)
+        use_pallas = self.plan.na.use_pallas
+
+        def body(*a):
+            pp = dict(zip(pk, a[:len(pk)]))
+            ss = dict(zip(sk, a[len(pk):len(pk) + len(sk)]))
+            z4, wp = ops.gat_aggregate_stacked_fused_sa(
+                pp, *a[len(pk) + len(sk):], ss, use_pallas=use_pallas)
+            return z4, wp[None]
+
+        weights = [p[k] for k in pk] + [sem[k] for k in sk]
+        w_pl = [Shard(0) if pl.is_shard(1) else Replicate()
+                for pl in nbr.placements]
+        z4, parts = local(
+            body, (*weights, h, pool, nbr, mask),
+            tuple((None,) * w.dim() for w in weights)
+            + (specs["na_dst"], specs["na_src"], (None,) + specs["na_nbr"],
+               (None,) + specs["na_nbr"]),
+            (list(nbr.placements), w_pl))
+        z4 = shard(z4, None, *specs["na_out"])
+        parts = shard(parts, None, None)  # every rank's w, on every rank
+        wp = parts[0]
+        for r in range(1, parts.shape[0]):
+            wp = wp + parts[r]
+        return z4, (wp / parts.shape[0] if parts.shape[0] > 1 else wp)
 
     def _na_mean(self, params: Dict, batch: Dict, h: Dict):
         """RGCN's NA: per relation (sorted keys), the mean of the source
@@ -539,8 +618,8 @@ class StageGraphExecutor:
                     pools[s], rel, h[d].shape[0], agg_fn=agg_fn,
                     sink=self._sink)
             else:  # padded
-                agg = (agg_fn or stages.mean_aggregate_padded)(
-                    pools[s], rel[0], rel[1])
+                agg = stages.mean_aggregate_padded_sharded(
+                    pools[s], rel[0], rel[1], agg_fn=agg_fn)
             out["|".join(key)] = agg @ params["w_rel"][key]
         return out
 
@@ -561,6 +640,8 @@ class StageGraphExecutor:
         p_i = params["att"][i_path]
         nodes, mask = batch["instances"][i_path]
         types = plan.metapaths[i_path]
+        nodes = shard(nodes, *stages.HGNN_STAGE_SPECS["na_inst_nodes"])
+        mask = shard(mask, *stages.HGNN_STAGE_SPECS["na_nbr"])
         n, i, l = nodes.shape
 
         def gather(j):
@@ -583,7 +664,8 @@ class StageGraphExecutor:
                                   use_pallas=True)
         else:
             z = stages.instance_aggregate(p_i, h_tgt, enc, mask)
-        return _ACT[plan.na.activation](z).reshape(n, -1)  # [N, D]
+        return shard(_ACT[plan.na.activation](z).reshape(n, -1),
+                     *stages.HGNN_STAGE_SPECS["na_flat_out"])  # [N, D]
 
     def _na_instance(self, params: Dict, batch: Dict, h: Dict):
         return [self._na_instance_one(params, batch, h, i)
@@ -637,7 +719,8 @@ class StageGraphExecutor:
                     stacked_fn=stacked_fn, h_src=pool)
                 for pool, nbr, mask in zip(pools, part["nbr"],
                                            part["mask"])]))
-            return z.reshape(z.shape[0], z.shape[1], z.shape[2], -1)
+            return shard(z.reshape(z.shape[0], z.shape[1], z.shape[2], -1),
+                         BATCH, None, None, None)  # [K, P, n, D]
         if plan.na.kind == "mean":
             agg_fn = stages.mean_aggregate_padded
             if plan.na.use_pallas:
@@ -850,11 +933,16 @@ class StageGraphExecutor:
                 wp = wp + n_pad * (wp - c) / n_real
             beta = torch.softmax(wp, dim=0)  # O(P) softmax
             # pass 2 (combine) is the only remaining full read of z
-            return ops.semantic_combine(z_stack, beta,
-                                      use_pallas=plan.na.use_pallas)
+            return local(
+                functools.partial(ops.semantic_combine,
+                                  use_pallas=plan.na.use_pallas),
+                (z_stack, beta),
+                (stages.HGNN_STAGE_SPECS["sa_stacked"], (None,)),
+                _rows_of(z_stack))
         if not plan.sa.stacked:  # MAGNN, HAN csr: a list of [N, D]
             return semantics.semantic_attention_list(params["sem"], z,
                                                      row_mask)
+        z = shard(z, *stages.HGNN_STAGE_SPECS["sa_stacked"])
         return semantics.semantic_attention(params["sem"], z, row_mask)
 
     def _sa_entry(self, p_l: Dict, batch: Dict, z):
@@ -1299,6 +1387,16 @@ class StageGraphExecutor:
                 out["partition"]["halo_bytes_saved_total"] = (
                     rr["bytes_saved_total"])
         return out
+
+
+def _rows_of(z_stack):
+    """The placements of ``sum_p beta_p z_p`` of a stack ``[P, N, D]``
+    laid out on a mesh: its rows as the stack's are (None off a mesh)."""
+    if not is_dtensor(z_stack):
+        return None
+    from torch.distributed.tensor import Shard
+
+    return [Shard(0) if p.is_shard(1) else p for p in z_stack.placements]
 
 
 def _batch_device(batch: Dict) -> torch.device:

@@ -4,9 +4,14 @@
 A :class:`StagePlan` is an L-layer stack of :class:`LayerPlan`\\ s, each
 with its FP/NA/SA specs and the inter-layer handoff; one executor
 (:mod:`repro_torch.core.pipeline`) interprets it.  The spec dataclasses and
-their ``__post_init__`` checks are the reference's.  The reference's
-sharding rule tables (``batch_specs`` / ``param_specs`` and the mesh axis
-names) are dropped: the port runs on one device, where they are no-ops.
+their ``__post_init__`` checks are the reference's.
+
+Plan fields double as the sharding contract, as in the reference:
+``batch_specs`` / ``param_specs`` are declarative (leaf name, ndim) ->
+logical-spec rules (:data:`ShardRule`) that ``launch/serve.
+hgnn_shardings`` resolves on a mesh, with no model-specific branch there.
+The rule sets follow ``stages.HGNN_STAGE_SPECS``: destination nodes over
+the ``BATCH`` axes, source pools replicated, FP weights over ``'model'``.
 
 The executor of the port serves the arms of HAN, RGCN, MAGNN and GCN,
 full-graph or sampled, and graph-partitioned for the first three
@@ -18,13 +23,21 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+from repro_torch.dist.sharding import BATCH, MODEL
+
+# (leaf-or-container key, ndim, logical per-dim spec): a batch or param
+# tree leaf whose dict path contains ``key`` and whose rank is ``ndim``
+# gets the spec; everything else replicates (``launch/serve.
+# hgnn_shardings``).
+ShardRule = Tuple[str, int, Tuple]
+
 
 @dataclass(frozen=True)
 class FPSpec:
     """Stage 2 — Feature Projection: ``per_type`` | ``dense`` | ``identity``."""
 
     kind: str = "per_type"
-    sharded: bool = True  # the reference's shard constraints; no-op here
+    sharded: bool = True  # stage-aware shard constraints (no-op off-mesh)
     heads: bool = False  # reshape the target type to [N, H, Dh]
 
 
@@ -164,6 +177,8 @@ class StagePlan:
     layers: Tuple[LayerPlan, ...]
     head: HeadSpec
     metapaths: Tuple[Tuple[str, ...], ...] = ()
+    batch_specs: Tuple[ShardRule, ...] = ()
+    param_specs: Tuple[ShardRule, ...] = (("fp", 2, (None, MODEL)),)
     partition: Optional[PartitionSpec] = None
     sample: Optional[SampleSpec] = None
     schedule: Optional[ScheduleSpec] = None
@@ -206,3 +221,36 @@ class StagePlan:
     @property
     def residency(self) -> Optional[ResidencySpec]:
         return self.layers[0].residency
+
+    @property
+    def shards_on_mesh(self) -> bool:
+        """CSR gather/scatter cannot shard; every padded layout can."""
+        return self.na.layout != "csr"
+
+
+# Shared batch-sharding rule sets (destination nodes over BATCH, source
+# pools replicated: the stage-aware strategy of `stages.HGNN_STAGE_SPECS`).
+STACKED_BATCH_SPECS: Tuple[ShardRule, ...] = (
+    ("nbr", 3, (None, BATCH, None)),  # HAN [P, N, K]
+    ("mask", 3, (None, BATCH, None)),
+)
+BUCKETED_BATCH_SPECS: Tuple[ShardRule, ...] = (
+    ("buckets", 2, (BATCH, None)),  # per-bucket nbr / mask [n_b, K_b]
+    ("buckets", 1, (BATCH,)),  # per-bucket row_ids
+)
+RELATION_BATCH_SPECS: Tuple[ShardRule, ...] = (
+    ("rels", 2, (BATCH, None)),  # per-relation nbr / mask [N_d, K]
+    ("rels", 1, (BATCH,)),  # per-relation bucket row_ids
+)
+INSTANCE_BATCH_SPECS: Tuple[ShardRule, ...] = (
+    ("instances", 3, (BATCH, None, None)),  # [N, I, L] instance node tables
+    ("instances", 2, (BATCH, None)),  # [N, I] instance masks
+)
+# Partitioned batches: every table under batch["part"] leads with the
+# partition dim K, which shards over the BATCH axes; the 1-d leaves (the
+# output inverse permutation) stay replicated.
+PARTITION_BATCH_SPECS: Tuple[ShardRule, ...] = (
+    ("part", 4, (BATCH, None, None, None)),  # [K, P, n, Kd] / [K, n, I, L]
+    ("part", 3, (BATCH, None, None)),  # [K, n, F] feats / [K, n, Kd] rels
+    ("part", 2, (BATCH, None)),  # [K, n] masks / [K, H] halo maps
+)

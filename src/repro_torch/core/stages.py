@@ -10,9 +10,16 @@ Stage 3 — Neighbor Aggregation (NA): graph-topology gather + reduce
 (TB-Type) with element-wise attention math (EW-Type).
 Stage 4 — Semantic Aggregation (SA): :mod:`repro_torch.core.semantics`.
 
-The reference wraps these in ``shard(...)`` constraints for its device
-mesh; on one device those are no-ops, so the port drops them and calls
-the plain functions.  Parameter init draws the
+Stage-aware partitioning on a device mesh (the paper's taxonomy drives
+the specs, :data:`HGNN_STAGE_SPECS`, as in the reference): FP (DM-Type)
+shards its weights over ``'model'`` and its node rows over the ``BATCH``
+axes; NA (TB-Type) shards destination nodes over ``BATCH`` and keeps the
+source pool replicated, so every gather stays local; SA (EW-Type) rides
+the NA layout.  The ``*_sharded`` functions and the stacked NA apply those
+``shard`` constraints and run the aggregation (a kernel or its plain
+version) on each rank's shards through ``dist.sharding.local``; off a
+mesh the constraints are no-ops and the aggregation runs as it is.
+Parameter init draws the
 reference's shapes and scales from a ``torch.Generator`` on the CPU; the
 numbers differ from ``jax.random``'s, so parity tests carry the
 reference's own parameters across through ``repro_torch.interop``.
@@ -25,7 +32,23 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import BATCH, MODEL, local, shard
 from repro_torch.kernels import ops
+
+# Stage-aware partitioning strategy; every entry is a logical per-dim spec
+# resolved by dist.sharding.resolve_spec.
+HGNN_STAGE_SPECS: Dict[str, Tuple] = {
+    "fp_weight": (None, MODEL),          # [F_t, hidden]
+    "fp_out": (BATCH, MODEL),            # [N_t, hidden]
+    "na_dst": (BATCH, None, None),       # [N, H, Dh]
+    "na_src": (None, None, None),        # [M, H, Dh] replicated gather pool
+    "na_nbr": (BATCH, None),             # [N, K]  (also [N, I] instance masks)
+    "na_out": (BATCH, None, None),       # [N, H, Dh]
+    "na_inst_nodes": (BATCH, None, None),  # [N, I, L] MAGNN instance tables
+    "na_flat_out": (BATCH, None),        # [N, D] flattened NA output
+    "sa_stacked": (None, BATCH, None),   # [P, N, D]
+}
+_REP = (None, None, None, None)  # a replicated weight, any rank up to 4
 
 
 def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
@@ -48,6 +71,44 @@ def feature_projection(params: Dict[str, torch.Tensor],
                        ) -> Dict[str, torch.Tensor]:
     """Project per-type raw features into the shared latent space."""
     return {t: feats[t] @ params[t] for t in feats}
+
+
+def feature_projection_sharded(params: Dict[str, torch.Tensor],
+                               feats: Dict[str, torch.Tensor]
+                               ) -> Dict[str, torch.Tensor]:
+    """FP with the stage-aware partitioning: the one HGNN stage that shards
+    like an LM layer, weights column-sharded over ``'model'``, node rows
+    over the ``BATCH`` axes.  No-op off a mesh."""
+    return {t: shard(feats[t] @ shard(params[t],
+                                      *HGNN_STAGE_SPECS["fp_weight"]),
+                     *HGNN_STAGE_SPECS["fp_out"])
+            for t in feats}
+
+
+def na_inputs(h_dst, h_src, nbr, mask, lead: Tuple = ()):
+    """The NA inputs under the stage-aware constraints: destinations and
+    their neighbour tables over ``BATCH`` (after the ``lead`` dims of a
+    stack), the source pool replicated."""
+    specs = HGNN_STAGE_SPECS
+    return (None if h_dst is None else shard(h_dst, *specs["na_dst"]),
+            shard(h_src, *specs["na_src"]),
+            shard(nbr, *lead, *specs["na_nbr"]),
+            shard(mask, *lead, *specs["na_nbr"]))
+
+
+def local_na(fn, p: Dict[str, torch.Tensor], tables: Tuple, specs: Tuple,
+             out_like):
+    """``fn(p, *tables)`` on each rank's shards (``dist.sharding.local``):
+    the parameters replicated, ``tables`` under ``specs``, the result laid
+    out as ``out_like`` is (the neighbour table whose rows it follows)."""
+    keys = sorted(p)
+    out_pl = list(out_like.placements) if hasattr(out_like,
+                                                  "placements") else None
+    return local(lambda *a: fn(dict(zip(keys, a[:len(keys)])),
+                               *a[len(keys):]),
+                 tuple(p[k] for k in keys) + tuple(tables),
+                 tuple(_REP[:p[k].dim()] for k in keys) + tuple(specs),
+                 out_pl)
 
 
 # ---------------------------------------------------------------------------
@@ -109,13 +170,39 @@ def gat_aggregate_padded_stacked(
     ONE launch per stack.  ``h_src`` swaps the gather pool (default: the
     destination table ``h``; the residency arm passes the cache-extended
     pool)."""
-    h_src = h if h_src is None else h_src
-    if stacked_fn is not None:
-        return stacked_fn(p_stacked, h, h_src, nbr, mask)
-    return torch.stack([
-        gat_aggregate_padded({k: v[i] for k, v in p_stacked.items()}, h,
-                             h_src, nbr[i], mask[i])
-        for i in range(nbr.shape[0])])
+    specs = HGNN_STAGE_SPECS
+    h, h_src, nbr, mask = na_inputs(h, h if h_src is None else h_src, nbr,
+                                    mask, lead=(None,))
+
+    def agg(p, h, h_src, nbr, mask):
+        if stacked_fn is not None:
+            return stacked_fn(p, h, h_src, nbr, mask)
+        return torch.stack([
+            gat_aggregate_padded({k: v[i] for k, v in p.items()}, h, h_src,
+                                 nbr[i], mask[i])
+            for i in range(nbr.shape[0])])
+
+    z = local_na(agg, p_stacked, (h, h_src, nbr, mask),
+                 (specs["na_dst"], specs["na_src"], (None,) + specs["na_nbr"],
+                  (None,) + specs["na_nbr"]), nbr)
+    return shard(z, None, *specs["na_out"])
+
+
+def gat_aggregate_padded_sharded(p: Dict[str, torch.Tensor],
+                                 h_dst: torch.Tensor, h_src: torch.Tensor,
+                                 nbr: torch.Tensor, mask: torch.Tensor,
+                                 agg_fn: Optional[Callable] = None
+                                 ) -> torch.Tensor:
+    """Padded NA with the stage-aware partitioning: destination nodes (and
+    their neighbour lists) over ``BATCH``, the source pool replicated, so
+    the TB-Type gather stays local.  ``agg_fn`` swaps in the unstacked
+    ``gat_na`` kernel.  No-op off a mesh."""
+    specs = HGNN_STAGE_SPECS
+    tables = na_inputs(h_dst, h_src, nbr, mask)
+    out = local_na(agg_fn or gat_aggregate_padded, p, tables,
+                   (specs["na_dst"], specs["na_src"], specs["na_nbr"],
+                    specs["na_nbr"]), tables[2])
+    return shard(out, *specs["na_out"])
 
 
 def gat_aggregate_csr(
@@ -232,6 +319,23 @@ def mean_aggregate_padded(h_src: Optional[torch.Tensor], nbr: torch.Tensor,
     s = (hn * mask[..., None]).sum(dim=1)
     d = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
     return s / d
+
+
+def mean_aggregate_padded_sharded(h_src: torch.Tensor, nbr: torch.Tensor,
+                                  mask: torch.Tensor,
+                                  agg_fn: Optional[Callable] = None
+                                  ) -> torch.Tensor:
+    """Mean NA (RGCN) with the stage-aware partitioning: destinations over
+    ``BATCH``, the source pool replicated (spec entries past ``h_src``'s
+    rank are ignored).  ``agg_fn`` swaps in the ``segment_spmm`` kernel.
+    No-op off a mesh."""
+    specs = HGNN_STAGE_SPECS
+    _, h_src, nbr, mask = na_inputs(None, h_src, nbr, mask)
+    out = local_na(lambda p, *t: (agg_fn or mean_aggregate_padded)(*t), {},
+                   (h_src, nbr, mask),
+                   (specs["na_src"][:h_src.dim()], specs["na_nbr"],
+                    specs["na_nbr"]), nbr)
+    return shard(out, BATCH, None)
 
 
 def gather_own(own: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -146,7 +146,13 @@ def library() -> ctypes.CDLL:
 
 
 def device_of(what: str, tensors) -> "torch.device":
-    """The one device that all of a kernel's input tensors lie on."""
+    """The one device that all of a kernel's input tensors lie on.  A
+    DTensor raises: a kernel takes a rank's local shards, which
+    ``dist.sharding.local`` hands it."""
+    tensors = tuple(tensors)
+    if any(type(t).__name__ == "DTensor" for t in tensors):
+        raise TypeError(f"{what}: a DTensor reached the kernel wrapper; "
+                        "call it on local shards (dist.sharding.local)")
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{what}: inputs on several devices "

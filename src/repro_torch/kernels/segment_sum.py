@@ -168,7 +168,7 @@ def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int,
     reads the table row ``hot[v - M]``, so no extended pool is built."""
     ts = tuple(t for t in (vals, seg, idx, hot) if t is not None)
     dev = build.device_of("segment_sum", ts)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):  # meta: shapes only (the dry run)
         return segment_sum_plain(vals, seg, n, idx=idx, mean=mean, hot=hot)
     if dev.type != "cuda":
         raise ValueError(f"segment_sum: no kernel for device {dev}")

@@ -85,6 +85,7 @@ def check_kernel_args(z: torch.Tensor, beta: torch.Tensor) -> None:
 
 def semantic_combine(z: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """``z [P, N, D]``, ``beta [P]`` -> ``[N, D]``."""
+    build.device_of("semantic_combine", (z,))  # a DTensor raises
     if z.device != beta.device:
         raise ValueError(f"semantic_combine: z on {z.device}, beta on "
                          f"{beta.device}")

@@ -1,6 +1,7 @@
 """Serving launcher (port of ``repro/launch/serve.py``: the LM branch of
-``main``, ``:309-418``, the full-graph ``--hgnn`` path, ``:76-120,
-228-274``, and request-path serving, ``:131-227``).
+``main``, ``:309-418``, the full-graph ``--hgnn`` path with its
+stage-aware sharding on a device mesh, ``:45-130, 228-274``, and
+request-path serving, ``:131-227``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       --reduced [--requests N] [--prompt-len T] [--max-tokens M] \
@@ -25,6 +26,8 @@
       [--cache-rows C] [--characterize] [--fanout 8 --inject-faults SEED]
   PYTHONPATH=src python -m repro_torch.launch.serve --hgnn rgcn \
       --dataset imdb --use-pallas --partitions 4 --layers 2 --overlap 2
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --hgnn han \
+      --dataset imdb --use-pallas --fuse-na-sa --mesh-data 2 --device cpu
 
 runs on the CUDA device; ``--device cpu`` runs on the CPU (the kernels'
 plain versions).  Without ``--hgnn`` it serves the decoder-only LM
@@ -113,18 +116,41 @@ worker thread, which adds the line
 
   prefetch: issued=... hits=... mispredicts=... cold=...
 
-The reference's device mesh is not ported yet.
+``--mesh-data D`` and/or ``--mesh-model M`` (a missing one is 1) runs
+the forward on a ``(data, model)`` device mesh over the default process
+group's D * M ranks (``launch/mesh.make_smoke_mesh``): the process group
+is initialised from the ``torchrun`` environment (``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; NCCL on the card, gloo
+with ``--device cpu``), or, with no such environment and D * M = 1, as a
+group of one rank.  :func:`build_hgnn_infer` lays the parameters and the
+batch out by the plan's sharding rules (:func:`hgnn_shardings`: FP weights
+over ``'model'``, destination-node tables over the ``BATCH`` axes, source
+pools replicated) and runs the forward under ``use_mesh``; each kernel
+call runs on a rank's shards (``local_map``).  Rank 0 prints the
+reference's line with the mesh in place of ``single-device``:
+
+  han/imdb [na=gat/stacked +fused-sa] logits (4278, 8) on {'data': 2, 'model': 1}: ... ms/iter
+
+This slice runs HAN's ``stacked`` layout on a mesh (fused epilogue or
+not, kernel or plain arm); a ``csr`` plan raises the reference's
+``ValueError``, and the other layouts and models, partitioned and
+sampled plans raise ``NotImplementedError`` (ROADMAP Queue 1 item 19,
+its next slice).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 import warnings
 from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import HGNNConfig
+from repro_torch.dist.sharding import (NamedSharding, P, distribute_tree,
+                                       named, use_mesh)
 from repro_torch.interop import DeviceLike, resolve_device
 
 
@@ -136,12 +162,70 @@ class BuiltHGNNInfer(NamedTuple):
     executor: Any = None  # StageGraphExecutor
 
 
+def hgnn_shardings(plan, params: Any, batch: Any, mesh):
+    """A plan's declarative sharding tables resolved on ``mesh``: the
+    ``NamedSharding`` trees of ``params`` and ``batch``.
+
+    ``plan.param_specs`` / ``plan.batch_specs`` are (key, ndim, logical
+    spec) rules (``core/plan.py``): a leaf whose dict path contains
+    ``key`` and whose rank is ``ndim`` gets the resolved spec; every other
+    leaf (attention vectors, the classifier, feature pools, the host
+    integers of a batch) is replicated.  ``mesh`` may be a plain
+    description of one (``axis_names`` and ``shape``)."""
+    rep = NamedSharding(mesh, P())
+
+    def resolver(rules):
+        def fn(path, leaf):
+            keys = [k.key for k in path if isinstance(k, tree.DictKey)]
+            nd = leaf.dim() if isinstance(leaf, torch.Tensor) else None
+            for key, ndim, spec in rules:
+                if nd == ndim and key in keys:
+                    return named(mesh, leaf.shape, spec)
+            return rep
+        return fn
+
+    return (tree.map_with_path(resolver(plan.param_specs), params),
+            tree.map_with_path(resolver(plan.batch_specs), batch))
+
+
+def _check_mesh_plan(plan) -> None:
+    """The plans this slice runs on a mesh: the stacked NA layout (HAN's)
+    with no partitions, sampling, residency or schedule."""
+    if not plan.shards_on_mesh:
+        raise ValueError(
+            f"sharded HGNN inference needs a padded NA layout, but "
+            f"{plan.model}'s plan resolved to 'csr' (gather/scatter cannot "
+            "shard): set cfg.fused=True for HAN/RGCN; GCN has no sharded "
+            "layout")
+    if (plan.na.layout != "stacked"
+            or plan.partition is not None or plan.sample is not None
+            or plan.residency is not None or plan.schedule is not None):
+        raise NotImplementedError(
+            f"{plan.model} [{plan.na.kind}/{plan.na.layout}] on a device "
+            "mesh: this slice runs HAN's stacked layout (no partitions, "
+            "sampling, residency or overlap); the other arms are the next "
+            "slice of ROADMAP Queue 1 item 19")
+
+
 def build_hgnn_infer(cfg: HGNNConfig, hg, device: DeviceLike = None,
-                     gen: Optional[torch.Generator] = None) -> BuiltHGNNInfer:
-    """Plan-driven HGNN inference entry point on one device (default: the
-    CUDA device).  Parameters come from ``gen`` (default: a generator seeded
+                     gen: Optional[torch.Generator] = None,
+                     mesh=None) -> BuiltHGNNInfer:
+    """Plan-driven HGNN inference entry point (default device: the CUDA
+    device).  Parameters come from ``gen`` (default: a generator seeded
     with ``cfg.seed``); they are drawn on the CPU, so every device gets the
-    same model."""
+    same model.
+
+    The paper's finding (FP is dense DM-Type, NA irregular TB-Type, SA
+    EW-Type) is the partitioning strategy on a ``mesh``: FP shards its
+    projection over ``'model'``, padded NA shards destination nodes over
+    the batch axes with a replicated source pool, SA rides the NA layout.
+    With a mesh (one with a ``DeviceMesh``, ``launch/mesh``) the
+    parameters and the batch are laid out by :func:`hgnn_shardings` (the
+    same full tensors on every rank, each keeping its shard) and ``fn``
+    runs the forward under ``use_mesh``, returning the logits as a DTensor
+    (rows over the batch axes).  A ``csr`` plan is refused on a mesh, as
+    in the reference.  With ``mesh=None`` this is the one-device path, bit
+    for bit."""
     from repro_torch.core.models import get_model
 
     dev = resolve_device(device)
@@ -152,16 +236,28 @@ def build_hgnn_infer(cfg: HGNNConfig, hg, device: DeviceLike = None,
             f"fuse_na_sa requested but {plan.model}'s NA layout "
             f"({plan.na.layout!r}) does not support the NA→SA epilogue "
             "(stacked only); running two-pass SA", stacklevel=2)
+    if mesh is not None:
+        _check_mesh_plan(plan)
     batch = model.prepare(hg, dev)
     if gen is None:
         gen = torch.Generator().manual_seed(cfg.seed)
     params = model.init(gen, batch)
-    # an async schedule serves the overlapped dispatcher (bitwise the
-    # serial forward); sampled serving keeps the serial forward, its
-    # overlap being the engine's sampler prefetch, as in the reference
-    fn = (model.executor.forward_overlapped
-          if plan.schedule is not None and plan.sample is None
-          else model.forward)
+    if mesh is None:
+        # an async schedule serves the overlapped dispatcher (bitwise the
+        # serial forward); sampled serving keeps the serial forward, its
+        # overlap being the engine's sampler prefetch, as in the reference
+        fn = (model.executor.forward_overlapped
+              if plan.schedule is not None and plan.sample is None
+              else model.forward)
+        return BuiltHGNNInfer(fn, params, batch, plan, model.executor)
+
+    def fn(p, b):
+        with use_mesh(mesh):
+            return model.forward(p, b)
+
+    p_sh, b_sh = hgnn_shardings(plan, params, batch, mesh)
+    params = distribute_tree(params, p_sh)
+    batch = distribute_tree(batch, b_sh)
     return BuiltHGNNInfer(fn, params, batch, plan, model.executor)
 
 
@@ -279,6 +375,46 @@ def run_hgnn_serve(args, cfg: HGNNConfig, hg, built: BuiltHGNNInfer):
     return engine, reqs
 
 
+@contextlib.contextmanager
+def _mesh(args, dev: torch.device):
+    """``(device, mesh)`` for ``--hgnn``: with ``--mesh-data`` or
+    ``--mesh-model`` given, a ``(data, model)`` mesh (a missing one is 1)
+    over the default process group, joined from the ``torchrun``
+    environment, else as a group of one rank, and left at the end if
+    joined here; the device is ``LOCAL_RANK``'s card.  Without either,
+    ``(dev, None)``."""
+    import os
+
+    import torch.distributed as dist
+
+    if args.mesh_data is None and args.mesh_model is None:
+        yield dev, None
+        return
+    if args.fanout >= 1:
+        raise SystemExit("--fanout serving runs single-device or "
+                         "graph-partitioned (--partitions); it does not "
+                         "combine with a --mesh-data/--mesh-model mesh")
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    created = not dist.is_initialized()
+    if created:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, init_method="env://")
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                    world_size=1)
+    try:
+        yield dev, make_smoke_mesh(data=args.mesh_data or 1,
+                                   model=args.mesh_model or 1)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
 def run_hgnn(args) -> None:
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.serve.engine import HGNNInferEngine
@@ -286,7 +422,6 @@ def run_hgnn(args) -> None:
     if args.hgnn == "gcn" and args.dataset != "reddit":
         raise SystemExit("--hgnn gcn runs the paper's homogeneous GNN "
                          "comparison: use --dataset reddit")
-    dev = resolve_device(args.device)
     cfg = HGNNConfig(model=args.hgnn, dataset=args.dataset, fused=True,
                      use_pallas=args.use_pallas,
                      degree_buckets=args.degree_buckets,
@@ -295,63 +430,66 @@ def run_hgnn(args) -> None:
                      fanout=args.fanout, cache_rows=args.cache_rows,
                      overlap=args.overlap)
     hg = make_dataset(args.dataset)
-    built = build_hgnn_infer(cfg, hg, dev)
-    if args.fanout >= 1:
+    with _mesh(args, resolve_device(args.device)) as (dev, mesh):
+        built = build_hgnn_infer(cfg, hg, dev, mesh=mesh)
         name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "host CPU")
+        if args.fanout >= 1:
+            print(f"device: {dev} ({name})")
+            run_hgnn_serve(args, cfg, hg, built)
+            return
+        engine = HGNNInferEngine(built.executor, built.params, built.batch,
+                                 fn=built.fn)
+        logits = engine.infer()  # warm-up (builds the kernels on first use)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            logits = engine.infer()
+        _sync(dev)
+        dt = (time.perf_counter() - t0) / max(args.iters, 1)
+        if mesh is not None and torch.distributed.get_rank() != 0:
+            return
         print(f"device: {dev} ({name})")
-        run_hgnn_serve(args, cfg, hg, built)
-        return
-    engine = HGNNInferEngine(built.executor, built.params, built.batch,
-                             fn=built.fn)
-    logits = engine.infer()  # warm-up (builds the kernels on first use)
-    _sync(dev)
-    t0 = time.perf_counter()
-    for _ in range(args.iters):
-        logits = engine.infer()
-    _sync(dev)
-    dt = (time.perf_counter() - t0) / max(args.iters, 1)
-    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-            else "host CPU")
-    print(f"device: {dev} ({name})")
-    na = built.plan.na
-    part = built.plan.partition
-    n_l = built.plan.n_layers
-    print(f"{cfg.model}/{cfg.dataset} [na={na.kind}/{na.layout}"
-          f"{' +fused-sa' if built.plan.sa.fuse_epilogue else ''}"
-          f"{f' +partitions={part.k}' if part is not None else ''}"
-          f"{f' x{n_l}layers' if n_l > 1 else ''}"
-          f"{f' +overlap={cfg.overlap}' if built.plan.schedule else ''}] "
-          f"logits {tuple(logits.shape)} on single-device: "
-          f"{dt*1e3:.2f} ms/iter")
-    if built.plan.schedule is not None:
-        ov = built.executor.overlap_record()
-        d = built.executor.last_dispatch
-        print(f"  overlap: depth={ov['depth']} stages={ov['stages']} "
-              f"edges={ov['edges']} "
-              f"concurrent_pairs={ov['concurrent_pairs']} "
-              f"overlapped_stages={ov['overlapped_stages']} "
-              f"max_inflight={d.get('max_inflight', 1)}")
-    res = built.batch.get("residency")
-    if res is not None:
-        ct = res["counters"]
-        print(f"  residency: cache_rows={ct['cache_rows']} "
-              f"hits={ct['hits']} misses={ct['misses']} rows={ct['rows']} "
-              f"hit_rate={ct['hits'] / max(ct['rows'], 1):.3f}")
-    if args.characterize:
-        # one stage_records call gives the stage lines and the partition
-        # summary
-        recs = built.executor.stage_records(built.params, built.batch,
-                                            timed=dev.type == "cuda")
-        for stage, rec in recs["stages"].items():
-            print(f"  {stage}: {stage_line(rec)}")
-        if "partition" in recs:
-            pt = recs["partition"]
-            print(f"  partition: k={pt['k']} cut_ratio={pt['cut_ratio']:.3f} "
-                  f"halo_rows={pt['halo_rows']:.0f} "
-                  f"halo_bytes={pt['halo_bytes']:.3g} "
-                  f"(x{pt['layers']} layers = "
-                  f"{pt['halo_bytes_total']:.3g} total)")
+        na = built.plan.na
+        part = built.plan.partition
+        n_l = built.plan.n_layers
+        print(f"{cfg.model}/{cfg.dataset} [na={na.kind}/{na.layout}"
+              f"{' +fused-sa' if built.plan.sa.fuse_epilogue else ''}"
+              f"{f' +partitions={part.k}' if part is not None else ''}"
+              f"{f' x{n_l}layers' if n_l > 1 else ''}"
+              f"{f' +overlap={cfg.overlap}' if built.plan.schedule else ''}] "
+              f"logits {tuple(logits.shape)} on "
+              f"{dict(mesh.shape) if mesh is not None else 'single-device'}: "
+              f"{dt*1e3:.2f} ms/iter")
+        if built.plan.schedule is not None:
+            ov = built.executor.overlap_record()
+            d = built.executor.last_dispatch
+            print(f"  overlap: depth={ov['depth']} stages={ov['stages']} "
+                  f"edges={ov['edges']} "
+                  f"concurrent_pairs={ov['concurrent_pairs']} "
+                  f"overlapped_stages={ov['overlapped_stages']} "
+                  f"max_inflight={d.get('max_inflight', 1)}")
+        res = built.batch.get("residency")
+        if res is not None:
+            ct = res["counters"]
+            print(f"  residency: cache_rows={ct['cache_rows']} "
+                  f"hits={ct['hits']} misses={ct['misses']} rows={ct['rows']} "
+                  f"hit_rate={ct['hits'] / max(ct['rows'], 1):.3f}")
+        if args.characterize:
+            # one stage_records call gives the stage lines and the partition
+            # summary
+            recs = built.executor.stage_records(built.params, built.batch,
+                                                timed=dev.type == "cuda")
+            for stage, rec in recs["stages"].items():
+                print(f"  {stage}: {stage_line(rec)}")
+            if "partition" in recs:
+                pt = recs["partition"]
+                print(f"  partition: k={pt['k']} "
+                      f"cut_ratio={pt['cut_ratio']:.3f} "
+                      f"halo_rows={pt['halo_rows']:.0f} "
+                      f"halo_bytes={pt['halo_bytes']:.3g} "
+                      f"(x{pt['layers']} layers = "
+                      f"{pt['halo_bytes_total']:.3g} total)")
 
 
 def stage_line(rec) -> str:
@@ -483,6 +621,11 @@ def main() -> None:
                     help="print the per-stage FLOPs/bytes/roofline records "
                          "(and, on the card, stage and device times by "
                          "kernel class)")
+    ap.add_argument("--mesh-data", type=int, default=None,
+                    help="--hgnn on a (data, model) device mesh: its data "
+                         "axis (the default process group's ranks)")
+    ap.add_argument("--mesh-model", type=int, default=None,
+                    help="the mesh's model axis")
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "

@@ -10,8 +10,8 @@ The weights are drawn from seed 0 on the device (``init_lm_params``, or
 ``jax.random``, so the two runs start from other weights).  The loader's
 batches carry internvl2's ``extra_embeds`` and seamless's ``frames``.  One line names the device, then one line a step, as the
 reference prints it; the host reads the loss back once a step.
-``--distributed`` (one process a host over a device mesh) waits for
-ROADMAP Queue 1 item 19.
+``--distributed`` (one process a host over a device mesh) waits for the
+next slice of ROADMAP Queue 1 item 19: multi-rank training.
 """
 from __future__ import annotations
 
@@ -73,14 +73,15 @@ def main() -> None:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-host training (not ported: item 19)")
+                    help="multi-host training (not ported: item 19's "
+                         "next slice)")
     ap.add_argument("--device", default=None,
                     help="cpu to run on the CPU; default: the CUDA device")
     args = ap.parse_args()
 
     if args.distributed:
         ap.error("--distributed: multi-host training over a device mesh is "
-                 "not ported yet (ROADMAP Queue 1 item 19)")
+                 "not ported yet (ROADMAP Queue 1 item 19, its next slice)")
     dev = resolve_device(args.device)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "host CPU")

@@ -25,9 +25,24 @@ Execution paths, one semantics (oracle: ``kernels/ref.py``):
 * decode — ``ops.decode_attention`` over the KV cache, the kernel under
   ``cfg.use_pallas`` and ``ref.decode_attention`` otherwise.
 
-Layouts: q ``[B, S, H, Dh]``; k/v ``[B, Sk, KVH, Dh]``.  The reference's
-sharding constraints are no-ops on one device and are dropped.  The decode
-step writes the new key and value into the cache in place.
+Layouts: q ``[B, S, H, Dh]``; k/v ``[B, Sk, KVH, Dh]``.  The decode step
+writes the new key and value into the cache in place.
+
+On a mesh (``dist.sharding.use_mesh``, DTensor parameters) the reference's
+``shard`` sites hold (``:263-265, 299, 302, 352-363``): q, k and v
+``(BATCH, None, MODEL, None)``, the attention output likewise, the block's
+output ``(BATCH, MODEL if cfg.seq_shard_activations, None)``; the decode
+caches ``(BATCH, seq, kvh, None)`` with the sequence over ``'model'``
+under ``cfg.decode_kv_shard_seq`` and the kv heads over it otherwise, the
+decode output ``(BATCH, MODEL, None)``.  The attention itself (kernel,
+plain or chunked) runs on each rank's shards through ``dist.sharding.
+local`` (``local_map``): a rank whose q heads are sharded but whose kv
+heads are not (KVH does not divide the axis) reads the kv heads its q
+heads use.  A decode over a sequence-sharded cache of more than one rank
+writes the new row on the rank that holds it and combines the ranks'
+partial softmaxes in rank order (the plain arm; the kernel returns no
+log-sum-exp, so that layout under ``cfg.use_pallas`` raises).  Off a mesh
+every constraint is a no-op and the code is the one-device path.
 """
 from __future__ import annotations
 
@@ -36,6 +51,10 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import (BATCH, MODEL, current_mesh,
+                                      gather_seq, is_dtensor, local,
+                                      merge_heads, mesh_coordinate,
+                                      replicated, shard, split_heads)
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.nn.mlp import normal
@@ -67,6 +86,20 @@ def _mask(rows, cols, causal: bool, window: int) -> torch.Tensor:
     return m
 
 
+def _tiles(total: int, step: int, meta: bool):
+    """A tile loop's chunk starts.  On meta tensors (the dry run) every
+    tile does the same work on shapes alone, so the first tile runs and
+    what the loop body runs is counted for all of them
+    (``characterize.repeated``, held open while the body runs)."""
+    if not meta:
+        yield from range(0, total, step)
+        return
+    from repro_torch.core.characterize import repeated
+
+    with repeated(len(range(0, total, step))):
+        yield 0
+
+
 def _fwd_scan(q5, k4, v4, causal, window, cq, ck, scale):
     """The reference's forward scan (``:55-100``): q5 ``[B, KVH, G, Sq,
     Dh]``; k4/v4 ``[B, KVH, Sk, Dh]`` -> ``(out5, lse [B, KVH, G, Sq])``.
@@ -77,13 +110,14 @@ def _fwd_scan(q5, k4, v4, causal, window, cq, ck, scale):
     dev = q5.device
     out = torch.empty_like(q5)
     lse = torch.empty((b, kvh, g, sq), device=dev)
-    for q0 in range(0, sq, cq):
+    meta = q5.is_meta
+    for q0 in _tiles(sq, cq, meta):
         rows = torch.arange(q0, q0 + cq, device=dev)
         qc = q5[:, :, :, q0:q0 + cq].float()
         m = torch.full((b, kvh, g, cq), NEG_INF, device=dev)
         l = torch.zeros((b, kvh, g, cq), device=dev)
         acc = torch.zeros((b, kvh, g, cq, dh), device=dev)
-        for k0 in range(0, sk, ck):
+        for k0 in _tiles(sk, ck, meta):
             cols = torch.arange(k0, k0 + ck, device=dev)
             kc, vc = k4[:, :, k0:k0 + ck], v4[:, :, k0:k0 + ck]
             s = torch.einsum("bkgqd,bktd->bkgqt", qc, kc.float()) * scale
@@ -130,12 +164,13 @@ def _bwd_scan(q5, k4, v4, out, lse, dout, causal, window, cq, ck, scale):
         return (torch.arange(k0, k0 + ck, device=dev),
                 k4[:, :, k0:k0 + ck].float(), v4[:, :, k0:k0 + ck].float())
 
+    meta = q5.is_meta
     # pass 1: dQ -- for each q chunk, scan the kv chunks
     dq = torch.empty((b, kvh, g, sq, dh), device=dev)
-    for q0 in range(0, sq, cq):
+    for q0 in _tiles(sq, cq, meta):
         rows, qc, do, lse_c, d_c = q_chunk(q0)
         dqc = torch.zeros((b, kvh, g, cq, dh), device=dev)
-        for k0 in range(0, sk, ck):
+        for k0 in _tiles(sk, ck, meta):
             cols, kc, vc = kv_chunk(k0)
             p = p_tile(qc, kc, rows, cols, lse_c)
             dp = torch.einsum("bkgqd,bktd->bkgqt", do, vc)
@@ -146,11 +181,11 @@ def _bwd_scan(q5, k4, v4, out, lse, dout, causal, window, cq, ck, scale):
     # pass 2: dK, dV -- for each kv chunk, scan the q chunks
     dk = torch.empty((b, kvh, sk, dh), device=dev)
     dv = torch.empty((b, kvh, sk, dh), device=dev)
-    for k0 in range(0, sk, ck):
+    for k0 in _tiles(sk, ck, meta):
         cols, kc, vc = kv_chunk(k0)
         dkc = torch.zeros((b, kvh, ck, dh), device=dev)
         dvc = torch.zeros((b, kvh, ck, dh), device=dev)
-        for q0 in range(0, sq, cq):
+        for q0 in _tiles(sq, cq, meta):
             rows, qc, do, lse_c, d_c = q_chunk(q0)
             p = p_tile(qc, kc, rows, cols, lse_c)
             dvc = dvc + torch.einsum("bkgqt,bkgqd->bktd", p, do)
@@ -248,8 +283,7 @@ def init_attention(gen: torch.Generator, cfg) -> Dict:
 def _project(x: torch.Tensor, w: torch.Tensor, heads: int, cfg,
              positions: torch.Tensor, use_rope: bool) -> torch.Tensor:
     """``x @ w`` as ``[B, S, heads, Dh]``, rotated when ``use_rope``."""
-    b, s, _ = x.shape
-    y = (x @ w).reshape(b, s, heads, cfg.resolved_head_dim)
+    y = split_heads(gather_seq(x) @ w, heads, cfg.resolved_head_dim)
     return apply_rope(y, positions, cfg.rope_theta) if use_rope else y
 
 
@@ -274,7 +308,6 @@ def attention_block(params: Dict, cfg, x: torch.Tensor,
     ``use_rope=False`` (rope-free queries) is the cross path's; the
     self-attention path always rotates, as every caller of either package
     asks."""
-    b, s, _ = x.shape
     if kv_override is None:
         if not use_rope:
             raise ValueError("attention_block: use_rope=False is the cross "
@@ -284,28 +317,69 @@ def attention_block(params: Dict, cfg, x: torch.Tensor,
         q = _project(x, params["wq"], _heads(cfg)[0], cfg, positions,
                      use_rope)
         k, v = kv_override
-    sk = k.shape[1]
-    window = cfg.sliding_window
-    if cfg.use_pallas:
-        if torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v)):
-            raise NotImplementedError(
-                "attention_block: the flash_attention kernel has no backward "
-                "(nor has the reference's Pallas kernel), so training under "
-                "cfg.use_pallas is not ported (ROADMAP Queue 1 item 17); "
-                "train with use_pallas=False")
-        o = ops.flash_attention(q, k, v, causal=causal, window=window,
-                                use_pallas=True)
-    elif s <= 1024 and sk <= 1024:  # Sk != S: the reference's _plain_cross
-        o = kref.mha_attention(q, k, v, causal=causal, window=window)
-    else:
-        o = chunked_attention(q, k, v, causal=causal, window=window,
-                              chunk_q=_chunk_for(s, cfg.attn_chunk),
-                              chunk_k=_chunk_for(sk, cfg.attn_chunk))
-    out = o.reshape(b, s, -1) @ params["wo"]
+    if cfg.use_pallas and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "attention_block: the flash_attention kernel has no backward "
+            "(nor has the reference's Pallas kernel), so training under "
+            "cfg.use_pallas is not ported (ROADMAP Queue 1 item 17); "
+            "train with use_pallas=False")
+    spec = (BATCH, None, MODEL, None)
+    q, k, v = shard(q, *spec), shard(k, *spec), shard(v, *spec)
+    kv_sel = _kv_heads_of(q, k)
+    o = local(lambda q, k, v: _attend(cfg, kv_sel(q, k), kv_sel(q, v),
+                                      q, causal),
+              (q, k, v), (spec, spec, spec), _placements_of(q))
+    o = shard(o, *spec)
+    out = merge_heads(o) @ params["wo"]
+    # the sequence-parallel epilogue (Megatron SP) scatters the sequence
+    out = shard(out, BATCH, MODEL if cfg.seq_shard_activations else None,
+                None)
     if return_kv:
         return out, (k, v)
     return out
+
+
+def _attend(cfg, k, v, q, causal: bool) -> torch.Tensor:
+    """The path select on (local) tensors: the kernel under
+    ``cfg.use_pallas``, the plain oracle up to 1024 queries and keys, the
+    chunked attention above."""
+    s, sk = q.shape[1], k.shape[1]
+    window = cfg.sliding_window
+    if cfg.use_pallas:
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   use_pallas=True)
+    if s <= 1024 and sk <= 1024:  # Sk != S: the reference's _plain_cross
+        return kref.mha_attention(q, k, v, causal=causal, window=window)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             chunk_q=_chunk_for(s, cfg.attn_chunk),
+                             chunk_k=_chunk_for(sk, cfg.attn_chunk))
+
+
+def _placements_of(x):
+    return list(x.placements) if is_dtensor(x) else None
+
+
+def _kv_heads_of(q, k, head_dim: int = 2):
+    """On a mesh where q's heads (dim ``head_dim``) are sharded over
+    ``'model'`` and k's are not, a function ``(q_local, kv_local)`` ->
+    the kv heads this rank's q heads use (GQA: q head ``i`` reads kv head
+    ``i // (H / KVH)``); otherwise the identity."""
+    mesh = current_mesh()
+    if (mesh is None or not is_dtensor(q) or not is_dtensor(k)
+            or MODEL not in mesh.shape):
+        return lambda q, kv: kv
+    m_dim = mesh.axis_names.index(MODEL)
+    q_sh = q.placements[m_dim].is_shard(head_dim)
+    kv_sh = k.placements[m_dim].is_shard(head_dim)
+    if not q_sh or kv_sh:
+        return lambda q, kv: kv
+    h, kvh = q.shape[head_dim], k.shape[head_dim]
+    g = h // kvh
+    h_loc = h // mesh.shape[MODEL]
+    h0 = mesh_coordinate(mesh, MODEL) * h_loc
+    kv0, kv1 = h0 // g, (h0 + h_loc - 1) // g + 1
+    return lambda q, kv: kv.narrow(head_dim, kv0, kv1 - kv0)
 
 
 # ---------------- decode (single token, KV cache) ----------------
@@ -327,12 +401,21 @@ def decode_step(cfg, pos, batch: int, smax: int, device) -> DecodeStep:
     dynamic_update_slice clamps, or the ring slot ``pos % smax`` under a
     sliding window; ``kv_len = min(pos + 1, smax)``.  ``pos`` may stay on
     the device: nothing here reads it on the host."""
+    if is_dtensor(pos):  # replicated: every rank holds the position
+        pos = pos.to_local()
     pos = torch.as_tensor(pos, device=device).long().reshape(())
     widx = pos % smax if cfg.sliding_window else torch.clamp(pos, max=smax - 1)
     kv_len = torch.clamp(pos + 1, max=smax).to(torch.int32).expand(batch)
     cos, sin = rope_tables(pos.expand(batch)[:, None],
                            cfg.resolved_head_dim, cfg.rope_theta)
-    return DecodeStep(widx.reshape(1), kv_len.contiguous(), cos, sin)
+    step = DecodeStep(widx.reshape(1), kv_len.contiguous(), cos, sin)
+    if current_mesh() is not None and current_mesh().device_mesh is not None:
+        # on a mesh, once a step: the same values on every rank, the
+        # lengths laid out over the batch axes as the cache rows are
+        step = DecodeStep(replicated(step.widx),
+                          shard(replicated(step.kv_len), BATCH),
+                          replicated(step.cos), replicated(step.sin))
+    return step
 
 
 def decode_attention_block(
@@ -346,16 +429,135 @@ def decode_attention_block(
     """One decode step: write the new key and value at ``step.widx``,
     attend over the first ``step.kv_len`` cache rows.  Returns ``(out,
     cache_k, cache_v)``."""
-    b = x.shape[0]
     dh = cfg.resolved_head_dim
     h, kvh = _heads(cfg)
-    q = rotate((x @ params["wq"]).reshape(b, 1, h, dh), step.cos, step.sin)
-    k_new = rotate((x @ params["wk"]).reshape(b, 1, kvh, dh), step.cos,
+    q = rotate(split_heads(x @ params["wq"], h, dh), step.cos, step.sin)
+    k_new = rotate(split_heads(x @ params["wk"], kvh, dh), step.cos,
                    step.sin)
-    v_new = (x @ params["wv"]).reshape(b, 1, kvh, dh)
-    cache_k.index_copy_(1, step.widx, k_new.to(cache_k.dtype))
-    cache_v.index_copy_(1, step.widx, v_new.to(cache_v.dtype))
-    o = ops.decode_attention(q[:, 0], cache_k, cache_v, step.kv_len,
-                             use_pallas=cfg.use_pallas)
-    out = o.reshape(b, 1, -1) @ params["wo"]
+    v_new = split_heads(x @ params["wv"], kvh, dh)
+    o = decode_attend(cfg, q[:, 0], cache_k, cache_v, step.kv_len,
+                      cfg.use_pallas, new=(k_new, v_new), widx=step.widx)
+    o = shard(o, BATCH, MODEL, None)
+    out = shard(merge_heads(o[:, None]) @ params["wo"], BATCH, None, None)
     return out, cache_k, cache_v
+
+
+def cache_spec(cfg) -> Tuple:
+    """A layer's decode cache ``[B, S, KVH, Dh]``: the sequence over
+    ``'model'`` under ``cfg.decode_kv_shard_seq`` (the flash-decode
+    layout), else the kv heads."""
+    if cfg.decode_kv_shard_seq:
+        return (BATCH, MODEL, None, None)
+    return (BATCH, None, MODEL, None)
+
+
+def decode_attend(cfg, q, cache_k, cache_v, kv_len, use_pallas: bool,
+                  new=None, widx=None):
+    """One query token over the first ``kv_len`` rows of a cache: ``q [B,
+    H, Dh]``, the caches ``[B, S, KVH, Dh]``.  With ``new = (k, v)`` ``[B,
+    1, KVH, Dh]`` the step first writes them at row ``widx``, in place.
+    Off a mesh this is ``ops.decode_attention`` (``use_pallas``: the
+    kernel); on a mesh each rank runs it on its cache shard (``local``),
+    the caches laid out by :func:`cache_spec`."""
+    if current_mesh() is None or not is_dtensor(cache_k):
+        if new is not None:
+            cache_k.index_copy_(1, widx, new[0].to(cache_k.dtype))
+            cache_v.index_copy_(1, widx, new[1].to(cache_v.dtype))
+        return ops.decode_attention(q, cache_k, cache_v, kv_len,
+                                    use_pallas=use_pallas)
+    mesh = current_mesh()
+    cspec = cache_spec(cfg)
+    cache_k, cache_v = shard(cache_k, *cspec), shard(cache_v, *cspec)
+    seq_split = cache_k.placements[mesh.axis_names.index(MODEL)].is_shard(1) \
+        if MODEL in mesh.shape else False
+    if seq_split:
+        q = shard(q, BATCH, None, None)  # every rank: all its rows' heads
+    else:
+        q = shard(q, BATCH, MODEL, None)
+    if not is_dtensor(kv_len):
+        kv_len = replicated(torch.full((q.shape[0],), kv_len,
+                                       dtype=torch.int32, device=q.device))
+    kv_len = shard(kv_len, BATCH)
+    kv_sel = _kv_heads_of(q, cache_k, head_dim=1)
+    n_seq = mesh.shape[MODEL] if seq_split else 1
+    s_loc = cache_k.shape[1] // n_seq
+    s0 = mesh_coordinate(mesh, MODEL) * s_loc if n_seq > 1 else 0
+
+    def write(cache, row, widx):
+        row = row.to(cache.dtype)
+        if n_seq == 1:
+            cache.index_copy_(1, widx, row)
+            return
+        # the row lives on one rank: elsewhere the row read is written back
+        idx = widx - s0
+        inside = (idx >= 0) & (idx < s_loc)
+        idx = torch.clamp(idx, 0, s_loc - 1)
+        cache.index_copy_(1, idx, torch.where(inside, row,
+                                              cache.index_select(1, idx)))
+
+    def body(q, ck, cv, kv_len, *step):
+        if step:  # (k_new, v_new, widx)
+            write(ck, step[0], step[2])
+            write(cv, step[1], step[2])
+        if n_seq == 1:
+            return ops.decode_attention(q, kv_sel(q, ck), kv_sel(q, cv),
+                                        kv_len, use_pallas=use_pallas)
+        if use_pallas:
+            raise NotImplementedError(
+                "decode over a sequence-sharded cache of more than one rank "
+                "needs each rank's log-sum-exp, which the decode_attention "
+                "kernel does not return (ROADMAP Queue 1 item 19, the next "
+                "slice); run the plain arm")
+        o, lse = _decode_partial(q, ck, cv, torch.clamp(kv_len - s0, 0,
+                                                        s_loc))
+        return o[None], lse[None]
+
+    args = [q, cache_k, cache_v, kv_len]
+    if new is not None:
+        spec = (BATCH, None, None, None) if seq_split else \
+            (BATCH, None, MODEL, None)
+        args += [shard(new[0], *spec), shard(new[1], *spec), widx]
+    in_specs = [_placements_of(a) for a in args]
+    if n_seq == 1:
+        return local(body, args, in_specs, _placements_of(q))
+    # a partial a rank: [R, B, H, Dh] and [R, B, H], R over 'model'
+    from torch.distributed.tensor import Shard
+    m_dim = mesh.axis_names.index(MODEL)
+    part = [Shard(0) if i == m_dim else Shard(1) if p.is_shard(0) else p
+            for i, p in enumerate(q.placements)]
+    o_r, lse_r = local(body, args, in_specs, (part, part))
+    return _combine_partials(shard(o_r, None, BATCH, None, None),
+                             shard(lse_r, None, BATCH, None), q.dtype)
+
+
+def _decode_partial(q, k, v, kv_len):
+    """``ref.decode_attention`` over one rank's cache rows, with the rows'
+    log-sum-exp: ``(o [B, H, Dh] fp32, lse [B, H])``; a rank with no valid
+    row gives ``o = 0``, ``lse = -1e30``."""
+    b, h, dh = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, dh)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k).float() / math.sqrt(dh)
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < kv_len.reshape(-1, 1))[:, None, None, :]
+    scores = torch.where(valid, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgt,btkd->bkgd", p / torch.clamp(l, min=1e-30),
+                     v.float())
+    lse = (m + torch.log(torch.clamp(l, min=1e-30)))[..., 0]
+    return o.reshape(b, h, dh), lse.reshape(b, h)
+
+
+def _combine_partials(o_r, lse_r, dtype: torch.dtype):
+    """Combine per-rank partial attentions ``o_r [R, B, H, Dh]``,
+    ``lse_r [R, B, H]`` (``R`` replicated) in rank order."""
+    m = lse_r.amax(dim=0)
+    w = torch.exp(lse_r - m)  # [R, B, H]
+    num = w[0][..., None] * o_r[0]
+    den = w[0]
+    for r in range(1, o_r.shape[0]):
+        num = num + w[r][..., None] * o_r[r]
+        den = den + w[r]
+    return (num / den[..., None]).to(dtype)

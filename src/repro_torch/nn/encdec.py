@@ -18,10 +18,11 @@ encoder's and the decoder's self-attention and the prefill's
 cross-attention (``Sq != Sk``) run the ``flash_attention`` kernel, and the
 decoder's self-attention decodes through ``decode_attention``.  The
 cross-attention of a decode step is ``ref.decode_attention`` on either
-arm, as in the reference (``:189-195``), which reaches no Pallas kernel
-there: that step mirrors the reference, it does not fall back from a
-kernel.  A decode step writes the new self-attention key and value into
-the cache in place.
+arm (``attention.decode_attend`` with ``use_pallas=False``), as in the
+reference (``:189-195``), which reaches no Pallas kernel there: that step
+mirrors the reference, it does not fall back from a kernel.  A decode
+step writes the new self-attention key and value into the cache in
+place.  On a mesh the reference's ``shard`` sites hold (``:70-96``).
 """
 from __future__ import annotations
 
@@ -30,8 +31,8 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import BATCH, gather_seq, merge_heads, shard
 from repro_torch.interop import DeviceLike, resolve_device
-from repro_torch.kernels import ref as kref
 from repro_torch.nn import attention as attn
 from repro_torch.nn.mlp import init_mlp, mlp_block, normal
 from repro_torch.nn.norm import init_rmsnorm, rmsnorm
@@ -89,7 +90,7 @@ def _enc_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """``frames [B, Ss, d]`` -> encoder hidden ``[B, Ss, d]``
     (bidirectional)."""
-    x = frames.to(getattr(torch, cfg.dtype))
+    x = shard(frames.to(getattr(torch, cfg.dtype)), BATCH, None, None)
     positions = torch.arange(x.shape[1], device=x.device)
     layer = _remat(_enc_layer, cfg.remat)
     for p in _unbind(params["enc"], cfg.enc_layers):
@@ -140,7 +141,8 @@ def encdec_forward(params, cfg: ModelConfig, frames: torch.Tensor,
                    tokens: torch.Tensor) -> torch.Tensor:
     """Logits ``[B, St, V]`` of the target tokens given the frames."""
     h = decode_train(params, cfg, tokens, encode(params, cfg, frames))
-    return rmsnorm(params["ln_f"], h, cfg.norm_eps) @ params["lm_head"]
+    return rmsnorm(params["ln_f"], gather_seq(h), cfg.norm_eps) @ \
+        params["lm_head"]
 
 
 def encdec_loss(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
@@ -149,7 +151,7 @@ def encdec_loss(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
     (``transformer.chunked_ce``)."""
     h = decode_train(params, cfg, batch["tokens"],
                      encode(params, cfg, batch["frames"]))
-    h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
+    h = rmsnorm(params["ln_f"], gather_seq(h), cfg.norm_eps)
     labels = batch["labels"]
     mask = (labels >= 0).float()
     chunk_tokens = max(8, int(2 ** 24 / max(cfg.vocab, 1)))
@@ -177,7 +179,7 @@ def encdec_prefill(params, cfg: ModelConfig, frames: torch.Tensor,
     caches = {name: torch.stack([c[i] for c in per_layer])
               for i, name in enumerate(("self_k", "self_v", "cross_k",
                                         "cross_v"))}
-    h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
+    h = rmsnorm(params["ln_f"], gather_seq(x)[:, -1:], cfg.norm_eps)
     return h @ params["lm_head"], caches
 
 
@@ -233,8 +235,8 @@ def encdec_decode_step(params, cfg: ModelConfig, token: torch.Tensor,
         # cross-attention: the rope-free query over the static cross KV
         q = attn._project(rmsnorm(p["ln2"], x, eps), p["cross_attn"]["wq"],
                           h, cfg, None, False)[:, 0]
-        o = kref.decode_attention(q, caches["cross_k"][j],
-                                  caches["cross_v"][j], src_len)
-        x = x + o.reshape(b, 1, -1) @ p["cross_attn"]["wo"]
+        o = attn.decode_attend(cfg, q, caches["cross_k"][j],
+                               caches["cross_v"][j], src_len, False)
+        x = x + merge_heads(o[:, None]) @ p["cross_attn"]["wo"]
         x = x + mlp_block(p["mlp"], rmsnorm(p["ln3"], x, eps))
     return rmsnorm(params["ln_f"], x, eps) @ params["lm_head"], caches

@@ -18,8 +18,10 @@ order ``j = 0..k-1``.  The backward of each gather is the other map's
 gather (:class:`_RowGather`), so no float atomic add is on the card path,
 forward or backward.  The expert FFN is SiLU-gated and batched over the
 experts (``torch.einsum``: the reference computes it outside any Pallas
-kernel).  The reference's sharding constraints are no-ops on one device
-and are dropped.
+kernel).  The reference's sharding constraints hold on a mesh (``:69,
+103, 109, 116``): the groups' tokens over ``BATCH``, the dispatch buffer
+and the experts' outputs expert-sharded over ``'model'``, the block's
+output over ``BATCH``; off a mesh they are no-ops.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.dist.sharding import BATCH, MODEL, is_dtensor, local, shard
 from repro_torch.nn.mlp import init_mlp, mlp_block, normal
 
 
@@ -144,6 +147,14 @@ class _RowGather(torch.autograd.Function):
         return grad, None, None
 
 
+def _expert_ffn(w_gate, w_up, w_down, xe):
+    """The SiLU-gated FFN of each expert on its slots: ``xe [G, E, cap,
+    d]`` -> ``[G, E, cap, d]``."""
+    gact = F.silu(torch.einsum("gecd,edf->gecf", xe, w_gate))
+    u = torch.einsum("gecd,edf->gecf", xe, w_up)
+    return torch.einsum("gecf,efd->gecd", gact * u, w_down)
+
+
 def moe_block(params: Dict, x: torch.Tensor, cfg_moe: MoEConfig,
               n_groups: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """x ``[B, S, d]`` -> ``(out [B, S, d], aux_loss [])``, group-local:
@@ -154,18 +165,22 @@ def moe_block(params: Dict, x: torch.Tensor, cfg_moe: MoEConfig,
     g_n = n_groups or b
     tg = b * s // g_n  # tokens per group
     cap = _capacity(tg, cfg_moe)
-    xt = x.reshape(g_n, tg, d)
+    xt = shard(x.reshape(g_n, tg, d), BATCH, None, None)
     r = route(params["router"], xt, cfg_moe, cap)
 
     # dispatch: each slot reads its choice's token row (TB-Type)
     tok = torch.div(r.src, k, rounding_mode="floor")  # tg for an empty slot
     xe = _RowGather.apply(xt, tok, r.slot.reshape(g_n, tg, k))
-    xe = xe.reshape(g_n, e, cap, d)
+    xe = shard(xe.reshape(g_n, e, cap, d), None, MODEL, None, None)
 
-    # expert FFN (DM-Type, batched over experts)
-    gact = F.silu(torch.einsum("gecd,edf->gecf", xe, params["w_gate"]))
-    u = torch.einsum("gecd,edf->gecf", xe, params["w_up"])
-    ye = torch.einsum("gecf,efd->gecd", gact * u, params["w_down"])
+    # expert FFN (DM-Type, batched over experts), on a mesh a rank's
+    # experts on its shards: the weights' FSDP dim gathered, the experts
+    # over 'model' as the dispatch buffer's
+    espec, xspec = (MODEL, None, None), (None, MODEL, None, None)
+    ws = [shard(params[k], *espec) for k in ("w_gate", "w_up", "w_down")]
+    ye = local(_expert_ffn, (*ws, xe), (espec, espec, espec, xspec),
+               list(xe.placements) if is_dtensor(xe) else None)
+    ye = shard(ye, *xspec)
 
     # combine: each choice reads its slot's output, weighted, and a token
     # sums its k choices in order
@@ -175,7 +190,7 @@ def moe_block(params: Dict, x: torch.Tensor, cfg_moe: MoEConfig,
     out = yt[:, :, 0]
     for j in range(1, k):
         out = out + yt[:, :, j]
-    out = out.reshape(b, s, d)
+    out = shard(out.reshape(b, s, d), BATCH, None, None)
 
     if "dense" in params:  # arctic: parallel dense residual FFN
         out = out + mlp_block(params["dense"], x)

@@ -5,8 +5,10 @@ Within a chunk the recurrence is dense matmuls; across chunks a Python
 loop carries the ``[B, NH, HD, N]`` state in fp32, where the reference
 runs a ``lax.scan``.  Projections are split per segment (z / x / B / C /
 dt) and the depthwise conv likewise (conv_x, conv_B, conv_C), as in the
-reference, so a reference parameter tree carries across one to one; its
-sharding constraints are no-ops on one device and are dropped.  The SSD
+reference, so a reference parameter tree carries across one to one.  Its
+sharding constraints hold on a mesh (``:174-208``: z, x and dt over
+``'model'``, the heads of ``x`` likewise, the output over ``BATCH``) and
+are no-ops off one.  The SSD
 and ``dt`` run in fp32 and are cast back to the activations' dtype.
 
 The intra-chunk decay ``exp(cum_t - cum_s)`` is taken of the exponent
@@ -27,6 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.dist.sharding import (BATCH, MODEL, gather_seq,
+                                      is_dtensor, local, merge_heads, shard,
+                                      split_heads)
 from repro_torch.nn.mlp import normal
 from repro_torch.nn.norm import rmsnorm
 
@@ -72,9 +77,24 @@ def init_mamba2(gen: torch.Generator, d_model: int, ssm: SSMConfig,
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, bias=None
-                 ) -> torch.Tensor:
-    """Depthwise causal conv via shifted adds. x [B,S,C], w [K,C]."""
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, bias=None,
+                 channels=None) -> torch.Tensor:
+    """Depthwise causal conv via shifted adds. x [B,S,C], w [K,C].  On a
+    mesh each rank convolves its shards (``local``): the rows over
+    ``BATCH``, the channels over ``channels`` (``MODEL`` for ``conv_x``,
+    replicated for ``conv_B`` / ``conv_C``, as the reference lays them
+    out), the sequence whole."""
+    spec = (BATCH, None, channels)
+    x = shard(x, *spec)
+    args = (x, shard(w, None, channels)) + (
+        () if bias is None else (shard(bias, channels),))
+    return local(_causal_conv_local, args,
+                 (spec, (None, channels), (channels,))[:len(args)],
+                 list(x.placements) if is_dtensor(x) else None)
+
+
+def _causal_conv_local(x: torch.Tensor, w: torch.Tensor, bias=None
+                       ) -> torch.Tensor:
     k = w.shape[0]
     out = x * w[-1]
     for j in range(k - 1):
@@ -145,6 +165,39 @@ def ssd_chunked(
     return y.to(x.dtype), state
 
 
+def _ssd_local(x, dt, a_neg, b_proj, c_proj, chunk: int,
+               want_state: bool):
+    """``ssd_chunked`` on each rank's shards (``local``): a head's
+    recurrence and a batch row's are independent, so the rows go over
+    ``BATCH`` and the heads over ``'model'`` as the reference lays ``x``
+    and ``dt`` out; ``B`` and ``C`` are replicated over ``'model'``.
+    Returns ``(y, final state or None)``: the state leaves the body only
+    when ``want_state`` (an output nothing reads would take a zero
+    gradient DTensor cannot lay out)."""
+    xs, hs = (BATCH, None, MODEL, None), (BATCH, None, MODEL)
+    x, dt = shard(x, *xs), shard(dt, *hs)
+    b_proj, c_proj = shard(b_proj, BATCH, None, None), shard(
+        c_proj, BATCH, None, None)
+    a_neg = shard(a_neg, hs[2])
+    out_pl = None
+    if is_dtensor(x):  # y as x; the state [B, NH, HD, N]: heads at dim 1
+        from torch.distributed.tensor import Shard
+
+        out_pl = (list(x.placements),
+                  [Shard(1) if p.is_shard(2) else p for p in x.placements])
+        if not want_state:
+            out_pl = out_pl[0]
+
+    def body(*a):
+        y, state = ssd_chunked(*a, chunk)
+        return (y, state) if want_state else y
+
+    out = local(body, (x, dt, a_neg, b_proj, c_proj),
+                (xs, hs, (MODEL,), (BATCH, None, None), (BATCH, None, None)),
+                out_pl)
+    return out if want_state else (out, None)
+
+
 def ssd_sequential(x, dt, a_neg, b_proj, c_proj, init_state=None):
     """Per-step oracle: S_t = exp(dt_t a) S_{t-1} + dt_t x_t (x) B_t ; y =
     C_t.S_t, in fp32 (the reference's type promotion)."""
@@ -184,8 +237,9 @@ def mamba2_block(params: Dict, cfg, x: torch.Tensor,
     ssm = cfg.ssm
     bsz, s, d_model = x.shape
     di, nh, n = dims(d_model, ssm)
-    z = x @ params["w_z"]
-    xc_raw = x @ params["w_x"]
+    x = gather_seq(x)
+    z = shard(x @ params["w_z"], BATCH, None, MODEL)
+    xc_raw = shard(x @ params["w_x"], BATCH, None, MODEL)
     b_raw = x @ params["w_B"]
     c_raw = x @ params["w_C"]
     dt_raw = x @ params["w_dt"]
@@ -196,7 +250,7 @@ def mamba2_block(params: Dict, cfg, x: torch.Tensor,
                      c_raw[:, -(ssm.d_conv - 1):]) if return_state
                     else None)
         xc = F.silu(_causal_conv(xc_raw, params["conv_x"],
-                                 params["conv_bias"]))
+                                 params["conv_bias"], MODEL))
         b = F.silu(_causal_conv(b_raw, params["conv_B"]))
         c = F.silu(_causal_conv(c_raw, params["conv_C"]))
     else:
@@ -207,19 +261,21 @@ def mamba2_block(params: Dict, cfg, x: torch.Tensor,
         xc, b, c = F.silu(xc), F.silu(b), F.silu(c)
         new_conv = (nbx, nbb, nbc)
 
-    xh = xc.reshape(bsz, s, nh, ssm.head_dim)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    xh = split_heads(xc, nh, ssm.head_dim)
+    dt = shard(F.softplus(dt_raw.float() + params["dt_bias"]), BATCH, None,
+               MODEL)
     a_neg = -torch.exp(params["A_log"])
 
     if cache is None:
-        y, new_state = ssd_chunked(xh, dt, a_neg, b, c, ssm.chunk)
+        y, new_state = _ssd_local(xh, dt, a_neg, b, c, ssm.chunk,
+                                  return_state)
     else:
         y, new_state = ssd_sequential(xh, dt, a_neg, b, c, cache.state)
 
     y = y + params["D"][:, None].to(y.dtype) * xh  # skip
-    y = y.reshape(bsz, s, di)
+    y = merge_heads(y)
     y = rmsnorm(params["norm_g"], y * F.silu(z))
-    out = y @ params["out_proj"]
+    out = shard(y @ params["out_proj"], BATCH, None, None)
     if cache is None and not return_state:
         return out, None
     return out, MambaCache(new_state, *new_conv)

@@ -46,6 +46,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (BATCH, MODEL, copy_into, gather_seq,
+                                      is_dtensor, local, replicated, shard)
 from repro_torch.interop import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.nn import attention as attn
@@ -211,48 +213,73 @@ class _EmbedGather(torch.autograd.Function):
         return grad.to(ctx.dtype), None
 
 
+def _embed_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``_EmbedGather`` of ``ids``.  On a mesh the table is the gather's
+    source pool, replicated, and each rank gathers its own ids' rows
+    (``local``); the table's gradient from a rank is a partial sum,
+    reduced across the ranks."""
+    if not is_dtensor(table):
+        return _EmbedGather.apply(table, ids)
+    table = shard(table, None, None)
+    ids = shard(replicated(ids), BATCH)
+    return local(_EmbedGather.apply, (table, ids), ((None, None), (BATCH,)),
+                 list(ids.placements))
+
+
 def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
                   extra_embeds: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
     """The tokens' embeddings in ``cfg.dtype``, after ``extra_embeds [B,
     E, d]`` (the modality frontend stub) when given."""
-    x = _EmbedGather.apply(params["embed"], tokens.reshape(-1))
+    x = _embed_gather(params["embed"], tokens.reshape(-1))
     x = x.reshape(*tokens.shape, -1).to(getattr(torch, cfg.dtype))
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
-    return x
+    return shard(x, BATCH, None, None)
 
 
-def _ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor):
+def _seq_shard(on: bool):
+    """The reference's sequence-parallel residual constraint (``_seq_shard``
+    under ``cfg.seq_shard_activations``; the forward and the loss, not the
+    prefill): ``(BATCH, MODEL, None)``, a no-op off a mesh."""
+    if on:
+        return lambda x: shard(x, BATCH, MODEL, None)
+    return lambda x: x
+
+
+def _ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor, seq: bool = False):
     """The feed-forward half of an attention layer on the RMS-normed
     residual stream: the MLP, or the routed experts of a MoE layer.
-    Returns ``(x, aux | None)``."""
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    ``seq``: the sequence-parallel constraints.  Returns ``(x, aux |
+    None)``."""
+    h = _seq_shard(seq)(rmsnorm(p["ln2"], x, cfg.norm_eps))
     if "moe" in p:
         hh, aux = moe_block(p["moe"], h, cfg.moe)
         return x + hh, aux
-    return x + mlp_block(p["mlp"], h), None
+    return x + mlp_block(p["mlp"], h, seq_shard=seq), None
 
 
 def _block(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-           positions: torch.Tensor, causal: bool):
+           positions: torch.Tensor, causal: bool, seq: bool = False):
     """One dense or MoE layer (or the shared block): attention, then
     ``_ffn``.  Returns ``(x, (k, v), aux | None)``, the layer's keys and
     values after RoPE."""
+    ss = _seq_shard(seq)
     h, kv = attn.attention_block(p["attn"], cfg,
-                                 rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                 ss(rmsnorm(p["ln1"], x, cfg.norm_eps)),
                                  positions, causal, return_kv=True)
-    x, aux = _ffn(p, cfg, x + h)
-    return x, kv, aux
+    x, aux = _ffn(p, cfg, x + h, seq)
+    return ss(x), kv, aux
 
 
 def _mamba_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                 return_state: bool):
+                 return_state: bool, seq: bool = False):
     """One Mamba2 layer.  Returns ``(x, MambaCache | None, None)``."""
+    ss = _seq_shard(seq)
     h, cache = mamba2_block(p["mamba"], cfg,
-                            rmsnorm(p["ln1"], x, cfg.norm_eps),
+                            ss(rmsnorm(p["ln1"], x, cfg.norm_eps)),
                             return_state=return_state)
-    return x + h, cache, None
+    return ss(x + h), cache, None
 
 
 def _new_stack(count: int, cache):
@@ -283,37 +310,59 @@ def lm_backbone(params, cfg: ModelConfig, x: torch.Tensor,
     Dh]`` pair (``[1, ...]`` for each application of the shared block),
     and each Mamba run's prefill ``MambaCache`` stacked ``[L, ...]``."""
     caches = [] if collect_kv else None
+    seq = cfg.seq_shard_activations and not collect_kv
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for (kind, count), stack in zip(layer_runs(cfg), params["runs"]):
         if kind == "shared_attn":  # one param set, no remat (:180-192)
             x, (k, v), _ = _block(params["shared"], cfg, x, positions,
-                                  causal)
+                                  causal, seq)
             if collect_kv:
                 caches.append({"k": k[None], "v": v[None]})
             continue
         run_cache = None
+        layers = []  # on a mesh, each layer's cache, stacked at the end
         for j, p in enumerate(_unbind(stack, count)):
             if kind == "mamba":
                 x, c, a = _remat(_mamba_layer, cfg.remat)(p, cfg, x,
-                                                          collect_kv)
+                                                          collect_kv, seq)
             else:
                 x, c, a = _remat(_block, cfg.remat)(p, cfg, x, positions,
-                                                    causal)
+                                                    causal, seq)
             if a is not None:
                 aux = aux + a
-            if collect_kv:
+            if collect_kv and is_dtensor(x):
+                layers.append(c)
+            elif collect_kv:
                 if run_cache is None:
                     run_cache = _new_stack(count, c)
                 _write_layer(run_cache, j, c)
         if collect_kv:
-            caches.append(run_cache)
+            caches.append(_stack_layers(layers) if layers else run_cache)
     return x, aux, caches
 
 
+def _stack_layers(layers: List):
+    """A run's stacked cache from its layers' caches (the mesh path: a
+    DTensor is not written into a slot of another)."""
+    if isinstance(layers[0], MambaCache):
+        return MambaCache(*[torch.stack(f) for f in zip(*layers)])
+    return {"k": torch.stack([k for k, _ in layers]),
+            "v": torch.stack([v for _, v in layers])}
+
+
+def _head(params, cfg: ModelConfig) -> torch.Tensor:
+    """The output projection ``[d, V]``: ``lm_head``, or the tied
+    embedding's transpose, on a mesh with the embedding's FSDP dim gathered
+    (vocab over ``'model'`` where it divides), so both uses of the table
+    give its gradient back in its own layout."""
+    if not cfg.tie_embeddings:
+        return params["lm_head"]
+    return shard(params["embed"], MODEL, None).T
+
+
 def lm_logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head  # [B, S, V]
+    h = rmsnorm(params["ln_f"], gather_seq(h), cfg.norm_eps)
+    return h @ _head(params, cfg)  # [B, S, V]
 
 
 def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -337,7 +386,14 @@ def _ce_chunk(h_c, head, labels_c, mask_c) -> torch.Tensor:
     """The masked sum of one chunk's token losses, in fp32."""
     logits = (h_c @ head).float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        # vocab sharded over 'model': the gold logit as a masked sum over
+        # the vocab (one term), which a rank computes on its own shard
+        vocab = torch.arange(logits.shape[-1], device=labels_c.device)
+        gold = torch.where(labels_c[..., None].long() == vocab, logits,
+                           0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
     return ((lse - gold) * mask_c).sum()
 
 
@@ -373,8 +429,8 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
     h, aux, _ = lm_backbone(params, cfg, x, positions)
     if extra is not None:
         h = h[:, extra.shape[1]:]
-    h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    h = rmsnorm(params["ln_f"], gather_seq(h), cfg.norm_eps)
+    head = _head(params, cfg)
     labels = batch["labels"]
     mask = (labels >= 0).float()
     chunk_tokens = max(8, int(2 ** 24 / max(cfg.vocab, 1)))
@@ -471,7 +527,7 @@ def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
                                       rmsnorm(p["ln1"], x, eps), cache=c)
                 x = x + h
                 for dst, src in zip(c, new):
-                    dst.copy_(src)
+                    copy_into(dst, src)
             continue
         if step is None:
             step = attn.decode_step(cfg, pos, x.shape[0],

@@ -23,8 +23,8 @@ the manifest dtype ``bfloat16``.  The reference hands that ``|V2`` array to
 ``jax.numpy.asarray`` and fails (ROADMAP Queue 3 check (h)); the port
 restores it from the manifest's dtype, viewing the 16-bit patterns as
 ``torch.bfloat16``, so a bf16 state restores bit for bit.  ``restore``
-takes ``device=`` in place of the reference's ``shardings=`` (one device; a
-mesh waits for item 19).
+takes ``device=`` in place of the reference's ``shardings=`` (one device;
+a restore onto a mesh is the next slice of item 19).
 """
 from __future__ import annotations
 

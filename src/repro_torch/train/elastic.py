@@ -9,7 +9,9 @@ that needs no device mesh).
 
 The reference's ``surviving_mesh`` (rebuild the mesh from the surviving
 pods) and ``reshard_state`` (place a restored checkpoint onto any mesh)
-need a device mesh; they wait for ROADMAP Queue 1 item 19.  On one device
+need multi-rank training on real ranks; they wait for the next slice of
+ROADMAP Queue 1 item 19 (the mesh layer itself, ``dist/sharding.py`` and
+``train_step.state_shardings``, is ported).  On one device
 ``checkpoint.restore(..., device=)`` is the whole restore.
 """
 from __future__ import annotations

@@ -2,15 +2,17 @@
 Adafactor (factored second moment), the warmup + cosine schedule and
 global-norm clipping.
 
-Each optimizer is an ``Optimizer(init, update)`` over trees of tensors and
-is functional, as in the reference: ``update(grads, state, params, step)
+Each optimizer is an ``Optimizer(init, update, state_specs)`` over trees
+of tensors and is functional, as in the reference: ``update(grads, state, params, step)
 -> (params, state)`` returns new tensors and changes none it is given.  The
 update is computed in fp32, in the reference's order of operations, and
 each parameter is cast back to its dtype.  ``torch.optim`` is not used: its
 bias correction and its weight-decay order compute another update.  The
 schedule reads ``step`` as a tensor on the device, so an update makes no
-host sync.  The reference's ``state_specs`` (optimizer state laid out on a
-device mesh) waits for the mesh (ROADMAP Queue 1 item 19).
+host sync.  ``state_specs(param_specs, mesh)`` lays the state out on a
+mesh as the reference does: AdamW's moments as their parameters,
+Adafactor's factored statistics as their parameter with the reduced dim
+dropped, its full statistics of rank < 2 leaves as theirs.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch import tree
+from repro_torch.dist.sharding import NamedSharding, P
 
 # ---------------------------------------------------------------------------
 # schedules
@@ -58,6 +61,7 @@ def clip_by_global_norm(grads, max_norm: float):
 class Optimizer(NamedTuple):
     init: Callable  # params -> state
     update: Callable  # (grads, state, params, step) -> (new_params, new_state)
+    state_specs: Callable = None  # (param NamedShardings, mesh) -> state's
 
 
 def _unzip(params, out, n: int, state_cls):
@@ -108,7 +112,10 @@ def adamw(lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
             grads, state.mu, state.nu, params)))]
         return _unzip(params, out, 3, AdamWState)
 
-    return Optimizer(init, update)
+    def state_specs(param_specs, mesh):
+        return AdamWState(param_specs, param_specs)
+
+    return Optimizer(init, update, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -175,7 +182,24 @@ def adafactor(lr_fn, decay=0.99, eps=1e-30, clip_thresh=1.0,
             grads, state.vr, state.vc, state.v, params)))]
         return _unzip(params, out, 4, AdafactorState)
 
-    return Optimizer(init, update)
+    def state_specs(param_specs, mesh):
+        def vr_spec(ns):
+            s = list(ns.spec)
+            return NamedSharding(mesh, P(*s[:-1]) if len(s) >= 2 else P())
+
+        def vc_spec(ns):
+            s = list(ns.spec)
+            return NamedSharding(mesh, P(*(s[:-2] + s[-1:])) if len(s) >= 2
+                                 else P())
+
+        def v_spec(ns):
+            return ns if len(ns.spec) < 2 else NamedSharding(mesh, P())
+
+        return AdafactorState(tree.map(vr_spec, param_specs),
+                              tree.map(vc_spec, param_specs),
+                              tree.map(v_spec, param_specs))
+
+    return Optimizer(init, update, state_specs)
 
 
 def lr_schedule(total_steps: int = 10_000):

@@ -8,9 +8,12 @@ first axis as the reference's ``dynamic_slice_in_dim`` slices it, the
 gradients are added in fp32 in microbatch order and divided by the count,
 and so is the loss.  The optimizer update is fp32 (``train/optimizer.py``).
 A step reads nothing back to the host: the loss and the gradient norm come
-back as 0-d tensors on the device.  The reference's ``state_shardings``
-(the state laid out on a device mesh) waits for the mesh (ROADMAP Queue 1
-item 19).
+back as 0-d tensors on the device.  ``state_shardings`` lays a state out on
+a mesh as the reference does (``param_specs`` for the weights, the
+optimizer's ``state_specs`` for its state, the step replicated); a step
+on DTensors of that layout runs through the same code (``launch/
+steps.py``).  Multi-rank training on real ranks (the elastic mesh, the
+resharded restore) is the next slice of ROADMAP Queue 1 item 19.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.param_sharding import param_specs
+from repro_torch.dist.sharding import NamedSharding, P
 from repro_torch.train.optimizer import Optimizer, clip_by_global_norm
 
 
@@ -55,6 +60,16 @@ def init_train_state(gen: torch.Generator, cfg: ModelConfig,
         params = init_lm_params(gen, cfg)
     return TrainState(torch.zeros((), dtype=torch.int32, device=gen.device),
                       params, optimizer.init(params))
+
+
+def state_shardings(state_shapes: TrainState, optimizer: Optimizer, mesh,
+                    fsdp: bool = True, fsdp_experts: bool = True
+                    ) -> TrainState:
+    """The ``NamedSharding`` tree of a train state."""
+    pspecs = param_specs(state_shapes.params, mesh, fsdp=fsdp,
+                         fsdp_experts=fsdp_experts)
+    return TrainState(step=NamedSharding(mesh, P()), params=pspecs,
+                      opt=optimizer.state_specs(pspecs, mesh))
 
 
 def value_and_grad(loss_fn: Callable, params, batch) -> Tuple[torch.Tensor,

@@ -1,4 +1,4 @@
-"""The three ``jax.tree`` operations the port uses, over its trees of
+"""The ``jax.tree`` operations the port uses, over its trees of
 tensors (port-only: the reference calls ``jax.tree``).
 
 A tree is a dict, list, tuple or NamedTuple of trees, ``None`` (no leaf)
@@ -9,7 +9,7 @@ by either package holds the same leaf at the same index.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List
+from typing import Any, Callable, Iterator, List, NamedTuple
 
 
 def _is_namedtuple(x) -> bool:
@@ -83,3 +83,27 @@ def map(fn: Callable, tree, *rest) -> Any:  # noqa: A001 (jax.tree.map)
     others = [_children(r) for r in rest]
     return _rebuild(tree, [map(fn, k, *(o[i] for o in others))
                            for i, k in enumerate(kids)])
+
+
+class DictKey(NamedTuple):
+    """A dict key on a leaf's path (``jax.tree_util.DictKey``); a list,
+    tuple or NamedTuple child is named by its position, an ``int``."""
+    key: Any
+
+
+def map_with_path(fn: Callable, tree) -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree`` (``jax.tree_util.
+    tree_map_with_path``): ``path`` is the tuple of :class:`DictKey` and
+    positions from the root to the leaf."""
+
+    def walk(path, t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: walk(path + (DictKey(k),), v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            kids = [walk(path + (i,), v) for i, v in enumerate(t)]
+            return type(t)(*kids) if _is_namedtuple(t) else type(t)(kids)
+        return fn(path, t)
+
+    return walk((), tree)
