@@ -100,9 +100,15 @@ device mesh: a 1-rank NCCL process group and a ``(data=1, model=1)``
 mesh, HAN/imdb through ``build_hgnn_infer(mesh=...)`` (9a) and granite-8b
 whole through ``launch/steps``' prefill and decode steps (9b, 4 x 2048
 tokens and 32 greedy steps) bitwise the mesh-less paths with the same
-launches, each timed beside them; then the granite-8b dry run on the
-16x16 production mesh over the fake process group (9c, a subprocess a
-shape, no device memory).  It imports nothing of jax or of the JAX
+launches, each timed beside them; every other padded HGNN plan at full
+IMDB width on the same mesh (9d: HAN bucketed and at 2 layers, RGCN
+padded and bucketed, MAGNN, HAN/RGCN/MAGNN partitioned at K = 4, MAGNN
+with 256 hot rows, HAN with the async schedule), each bitwise with the
+mesh-less launches and no collective, timed in turns; the decode
+kernel's log-sum-exp form against its plain version and a cache split
+into 2 and 4 shards combined against the whole-cache kernel (9e); then
+the granite-8b dry run on the 16x16 production mesh over the fake
+process group (9c, a subprocess a shape, no device memory).  It imports nothing of jax or of the JAX
 package ``repro``.
 
 Output: progress lines, then the card's name and power limit as
@@ -3397,6 +3403,33 @@ def wall_median_ms(fns: dict, reps: int) -> dict:
     return {k: statistics.median(v) for k, v in walls.items()}
 
 
+def dtensor_ops(fn):
+    """The ops ``fn()`` dispatches on DTensors, by name (a dispatch mode
+    that counts them and hands them on to DTensor)."""
+    import collections
+
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class DTensorOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                self.ops[func._overloadpacket.__name__] += 1
+                return NotImplemented
+            return func(*args, **(kwargs or {}))
+
+    counter = DTensorOps()
+    with counter:
+        fn()
+    torch.cuda.synchronize()
+    return counter.ops
+
+
 def mesh_overheads(tag: str, plain, meshed, extra_ms: float) -> dict:
     """What the 1-rank mesh adds to one call of ``meshed`` over ``plain``
     (the same work off the mesh): the c10d collectives the mesh call
@@ -3412,20 +3445,7 @@ def mesh_overheads(tag: str, plain, meshed, extra_ms: float) -> dict:
     import collections
 
     import torch
-    from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.debug import CommDebugMode
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class DTensorOps(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.ops = collections.Counter()
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if any(issubclass(t, DTensor) for t in types):
-                self.ops[func._overloadpacket.__name__] += 1
-                return NotImplemented
-            return func(*args, **(kwargs or {}))
 
     names, whole_plain = device_kernels(plain, whole=True)
     k_plain = collections.Counter(names)
@@ -3435,11 +3455,8 @@ def mesh_overheads(tag: str, plain, meshed, extra_ms: float) -> dict:
     with comm:
         meshed()
     torch.cuda.synchronize()
-    counter = DTensorOps()
-    with counter:
-        meshed()
-    torch.cuda.synchronize()
-    n_ops = sum(counter.ops.values())
+    ops_seen = dtensor_ops(meshed)
+    n_ops = sum(ops_seen.values())
     n_coll = comm.get_total_counts()
     nccl = sum(n for k, n in k_mesh.items() if "nccl" in k.lower())
 
@@ -3462,7 +3479,7 @@ def mesh_overheads(tag: str, plain, meshed, extra_ms: float) -> dict:
         print(f"  {line} (a trace dropped events: not decided)")
     per_op_us = extra_ms * 1e3 / n_ops if n_ops else float("nan")
     print(f"  {tag} a call: {n_ops} ops dispatched on DTensors "
-          f"(top {dict(counter.ops.most_common(8))}); the mesh adds "
+          f"(top {dict(ops_seen.most_common(8))}); the mesh adds "
           f"{extra_ms:.4f} ms of wall, {per_op_us:.2f} us a DTensor op")
     return {"dtensor_ops": n_ops, "collectives": n_coll,
             "nccl_kernels": nccl, "traces_whole": whole,
@@ -3662,6 +3679,228 @@ def mesh_granite(dev, ops, mesh) -> dict:
             "decode_overheads": over, "launches": launches}
 
 
+# 9d: every padded HGNN plan on the mesh: (tag, HGNNConfig kwargs, the
+# kernels-line entry its gat_na launches belong to)
+MESH_PLANS = (
+    ("han/bucketed3", dict(model="han", fused=True, degree_buckets=3),
+     "gat_na_bucketed"),
+    ("han/layers2", dict(model="han", fused=True, layers=2), "gat_na"),
+    ("rgcn/padded", dict(model="rgcn", fused=True), None),
+    ("rgcn/bucketed3", dict(model="rgcn", fused=True, degree_buckets=3), None),
+    ("magnn", dict(model="magnn"), "gat_na_unstacked"),
+    ("han/partitions4", dict(model="han", fused=True, partitions=4), "gat_na"),
+    ("rgcn/partitions4", dict(model="rgcn", fused=True, partitions=4), None),
+    ("magnn/partitions4", dict(model="magnn", partitions=4),
+     "gat_na_unstacked"),
+    ("magnn/cache256", dict(model="magnn", cache_rows=CACHE_ROWS),
+     "gat_na_unstacked"),
+    ("han/overlap2", dict(model="han", fused=True, overlap=2), "gat_na"),
+)
+MESH_PLAN_REPS = 5  # interleaved forwards a 9d plan is timed over
+
+
+def mesh_plans(dev, ops, hg, mesh) -> dict:
+    """9d: every padded HGNN plan of MESH_PLANS at full IMDB width through
+    ``build_hgnn_infer(mesh=...)`` under ``use_pallas`` against the
+    mesh-less build (the same weights, from ``cfg.seed``): logits bitwise,
+    no c10d collective, each kernel's launches as mesh-less; the walls in
+    turns and the ops dispatched on DTensors a call.  Returns the records
+    and the launches a kernels-line entry got."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs.base import HGNNConfig
+    from repro_torch.launch.serve import build_hgnn_infer
+
+    recs, launches = {}, {}
+    for tag, kw, gat_entry in MESH_PLANS:
+        t0 = time.perf_counter()
+        cfg = HGNNConfig(dataset="imdb", use_pallas=True, **kw)
+        plain = build_hgnn_infer(cfg, hg, dev)
+        meshed = build_hgnn_infer(cfg, hg, dev, mesh=mesh)
+        runs = []
+        for b in (plain, meshed):
+            ops.reset_launch_counts()
+            comm = CommDebugMode()
+            with comm, torch.inference_mode():
+                out = b.fn(b.params, b.batch)
+            torch.cuda.synchronize()
+            runs.append((out, ops.launch_counts(), comm.get_total_counts()))
+        (want, c_plain, _), (got, c_mesh, n_coll) = runs
+        got = got.full_tensor()
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape
+              == (4278, 8), f"9d {tag}: logits {tuple(got.shape)} finite")
+        check(torch.equal(got, want), f"9d {tag}: mesh logits bitwise the "
+              f"mesh-less forward (max |diff| {max_err(got, want):.3g})")
+        check(n_coll == 0, f"9d {tag}: {n_coll} c10d collectives (0)")
+        used = {k: n for k, n in c_mesh.items() if n}
+        check(c_mesh == c_plain and used,
+              f"9d {tag}: launches on the mesh {used} = mesh-less "
+              f"{ {k: n for k, n in c_plain.items() if n} }")
+
+        def fwd(b):
+            def go():
+                with torch.inference_mode():
+                    b.fn(b.params, b.batch)
+            return go
+
+        ms = wall_median_ms({"mesh-less": fwd(plain), "mesh": fwd(meshed)},
+                            MESH_PLAN_REPS)
+        seen = dtensor_ops(fwd(meshed))
+        n_ops = sum(seen.values())
+        print(f"  9d {tag}: forward wall (median of {MESH_PLAN_REPS}, in "
+              f"turns) mesh {ms['mesh']:.4f} ms, mesh-less "
+              f"{ms['mesh-less']:.4f} ms; {n_ops} DTensor ops a call (top "
+              f"{dict(seen.most_common(5))}); launches {used}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        recs[tag] = {"forward_ms": ms, "dtensor_ops": n_ops,
+                     "top_ops": dict(seen.most_common(8)),
+                     "launches": used}
+        for name, n in used.items():
+            entry = gat_entry if name == "gat_na" else name
+            launches[entry] = launches.get(entry, 0) + n
+        del plain, meshed
+    return {"plans": recs, "launches": launches}
+
+
+# 9e: the decode kernel's log-sum-exp form: (tag, (B, S, H, KVH, Dh),
+# dtype, kv_len); phase 5c's granite decode shape, then a bf16 and an fp32
+# case with a row of no live cache row
+LSE_CASES = (
+    ("granite decode bf16", (4, 2080, 32, 8, 128), "bfloat16",
+     (1, 1000, 2049, 2080)),
+    ("G 1 bf16", (2, 300, 8, 8, 64), "bfloat16", (0, 300)),
+    ("odd Dh fp32", (2, 130, 6, 2, 7), "float32", (129, 0)),
+)
+TOL_LSE = dict(atol=1e-5, rtol=1e-5)  # fp32 lse, kernel vs plain
+# the combined shards against the whole-cache kernel: fp32 sums in another
+# order; in bf16 each shard's o is rounded to bf16 before the combine, so
+# the bf16 result is held to a bf16 ulp or two of the whole-cache one
+TOL_SPLIT = {"float32": dict(atol=1e-5, rtol=1e-5),
+             "bfloat16": TOL_BF16_OUT}
+
+
+def decode_lse(dev, flush) -> dict:
+    """9e: ``decode_attention(..., return_lse=True)`` on the card: ``o``
+    bitwise the kernel's output without the form, ``lse`` against the
+    plain version on the fp32 values at 1e-5, ``o = 0`` and ``lse =
+    -1e30`` on a row with no live row; granite's decode cache split into 2
+    and 4 contiguous shards (one with no live row of some batch rows), the
+    form run on each and the partials combined by
+    ``nn/attention._combine_partials``, against the whole-cache kernel.
+    Then the form timed at the 2-way split's first shard, cold and warm,
+    beside its bound, its plain version and
+    ``aten._scaled_dot_product_efficient_attention(compute_log_sumexp=
+    True)`` (the kv heads repeated to the query heads beforehand)."""
+    import torch
+    from repro_torch.kernels import decode_attention as tdec
+    from repro_torch.nn.attention import _combine_partials
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    before = tdec.decode_attention.lse_launches
+    rec = {"cases": {}, "splits": {}}
+    with torch.inference_mode():
+        for tag, (b, s, h, kvh, dh), dt, lens in LSE_CASES:
+            dtype = getattr(torch, dt)
+            q, k, v = attn_inputs(gen, b, s, h, kvh, dh, dtype, decode=True)
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            o, lse = tdec.decode_attention(q, k, v, kv_len, return_lse=True)
+            o_then = tdec.decode_attention(q, k, v, kv_len)
+            o_p, lse_p = tdec.decode_attention_plain(
+                q.float(), k.float(), v.float(), kv_len, return_lse=True)
+            torch.cuda.synchronize()
+            dead = kv_len == 0
+            err_lse, err_o = max_err(lse, lse_p), max_err(o, o_p)
+            check(torch.equal(o, o_then), f"9e {tag}: o of the form bitwise "
+                  "the kernel's output without it")
+            check(close(lse, lse_p, **TOL_LSE), f"9e {tag}: lse vs plain max "
+                  f"|err| {err_lse:.3e} (tol {TOL_LSE})")
+            check(close(o.float(), o_p, **TOL_ATTN[dt]), f"9e {tag}: o vs "
+                  f"plain max |err| {err_o:.3e} (tol {TOL_ATTN[dt]})")
+            check(bool((o[dead] == 0).all() and (lse[dead] == -1e30).all()),
+                  f"9e {tag}: {int(dead.sum())} rows with no live row give "
+                  "o = 0, lse = -1e30")
+            rec["cases"][tag] = {"max_abs_err_lse": err_lse,
+                                 "max_abs_err_o": err_o}
+        b, s, h, kvh, dh = LSE_CASES[0][1]
+        kv_len = torch.tensor(LSE_CASES[0][3], dtype=torch.int32, device=dev)
+        for dt in ("bfloat16", "float32"):
+            q, k, v = attn_inputs(gen, b, s, h, kvh, dh, getattr(torch, dt),
+                                  decode=True)
+            whole = tdec.decode_attention(q, k, v, kv_len)
+            for n in (2, 4):
+                s_loc = s // n
+                parts = [tdec.decode_attention(
+                    q, k[:, r * s_loc:(r + 1) * s_loc].contiguous(),
+                    v[:, r * s_loc:(r + 1) * s_loc].contiguous(),
+                    torch.clamp(kv_len - r * s_loc, 0, s_loc).to(torch.int32),
+                    return_lse=True) for r in range(n)]
+                got = _combine_partials(torch.stack([p[0] for p in parts]),
+                                        torch.stack([p[1] for p in parts]),
+                                        q.dtype)
+                torch.cuda.synchronize()
+                empty = sum(int((p[1] == -1e30).all(dim=1).sum())
+                            for p in parts)
+                err = max_err(got, whole)
+                check(empty > 0 and close(got.float(), whole.float(),
+                                          **TOL_SPLIT[dt]),
+                      f"9e {dt} cache in {n} shards ({empty} shard rows with "
+                      f"no live row), combined vs the whole-cache kernel: "
+                      f"max |err| {err:.3e} (tol {TOL_SPLIT[dt]})")
+                rec["splits"][f"{dt} x{n}"] = {"max_abs_err": err,
+                                               "empty_shard_rows": empty}
+        # the form at the 2-way split's first shard, bf16, as a rank holds it
+        q, k, v = attn_inputs(gen, b, s, h, kvh, dh, torch.bfloat16,
+                              decode=True)
+        s_loc = s // 2
+        ks, vs = k[:, :s_loc].contiguous(), v[:, :s_loc].contiguous()
+        kl = torch.clamp(kv_len, 0, s_loc).to(torch.int32)
+        form = lambda: tdec.decode_attention(q, ks, vs, kl,  # noqa: E731
+                                             return_lse=True)
+        plain = lambda: tdec.decode_attention_plain(  # noqa: E731
+            q, ks, vs, kl, return_lse=True)
+        ms, warm_ms = time_ms(form, 20, flush), time_ms(form, 20)
+        plain_ms = time_ms(plain, 5, flush)
+        n_bytes, n_ops = tdec.work(q, ks, kl, return_lse=True)
+        b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_FLOPS)
+        lib_ms, lib_note = None, None
+        try:
+            g = h // kvh
+            qe = q[:, :, None]  # [B, H, 1, Dh]
+            ke = ks.transpose(1, 2).repeat_interleave(g, dim=1)
+            ve = vs.transpose(1, 2).repeat_interleave(g, dim=1)
+            live = (torch.arange(s_loc, device=dev)[None, :]
+                    < kl[:, None])[:, None, None, :]
+            bias = torch.where(live, 0.0, float("-inf")).to(
+                q.dtype).expand(b, h, 1, s_loc).contiguous()
+            eff = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(  # noqa: E731,E501
+                qe, ke, ve, bias, True)
+            o_l, lse_l = eff()[:2]
+            o_k, lse_k = form()
+            lib_note = (f"o max |err| {max_err(o_l[:, :, 0], o_k):.3e}, lse "
+                        f"max |err| {max_err(lse_l[:, :, 0], lse_k):.3e} "
+                        "against the form (not gated)")
+            lib_ms = time_ms(eff, 20, flush)
+        except Exception as e:  # the yardstick only: the port never calls it
+            lib_note = f"none: {type(e).__name__}: {str(e)[:200]}"
+        rec["timing"] = {
+            "shape": f"q [4, 32, 128], cache shard [4, {s_loc}, 8, 128] of "
+                     f"the 2-way split, kv_len {kl.tolist()}, bf16",
+            "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "operations": n_ops, "library_ms": lib_ms,
+            "library": "aten._scaled_dot_product_efficient_attention("
+                       "compute_log_sumexp=True), kv heads repeated",
+            "library_note": lib_note}
+        print(f"  9e log-sum-exp form at the 2-way split's first shard: "
+              f"{ms:.5f} ms cold, {warm_ms:.5f} ms warm (plain "
+              f"{plain_ms:.5f} ms, bound {b_ms:.5f} ms by {b_by}, efficient "
+              f"attention "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.5f} ms'}; "
+              f"{lib_note})")
+    rec["check_launches"] = tdec.decode_attention.lse_launches - before
+    return rec
+
+
 def mesh_dryrun() -> dict:
     """9c: ``python -m repro_torch.launch.dryrun --arch granite-8b`` over
     its three shapes on 16x16 (the fake process group, no device memory):
@@ -3717,11 +3956,12 @@ def mesh_dryrun() -> dict:
     return {"cells": cells, "seconds": dt}
 
 
-def mesh_phase(dev, ops, hg) -> dict:
+def mesh_phase(dev, ops, hg, flush) -> dict:
     """Phase 9: a 1-rank NCCL process group (``HashStore``) and a ``(data=
-    1, model=1)`` mesh for 9a and 9b, destroyed at the end of them; then
-    9c, which needs no card."""
+    1, model=1)`` mesh for 9a, 9b and 9d, destroyed at the end of them;
+    then 9e (one card, no mesh) and 9c, which needs no card."""
     import torch.distributed as dist
+    from repro_torch.kernels import decode_attention as tdec
     from repro_torch.launch.mesh import make_smoke_mesh
 
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
@@ -3729,10 +3969,27 @@ def mesh_phase(dev, ops, hg) -> dict:
     try:
         mesh = make_smoke_mesh(data=1, model=1)
         print(f"  mesh: {mesh}")
+        # the decode kernel's log-sum-exp form, counted over 9a, 9b and 9d
+        # (ops.reset_launch_counts leaves this count alone)
+        tdec.decode_attention.lse_launches = 0
         rec = {"han": mesh_han(dev, ops, hg, mesh)}
         rec["granite"] = mesh_granite(dev, ops, mesh)
+        t = time.perf_counter()
+        print("  9d: every padded HGNN plan on the mesh, HAN/RGCN/MAGNN "
+              "imdb at full width, use_pallas")
+        rec["plans"] = mesh_plans(dev, ops, hg, mesh)
+        print(f"  9d: {time.perf_counter() - t:.1f} s")
+        rec["lse_form_launches"] = tdec.decode_attention.lse_launches
+        print(f"  9a/9b/9d: the decode kernel's log-sum-exp form launched "
+              f"{rec['lse_form_launches']} times (a cache of one rank is "
+              f"never split over the sequence)")
     finally:
         dist.destroy_process_group()
+    t = time.perf_counter()
+    print("  9e: decode_attention's log-sum-exp form, and a cache split "
+          "into shards combined")
+    rec["lse"] = decode_lse(dev, flush)
+    print(f"  9e: {time.perf_counter() - t:.1f} s")
     rec["dryrun"] = mesh_dryrun()
     return rec
 
@@ -4588,11 +4845,14 @@ def main() -> None:
     t9 = time.perf_counter()
     print("phase 9: a 1-rank NCCL mesh (data=1, model=1): 9a HAN/imdb and "
           "9b granite-8b through the mesh entry points, bitwise the "
-          "mesh-less paths; 9c the granite-8b dry run on 16x16")
+          "mesh-less paths; 9d every padded HGNN plan on it; 9e the decode "
+          "kernel's log-sum-exp form; 9c the granite-8b dry run on 16x16")
     print(f"  card: {card_line()}")
-    mesh_rec = mesh_phase(dev, ops, hg)
+    mesh_rec = mesh_phase(dev, ops, hg, flush)
     mesh_launches = {**mesh_rec["han"]["launches"],
                      **mesh_rec["granite"]["launches"]}
+    for name, n in mesh_rec["plans"]["launches"].items():
+        mesh_launches[name] = mesh_launches.get(name, 0) + n
     for entry in kernels:
         if entry["name"] in mesh_launches:
             n = mesh_launches[entry["name"]]
@@ -4600,6 +4860,14 @@ def main() -> None:
                   f"paths")
             entry["launches"] += n
             entry["mesh_launches"] = n
+        if entry["name"] == "decode_attention":
+            # the form's launches on the mesh paths (9a, 9b, 9d), counted,
+            # beside those of 9e's checks
+            entry["lse_form"] = dict(mesh_rec["lse"]["timing"],
+                                     check_launches=mesh_rec["lse"][
+                                         "check_launches"],
+                                     main_path_launches=mesh_rec[
+                                         "lse_form_launches"])
     print(f"phase 9: {time.perf_counter() - t9:.1f} s")
 
 

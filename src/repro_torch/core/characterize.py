@@ -170,6 +170,8 @@ def _tensors(tree) -> List[torch.Tensor]:
 
 
 def _storage(t: torch.Tensor):
+    # a DTensor (a stage on a mesh) shares its shard's storage
+    t = getattr(t, "_local_tensor", t)
     if not t.numel() or t.device.type == "meta":  # meta: no storage to share
         return None
     return t.untyped_storage().data_ptr()
@@ -498,6 +500,8 @@ def partition_traffic(part: Dict, h_own: Dict, layers: int = 1) -> Dict:
     halo_rows = 0.0
     halo_bytes = 0.0
     for t, m in part["halo_mask"].items():
+        if hasattr(m, "full_tensor"):  # laid out on a mesh
+            m = m.full_tensor()
         m = m.cpu().numpy() if isinstance(m, torch.Tensor) else m
         rows = float(np.asarray(m).sum())
         h = h_own[t]

@@ -88,10 +88,19 @@ batch: ``launch/serve.build_hgnn_infer(mesh=...)``) the executor applies
 the reference's ``shard`` constraints at its sites (FP ``:195-238``, the
 fused epilogue ``:400-407``, the padded mean ``:437``, the instance NA
 ``:455-487``, the partitioned NA ``:543``, the stacked SA ``:766``) and
-each kernel call runs on a rank's shards (``local_map``): NA's destination
-rows and neighbour tables over the ``BATCH`` axes, its source pool
-replicated; the fused epilogue's score means are averaged over the ranks
-in rank order.  Off a mesh every constraint is a no-op.
+each NA arm runs on a rank's shards (``local``), so
+every kernel call takes local tensors: NA's destination rows and
+neighbour tables over the ``BATCH`` axes, its source pool whole on every
+rank (with residency, extended there); a degree bucket's rows over
+``BATCH``, its results gathered whole and copied to node order on every
+rank; MAGNN's instance round on a rank's target rows; a partitioned plan
+a rank's partitions (``K`` over ``BATCH``), its halo rows exchanged by
+``dist.partition.gather_halo`` in the plan's ``halo`` mode, its SA and
+head on the whole stack (the score means in global row order, as off the
+mesh).  The fused epilogue's score means are averaged over the ranks in
+rank order.  A plan with a schedule runs the serial :meth:`forward`
+there, as the reference's does.  Off a mesh every constraint is a no-op
+and every arm is the one-device one.
 """
 from __future__ import annotations
 
@@ -108,7 +117,8 @@ from repro_torch.core import residency, semantics, stages
 from repro_torch.core.plan import StagePlan
 from repro_torch.dist import partition as dpart
 from repro_torch.dist.sharding import (BATCH, MODEL, current_mesh,
-                                       is_dtensor, local, shard, split_heads)
+                                       is_dtensor, lead_placements, local,
+                                       replicate, shard, split_heads)
 from repro_torch.dist.partition import HALO_MODES
 from repro_torch.kernels import ops
 from repro_torch.kernels.streaming import InflightWindow
@@ -424,15 +434,21 @@ class StageGraphExecutor:
         flat owned row as ``halo_src``: the cached exchange is this same
         one gather, bitwise."""
         part = batch["part"]
-        return {t: dpart.gather_halo(h, part["halo_src"][t])
+        mode = self.plan.partition.halo
+        return {t: dpart.gather_halo(h, part["halo_src"][t], mode=mode)
                 for t, h in h_own.items()}
 
     def gather_halo(self, batch: Dict, h_own: Dict) -> Dict:
         """The partitioned flow's exchange stage: each type's local source
         table, ``concat(own, halo)`` along the rows (:meth:`halo_exchange`
-        and a concat)."""
+        and a concat; on a mesh, a partition's rows whole on its rank)."""
         halos = self.halo_exchange(batch, h_own)
-        return {t: torch.cat([h, halos[t]], dim=1) for t, h in h_own.items()}
+        out = {}
+        for t, h in h_own.items():
+            h = shard(h, BATCH, *([None] * (h.dim() - 1)))
+            out[t] = local(lambda a, b: torch.cat([a, b], dim=1),
+                           (h, halos[t]), None, lead_placements(h))
+        return out
 
     # ------------------------------------------------------------------
     # Stage 3: Neighbor Aggregation
@@ -454,7 +470,10 @@ class StageGraphExecutor:
         hot = self._hot(batch, t)
         if hot is None:
             return x
-        return torch.cat([x, x.index_select(0, hot)])
+        # on a mesh the pool is whole on every rank (NA's source spec)
+        x = replicate(x)
+        return local(lambda a, i: torch.cat([a, a.index_select(0, i)]),
+                     (x, replicate(hot)), None, lead_placements(x))
 
     def na(self, params: Dict, batch: Dict, h):
         kind = self.plan.na.kind
@@ -632,30 +651,50 @@ class StageGraphExecutor:
         gather_rows`` elsewhere, which the records count by the same rule
         — encode the instances by rotation, attend over them per target.
         The kernel arm is the unstacked ``gat_na`` with the encoded
-        instances as the source pool and an ``arange`` neighbour grid."""
-        plan, cfg = self.plan, self.cfg
-        heads = cfg.n_heads
+        instances as the source pool and an ``arange`` neighbour grid.  On
+        a mesh the round runs on each rank's target rows (``local``): the
+        instance tables and the target rows over ``BATCH``, the gathered
+        types' tables and hot sets whole."""
         res = batch.get("residency")
-        hot = res["hot"] if res is not None else {}
-        p_i = params["att"][i_path]
+        types = self.plan.metapaths[i_path]
+        pools = {ty: h[ty] for ty in types}
+        hot = {ty: x for ty, x in (res["hot"] if res is not None
+                                   else {}).items() if ty in pools}
+        specs = stages.HGNN_STAGE_SPECS
         nodes, mask = batch["instances"][i_path]
-        types = plan.metapaths[i_path]
-        nodes = shard(nodes, *stages.HGNN_STAGE_SPECS["na_inst_nodes"])
-        mask = shard(mask, *stages.HGNN_STAGE_SPECS["na_nbr"])
+        nodes = shard(nodes, *specs["na_inst_nodes"])
+        mask = shard(mask, *specs["na_nbr"])
+        h_tgt = shard(h[self.plan.target], BATCH, None)
+        if is_dtensor(nodes):
+            pools = {ty: replicate(x) for ty, x in pools.items()}
+            hot = {ty: replicate(x) for ty, x in hot.items()}
+        z = local(functools.partial(self._instance_round, types),
+                  (params["att"][i_path], pools, hot, h_tgt, nodes, mask),
+                  None, lead_placements(nodes))
+        return shard(z, *specs["na_flat_out"])  # [N, D]
+
+    def _instance_round(self, types, p_i: Dict, pools: Dict, hot: Dict,
+                        h_tgt: torch.Tensor, nodes: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+        """:meth:`_na_instance_one`'s body on whole or local tables:
+        ``nodes [N, I, L]`` into ``pools``, ``h_tgt [N, D]`` -> ``[N, D]``
+        after the activation."""
+        plan = self.plan
+        heads = self.cfg.n_heads
         n, i, l = nodes.shape
 
         def gather(j):
             ty = types[j]
             if ty in hot:
-                return ops.cached_gather(h[ty], hot[ty], nodes[:, :, j],
+                return ops.cached_gather(pools[ty], hot[ty], nodes[:, :, j],
                                          use_pallas=plan.na.use_pallas)
-            return ops.gather_rows(h[ty], nodes[:, :, j],
+            return ops.gather_rows(pools[ty], nodes[:, :, j],
                                    use_pallas=plan.na.use_pallas)
 
         h_path = torch.stack([gather(j) for j in range(l)], dim=2)
         h_path = h_path.reshape(n, i, l, heads, -1)  # [N, I, L, H, Dh]
         enc = stages.rotate_encoder(h_path)  # [N, I, H, Dh]
-        h_tgt = h[plan.target].reshape(-1, heads, h_path.shape[-1])
+        h_tgt = h_tgt.reshape(-1, heads, h_path.shape[-1])
         if plan.na.use_pallas:
             flat = enc.reshape(n * i, heads, enc.shape[-1])
             nbr_inst = torch.arange(n * i, dtype=torch.int32,
@@ -664,8 +703,7 @@ class StageGraphExecutor:
                                   use_pallas=True)
         else:
             z = stages.instance_aggregate(p_i, h_tgt, enc, mask)
-        return shard(_ACT[plan.na.activation](z).reshape(n, -1),
-                     *stages.HGNN_STAGE_SPECS["na_flat_out"])  # [N, D]
+        return _ACT[plan.na.activation](z).reshape(n, -1)
 
     def _na_instance(self, params: Dict, batch: Dict, h: Dict):
         return [self._na_instance_one(params, batch, h, i)
@@ -692,7 +730,18 @@ class StageGraphExecutor:
         it launches the same kernels: HAN one stacked ``gat_na`` a
         partition, RGCN one ``segment_spmm`` a relation and partition, and
         MAGNN, whose instances address no shared table once encoded, one
-        unstacked ``gat_na`` a metapath over every partition's rows."""
+        unstacked ``gat_na`` a metapath over every partition's rows.  On a
+        mesh each rank runs this on its partitions: every table of
+        ``batch["part"]`` leads with ``K``, laid out over ``BATCH`` (all
+        of them, or none where the axes do not divide ``K``), ``h_loc``
+        too, row for row, and the NA weights whole; each partition's
+        arithmetic and kernel launches are the one-device arm's."""
+        t = self.plan.target
+        if current_mesh() is not None and is_dtensor(h_loc[t]):
+            h_loc = {ty: shard(x, BATCH, *([None] * (x.dim() - 1)))
+                     for ty, x in h_loc.items()}
+            return local(self._na_partitioned, (params, batch, h_loc), None,
+                         lead_placements(batch["part"]["feats"][t]))
         plan = self.plan
         part = batch["part"]
         t = plan.target
@@ -968,8 +1017,14 @@ class StageGraphExecutor:
                                  z)[plan.target]
         if isinstance(z, list):
             z = torch.stack(z, dim=1)  # [K, P, n, D]
-        return semantics.semantic_attention_partitioned(
-            params["sem"], z, batch["part"]["inv"])  # [K, n, D]
+        # on a mesh the stack is whole on every rank: the score means run in
+        # global row order (inv), as off it, and the rows are laid back out
+        # over the partitions
+        z = replicate(z)
+        out = local(semantics.semantic_attention_partitioned,
+                    (params["sem"], z, replicate(batch["part"]["inv"])),
+                    None, lead_placements(z))  # [K, n, D]
+        return shard(out, BATCH, None, None)
 
     # ------------------------------------------------------------------
     # head + forward
@@ -982,9 +1037,16 @@ class StageGraphExecutor:
         if self.plan.partition is not None:
             if isinstance(z, dict):
                 z = z[self.plan.target]
-            out = z @ params[head.param]  # [K, n, C]
-            return out.reshape(-1, out.shape[-1]).index_select(
-                0, batch["part"]["inv"])
+
+            def restore(z, w, inv):
+                out = z @ w  # [K, n, C]
+                return out.reshape(-1, out.shape[-1]).index_select(0, inv)
+
+            # on a mesh every rank restores the whole table
+            z = replicate(z)
+            return local(restore, (z, replicate(params[head.param]),
+                                   replicate(batch["part"]["inv"])), None,
+                         lead_placements(z))
         if head.kind == "select_linear":
             return z[head.target] @ params[head.param]
         return z @ params[head.param]
@@ -1090,7 +1152,12 @@ class StageGraphExecutor:
         """Walk the stage DAG in topological order, each stage through
         ``emit(name, fn, args) -> value`` (``name`` as in
         :meth:`schedule_edges`).  The async driver and the per-stage
-        timing walk this one graph."""
+        timing walk this one graph.  One device only: on a mesh a plan
+        with a schedule runs the serial :meth:`forward`, as the
+        reference's does (``launch/serve.build_hgnn_infer``)."""
+        if current_mesh() is not None:
+            raise ValueError("the async stage-graph schedule runs on one "
+                             "device; on a mesh the serial forward runs")
         plan = self.plan
         n_l = plan.n_layers
         state = out = None

@@ -79,9 +79,11 @@ class PartitionSpec:
     (metapath-aware target assignment, reference-majority source
     assignment); FP and NA run a partition at a time on its owned rows,
     and the one exchange between partitions is the ``gather_halo`` stage.
-    ``halo`` is the reference's exchange mode: ``"auto"`` and ``"xla"``
-    both take the flat gather on one device, as the reference does off a
-    mesh.  ``static_shapes`` pads every per-type table to
+    ``halo`` is the reference's exchange mode: ``"auto"`` all-gathers the
+    owned tables over a device mesh's ``BATCH`` axes when they divide
+    ``k``, ``"xla"`` leaves the redistribution to DTensor; both take the
+    flat gather on one device, as the reference does off a mesh.
+    ``static_shapes`` pads every per-type table to
     assignment-independent capacities (``ceil(n / k)`` owned rows,
     ``n`` halo rows), so a sampled batch's partitioned shapes depend on its
     rung alone (the serve engine sets it); the pads are zero rows under a

@@ -32,7 +32,9 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.dist.sharding import BATCH, MODEL, local, shard
+from repro_torch.dist.sharding import (BATCH, MODEL, is_dtensor,
+                                       lead_placements, local,
+                                       replicate, shard)
 from repro_torch.kernels import ops
 
 # Stage-aware partitioning strategy; every entry is a logical per-dim spec
@@ -253,13 +255,50 @@ def gat_aggregate_bucketed(
     output is exactly 0 whichever row it reads — and lands in the sink."""
     base = agg_fn or gat_aggregate_padded
     n = h_dst.shape[0]
-    out = h_dst.new_zeros((n + sink,) + tuple(h_dst.shape[1:]))
-    for row_ids, nbr, mask in buckets:
+
+    def bucket(p, h_dst, h_src, row_ids, nbr, mask):
         rows = row_ids.long()
         src = rows.clamp(max=n - 1) if sink else rows
-        out.index_copy_(0, rows, base(p, h_dst.index_select(0, src), h_src,
-                                      nbr, mask))
-    return out[:n] if sink else out
+        return base(p, h_dst.index_select(0, src), h_src, nbr, mask)
+
+    return _bucketed(bucket, p, (h_dst, h_src), buckets,
+                     (n + sink,) + tuple(h_dst.shape[1:]), h_dst.dtype, n)
+
+
+def _bucketed(bucket, p: Dict, tables: Tuple, buckets: Sequence,
+              shape: Tuple, dtype, n: int) -> torch.Tensor:
+    """The bucketed layouts' loop: ``bucket(p, *tables, row_ids, nbr,
+    mask)`` for each bucket, copied to node order through ``row_ids``
+    into zeros of ``shape`` (``shape[0] > n``: the sink row, sliced away).
+
+    On a mesh a bucket's rows lie over ``BATCH`` (``BUCKETED_BATCH_SPECS``)
+    while its ``row_ids`` name rows that any rank may own: each rank
+    aggregates its rows of a bucket (``local``, the tables whole), the
+    buckets' results and row ids are gathered whole, and every rank
+    copies them into the whole output, laid out as NA's output after.  A
+    copy, not a sum, so the rows keep their bits."""
+    on_mesh = any(is_dtensor(t) for t in tables)
+    if on_mesh:
+        tables = tuple(replicate(t) for t in tables)
+    rows_all, z_all = [], []
+    for row_ids, nbr, mask in buckets:
+        row_ids = shard(row_ids, BATCH)
+        nbr, mask = shard(nbr, BATCH, None), shard(mask, BATCH, None)
+        z = local(bucket, (p, *tables, row_ids, nbr, mask), None,
+                  lead_placements(nbr))
+        rows_all.append(replicate(row_ids))
+        z_all.append(replicate(z))
+
+    def scatter(like, rows_all, z_all):
+        out = torch.zeros(shape, dtype=dtype, device=like.device)
+        for rows, z in zip(rows_all, z_all):
+            out.index_copy_(0, rows.long(), z)
+        return out[:n] if shape[0] > n else out
+
+    out = local(scatter, (tables[0], rows_all, z_all), None,
+                lead_placements(tables[0]))
+    return shard(out, BATCH, *([None] * (out.dim() - 1))) if on_mesh \
+        else out
 
 
 # ---------------------------------------------------------------------------
@@ -383,11 +422,10 @@ def mean_aggregate_bucketed(
     one, the sink that takes the pads, is sliced away — no host sync, and
     shapes stay a pure function of the rung."""
     base = agg_fn or mean_aggregate_padded
-    out = torch.zeros((n_rows + sink, h_src.shape[-1]), dtype=h_src.dtype,
-                      device=h_src.device)
-    for row_ids, nbr, mask in buckets:
-        out.index_copy_(0, row_ids.long(), base(h_src, nbr, mask))
-    return out[:n_rows] if sink else out
+    return _bucketed(lambda p, h_src, row_ids, nbr, mask: base(h_src, nbr,
+                                                                mask),
+                     {}, (h_src,), buckets, (n_rows + sink, h_src.shape[-1]),
+                     h_src.dtype, n_rows)
 
 
 def mean_aggregate_csr(h_src: torch.Tensor, seg: torch.Tensor,

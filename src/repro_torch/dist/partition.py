@@ -18,11 +18,12 @@ partitioned execution mode needs:
   rewritten from global vertex ids into partition-local coordinates
   (``0..n_max-1`` owned rows, ``n_max..`` halo rows), so every NA gather
   of the partitioned flow reads ``concat(own, halo)``.
-* **The halo exchange**: :func:`gather_halo`.  All K partitions live on
-  one device here, so it is the reference's flat gather
-  (``repro/dist/partition.py:245-247``), which is also what the reference
-  runs off a mesh; its ``shard_map`` all-gather over a device mesh waits
-  for a multi-GPU arm.
+* **The halo exchange**: :func:`gather_halo`.  With all K partitions on
+  one device it is the reference's flat gather
+  (``repro/dist/partition.py:245-247``); on a device mesh whose ``BATCH``
+  axes divide K it is one all-gather of the owned tables over those axes
+  (``halo="auto"``, the reference's ``shard_map`` arm) or DTensor's
+  redistribution (``halo="xla"``), the same bits either way.
 
 ``partition_batch`` is the entry point: it rewrites a model's prepared
 (unpartitioned) host batch into the layout that ``plan.partition`` declares,
@@ -39,6 +40,11 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.dist.sharding import (BATCH, all_gather_rows, batch_group,
+                                       current_mesh, is_dtensor,
+                                       lead_placements, local,
+                                       replicate, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -189,17 +195,50 @@ def local_lut(tp: TypePartition, halos: Sequence[np.ndarray],
 HALO_MODES = ("auto", "xla")
 
 
-def gather_halo(h_own: torch.Tensor, halo_src: torch.Tensor) -> torch.Tensor:
-    """Fetch halo feature rows from the stacked owned tables:
-    ``h_own [K, n_max, ...]``, ``halo_src [K, H_max]`` flat own-order
-    indices -> ``[K, H_max, ...]``: the reference's flat gather, which it
-    also runs off a mesh.  Pad entries name flat index 0, a row of the
-    table, so no index ever leaves it."""
+def _flat_gather(h_own: torch.Tensor, halo_src: torch.Tensor
+                 ) -> torch.Tensor:
+    """``h_own [K, n, ...]`` read at the flat own-order rows ``halo_src
+    [K', H_max]`` -> ``[K', H_max, ...]``."""
     k, n = h_own.shape[:2]
     tail = tuple(h_own.shape[2:])
-    flat = h_own.reshape((k * n,) + tail)
-    out = flat.index_select(0, halo_src.reshape(-1))
+    out = h_own.reshape((k * n,) + tail).index_select(0, halo_src.reshape(-1))
     return out.reshape(tuple(halo_src.shape) + tail)
+
+
+def gather_halo(h_own: torch.Tensor, halo_src: torch.Tensor,
+                mode: str = "auto") -> torch.Tensor:
+    """Fetch halo feature rows from the stacked owned tables:
+    ``h_own [K, n_max, ...]``, ``halo_src [K, H_max]`` flat own-order
+    indices -> ``[K, H_max, ...]`` (the reference's ``:207-240``).  Pad
+    entries name flat index 0, a row of the table, so no index ever leaves
+    it.
+
+    On a mesh (``use_mesh``, DTensor tables) the partition dim ``K`` lies
+    over the ``BATCH`` axes.  With ``mode="auto"``, when those axes have a
+    size above 1 that divides ``K`` and there are halo rows, each rank
+    all-gathers the owned tables once over the ``BATCH`` group
+    (``sharding.all_gather_rows`` inside a ``local`` region, the
+    counterpart of the reference's ``shard_map``) and reads its
+    partitions' halo rows locally: the one communication step of the
+    partitioned flow.  Otherwise (``mode="xla"``, a size of 1, a size that
+    does not divide ``K``) the table is laid out whole on every rank by
+    DTensor's redistribution and each rank reads its rows from it.  Both
+    are row selections of the same table, so they give the same bits;
+    off a mesh this is the flat gather."""
+    if current_mesh() is None or not is_dtensor(h_own):
+        return _flat_gather(h_own, halo_src)
+    k = h_own.shape[0]
+    lead = (BATCH,) + (None,) * (h_own.dim() - 1)
+    h_own = shard(h_own, *lead)  # a partition's rows whole on its rank
+    halo_src = shard(halo_src, BATCH, None)
+    size, group = batch_group(current_mesh())
+    if (mode == "auto" and size > 1 and k % size == 0
+            and halo_src.shape[1] > 0):
+        return local(
+            lambda h, idx: _flat_gather(all_gather_rows(h, group), idx),
+            (h_own, halo_src), None, lead_placements(halo_src))
+    return local(_flat_gather, (replicate(h_own), halo_src), None,
+                 lead_placements(halo_src))
 
 
 # ---------------------------------------------------------------------------

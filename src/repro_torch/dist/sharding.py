@@ -45,20 +45,21 @@ whole before a column-parallel product, the heads' layout kept across a
 ``[..., H * Dh]`` <-> ``[..., H, Dh]`` view.
 
 A hand-written kernel never receives a DTensor.  :func:`local` runs a
-function on the local shards of its DTensor arguments through
-``torch.distributed.tensor.experimental.local_map``, with the input
-placements resolved from the specs the reference's constraints name and
-``redistribute_inputs=False``: an argument laid out otherwise raises
-instead of being moved silently.  An input's gradient is a partial sum
-where the input is replicated over an axis another input is split on.
-Off a mesh it calls the function as it is.
+function on the local shards of the DTensor leaves of its arguments (the
+counterpart of ``shard_map``; what ``torch.distributed.tensor.
+experimental.local_map`` does, for trees of arguments and outputs), with
+the input placements checked against the specs the reference's
+constraints name where the caller gives them: an argument laid out
+otherwise raises instead of being moved silently.  An input's gradient
+is a partial sum where the input is replicated over an axis another
+input is split on.  Off a mesh it calls the function as it is.
 """
 from __future__ import annotations
 
 import contextlib
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -350,42 +351,57 @@ def merge_heads(o, lead: Tuple = (BATCH, None)):
     return y
 
 
-def local(fn, args: Sequence[Any], in_specs: Sequence[Any],
+def local(fn, args: Sequence[Any], in_specs: Optional[Sequence[Any]],
           out_placements: Any):
-    """``fn(*args)`` on the local shards (module docstring).
+    """``fn(*args)`` on the local shards of the DTensor leaves of ``args``
+    (module docstring).
 
-    ``in_specs`` gives, for each argument, a logical spec (a tuple, resolved
-    against that argument's shape), a placement list, or ``None`` for a
-    non-tensor argument; ``out_placements`` is ``local_map``'s (a list of
-    placements an output).  The gradient of an input's local shard is laid
-    out as the input, except on a mesh dimension where the input is
-    replicated and another input is sharded: each rank's computation there
-    used only its part, so its gradient is a partial sum (``Partial()``).
-    Off a mesh, or with no DTensor among the arguments, ``fn(*args)`` runs
-    as it is."""
+    ``args`` may be trees of dicts, lists and tuples.  ``in_specs`` is
+    ``None`` (every DTensor taken as it is laid out: the caller lays it
+    out first, :func:`shard`, :func:`replicate`) or gives, for each
+    argument, a logical spec (a tuple, resolved against that argument's
+    shape), a placement list, or ``None`` (a non-tensor, or a tree taken
+    as laid out); a DTensor laid out otherwise raises.  Every tensor leaf
+    of the output is laid out as ``out_placements``, a placement list; a
+    tuple gives one an output leaf (``None`` for a non-tensor).  The
+    gradient of an input's local shard is laid out as the input, except
+    on a mesh dimension where the input is replicated and another input
+    is sharded: each rank's computation there used only its part, so its
+    gradient is a partial sum (``Partial()``).  Off a mesh, or with no
+    DTensor among the leaves, ``fn(*args)`` runs as it is."""
     mesh = current_mesh()
-    if mesh is None or not any(is_dtensor(a) for a in args):
+    if mesh is None:
         return fn(*args)
-    from torch.distributed.tensor import Placement
-    from torch.distributed.tensor.experimental import local_map
+    from torch.utils import _pytree as pytree
 
-    in_pl = []
-    for a, s in zip(args, in_specs):
+    leaves, arg_tree = pytree.tree_flatten(list(args))
+    if not any(is_dtensor(a) for a in leaves):
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Placement
+
+    for a, s in zip(args, in_specs or ()):
         if s is None or not is_dtensor(a):
-            in_pl.append(None)
-        elif s and all(isinstance(p, Placement) for p in s):
-            in_pl.append(list(s))
-        else:
-            in_pl.append(placements(resolve_spec(a.shape, s, mesh), mesh))
-    def body(*local_args):
-        return fn(*(_ContiguousGrad.apply(a) if isinstance(a, torch.Tensor)
-                    and a.requires_grad else a for a in local_args))
-
-    return local_map(body, out_placements=out_placements,
-                     in_placements=tuple(in_pl),
-                     in_grad_placements=_grad_placements(in_pl),
-                     device_mesh=_device_mesh(mesh),
-                     redistribute_inputs=False)(*args)
+            continue
+        want = (list(s) if s and all(isinstance(p, Placement) for p in s)
+                else placements(resolve_spec(a.shape, s, mesh), mesh))
+        if tuple(a.placements) != tuple(want):
+            raise ValueError(f"local: an argument laid out as "
+                             f"{a.placements}, not {tuple(want)}")
+    in_pl = [list(a.placements) if is_dtensor(a) else None for a in leaves]
+    local_leaves = [_waited(a.to_local(grad_placements=g))
+                    if is_dtensor(a) else a
+                    for a, g in zip(leaves, _grad_placements(in_pl))]
+    out = fn(*pytree.tree_unflatten(
+        [_ContiguousGrad.apply(a) if isinstance(a, torch.Tensor)
+         and a.requires_grad else a for a in local_leaves], arg_tree))
+    flat, out_tree = pytree.tree_flatten(out)
+    per = (out_placements if isinstance(out_placements, tuple)
+           else (out_placements,) * len(flat))
+    dm = _device_mesh(mesh)
+    return pytree.tree_unflatten(
+        [DTensor.from_local(t, dm, p, run_check=False)
+         if isinstance(t, torch.Tensor) else t for t, p in zip(flat, per)],
+        out_tree)
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -412,6 +428,60 @@ def _grad_placements(in_pl):
     return tuple(None if pl is None else
                  [Partial() if p.is_replicate() and split[i] else p
                   for i, p in enumerate(pl)] for pl in in_pl)
+
+
+def _waited(t):
+    """A local shard that a pending collective still writes (DTensor's
+    ``AsyncCollectiveTensor``), waited for; any other tensor as it is."""
+    from torch.distributed._functional_collectives import (
+        AsyncCollectiveTensor)
+
+    return t.wait() if isinstance(t, AsyncCollectiveTensor) else t
+
+
+def replicate(x):
+    """``x`` whole on every rank (:func:`shard` to no split at all)."""
+    if not is_dtensor(x):
+        return x
+    return shard(x, *([None] * x.dim()))
+
+
+def lead_placements(x) -> List:
+    """The placements of a result whose rows follow ``x``'s and whose
+    other dims are whole: ``Shard(0)`` where ``x``'s rows are split,
+    else ``Replicate()`` (None off a mesh)."""
+    if not is_dtensor(x):
+        return None
+    from torch.distributed.tensor import Replicate
+
+    return [p if p.is_shard(0) else Replicate() for p in x.placements]
+
+
+def batch_group(mesh):
+    """The size of the mesh's ``BATCH`` axes and the group that spans them
+    for a collective of ``_functional_collectives``: ``(device_mesh,
+    dim)`` for one axis, the flattened sub-mesh for two (``('pod',
+    'data')``, pod-major, the order JAX's tiled all-gather concatenates
+    in).  ``(1, None)`` when the mesh has no batch axis."""
+    names = tuple(a for a in BATCH if a in mesh.shape)
+    if not names:
+        return 1, None
+    size = math.prod(mesh.shape[a] for a in names)
+    dm = _device_mesh(mesh)
+    if len(names) == 1:
+        return size, (dm, mesh.axis_names.index(names[0]))
+    return size, dm[names]._flatten()
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """A local shard's rows gathered over ``group`` (:func:`batch_group`),
+    in rank order: one all-gather (the counterpart of ``jax.lax.
+    all_gather(..., tiled=True)`` inside ``shard_map``)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    gather = getattr(funcol, "all_gather_single", None) or \
+        funcol.all_gather_tensor
+    return _waited(gather(x.contiguous(), 0, group))
 
 
 def mesh_coordinate(mesh, axis: str) -> int:

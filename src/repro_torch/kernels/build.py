@@ -58,7 +58,7 @@ SIGNATURES: Dict[str, tuple] = {
     "semantic_scores_smem_bytes": ([_I] * 2, _L),
     "flash_attention_launch": ([_P] * 4 + [_I] * 8 + [_F, _I, _P], _I),
     "flash_attention_bf16_instruction": ([], ctypes.c_char_p),
-    "decode_attention_launch": ([_P] * 7 + [_I] * 7 + [_F, _I, _P], _I),
+    "decode_attention_launch": ([_P] * 8 + [_I] * 7 + [_F, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -53,7 +53,13 @@
 //  2. decode_combine_kernel: one block per (head, batch row) rescales the
 //     live splits' partials to their common max (the weights exp(m_s - m)
 //     computed once, in shared memory) and sums them in split order, so
-//     the result is the same bits on every run.  It is launched as a
+//     the result is the same bits on every run.  With an `lse` buffer it
+//     also writes the row's log-sum-exp m + log(l) in fp32 (the
+//     log-sum-exp form: a rank's partial over its shard of a
+//     sequence-sharded cache, which the caller combines across ranks); a
+//     row with no live cache row writes o = 0 and lse = -1e30, as the
+//     plain partial does.  The output o is the same bits with or without
+//     it.  The combine is launched as a
 //     programmatic dependent of the split kernel: its blocks start while
 //     the split kernel runs and wait on the device (griddepcontrol.wait)
 //     for its partials, which hides the second launch's latency.
@@ -366,7 +372,8 @@ __global__ void __launch_bounds__(kMaxD)
 decode_combine_kernel(const float* __restrict__ part_ml,
                       const float* __restrict__ part_acc,
                       const int* __restrict__ kv_len, T* __restrict__ out,
-                      int S, int H, int D, int split, int nsplit) {
+                      float* __restrict__ lse, int S, int H, int D,
+                      int split, int nsplit) {
   __shared__ float Ws[kCombineChunk];  // exp(m_s - m) of a chunk of splits
   __shared__ float Red[kMaxD / 32];
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
@@ -403,6 +410,10 @@ decode_combine_kernel(const float* __restrict__ part_ml,
     }
   }
   if (tid < D) store(out + row * D + tid, a / fmaxf(l, 1e-30f));
+  // no live split: m is still -1e30 and l 0, so o is 0; the log-sum-exp
+  // form names such a row with -1e30, as the plain partial does
+  if (lse != nullptr && tid == 0)
+    lse[row] = live > 0 ? m + logf(fmaxf(l, 1e-30f)) : kNegInf;
 }
 
 template <typename T, int BYTES>
@@ -426,8 +437,8 @@ int launch_split(const void* q, const void* k, const void* v,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* kv_len,
-           float* part_ml, float* part_acc, void* out, int B, int S, int H,
-           int KVH, int D, int split, int nsplit, float scale,
+           float* part_ml, float* part_acc, void* out, float* lse, int B,
+           int S, int H, int KVH, int D, int split, int nsplit, float scale,
            cudaStream_t stream) {
   if (B == 0 || H == 0) return 0;
   if (D < 1 || D > kMaxD || KVH < 1 || H % KVH != 0 || split < 1 ||
@@ -462,8 +473,8 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, decode_combine_kernel<T>, part_ml,
-                                 part_acc, kv_len, static_cast<T*>(out), S,
-                                 H, D, split, nsplit);
+                                 part_acc, kv_len, static_cast<T*>(out), lse,
+                                 S, H, D, split, nsplit);
 }
 
 }  // namespace
@@ -471,18 +482,21 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len,
 // q/out [B, H, D], k/v [B, S, KVH, D], contiguous, all fp32 (bf16 = 0) or
 // all bf16 (bf16 = 1); kv_len [B] int32 on the device; H a multiple of
 // KVH; 1 <= D <= 128.  part_ml [B, H, nsplit, 2] and part_acc [B, H,
-// nsplit, D] fp32 scratch, split * nsplit >= S.  Launches both kernels on
-// `stream` and returns the cudaError_t of the launches (0 on success).
+// nsplit, D] fp32 scratch, split * nsplit >= S.  lse [B, H] fp32, or null:
+// each row's log-sum-exp of its scaled scores over its live rows (-1e30
+// for a row with none).  Launches both kernels on `stream` and returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const int* kv_len,
                                        float* part_ml, float* part_acc,
-                                       void* out, int B, int S, int H,
-                                       int KVH, int D, int split, int nsplit,
-                                       float scale, int bf16, void* stream) {
+                                       void* out, float* lse, int B, int S,
+                                       int H, int KVH, int D, int split,
+                                       int nsplit, float scale, int bf16,
+                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<__nv_bfloat16>(q, k, v, kv_len, part_ml, part_acc,
-                                      out, B, S, H, KVH, D, split, nsplit,
-                                      scale, st)
-              : launch<float>(q, k, v, kv_len, part_ml, part_acc, out, B, S,
-                              H, KVH, D, split, nsplit, scale, st);
+                                      out, lse, B, S, H, KVH, D, split,
+                                      nsplit, scale, st)
+              : launch<float>(q, k, v, kv_len, part_ml, part_acc, out, lse,
+                              B, S, H, KVH, D, split, nsplit, scale, st);
 }

@@ -16,12 +16,24 @@ combines the live splits in split order (no atomics: the same bits on
 every run).  ``kv_len`` stays on
 the device.
 
+The log-sum-exp form (``return_lse=True``) also returns ``lse [B, H]``
+fp32, each row's ``m + log(l)`` over its live rows, written by the
+combine kernel beside ``o`` (``o`` is the same bits either way); a row
+with no live row gives ``o = 0`` and ``lse = -1e30``.  A rank of a
+sequence-sharded cache runs it on its shard, and the ranks' partials are
+combined by their log-sum-exps (``nn/attention.py::_combine_partials``).
+No TPU kernel has this form: the reference leaves a sequence-sharded
+decode to XLA's partial softmaxes.
+
 What bounds it on an H100: bytes — the live K and V rows.
 
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version (:func:`decode_attention_plain`, ``kernels/ref.py``'s oracle); a
 CUDA tensor launches the kernels or raises.  ``decode_attention.launches``
-counts the launches (one a call: both kernels).
+counts the launches (one a call: both kernels);
+``decode_attention.lse_launches`` counts those of the log-sum-exp form
+among them, and only its caller sets it to 0 (``ops.reset_launch_counts``
+leaves it alone, so that it spans several phases of a run).
 :func:`decode_attention_emulate` replays the split loop in PyTorch, so the
 CPU tests check the design, not only the contract.
 """
@@ -41,18 +53,22 @@ NEG_INF = -1e30
 
 
 def decode_attention_emulate(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, kv_len) -> torch.Tensor:
+                             v: torch.Tensor, kv_len,
+                             return_lse: bool = False):
     """The CUDA kernels' algorithm in PyTorch, for the CPU tests: for each
     batch row, the splits holding a row below ``kv_len`` (never a row at or
     past it), each an online softmax over its :data:`TILE`-row tiles in
     fp32 (``q`` scaled before the dot, ``l`` clamped at ``1e-30``), then
-    the partials rescaled to their common max and summed in split order."""
+    the partials rescaled to their common max and summed in split order.
+    ``return_lse``: also each row's ``m + log(max(l, 1e-30))``, ``-1e30``
+    for a row with no live row, as the combine kernel writes it."""
     b, h, dh = q.shape
     s, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     scale = 1.0 / dh ** 0.5
     lens = torch.as_tensor(kv_len).reshape(-1).expand(b).tolist()
     out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
+    lse = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
     for bi in range(b):
         n = min(int(lens[bi]), s)
         qb = q[bi].float() * scale  # [H, Dh]
@@ -85,6 +101,9 @@ def decode_attention_emulate(q: torch.Tensor, k: torch.Tensor,
             l_all = l_all + l * w
             acc_all = acc_all + acc * w
         out[bi] = acc_all / torch.clamp(l_all, min=1e-30)
+        lse[bi] = (m_all + torch.log(torch.clamp(l_all, min=1e-30)))[:, 0]
+    if return_lse:
+        return out.to(q.dtype), lse
     return out.to(q.dtype)
 
 
@@ -120,14 +139,15 @@ def check_kernel_args(q, k, v, kv_len) -> None:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_len) -> torch.Tensor:
+                     kv_len, return_lse: bool = False):
     """``q [B, H, Dh]`` over the first ``kv_len[b]`` rows of ``k, v [B, S,
-    KVH, Dh]`` -> ``[B, H, Dh]`` in ``q.dtype``.  On the card ``kv_len``
-    is an int32 ``[B]`` tensor on the same device, never read by the
-    host."""
+    KVH, Dh]`` -> ``[B, H, Dh]`` in ``q.dtype``; with ``return_lse``
+    ``(o, lse [B, H] fp32)`` (the module docstring).  On the card
+    ``kv_len`` is an int32 ``[B]`` tensor on the same device, never read
+    by the host."""
     dev = build.device_of("decode_attention", (q, k, v))
     if dev.type == "cpu":
-        return decode_attention_plain(q, k, v, kv_len)
+        return decode_attention_plain(q, k, v, kv_len, return_lse=return_lse)
     if dev.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {dev}")
     check_kernel_args(q, k, v, kv_len)
@@ -139,26 +159,33 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part_acc = torch.empty((b, h, nsplit, dh), dtype=torch.float32,
                            device=dev)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=dev)
+           if return_lse else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, s, h,
-        kvh, dh, SPLIT_ROWS, nsplit, 1.0 / dh ** 0.5,
-        int(q.dtype == torch.bfloat16), stream)
+        part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, s, h, kvh, dh,
+        SPLIT_ROWS, nsplit, 1.0 / dh ** 0.5, int(q.dtype == torch.bfloat16),
+        stream)
     build.check(err, "decode_attention")
     decode_attention.launches += 1
-    return out
+    if return_lse:
+        decode_attention.lse_launches += 1
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0
+decode_attention.lse_launches = 0
 
 
-def work(q, k, kv_len):
+def work(q, k, kv_len, return_lse: bool = False):
     """``(bytes, operations)`` of one call: the live cache rows of k and v,
-    q, the output and kv_len; 4 Dh operations a head a live row."""
+    q, the output, kv_len and, in the log-sum-exp form, the fp32 ``lse``;
+    4 Dh operations a head a live row."""
     b, h, dh = q.shape
     lens = torch.as_tensor(kv_len).reshape(-1).expand(b)
-    live = int(lens.clamp(max=k.shape[1]).sum())
+    live = int(lens.clamp(min=0, max=k.shape[1]).sum())
     n_bytes = ((2 * live * k.shape[2] * dh + 2 * q.numel())
-               * q.element_size() + 4 * b)
+               * q.element_size() + 4 * b + 4 * b * h * return_lse)
     return n_bytes, 4 * live * h * dh

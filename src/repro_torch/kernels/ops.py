@@ -188,15 +188,17 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     return ref.mha_attention(q, k, v, causal=causal, window=window)
 
 
-def decode_attention(q, k, v, kv_len, use_pallas: bool = False
-                     ) -> torch.Tensor:
+def decode_attention(q, k, v, kv_len, use_pallas: bool = False,
+                     return_lse: bool = False):
     """One-token GQA attention over the first ``kv_len[b]`` cache rows:
-    ``q [B, H, Dh]``, ``k, v [B, S, KVH, Dh]`` -> ``[B, H, Dh]``."""
+    ``q [B, H, Dh]``, ``k, v [B, S, KVH, Dh]`` -> ``[B, H, Dh]``; with
+    ``return_lse`` also each row's log-sum-exp ``[B, H]`` fp32 (a rank's
+    partial over its shard of a sequence-sharded cache)."""
     if use_pallas:
         return declared(
-            "DM", lambda: _dec.work(q, k, kv_len),
-            _dec.decode_attention, q, k, v, kv_len)
-    return ref.decode_attention(q, k, v, kv_len)
+            "DM", lambda: _dec.work(q, k, kv_len, return_lse),
+            _dec.decode_attention, q, k, v, kv_len, return_lse=return_lse)
+    return ref.decode_attention(q, k, v, kv_len, return_lse=return_lse)
 
 
 def reset_launch_counts() -> None:

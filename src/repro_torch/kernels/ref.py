@@ -189,8 +189,15 @@ def decode_attention(
     k: torch.Tensor,  # [B, S, KVH, Dh] cache
     v: torch.Tensor,  # [B, S, KVH, Dh]
     kv_len,  # [B] int tensor or int: valid cache length
-) -> torch.Tensor:
-    """One-token GQA attention over the first ``kv_len[b]`` cache rows."""
+    return_lse: bool = False,
+):
+    """One-token GQA attention over the first ``kv_len[b]`` cache rows.
+    ``return_lse``: the log-sum-exp form, ``(o, lse)`` as
+    :func:`decode_partial` computes them, ``o`` cast to ``q.dtype``."""
+    if return_lse:
+        o, lse = decode_partial(q, k, v, torch.as_tensor(
+            kv_len, device=q.device).reshape(-1).expand(q.shape[0]))
+        return o.to(q.dtype), lse
     b, h, dh = q.shape
     s, kvh = k.shape[1], k.shape[2]
     qg = q.reshape(b, kvh, h // kvh, dh)
@@ -199,3 +206,24 @@ def decode_attention(
     valid = torch.arange(s, device=q.device)[None, :] < kv_len
     p = _attention_probs(scores, dh, valid[:, None, None, :], q.dtype)
     return torch.einsum("bkgt,btkd->bkgd", p, v).reshape(b, h, dh)
+
+
+def decode_partial(q, k, v, kv_len):
+    """One-token attention over one shard of a cache, with the rows'
+    log-sum-exp: ``(o [B, H, Dh] fp32, lse [B, H] fp32)``, the scaled
+    scores' ``m + log(l)``; a row with no live cache row gives ``o = 0``
+    and ``lse = -1e30``.  ``kv_len [B]`` counts the shard's live rows."""
+    b, h, dh = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, dh)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k).float() / math.sqrt(dh)
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < kv_len.reshape(-1, 1))[:, None, None, :]
+    scores = torch.where(valid, scores, -1e30)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgt,btkd->bkgd", p / torch.clamp(l, min=1e-30),
+                     v.float())
+    lse = (m + torch.log(torch.clamp(l, min=1e-30)))[..., 0]
+    return o.reshape(b, h, dh), lse.reshape(b, h)

@@ -126,16 +126,18 @@ group of one rank.  :func:`build_hgnn_infer` lays the parameters and the
 batch out by the plan's sharding rules (:func:`hgnn_shardings`: FP weights
 over ``'model'``, destination-node tables over the ``BATCH`` axes, source
 pools replicated) and runs the forward under ``use_mesh``; each kernel
-call runs on a rank's shards (``local_map``).  Rank 0 prints the
+call runs on a rank's shards (``dist.sharding.local``).  Rank 0 prints the
 reference's line with the mesh in place of ``single-device``:
 
   han/imdb [na=gat/stacked +fused-sa] logits (4278, 8) on {'data': 2, 'model': 1}: ... ms/iter
 
-This slice runs HAN's ``stacked`` layout on a mesh (fused epilogue or
-not, kernel or plain arm); a ``csr`` plan raises the reference's
-``ValueError``, and the other layouts and models, partitioned and
-sampled plans raise ``NotImplementedError`` (ROADMAP Queue 1 item 19,
-its next slice).
+Every plan of HAN, RGCN and MAGNN runs on a mesh, with ``--partitions``
+(the halo exchange one all-gather over the ``data`` axis when it divides
+K), ``--degree-buckets``, ``--layers``, ``--cache-rows`` and
+``--overlap`` (the serial forward, as in the reference: no overlap line);
+a ``csr`` plan raises the reference's ``ValueError``, and ``--fanout`` is
+refused, as the reference's CLI refuses it.  ``--characterize`` on a mesh
+prints the stage records of the mesh forward.
 """
 from __future__ import annotations
 
@@ -189,22 +191,20 @@ def hgnn_shardings(plan, params: Any, batch: Any, mesh):
 
 
 def _check_mesh_plan(plan) -> None:
-    """The plans this slice runs on a mesh: the stacked NA layout (HAN's)
-    with no partitions, sampling, residency or schedule."""
+    """The reference's refusal on a mesh (a ``csr`` plan: gather/scatter
+    cannot shard), and its CLI's (request-path serving runs single-device
+    or graph-partitioned)."""
     if not plan.shards_on_mesh:
         raise ValueError(
             f"sharded HGNN inference needs a padded NA layout, but "
             f"{plan.model}'s plan resolved to 'csr' (gather/scatter cannot "
             "shard): set cfg.fused=True for HAN/RGCN; GCN has no sharded "
             "layout")
-    if (plan.na.layout != "stacked"
-            or plan.partition is not None or plan.sample is not None
-            or plan.residency is not None or plan.schedule is not None):
-        raise NotImplementedError(
-            f"{plan.model} [{plan.na.kind}/{plan.na.layout}] on a device "
-            "mesh: this slice runs HAN's stacked layout (no partitions, "
-            "sampling, residency or overlap); the other arms are the next "
-            "slice of ROADMAP Queue 1 item 19")
+    if plan.sample is not None:
+        raise ValueError(
+            f"{plan.model}: request-path serving (a sampled plan, "
+            "cfg.fanout >= 1) runs single-device or graph-partitioned "
+            "(--partitions); it does not combine with a device mesh")
 
 
 def build_hgnn_infer(cfg: HGNNConfig, hg, device: DeviceLike = None,
@@ -222,10 +222,14 @@ def build_hgnn_infer(cfg: HGNNConfig, hg, device: DeviceLike = None,
     With a mesh (one with a ``DeviceMesh``, ``launch/mesh``) the
     parameters and the batch are laid out by :func:`hgnn_shardings` (the
     same full tensors on every rank, each keeping its shard) and ``fn``
-    runs the forward under ``use_mesh``, returning the logits as a DTensor
-    (rows over the batch axes).  A ``csr`` plan is refused on a mesh, as
-    in the reference.  With ``mesh=None`` this is the one-device path, bit
-    for bit."""
+    runs the forward under ``use_mesh``, returning the logits as a DTensor.
+    Every plan but a ``csr`` one (refused, as in the reference) and a
+    sampled one (refused, as the reference's CLI refuses it) runs there:
+    the stacked, bucketed and padded layouts, MAGNN's instances, hidden
+    layers, residency, partitioned plans (``gather_halo`` by
+    ``plan.partition.halo``), and a plan with a schedule as the serial
+    forward, as in the reference.  With ``mesh=None`` this is the
+    one-device path, bit for bit."""
     from repro_torch.core.models import get_model
 
     dev = resolve_device(device)
@@ -461,7 +465,7 @@ def run_hgnn(args) -> None:
               f"logits {tuple(logits.shape)} on "
               f"{dict(mesh.shape) if mesh is not None else 'single-device'}: "
               f"{dt*1e3:.2f} ms/iter")
-        if built.plan.schedule is not None:
+        if built.plan.schedule is not None and mesh is None:
             ov = built.executor.overlap_record()
             d = built.executor.last_dispatch
             print(f"  overlap: depth={ov['depth']} stages={ov['stages']} "
@@ -478,8 +482,10 @@ def run_hgnn(args) -> None:
         if args.characterize:
             # one stage_records call gives the stage lines and the partition
             # summary
-            recs = built.executor.stage_records(built.params, built.batch,
-                                                timed=dev.type == "cuda")
+            with use_mesh(mesh) if mesh is not None else \
+                    contextlib.nullcontext():
+                recs = built.executor.stage_records(
+                    built.params, built.batch, timed=dev.type == "cuda")
             for stage, rec in recs["stages"].items():
                 print(f"  {stage}: {stage_line(rec)}")
             if "partition" in recs:

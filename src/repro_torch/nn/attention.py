@@ -36,12 +36,13 @@ caches ``(BATCH, seq, kvh, None)`` with the sequence over ``'model'``
 under ``cfg.decode_kv_shard_seq`` and the kv heads over it otherwise, the
 decode output ``(BATCH, MODEL, None)``.  The attention itself (kernel,
 plain or chunked) runs on each rank's shards through ``dist.sharding.
-local`` (``local_map``): a rank whose q heads are sharded but whose kv
-heads are not (KVH does not divide the axis) reads the kv heads its q
-heads use.  A decode over a sequence-sharded cache of more than one rank
+local``: a rank whose q heads are sharded but whose kv heads are not
+(KVH does not divide the axis) reads the kv heads its q heads use.  A
+decode over a sequence-sharded cache of more than one rank
 writes the new row on the rank that holds it and combines the ranks'
-partial softmaxes in rank order (the plain arm; the kernel returns no
-log-sum-exp, so that layout under ``cfg.use_pallas`` raises).  Off a mesh
+partial softmaxes in rank order by their log-sum-exps (the plain arm's
+``ref.decode_partial``, or under ``cfg.use_pallas`` the decode kernel's
+log-sum-exp form on each rank's shard).  Off a mesh
 every constraint is a no-op and the code is the one-device path.
 """
 from __future__ import annotations
@@ -502,14 +503,15 @@ def decode_attend(cfg, q, cache_k, cache_v, kv_len, use_pallas: bool,
         if n_seq == 1:
             return ops.decode_attention(q, kv_sel(q, ck), kv_sel(q, cv),
                                         kv_len, use_pallas=use_pallas)
-        if use_pallas:
-            raise NotImplementedError(
-                "decode over a sequence-sharded cache of more than one rank "
-                "needs each rank's log-sum-exp, which the decode_attention "
-                "kernel does not return (ROADMAP Queue 1 item 19, the next "
-                "slice); run the plain arm")
-        o, lse = _decode_partial(q, ck, cv, torch.clamp(kv_len - s0, 0,
-                                                        s_loc))
+        # this rank's live rows of its shard; the partials are combined
+        # by their log-sum-exps below
+        live = torch.clamp(kv_len - s0, 0, s_loc)
+        if use_pallas:  # under bf16 o is rounded before the combine, once
+            # more than the plain arm's fp32 partials
+            o, lse = ops.decode_attention(q, ck, cv, live.to(torch.int32),
+                                          use_pallas=True, return_lse=True)
+        else:
+            o, lse = kref.decode_partial(q, ck, cv, live)
         return o[None], lse[None]
 
     args = [q, cache_k, cache_v, kv_len]
@@ -528,26 +530,6 @@ def decode_attend(cfg, q, cache_k, cache_v, kv_len, use_pallas: bool,
     o_r, lse_r = local(body, args, in_specs, (part, part))
     return _combine_partials(shard(o_r, None, BATCH, None, None),
                              shard(lse_r, None, BATCH, None), q.dtype)
-
-
-def _decode_partial(q, k, v, kv_len):
-    """``ref.decode_attention`` over one rank's cache rows, with the rows'
-    log-sum-exp: ``(o [B, H, Dh] fp32, lse [B, H])``; a rank with no valid
-    row gives ``o = 0``, ``lse = -1e30``."""
-    b, h, dh = q.shape
-    s, kvh = k.shape[1], k.shape[2]
-    qg = q.reshape(b, kvh, h // kvh, dh)
-    scores = torch.einsum("bkgd,btkd->bkgt", qg, k).float() / math.sqrt(dh)
-    valid = (torch.arange(s, device=q.device)[None, :]
-             < kv_len.reshape(-1, 1))[:, None, None, :]
-    scores = torch.where(valid, scores, NEG_INF)
-    m = scores.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(scores - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bkgt,btkd->bkgd", p / torch.clamp(l, min=1e-30),
-                     v.float())
-    lse = (m + torch.log(torch.clamp(l, min=1e-30)))[..., 0]
-    return o.reshape(b, h, dh), lse.reshape(b, h)
 
 
 def _combine_partials(o_r, lse_r, dtype: torch.dtype):

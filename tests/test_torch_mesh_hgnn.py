@@ -5,7 +5,8 @@ for HAN, RGCN and MAGNN on the tiny graph (each plan's rule tables:
 stacked, bucketed, per-relation, instance and partitioned), the stage
 functions and executor off a mesh bitwise what they were,
 ``build_hgnn_infer(mesh=None)`` unchanged, and the ``csr`` refusal.  Two
-real ranks: ``tests/test_torch_mesh_gloo.py``.
+real ranks: ``tests/test_torch_mesh_gloo.py``; every other plan on a mesh:
+``tests/test_torch_mesh_plans.py``.
 """
 from __future__ import annotations
 
@@ -157,14 +158,6 @@ def test_build_hgnn_infer_without_a_mesh_is_the_forward(tiny_hg,
 def test_csr_plan_is_refused_on_a_mesh(tiny_hg):
     with pytest.raises(ValueError, match="padded NA layout"):
         build_hgnn_infer(HGNNConfig(**SMALL, model="han", fused=False),
-                         _port_hg(tiny_hg), "cpu", mesh=MESH_2x4)
-
-
-@pytest.mark.parametrize("case", ["rgcn_padded", "magnn", "han_bucketed",
-                                  "han_partitioned"])
-def test_arms_of_the_next_slice_are_refused_on_a_mesh(tiny_hg, case):
-    with pytest.raises(NotImplementedError, match="item 19"):
-        build_hgnn_infer(HGNNConfig(**SMALL, **CASES[case]),
                          _port_hg(tiny_hg), "cpu", mesh=MESH_2x4)
 
 
