@@ -108,8 +108,17 @@ mesh-less launches and no collective, timed in turns; the decode
 kernel's log-sum-exp form against its plain version and a cache split
 into 2 and 4 shards combined against the whole-cache kernel (9e); then
 the granite-8b dry run on the 16x16 production mesh over the fake
-process group (9c, a subprocess a shape, no device memory).  It imports nothing of jax or of the JAX
-package ``repro``.
+process group (9c, a subprocess a shape, no device memory).  Phase 10,
+elastic restart on a 1-rank NCCL mesh: smollm-360m at full width trained
+on the mesh from ``reshard_state(state, state_shardings(...))`` bitwise
+the mesh-less step (10a), checkpointed from the mesh, restored with
+``restore(shardings=)`` onto a fresh mesh and trained on bitwise an
+uninterrupted run (10b), HAN/imdb partitioned in two served with its
+parameters replicated on a ``(pod, data, model)`` mesh and on the mesh
+``surviving_mesh`` collapses it to, bitwise with the same launches
+(10c), and ``launch/train.py --distributed`` under ``torchrun`` giving
+the single process's losses (10d).  It imports nothing of jax or of the
+JAX package ``repro``.
 
 Output: progress lines, then the card's name and power limit as
 ``nvidia-smi`` prints them, a ``{"kernels": [...]}`` JSON line, and as the
@@ -3994,6 +4003,398 @@ def mesh_phase(dev, ops, hg, flush) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# elastic restart (phase 10): smollm-360m trained on a 1-rank NCCL mesh,
+# checkpointed and restarted onto a fresh mesh, HAN/imdb served after a
+# mesh collapse, and the training launcher under torchrun
+# ---------------------------------------------------------------------------
+
+ELASTIC_STEPS = 2  # mesh steps before the checkpoint, and after the restart
+LAUNCH_ARGS = ("--arch", "smollm-360m", "--steps", "3", "--seq-len", "128",
+               "--batch", "8")
+LAUNCH_TIMEOUT_S = 300
+
+
+def cuda_mesh(shape, names):
+    """A ``dist.sharding.Mesh`` over the default NCCL group's ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist.sharding import Mesh
+
+    return Mesh.from_device_mesh(init_device_mesh("cuda", shape,
+                                                  mesh_dim_names=names))
+
+
+def bitwise(a, b) -> bool:
+    """Two trees of the same structure, leaf for leaf the same dtype and
+    bits (a DTensor leaf made whole first)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.dist.sharding import whole
+
+    la, lb = tree.leaves(a), tree.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(whole(x), whole(y))
+        for x, y in zip(la, lb))
+
+
+def elastic_train(dev, ops) -> dict:
+    """10a and 10b: smollm-360m as phase 6c trains it (32 layers, bf16,
+    remat full, fp32 AdamW, seq 2048, global batch 8 in 2 microbatches),
+    its state laid out on a ``(data=1, model=1)`` NCCL mesh by
+    ``reshard_state(state, state_shardings(...))`` and trained through
+    ``build_train_step`` / ``jit_step``: two steps bitwise the mesh-less
+    ``make_train_step`` with the same ``segment_sum`` launches, the steps
+    of the two arms taken and timed in turns.  The mesh state after two steps
+    saved through ``AsyncCheckpointer`` (bytes from the manifest, save and
+    restore seconds), restored with ``restore(shardings=)`` onto the mesh
+    that ``surviving_mesh`` leaves of a ``(pod=1, data=1, model=1)`` mesh,
+    two more steps there bitwise the uninterrupted four-step mesh run.  At
+    2 layers, the mesh save's digest equals the mesh-less save's."""
+    import dataclasses
+    import gc
+    import math
+    import shutil
+
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.loader import synth_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import build_train_step, jit_step
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.elastic import reshard_state, surviving_mesh
+    from repro_torch.train.optimizer import build_optimizer
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step,
+                                              state_shardings)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(SMOLLM)
+    shape = ShapeConfig("10a", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt = build_optimizer(cfg)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                             cfg, opt)
+    batches = [launch_train.to_device(synth_batch(cfg, shape, i), dev)
+               for i in range(2 * ELASTIC_STEPS)]
+    mesh = cuda_mesh((1, 1), ("data", "model"))
+
+    def layout(m):
+        return state_shardings(state, opt, m, fsdp=cfg.fsdp,
+                               fsdp_experts=cfg.fsdp_experts)
+
+    def mesh_step(m):
+        return jit_step(build_train_step(cfg, shape, m,
+                                         n_microbatches=TRAIN_MB))
+
+    plain = make_train_step(cfg, opt, n_microbatches=TRAIN_MB)
+    step = mesh_step(mesh)
+    laid = reshard_state(state, layout(mesh))
+
+    def run(fn, s, todo):
+        ops.reset_launch_counts()
+        losses = []
+        for b in todo:
+            s, m = fn(s, b)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        return s, losses, ops.launch_counts()
+
+    # the first steps of both arms in turns (mesh-less, mesh, ...), each
+    # timed and its launches counted alone
+    arms = {"mesh-less": [plain, state, [], {}, []],
+            "mesh": [step, laid, [], {}, []]}
+    for b in batches[:ELASTIC_STEPS]:
+        for arm in arms.values():
+            fn, s_in, losses, counts, walls = arm
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            arm[1], m = fn(s_in, b)
+            losses.append(m["loss"])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            for n, v in ops.launch_counts().items():
+                counts[n] = counts.get(n, 0) + v
+    _, s_plain, l_plain, c_plain, w_plain = arms["mesh-less"]
+    _, s_mesh, l_mesh, c_mesh, w_mesh = arms["mesh"]
+    del arms
+    want_ss = TRAIN_MB * ELASTIC_STEPS
+    check(type(l_mesh[0]).__name__ == "DTensor"
+          and bitwise(l_mesh, l_plain),
+          f"10a: {ELASTIC_STEPS} mesh steps' losses "
+          f"{[float(x.full_tensor()) for x in l_mesh]} bitwise the "
+          f"mesh-less make_train_step's {[float(x) for x in l_plain]}")
+    check(bitwise(s_mesh, s_plain),
+          f"10a: every state leaf after {ELASTIC_STEPS} mesh steps bitwise "
+          f"the mesh-less run's")
+    check(c_mesh == c_plain == dict(dict.fromkeys(c_plain, 0),
+                                    segment_sum=want_ss),
+          f"10a: launches on the mesh {c_mesh}, mesh-less {c_plain} (want "
+          f"{want_ss} segment_sum)")
+    del s_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  10a smollm-360m train step (batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{TRAIN_MB} microbatches), steps 1 / 2 of each arm taken in "
+          f"turns: mesh {' / '.join(f'{w:.2f}' for w in w_mesh)} ms, "
+          f"mesh-less {' / '.join(f'{w:.2f}' for w in w_plain)} ms")
+    print(f"  card: {card_line()}")
+
+    # 10b: the checkpoint of the mesh state, and the restart
+    root = ROOT / "build" / "phase10_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        saver = ckpt.AsyncCheckpointer(str(root / "mesh"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saver.submit(s_mesh, ELASTIC_STEPS)
+        submit_s = time.perf_counter() - t0
+        saver.close()
+        save_s = time.perf_counter() - t0
+        d = root / "mesh" / f"step_{ELASTIC_STEPS:08d}"
+        manifest = json.loads((d / "manifest.json").read_text())
+        size = {"bfloat16": 2, "float32": 4, "int32": 4}
+        n_bytes = sum(math.prod(sh) * size[dt] for sh, dt in
+                      zip(manifest["shapes"], manifest["dtypes"]))
+        file_bytes = (d / "shard_00000.npz").stat().st_size
+        by_dtype = {}
+        for sh, dt in zip(manifest["shapes"], manifest["dtypes"]):
+            by_dtype[dt] = by_dtype.get(dt, 0) + math.prod(sh) * size[dt]
+        print(f"  10b checkpoint of the mesh state at step {ELASTIC_STEPS}: "
+              f"{manifest['n_leaves']} leaves, {n_bytes} bytes by the "
+              f"manifest ({by_dtype}), a {file_bytes}-byte .npz; "
+              f"AsyncCheckpointer.submit (gather + copy to the host) "
+              f"{submit_s:.2f} s, submit to close (written, digest, "
+              f"published) {save_s:.2f} s")
+        whole, l_whole, c_whole = run(step, s_mesh, batches[ELASTIC_STEPS:])
+        fresh = surviving_mesh(cuda_mesh((1, 1, 1), ("pod", "data",
+                                                      "model")), [])
+        check(fresh.axis_names == ("data", "model")
+              and fresh.device_mesh.device_type == "cuda",
+              f"10b: surviving_mesh of (pod=1, data=1, model=1) with no "
+              f"pod lost: {fresh}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = ckpt.restore(str(root / "mesh"), state,
+                            shardings=layout(fresh))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        print(f"  10b restore(shardings=) onto the fresh mesh: "
+              f"{restore_s:.2f} s (read, digest, upload, lay out)")
+        check(bitwise(back, s_mesh) and all(
+            x.device_mesh == fresh.device_mesh
+            for x in tree.leaves(back)),
+              "10b: the restored state bitwise the saved one, on the fresh "
+              "mesh")
+        del s_mesh
+        restarted, l_restart, c_restart = run(mesh_step(fresh), back,
+                                              batches[ELASTIC_STEPS:])
+        check(bitwise(l_restart, l_whole) and bitwise(restarted, whole),
+              f"10b: {ELASTIC_STEPS} steps after the restart: losses "
+              f"{[float(x.full_tensor()) for x in l_restart]} and state "
+              f"bitwise the uninterrupted {2 * ELASTIC_STEPS}-step mesh run")
+        check(c_restart == c_whole == c_mesh,
+              f"10b: launches after the restart {c_restart}, uninterrupted "
+              f"{c_whole}")
+        del back, restarted, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the digest at 2 layers of full width
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        opt2 = build_optimizer(cfg2)
+        st2 = init_train_state(torch.Generator(device=dev).manual_seed(1),
+                               cfg2, opt2)
+        laid2 = reshard_state(st2, state_shardings(
+            st2, opt2, mesh, fsdp=cfg2.fsdp, fsdp_experts=cfg2.fsdp_experts))
+        digests = {}
+        for tag, s in (("mesh", laid2), ("mesh-less", st2)):
+            ckpt.save(s, str(root / f"two_{tag}"), step=0)
+            dd = root / f"two_{tag}" / "step_00000000"
+            digests[tag] = (json.loads((dd / "manifest.json").read_text()),
+                            (dd / "shard_00000.npz").read_bytes())
+        check(digests["mesh"] == digests["mesh-less"],
+              f"10b: at 2 layers the mesh save's manifest (digest "
+              f"{digests['mesh'][0]['digest']['0'][:16]}...) and .npz equal "
+              f"the mesh-less save's (digest "
+              f"{digests['mesh-less'][0]['digest']['0'][:16]}...)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"step_ms": {"mesh": w_mesh, "mesh-less": w_plain},
+            "losses": [float(x) for x in l_plain],
+            "launches": {"mesh": c_mesh["segment_sum"]
+                         + c_whole["segment_sum"]
+                         + c_restart["segment_sum"],
+                         "mesh-less": c_plain["segment_sum"]},
+            "checkpoint": {"bytes": n_bytes, "file_bytes": file_bytes,
+                           "by_dtype": by_dtype,
+                           "n_leaves": manifest["n_leaves"],
+                           "submit_s": submit_s, "save_s": save_s,
+                           "restore_s": restore_s}}
+
+
+def elastic_serve(dev, ops, hg) -> dict:
+    """10c: HAN/imdb at full width (fused, partitioned in 2, use_pallas) on
+    the serve CLI's request mix (32 requests, 8 slots of 4 targets, fan-out
+    8), its parameters replicated on a ``(pod=1, data=1, model=1)`` NCCL
+    mesh and resharded onto ``surviving_mesh(mesh, [])`` (the collapse to
+    ``(data, model)``): each serve bitwise the mesh-less one with the same
+    ``gat_na`` launches (unstacked, one a partition; the partitioned SA
+    runs its plain version, as the reference's partitioned forward runs
+    XLA only), and a serve losing partition 0 at step 3 bitwise too."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import HGNNConfig
+    from repro_torch.dist.sharding import NamedSharding, P
+    from repro_torch.launch.serve import build_hgnn_infer, request_queue
+    from repro_torch.serve.engine import HGNNServeEngine
+    from repro_torch.serve.faults import Fault, FaultInjector
+    from repro_torch.serve.sampler import HGNNSampler
+    from repro_torch.train.elastic import reshard_state, surviving_mesh
+
+    cfg = HGNNConfig(model="han", dataset="imdb", fused=True, partitions=2,
+                     use_pallas=True, fanout=SERVE_FANOUT)
+    b = build_hgnn_infer(cfg, hg, dev)
+    sampler = HGNNSampler(b.plan, cfg, hg)
+    pods = cuda_mesh((1, 1, 1), ("pod", "data", "model"))
+    survivors = surviving_mesh(pods, failed_pods=[])
+    check(survivors.axis_names == ("data", "model")
+          and tuple(survivors.shape.values()) == (1, 1),
+          f"10c: surviving_mesh of {pods} with no pod lost collapses to "
+          f"{survivors}")
+
+    def replicated(m):
+        return tree.map(lambda _: NamedSharding(m, P()), b.params)
+
+    p_pods = reshard_state(b.params, replicated(pods))
+    p_surv = reshard_state(p_pods, replicated(survivors))
+    check(all(x.device_mesh == survivors.device_mesh
+              for x in tree.leaves(p_surv) if torch.is_tensor(x)),
+          "10c: every parameter replicated on the survivors' mesh")
+
+    def serve(params, inj=None):
+        eng = HGNNServeEngine(b.executor, params, sampler,
+                              slots=SERVE_SLOTS,
+                              slot_targets=SERVE_SLOT_TARGETS, fn=b.fn,
+                              injector=inj)
+        reqs = request_queue(sampler.n_target_type, SERVE_SLOT_TARGETS,
+                             SERVE_REQUESTS)
+        ops.reset_launch_counts()
+        eng.warmup()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        return eng, reqs, ops.launch_counts()
+
+    runs = {"mesh-less": serve(b.params), "pods": serve(p_pods),
+            "survivors": serve(p_surv),
+            "failover": serve(p_surv, FaultInjector(
+                [Fault(step=3, kind="partition", partition=0)]))}
+    _, want, c_plain = runs["mesh-less"]
+    for tag, (eng, reqs, counts) in runs.items():
+        rs = eng.stats()["resilience"]
+        check(all(r.status == "OK" for r in reqs) and rs["failed_steps"] == 0
+              and rs["retries"] == 0 and eng.device.type == "cuda",
+              f"10c {tag}: {len(reqs)} requests OK on {eng.device}, no "
+              f"failed step, no retry")
+        if tag == "mesh-less":
+            continue
+        check(all(np.array_equal(r.logits, w.logits)
+                  for r, w in zip(reqs, want)),
+              f"10c {tag}: every request's logits bitwise the mesh-less "
+              f"serve's")
+    for tag in ("pods", "survivors"):
+        counts = runs[tag][2]
+        check(counts == c_plain == dict(dict.fromkeys(c_plain, 0),
+                                        gat_na=c_plain["gat_na"])
+              and c_plain["gat_na"] > 0,
+              f"10c {tag}: launches {counts} = mesh-less {c_plain} (gat_na "
+              f"only)")
+    eng_f = runs["failover"][0]
+    check(eng_f.stats()["resilience"]["partition_failovers"] == 1
+          and eng_f._serve_plan.partition.k == 1,
+          f"10c failover: partition 0 lost at step 3, "
+          f"{eng_f._serve_plan.partition.k} partition served after it")
+    c_fail = runs["failover"][2]
+    n_targets = sum(len(r.targets) for r in want)
+    print(f"  10c han/imdb +partitions=2 served {len(want)} requests "
+          f"({n_targets} targets, {runs['mesh-less'][0].stats()['steps']} "
+          f"steps) on the mesh-less, pod-mesh, survivors' and failover "
+          f"runs; launches a run {c_plain}, failover {c_fail}")
+    mesh_launches = {"gat_na": sum(runs[t][2]["gat_na"] for t in
+                                   ("pods", "survivors", "failover"))}
+    return {"launches": mesh_launches, "mesh_less_launches": c_plain,
+            "failover_launches": c_fail, "requests": len(want),
+            "targets": n_targets}
+
+
+def elastic_launcher() -> dict:
+    """10d: ``launch/train.py`` under ``torchrun --standalone
+    --nproc_per_node 1 ... --distributed`` (one NCCL rank on the card) and
+    without it, each a subprocess with a timeout: the same step losses."""
+    import os
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmds = {"torchrun": [sys.executable, "-m", "torch.distributed.run",
+                         "--standalone", "--nproc_per_node", "1", "-m",
+                         "repro_torch.launch.train", "--distributed",
+                         *LAUNCH_ARGS],
+            "single": [sys.executable, "-m", "repro_torch.launch.train",
+                       *LAUNCH_ARGS]}
+    out = {}
+    for tag, cmd in cmds.items():
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env,
+                                cwd=ROOT, start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            stdout, stderr = proc.communicate()
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("step")]
+        out[tag] = {"rc": proc.returncode, "seconds":
+                    time.perf_counter() - t0,
+                    "losses": [ln.split()[3] for ln in lines]}
+        check(proc.returncode == 0 and len(lines) == 3,
+              f"10d {tag}: rc {proc.returncode}, {len(lines)} step lines in "
+              f"{out[tag]['seconds']:.1f} s"
+              + ("" if proc.returncode == 0 else f": {stderr[-2000:]}"))
+        for ln in stdout.splitlines()[:1] + lines:
+            print(f"    {tag}: {ln}")
+    check(out["torchrun"]["losses"] == out["single"]["losses"],
+          f"10d: the distributed launcher's losses "
+          f"{out['torchrun']['losses']} = the single process's "
+          f"{out['single']['losses']}")
+    return out
+
+
+def elastic_phase(dev, ops, hg) -> dict:
+    """Phase 10: a 1-rank NCCL process group (``HashStore``) for 10a, 10b
+    and 10c, destroyed at the end of them; then 10d, whose torchrun opens
+    its own."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        t = time.perf_counter()
+        rec = {"train": elastic_train(dev, ops)}
+        print(f"  10a/10b: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        rec["serve"] = elastic_serve(dev, ops, hg)
+        print(f"  10c: {time.perf_counter() - t:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    t = time.perf_counter()
+    rec["launcher"] = elastic_launcher()
+    print(f"  10d: {time.perf_counter() - t:.1f} s")
+    return rec
+
+
 def characterization(hg, hg_r, dev) -> dict:
     """Phase 3l: ``stage_records(timed=True)`` through
     ``HGNNInferEngine.characterize`` on HAN/imdb's baseline (``csr``) and
@@ -4870,6 +5271,28 @@ def main() -> None:
                                          "lse_form_launches"])
     print(f"phase 9: {time.perf_counter() - t9:.1f} s")
 
+    # ---------------- phase 10: elastic restart ----------------
+    t10 = time.perf_counter()
+    print("phase 10: elastic restart on a 1-rank NCCL mesh: 10a smollm-360m "
+          "trained on the mesh bitwise the mesh-less step; 10b its "
+          "checkpoint restored onto a fresh mesh and trained on, bitwise an "
+          "uninterrupted run; 10c HAN/imdb served after the mesh collapses "
+          "(surviving_mesh); 10d launch/train.py --distributed under "
+          "torchrun")
+    print(f"  card: {card_line()}")
+    elastic_rec = elastic_phase(dev, ops, hg)
+    elastic_launches = {"segment_sum":
+                        elastic_rec["train"]["launches"]["mesh"],
+                        **elastic_rec["serve"]["launches"]}
+    for entry in kernels:
+        if entry["name"] in elastic_launches:
+            n = elastic_launches[entry["name"]]
+            check(n > 0, f"{entry['name']} launched {n} times on the elastic "
+                  f"paths")
+            entry["launches"] += n
+            entry["elastic_launches"] = n
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s")
+
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
@@ -4897,6 +5320,7 @@ def main() -> None:
                       "partitioned": part_rec,
                       "overlap": ov_rec,
                       "mesh": mesh_rec,
+                      "elastic": elastic_rec,
                       "profiles": profiles}))
     if failures:
         print(f"FAILED: {failures}", file=sys.stderr)

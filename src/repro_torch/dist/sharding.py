@@ -226,6 +226,18 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as one full tensor on this rank: a plain tensor as it is, a
+    DTensor replicated on every mesh dimension from the rank's own copy
+    (no collective), any other DTensor gathered over its mesh (a
+    collective every rank of the mesh enters; a ``Partial`` one summed)."""
+    if not is_dtensor(x):
+        return x
+    if all(p.is_replicate() for p in x.placements):
+        return _waited(x.to_local())
+    return x.full_tensor()
+
+
 def distribute(x: torch.Tensor, sharding: NamedSharding):
     """``x`` (the same full tensor on every rank) laid out as
     ``sharding`` says: a DTensor holding this rank's shard, cut from its
@@ -240,18 +252,30 @@ def distribute_tree(values, shardings):
     """Every tensor of ``values`` laid out as the matching
     ``NamedSharding`` of ``shardings`` (a tree of ``values``' structure)
     says: a plain tensor (the same full tensor on every rank) is
-    distributed, a DTensor redistributed; other leaves (host integers,
-    ``None``) stay as they are."""
+    distributed, a DTensor on the same mesh redistributed; other leaves
+    (host integers, ``None``) stay as they are.
+
+    A DTensor on another mesh (``jax.device_put`` onto another mesh) is
+    made whole on this rank first: a leaf replicated on its old mesh from
+    the rank's own copy, with no collective, so the ranks of a surviving
+    mesh go on without the lost ones; a sharded leaf by gathering it over
+    its old mesh, which needs every rank of that mesh alive.  The whole
+    tensor is then distributed onto the new mesh as :func:`distribute`
+    does.  Sharded state crosses a failure only through a checkpoint, as
+    in the reference (``train/checkpoint.restore(shardings=)``)."""
     from repro_torch import tree
 
     if isinstance(shardings, NamedSharding):
         if not isinstance(values, torch.Tensor):
             return values
         if is_dtensor(values):
+            dm = _device_mesh(shardings.mesh)
+            if values.device_mesh != dm:
+                return distribute(whole(values), shardings)
             want = tuple(shardings.placements())
             if tuple(values.placements) == want:
                 return values
-            return values.redistribute(_device_mesh(shardings.mesh), want)
+            return values.redistribute(dm, want)
         return distribute(values, shardings)
     if shardings is None:
         return values

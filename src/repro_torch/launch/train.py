@@ -10,12 +10,25 @@ The weights are drawn from seed 0 on the device (``init_lm_params``, or
 ``jax.random``, so the two runs start from other weights).  The loader's
 batches carry internvl2's ``extra_embeds`` and seamless's ``frames``.  One line names the device, then one line a step, as the
 reference prints it; the host reads the loss back once a step.
-``--distributed`` (one process a host over a device mesh) waits for the
-next slice of ROADMAP Queue 1 item 19: multi-rank training.
+
+On a cluster: one process a device, ``--distributed`` (the reference's
+``jax.distributed.initialize()``), started by ``torchrun``:
+
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+      --distributed --arch smollm-360m
+
+joins the default process group (``init_process_group()`` with torch's
+``env://`` defaults, unless the caller has joined one: NCCL on the card,
+gloo with ``--device cpu``) and runs on ``cuda:LOCAL_RANK``.  Then comes
+the same loop: as in the reference, the launcher builds no mesh, and each
+process runs its own step on its device.  Only rank 0 writes checkpoints
+(each reference process writes the same ``shard_00000``: ROADMAP Queue 3
+check (k)); every rank reads one on ``--resume``.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Callable, NamedTuple
 
@@ -73,16 +86,32 @@ def main() -> None:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-host training (not ported: item 19's "
-                         "next slice)")
+                    help="join the default process group (torchrun's "
+                         "env://): one process a device")
     ap.add_argument("--device", default=None,
                     help="cpu to run on the CPU; default: the CUDA device")
     args = ap.parse_args()
 
-    if args.distributed:
-        ap.error("--distributed: multi-host training over a device mesh is "
-                 "not ported yet (ROADMAP Queue 1 item 19, its next slice)")
     dev = resolve_device(args.device)
+    joined, rank = False, 0
+    if args.distributed:
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+            joined = True
+        rank = dist.get_rank()
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(dev)
+    try:
+        _train(args, dev, rank)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, dev: torch.device, rank: int) -> None:
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "host CPU")
     print(f"device: {dev.type} ({name})", flush=True)
@@ -98,7 +127,8 @@ def main() -> None:
         start = int(state.step)
         print(f"resumed from step {start}")
 
-    saver = ckpt.AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
+    saver = (ckpt.AsyncCheckpointer(args.ckpt_dir)
+             if args.ckpt_dir and rank == 0 else None)
     timer = StepTimer()
     loader = PrefetchLoader(cfg, run.shape, start_step=start)
     try:

@@ -116,6 +116,25 @@ def _shapes(tree, path=()) -> tuple:
     return ()
 
 
+def _served_params(params):
+    """``params`` with each DTensor leaf as the rank's local copy; only a
+    leaf replicated on every mesh dimension holds the whole weight."""
+    from repro_torch import tree
+    from repro_torch.dist.sharding import is_dtensor
+
+    def one(x):
+        if not is_dtensor(x):
+            return x
+        if not all(p.is_replicate() for p in x.placements):
+            raise ValueError(
+                f"HGNNServeEngine serves replicated parameters; a leaf "
+                f"{tuple(x.shape)} is laid out as {x.placements} on "
+                f"{x.device_mesh}")
+        return x.to_local()
+
+    return tree.map(one, params)
+
+
 def _first_tensor(tree):
     if torch.is_tensor(tree):
         return tree
@@ -243,6 +262,12 @@ class HGNNServeEngine:
     worker thread while this step's forward runs (``_SamplerPrefetcher``);
     ``stats()["prefetch"]`` counts its hits, and the logits are bitwise
     those of a serve without it.
+
+    Parameters laid out replicated on a mesh (``train/elastic.
+    reshard_state`` after a pod loss) are served from the rank's own copy
+    (no collective, the same bits) on the rank's device; a parameter laid
+    out otherwise raises.  No mesh is installed: each serving rank runs
+    the whole forward.
     """
 
     def __init__(self, executor, params, sampler, slots: int = 8,
@@ -251,12 +276,12 @@ class HGNNServeEngine:
                  injector=None):
         self.executor = executor
         self.plan = executor.plan
-        self.params = params
+        self.params = _served_params(params)
         self.sampler = sampler
         self.slots = slots
         self.slot_targets = slot_targets
         self.fn = fn if fn is not None else executor.forward
-        self.device = _first_tensor(params).device
+        self.device = _first_tensor(self.params).device
         max_t = max(t for t, _ in sampler.ladder)
         if slots * slot_targets > max_t:
             raise ValueError(

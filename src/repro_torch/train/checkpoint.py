@@ -22,9 +22,20 @@ reference's checkpoints.  A bf16 leaf is written as the reference's
 the manifest dtype ``bfloat16``.  The reference hands that ``|V2`` array to
 ``jax.numpy.asarray`` and fails (ROADMAP Queue 3 check (h)); the port
 restores it from the manifest's dtype, viewing the 16-bit patterns as
-``torch.bfloat16``, so a bf16 state restores bit for bit.  ``restore``
-takes ``device=`` in place of the reference's ``shardings=`` (one device;
-a restore onto a mesh is the next slice of item 19).
+``torch.bfloat16``, so a bf16 state restores bit for bit.
+
+A state laid out on a mesh (DTensor leaves, ``train_step.
+state_shardings``) is saved whole: each leaf is gathered
+(``full_tensor``, a collective every rank of its mesh enters; a
+replicated leaf is the rank's own copy), and the mesh's first rank writes
+``shard_<host_id>``, the bytes of the same state saved off the mesh.  The
+state must be laid out as ``state_shardings`` says, never ``Partial``
+(a gather would sum it).  ``AsyncCheckpointer.submit`` gathers on the
+caller's thread, before it queues the snapshot: no collective runs in
+the worker.  ``restore(shardings=)`` is the reference's elastic restore:
+every rank reads the file and lays each leaf out from its own copy onto
+the target mesh (``dist.sharding.distribute_tree``), whatever mesh the
+checkpoint was saved from; ``device=`` is the restore with no mesh.
 """
 from __future__ import annotations
 
@@ -40,7 +51,25 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.dist.sharding import distribute_tree, is_dtensor, whole
 from repro_torch.interop import DeviceLike, resolve_device
+
+
+def _whole(state):
+    """``state`` with every DTensor leaf made whole on this rank (module
+    docstring: a gather, or the rank's copy of a replicated leaf)."""
+    return tree.map(lambda x: whole(x) if torch.is_tensor(x) else x, state)
+
+
+def _writes(state) -> bool:
+    """Whether this process writes ``state``'s checkpoint: off a mesh the
+    caller always; on a mesh its first rank."""
+    import torch.distributed as dist
+
+    for x in tree.leaves(state):
+        if is_dtensor(x):
+            return dist.get_rank() == int(x.device_mesh.mesh.flatten()[0])
+    return True
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -66,12 +95,17 @@ def _digest(path: str) -> str:
 
 
 def save(state: Any, ckpt_dir: str, step: int, host_id: int = 0) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write ``state`` as ``step_<step>`` (module docstring); on a mesh
+    every rank of it calls this, for the gathers, and one writes.  Returns
+    the checkpoint's directory."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    flat = tree.leaves(_whole(state))
+    if not _writes(state):
+        return final
+    leaves = [_to_numpy(x) for x in flat]
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
-    flat = tree.leaves(state)
-    leaves = [_to_numpy(x) for x in flat]
     arrs = {f"leaf_{i:05d}": a for i, a in enumerate(leaves)}
     shard_path = os.path.join(tmp, f"shard_{host_id:05d}.npz")
     np.savez(shard_path, **arrs)
@@ -106,12 +140,31 @@ def _to_tensor(a: np.ndarray, dtype: str, device: torch.device
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def _mesh_device(shardings) -> torch.device:
+    """The device of this rank on the mesh of ``shardings``' first
+    ``NamedSharding``."""
+    for s in tree.leaves(shardings):
+        dm = getattr(getattr(s, "mesh", None), "device_mesh", None)
+        if dm is not None:
+            if dm.device_type == "cuda":
+                return torch.device("cuda", torch.cuda.current_device())
+            return torch.device(dm.device_type)
+    raise ValueError("restore: shardings name no mesh with a DeviceMesh")
+
+
 def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
-            device: DeviceLike = None, host_id: int = 0) -> Any:
-    """Restore into the structure of ``like`` (a state tree), each leaf on
-    ``device`` (the CUDA device unless the caller names one) in the dtype
-    the manifest records."""
-    device = resolve_device(device)
+            shardings: Any = None, device: DeviceLike = None,
+            host_id: int = 0) -> Any:
+    """Restore into the structure of ``like`` (a state tree), each leaf in
+    the dtype the manifest records.  ``shardings``: a ``NamedSharding``
+    tree matching ``like`` (``None`` leaves allowed): every rank lays each
+    leaf out onto the target mesh from its own copy (elastic restore onto
+    any mesh).  Else each leaf on ``device`` (the CUDA device unless the
+    caller names one)."""
+    if shardings is not None and device is not None:
+        raise ValueError("restore: pass shardings= or device=, not both")
+    device = (_mesh_device(shardings) if shardings is not None
+              else resolve_device(device))
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -136,13 +189,18 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
                              f"state has {tuple(l.shape)}")
     leaves = [_to_tensor(a, dt, device)
               for a, dt in zip(arrays, manifest["dtypes"])]
-    return tree.unflatten(like, leaves)
+    state = tree.unflatten(like, leaves)
+    if shardings is not None:
+        state = distribute_tree(state, shardings)
+    return state
 
 
 class AsyncCheckpointer:
     """Background writer: ``submit`` returns once the state is copied to
-    the host; a single worker drains a 1-deep queue (a newer snapshot
-    replaces a queued older one)."""
+    the host (a state on a mesh gathered there, on the caller's thread:
+    every rank of the mesh submits, and only the writing rank queues); a
+    single worker drains a 1-deep queue (a newer snapshot replaces a
+    queued older one)."""
 
     def __init__(self, ckpt_dir: str, host_id: int = 0):
         self.ckpt_dir = ckpt_dir
@@ -166,8 +224,11 @@ class AsyncCheckpointer:
     def submit(self, state: Any, step: int):
         if self._err:
             raise self._err
+        state_whole = _whole(state)
+        if not _writes(state):
+            return
         snap = tree.map(lambda x: x.detach().to("cpu", copy=True)
-                        if torch.is_tensor(x) else x, state)
+                        if torch.is_tensor(x) else x, state_whole)
         try:
             self._q.put_nowait((snap, step))
         except queue.Full:  # drop the older queued snapshot

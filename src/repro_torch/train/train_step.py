@@ -12,8 +12,9 @@ back as 0-d tensors on the device.  ``state_shardings`` lays a state out on
 a mesh as the reference does (``param_specs`` for the weights, the
 optimizer's ``state_specs`` for its state, the step replicated); a step
 on DTensors of that layout runs through the same code (``launch/
-steps.py``).  Multi-rank training on real ranks (the elastic mesh, the
-resharded restore) is the next slice of ROADMAP Queue 1 item 19.
+steps.py``), on any mesh a state is moved or restored onto
+(``train/elastic.reshard_state``, ``train/checkpoint.restore(
+shardings=)``).
 """
 from __future__ import annotations
 

@@ -539,6 +539,13 @@ def test_train_cli_steps_and_resume(monkeypatch, tmp_path):
     assert [int(ln.split()[1]) for ln in lines[2:]] == [3, 4]
     assert tckpt.latest_step(d) == 5
 
-    monkeypatch.setattr(sys, "argv", ["train", "--distributed"])
-    with pytest.raises(SystemExit):
+    # --distributed joins the default group from torchrun's env://
+    # variables; without them, and with no group joined, torch's own
+    # rendezvous raises (before it opens any socket)
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(sys, "argv", ["train", "--distributed", *common])
+    with pytest.raises(ValueError, match="environment variable"):
         tlaunch.main()
+    assert not torch.distributed.is_initialized()
