@@ -117,8 +117,24 @@ uninterrupted run (10b), HAN/imdb partitioned in two served with its
 parameters replicated on a ``(pod, data, model)`` mesh and on the mesh
 ``surviving_mesh`` collapses it to, bitwise with the same launches
 (10c), and ``launch/train.py --distributed`` under ``torchrun`` giving
-the single process's losses (10d).  It imports nothing of jax or of the
-JAX package ``repro``.
+the single process's losses (10d).  Phase 11 is the compiled step
+(``graphs.compiled``, the port's counterpart of the reference's
+``jax.jit``): the engines and ``build_hgnn_infer`` replay a CUDA graph
+captured once a signature in every phase above (the mesh paths and
+``forward_overlapped`` stay eager), with the launch counts of a replay
+added back, so every exact launch check holds; the first replay of every
+graph is traced and its device kernels, mapped to the wrapper counters,
+must be what it adds (``measured_card``); HAN fused, RGCN padded,
+MAGNN and GCN/Reddit 0.1 forwards at L = 1 and 2 bitwise the eager
+``fn=model.forward`` engine, walls of both in turns and a profiled
+captured forward; phase 3m's 1024-request serves by the eager engine in
+turns with the captured ones (logits bitwise, one capture a rung, the
+upload pageable against pinned); phase 3p's failover serve (one
+capture a rung and K, bitwise the eager serve); granite-8b's decode in
+phase 5c (tokens and every decode step's logits bitwise an eager
+``lm_decode_step`` loop, ms a step of both in turns, busy shares); the
+family serves of phases 7b and 8b run captured.  It imports nothing of
+jax or of the JAX package ``repro``.
 
 Output: progress lines, then the card's name and power limit as
 ``nvidia-smi`` prints them, a ``{"kernels": [...]}`` JSON line, and as the
@@ -128,6 +144,7 @@ or when any phase fails.
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -289,6 +306,18 @@ def profile_forward(engine, tag: str, reps: int = 10, warmup: int = 3
                      e.count / reps) for e in rows[:10]]}
 
 
+def eager(built):
+    """``build_hgnn_infer``'s result with its eager forward: a forward
+    compiled on the card (``graphs.Compiled``) gives way to ``fn.fn``.
+    The kernel calls of one forward are recorded, and a mesh forward is
+    compared, on it."""
+    from repro_torch import graphs
+
+    if isinstance(built.fn, graphs.Compiled):
+        return built._replace(fn=built.fn.fn)
+    return built
+
+
 def to_device(tree, device):
     """A parameter or batch tree (dicts, also tuple-keyed, lists, tuples)
     with every tensor moved to ``device``."""
@@ -319,6 +348,35 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy",
                 "cudaMemset")
 
 
+def traced_call(fn):
+    """One call of ``fn`` under torch.profiler, between ``LEAD_IN``
+    lead-in kernels (``torch.cuda._sleep``, named ``spin_kernel``), waited
+    for, and one tail kernel: ``(the trace's device events in time order,
+    the launch and copy calls made on the host, the indices of the spin
+    kernels in the events)``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+    evs = prof.events()
+    names = [e.name for e in sorted(
+        (e for e in evs if e.device_type == DeviceType.CUDA),
+        key=lambda e: e.time_range.start)]
+    calls = sum(1 for e in evs if e.device_type != DeviceType.CUDA
+                and e.name.startswith(LAUNCH_CALLS))
+    spins = [i for i, n in enumerate(names) if "spin_kernel" in n]
+    return names, calls, spins
+
+
 def device_kernels(fn, whole: bool = False):
     """Names of the device kernels (and copies) that one call of ``fn``
     runs, in time order, by torch.profiler, after a warm-up call.  The
@@ -335,29 +393,12 @@ def device_kernels(fn, whole: bool = False):
     calls on the host fails too, and the answer is ``(names, whether the
     last trace was whole)``."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     ok = False
     for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(LEAD_IN):
-                torch.cuda._sleep(100_000)
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-            torch.cuda._sleep(100_000)
-            torch.cuda.synchronize()
-        evs = prof.events()
-        names = [e.name for e in sorted(
-            (e for e in evs if e.device_type == DeviceType.CUDA),
-            key=lambda e: e.time_range.start)]
-        calls = sum(1 for e in evs if e.device_type != DeviceType.CUDA
-                    and e.name.startswith(LAUNCH_CALLS))
-        spins = [i for i, n in enumerate(names) if "spin_kernel" in n]
+        names, calls, spins = traced_call(fn)
         ok = (len(spins) >= 2 and spins[-1] == len(names) - 1
               and spins[-1] - spins[-2] > 1)
         # the call's own events against the call's own launches (the
@@ -614,17 +655,127 @@ def magnn_kernels_vs_plain(built, results: dict):
     return gathers, gat_args, sa
 
 
+# a kernel's name in a trace -> the wrapper counter that its launch ticks
+KERNEL_COUNTERS = {
+    "gat_na_kernel": "gat_na",
+    "sum_scores_kernel": "gat_na_fused_sa",
+    "semantic_combine_kernel": "semantic_combine",
+    "segment_spmm_kernel": "segment_spmm",
+    "segment_sum_kernel": "segment_sum",
+    "fused_fp_na_kernel": "fused_fp_na",
+    "cached_gather_kernel": "cached_gather",
+    "semantic_scores_kernel": "semantic_scores",
+    "flash_attention_kernel": "flash_attention",
+    "flash_attention_tc_kernel": "flash_attention",
+    "decode_split_kernel": "decode_attention",
+}
+# kernels that one wrapper call launches beside the counted one, once each
+PAIRED_KERNELS = {"segment_sum_long_kernel": "segment_sum_kernel",
+                  "decode_combine_kernel": "decode_split_kernel"}
+# CUDA-graph replays over the run, from the measured card: launches by
+# counter (each graph's traced launches a replay, times its replays),
+# graphs traced, and graphs replayed but never traced
+REPLAYS = {"launches": {}, "graphs_traced": 0, "replays": 0,
+           "untraced": []}
+
+
+def kernel_counts(names) -> dict:
+    """Device kernel names -> launches by wrapper counter, and the paired
+    kernels' counts beside their partners' (``KERNEL_COUNTERS``)."""
+    seen: dict = {}
+    for n in names:
+        m = re.search(r"(\w+_kernel)\s*[<(]", n)
+        if m:
+            seen[m.group(1)] = seen.get(m.group(1), 0) + 1
+    counts: dict = {}
+    for kname, counter in KERNEL_COUNTERS.items():
+        if seen.get(kname):
+            counts[counter] = counts.get(counter, 0) + seen[kname]
+    pairs = {k: (seen.get(k, 0), seen.get(v, 0))
+             for k, v in PAIRED_KERNELS.items()}
+    return counts, pairs
+
+
+def measured_card():
+    """``graphs._Card`` whose ``replay`` traces the first replay of every
+    graph (``traced_call``) and maps the device kernels in the trace to
+    the wrapper counters (``kernel_counts``): the graph's launches, which
+    ``graphs.compiled`` adds to the counters on every replay, must be
+    those, checked before that replay is added.  Every later replay adds
+    the traced launches to ``REPLAYS``.  A replay under another profiler,
+    or one whose trace lost its lead-in or tail, is not traced; the next
+    one is, and a graph that ends its life replayed but never traced is
+    listed in ``REPLAYS["untraced"]``."""
+    import weakref
+
+    import torch
+    from repro_torch import graphs
+
+    def add(measured, n):
+        tot = REPLAYS["launches"]
+        for k, v in measured.items():
+            tot[k] = tot.get(k, 0) + v * n
+        REPLAYS["replays"] += n
+
+    def lost(launches, pending):
+        if pending[0]:
+            REPLAYS["untraced"].append(
+                {"replays": pending[0], "launches_a_replay": launches})
+
+    class MeasuredCard(graphs._Card):
+        def replay(self, g):
+            measured = getattr(g, "measured", None)
+            if measured is not None:
+                g.graph.replay()
+                add(measured, 1)
+                return
+            if not hasattr(g, "pending"):
+                g.pending = [0]
+                g.finalizer = weakref.finalize(
+                    g, lost, {k: v for k, v in g.launches.items() if v},
+                    g.pending)
+            if torch.autograd._profiler_enabled():
+                g.graph.replay()
+                g.pending[0] += 1
+                return
+            names, _, spins = traced_call(g.graph.replay)
+            if not (len(spins) >= 2 and spins[-1] == len(names) - 1
+                    and spins[-1] - spins[-2] > 1):
+                print(f"  (a graph's first traced replay lost its lead-in "
+                      f"or tail: {len(names)} device events; the next "
+                      "replay is traced)")
+                g.pending[0] += 1
+                return
+            counts, pairs = kernel_counts(names[spins[-2] + 1:spins[-1]])
+            credit = {k: v for k, v in g.launches.items() if v}
+            check(counts == credit and credit.get(
+                "decode_attention_lse", 0) == 0
+                and all(a == b for a, b in pairs.values()),
+                f"11: a captured graph's replay traced {counts} (paired "
+                f"kernels {pairs}) = the launches it adds to the counters "
+                f"{credit}")
+            g.measured = counts
+            g.finalizer.detach()
+            REPLAYS["graphs_traced"] += 1
+            add(counts, 1 + g.pending[0])
+
+    return MeasuredCard()
+
+
 def drive_variant(cfg, hg, dev, tag: str, per_forward, cpu_check: bool,
                   forward_ms: dict, profiles: dict, twice: bool = False,
-                  keep: dict = None) -> dict:
+                  keep: dict = None, compiled: dict = None) -> dict:
     """Drive one configuration through ``build_hgnn_infer`` +
-    ``HGNNInferEngine``: ITERS forwards with every launch count set to 0
-    just before and read just after, held equal to ``per_forward(batch)``
-    (kernel -> launches a forward; the rest 0) times ITERS; logits finite
-    and of the target's shape; with ``twice``, a further forward bitwise
-    equal to the last; against the plain arm on the card and, with
-    ``cpu_check``, on the CPU; then walls and a profile.  Returns the
-    counts and the logits; ``keep`` receives the built model."""
+    ``HGNNInferEngine`` (its forward compiled: the first call warms up and
+    captures, the others replay): ITERS forwards with every launch count
+    set to 0 just before and read just after, held equal to
+    ``per_forward(batch)`` (kernel -> launches a forward; the rest 0)
+    times ITERS; logits finite and of the target's shape; with ``twice``,
+    a further forward bitwise equal to the last; against the plain arm on
+    the card and, with ``cpu_check``, on the CPU; then walls and a
+    profile; with ``compiled``, phase 11's captured-against-eager record
+    (``captured_vs_eager``).  Returns the counts and the logits; ``keep``
+    receives the built model."""
     import torch
     from repro_torch.core.models import get_model
     from repro_torch.kernels import ops
@@ -676,7 +827,67 @@ def drive_variant(cfg, hg, dev, tag: str, per_forward, cpu_check: bool,
     print(f"  {tag}: forward {forward_ms[tag]:.4f} ms/iter wall "
           f"(plain arm {forward_ms[tag + ' plain']:.4f} ms/iter)", flush=True)
     profiles[tag] = profile_forward(engine, tag)
+    if compiled is not None:
+        compiled[tag] = captured_vs_eager(tag, b, engine, logits,
+                                          per_forward, profiles[tag])
     return counts, logits
+
+
+def captured_vs_eager(tag, b, engine, logits, per_forward, prof) -> dict:
+    """Phase 11 on one full-graph forward: the compiled engine's logits
+    bitwise the eager ``fn=model.forward`` engine's, a second ``infer()``
+    leaving the first result as it was, one capture, ITERS replays
+    launching what the graph's traced replay launched times ITERS (=
+    ``per_forward`` each; ``measured_card``), the walls of both engines
+    in turns (eager, captured, captured, eager; 20 forwards each) and the
+    busy share of the profiled captured forward (``prof``)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import HGNNInferEngine
+
+    eager_eng = HGNNInferEngine(b.executor, b.params, b.batch,
+                                fn=eager(b).fn)
+    first = engine.infer()
+    kept = first.clone()
+    want = eager_eng.infer()
+    second = engine.infer()
+    torch.cuda.synchronize()
+    check(torch.equal(first, want) and torch.equal(logits, want),
+          f"11 {tag}: captured logits bitwise the eager engine's (max "
+          f"|diff| {max_err(first, want):.3g})")
+    check(torch.equal(first, kept) and torch.equal(second, want),
+          f"11 {tag}: a second infer() leaves the first result as it was")
+    fn = engine.fn
+    ops.reset_launch_counts()
+    r0 = fn.replays
+    for _ in range(ITERS):
+        engine.infer()
+    torch.cuda.synchronize()
+    counts, n = ops.launch_counts(), fn.replays - r0
+    g = fn.graph_of(b.params, b.batch)
+    per = {k: v for k, v in per_forward(b.batch).items() if v}
+    traced = getattr(g, "measured", None)
+    check(fn.captures == 1 and n == ITERS and traced == per
+          and {k: v for k, v in counts.items() if v}
+          == {k: v * n for k, v in traced.items()},
+          f"11 {tag}: {fn.captures} capture, {n} replays launching "
+          f"{ {k: v for k, v in counts.items() if v} } (the graph's traced "
+          f"replay {traced} x {n}; a forward's {per})")
+    walls = {"eager": [], "captured": []}
+    for arm in ("eager", "captured", "captured", "eager"):
+        walls[arm].append(wall_ms(eager_eng if arm == "eager" else engine))
+    rec = {"eager_ms": float(np.mean(walls["eager"])),
+           "captured_ms": float(np.mean(walls["captured"])),
+           "walls_in_turns": walls,
+           "captured_busy_share": prof["device_busy_ms"] / prof["wall_ms"],
+           "captures": fn.captures, "replays": fn.replays,
+           "launches_a_replay_traced": traced}
+    print(f"  11 {tag}: forward wall eager {rec['eager_ms']:.4f} ms, "
+          f"captured {rec['captured_ms']:.4f} ms (in turns: {walls}); "
+          f"captured busy {100 * rec['captured_busy_share']:.1f}%; "
+          f"{fn.captures} capture, {fn.replays} replays", flush=True)
+    return rec
 
 
 def segment_spmm_launches(layers: int):
@@ -1029,17 +1240,22 @@ def serve_case(tag, cfg, hg, dev, per_forward, serve_counts: dict,
     request's logits against the same queue served on the CPU by the
     plain arm (TOL_CPU) with every counter equal; each kernel call of one
     served step against its plain version, their number that of one
-    forward's launches; then ``SERVE_REPEATS`` timed serves of
-    ``SERVE_TIMED_REQUESTS`` requests of the same traffic (step wall
-    p50/p99 and targets/s of each, their median and range), the host
-    sampler and the upload a step, and the device's busy share over one
-    more, profiled, serve."""
+    forward's launches; one capture a rung; then ``SERVE_REPEATS`` timed
+    serves of ``SERVE_TIMED_REQUESTS`` requests of the same traffic (step
+    wall p50/p99 and targets/s of each, their median and range) in turns
+    with two by the eager engine (``fn=model.forward``; phase 11: the
+    logits bitwise), the host sampler and the upload a step (pageable, and
+    the compiled forward's from pinned memory: the sampled feature tables
+    straight from the engine's pinned rows, the rest through its staging),
+    and the device's busy
+    share over one more, profiled, serve."""
     import numpy as np
     import torch
     from repro_torch.core.models import get_model
     from repro_torch.kernels import ops
+    from repro_torch import tree
     from repro_torch.launch.serve import build_hgnn_infer, request_queue
-    from repro_torch.serve.engine import HGNNServeEngine
+    from repro_torch.serve.engine import HGNNServeEngine, _shapes
     from repro_torch.serve.sampler import HGNNSampler
 
     b = build_hgnn_infer(cfg, hg, dev)
@@ -1075,6 +1291,13 @@ def serve_case(tag, cfg, hg, dev, per_forward, serve_counts: dict,
           f"{tag}: failed_steps {rs['failed_steps']}, retries "
           f"{rs['retries']}, statuses {rs['statuses']}, "
           f"compiles_after_warmup {st['compiles_after_warmup']}")
+    rung_sigs = {_shapes(sampler.dummy_batch(i).batch)
+                 for i in range(len(sampler.ladder))}
+    check(eng.fn is not b.fn and eng.fn.captures == len(rung_sigs)
+          == len(sampler.ladder) and eng.fn.replays == st["steps"],
+          f"11 {tag}: {eng.fn.captures} captures for {len(sampler.ladder)} "
+          f"rungs ({len(rung_sigs)} distinct), {eng.fn.replays} replays "
+          f"for {st['steps']} steps")
 
     plain = get_model(cfg.replace(use_pallas=False))
     cpu_eng = HGNNServeEngine(plain.executor, to_device(b.params, "cpu"),
@@ -1100,8 +1323,8 @@ def serve_case(tag, cfg, hg, dev, per_forward, serve_counts: dict,
           f"{tag}: counters equal the CPU serve's exactly ({same}; "
           f"resilience equal: {rs == cst['resilience']})")
 
-    calls = capture_served_calls(lambda: b.fn(b.params,
-                                              eng.place(eng.last_sb.batch)))
+    calls = capture_served_calls(lambda: eager(b).fn(
+        b.params, eng.place(eng.last_sb.batch)))
     got = {}
     for name, a in calls:
         got[name] = got.get(name, 0) + 1
@@ -1113,45 +1336,82 @@ def serve_case(tag, cfg, hg, dev, per_forward, serve_counts: dict,
     served_calls_vs_plain(tag, calls, errs)
 
     sb = eng.last_sb
+    # the pageable upload of the same batch, from a copy in pageable memory
+    # (the compiled engine's batch has its feature tables in pinned rows)
+    paged = tree.map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                     else np.array(x) if isinstance(x, np.ndarray) else x,
+                     sb.batch)
     h2d = []
     for _ in range(10):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        eng.place(sb.batch)
+        eng.place(paged)
         torch.cuda.synchronize()
         h2d.append((time.perf_counter() - t1) * 1e3)
     h2d_mb = sum(t.numel() * t.element_size() for t in
-                 _tensors(sb.batch)) / 2 ** 20
+                 _tensors(paged)) / 2 ** 20
+    check(not any(t.is_pinned() for t in _tensors(paged))
+          and any(t.is_pinned() for t in _tensors(sb.batch)),
+          f"{tag}: the served batch's feature tables lie in pinned memory, "
+          f"its pageable copy's do not")
 
     def timed_queue():
         return request_queue(sampler.n_target_type, slot_targets,
                              SERVE_TIMED_REQUESTS)
 
+    # phase 11: the pinned upload of the compiled forward (the same batch)
+    g = eng.fn.graph_of(eng.params, sb.batch)
+    flat = tree.leaves((eng.params, sb.batch))
+    pinned = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g.upload(flat)
+        torch.cuda.synchronize()
+        pinned.append((time.perf_counter() - t1) * 1e3)
+    # the eager engine (fn=model.forward, pageable place) beside it
+    eager_eng = HGNNServeEngine(b.executor, b.params, sampler, slots=slots,
+                                slot_targets=slot_targets, fn=eager(b).fn)
+    eager_eng.warmup()
+
     n_targets = sum(len(r.targets) for r in timed_queue())
     serves, sample, fwd, clean = [], [], [], True
-    for _ in range(SERVE_REPEATS):
+    eager_serves, served = [], {}
+    # in turns: eager, the captured repeats, eager
+    for arm in ["eager"] + ["captured"] * SERVE_REPEATS + ["eager"]:
+        e = eager_eng if arm == "eager" else eng
         reqs = timed_queue()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.serve(reqs)
+        e.serve(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        st = eng.stats()
+        st = e.stats()
         rs = st["resilience"]
         clean &= (rs["failed_steps"] == 0 and rs["retries"] == 0
                   and st["compiles_after_warmup"] == 0
                   and all(r.status == "OK" for r in reqs))
-        walls = np.array([e["wall_s"] for e in eng.step_log]) * 1e3
-        sample += [e["sample_s"] * 1e3 for e in eng.step_log]
-        fwd += [e["forward_s"] * 1e3 for e in eng.step_log]
-        serves.append({"steps": st["steps"], "rung_hits": st["rung_hits"],
-                       "wall_ms": wall * 1e3,
-                       "step_wall_p50_ms": float(np.percentile(walls, 50)),
-                       "step_wall_p99_ms": float(np.percentile(walls, 99)),
-                       "targets_per_s": n_targets / wall})
+        served.setdefault(arm, reqs)
+        walls = np.array([x["wall_s"] for x in e.step_log]) * 1e3
+        rec_s = {"steps": st["steps"], "rung_hits": st["rung_hits"],
+                 "wall_ms": wall * 1e3,
+                 "step_wall_p50_ms": float(np.percentile(walls, 50)),
+                 "step_wall_p99_ms": float(np.percentile(walls, 99)),
+                 "targets_per_s": n_targets / wall}
+        if arm == "eager":
+            eager_serves.append(rec_s)
+            continue
+        sample += [x["sample_s"] * 1e3 for x in e.step_log]
+        fwd += [x["forward_s"] * 1e3 for x in e.step_log]
+        serves.append(rec_s)
     check(clean, f"{tag}: {SERVE_REPEATS} timed serves of "
-                 f"{SERVE_TIMED_REQUESTS} requests: no failed step, no "
-                 f"retry, every request OK, nothing made after warmup")
+                 f"{SERVE_TIMED_REQUESTS} requests and 2 eager ones: no "
+                 f"failed step, no retry, every request OK, nothing made "
+                 f"after warmup")
+    check(all(np.array_equal(a.logits, c.logits)
+              for a, c in zip(served["captured"], served["eager"])),
+          f"11 {tag}: the {SERVE_TIMED_REQUESTS} served requests' logits "
+          f"bitwise the eager engine's")
     prof = busy_over(lambda: eng.serve(timed_queue()))
 
     def spread(key):
@@ -1167,6 +1427,13 @@ def serve_case(tag, cfg, hg, dev, per_forward, serve_counts: dict,
            "forward_ms_per_step": float(np.mean(fwd)),
            "h2d_ms_last_batch": float(np.median(h2d)),
            "h2d_mib_last_batch": h2d_mb,
+           "pinned_upload_ms_last_batch": float(np.median(pinned)),
+           "pinned_upload_mib_last_batch": g.upload_bytes / 2 ** 20,
+           "eager": {k: float(np.median([x[k] for x in eager_serves]))
+                     for k in ("step_wall_p50_ms", "step_wall_p99_ms",
+                               "targets_per_s")},
+           "eager_serves": eager_serves,
+           "captures": eng.fn.captures, "replays": eng.fn.replays,
            "profiled_serve": prof,
            "busy_share": (prof["kernel_ms"] + prof["copy_ms"])
            / prof["wall_ms"],
@@ -1189,12 +1456,23 @@ def serve_case(tag, cfg, hg, dev, per_forward, serve_counts: dict,
     print(f"  {tag}: a step: host sampler {rec['sampler_ms_per_step']:.3f} "
           f"ms, upload + forward + read-back "
           f"{rec['forward_ms_per_step']:.3f} ms (the last batch's upload: "
-          f"{h2d_mb:.2f} MiB in {rec['h2d_ms_last_batch']:.3f} ms)")
+          f"{h2d_mb:.2f} MiB in {rec['h2d_ms_last_batch']:.3f} ms pageable, "
+          f"{rec['pinned_upload_mib_last_batch']:.2f} MiB in "
+          f"{rec['pinned_upload_ms_last_batch']:.3f} ms from pinned "
+          f"memory)")
+    ev = rec["eager"]
+    print(f"  11 {tag}: eager engine (2 serves, in turns with the captured "
+          f"3): step wall p50 {ev['step_wall_p50_ms']:.3f} ms, p99 "
+          f"{ev['step_wall_p99_ms']:.3f} ms, {ev['targets_per_s']:.1f} "
+          f"targets/s; captured {line('step_wall_p50_ms', '.3f')} ms, "
+          f"{line('step_wall_p99_ms', '.3f')} ms, "
+          f"{line('targets_per_s', '.1f')} targets/s; {eng.fn.captures} "
+          f"captures, {eng.fn.replays} replays")
     print(f"  {tag}: profiled serve {prof['wall_ms']:.2f} ms wall, kernels "
           f"{prof['kernel_ms']:.3f} ms, copies {prof['copy_ms']:.3f} ms: "
           f"device busy {100 * rec['busy_share']:.1f}% (kernels alone "
           f"{100 * rec['kernel_share']:.1f}%)", flush=True)
-    del b, eng, cpu_eng
+    del b, eng, cpu_eng, eager_eng, g
     torch.cuda.empty_cache()
 
 
@@ -1420,8 +1698,8 @@ def partitioned(hg, dev, main_counts: dict, results: dict) -> dict:
                   f"{meta['cut_edges']} of {meta['edges_total']} edges",
                   flush=True)
             if k == 4:
-                calls = capture_served_calls(lambda: b.fn(flat.params,
-                                                          b.batch))
+                calls = capture_served_calls(lambda: eager(b).fn(
+                    flat.params, b.batch))
                 got = {}
                 for name, _ in calls:
                     got[name] = got.get(name, 0) + 1
@@ -1514,10 +1792,15 @@ def partitioned(hg, dev, main_counts: dict, results: dict) -> dict:
     b = build_hgnn_infer(cfg, hg, dev)
     sampler = HGNNSampler(b.plan, cfg, hg)
     runs = []
-    for inj in (FaultInjector([Fault(step=3, kind="partition", partition=0)]),
-                None):
+    # the failover serve, the never-failed one, and (phase 11) the failover
+    # serve by the eager engine
+    for inj, fn in ((FaultInjector([Fault(step=3, kind="partition",
+                                          partition=0)]), b.fn),
+                    (None, b.fn),
+                    (FaultInjector([Fault(step=3, kind="partition",
+                                          partition=0)]), eager(b).fn)):
         eng = HGNNServeEngine(b.executor, b.params, sampler, slots=8,
-                              slot_targets=4, fn=b.fn, injector=inj)
+                              slot_targets=4, fn=fn, injector=inj)
         reqs = request_queue(sampler.n_target_type, 4, SERVE_REQUESTS,
                              pool=48)
         ops.reset_launch_counts()
@@ -1525,7 +1808,8 @@ def partitioned(hg, dev, main_counts: dict, results: dict) -> dict:
         eng.serve(reqs)
         torch.cuda.synchronize()
         runs.append((eng, reqs, ops.launch_counts()))
-    (eng, reqs, counts), (never, never_reqs, never_counts) = runs
+    ((eng, reqs, counts), (never, never_reqs, never_counts),
+     (eager_eng, eager_reqs, eager_counts)) = runs
     st, rs = eng.stats(), eng.stats()["resilience"]
     got = {"bitexact": int(all(np.array_equal(a.logits, c.logits)
                                for a, c in zip(reqs, never_reqs))),
@@ -1557,6 +1841,20 @@ def partitioned(hg, dev, main_counts: dict, results: dict) -> dict:
           f"{st['compiles_after_warmup']} (the {new_shapes} rungs served at "
           f"K=2, as the reference's jit counts), never-failed "
           f"{never.stats()['compiles_after_warmup']}")
+    # one capture a rung at K=3, and one a rung served at K=2 after it
+    check(eng.fn.captures == len(sampler.ladder) + new_shapes
+          and never.fn.captures == len(sampler.ladder)
+          and all(np.array_equal(a.logits, c.logits)
+                  for a, c in zip(reqs, eager_reqs))
+          and eager_counts == counts
+          and eager_eng.stats()["compiles_after_warmup"] == new_shapes,
+          f"11 failover serve: {eng.fn.captures} captures "
+          f"({len(sampler.ladder)} rungs at K=3 + {new_shapes} at K=2), "
+          f"never-failed "
+          f"{never.fn.captures}; logits bitwise the eager engine's failover "
+          f"serve, the same launches ({eager_counts == counts}) and "
+          f"compiles_after_warmup "
+          f"({eager_eng.stats()['compiles_after_warmup']})")
     plain = get_model(cfg.replace(use_pallas=False))
     cpu_eng = HGNNServeEngine(
         plain.executor, to_device(b.params, "cpu"), sampler, slots=8,
@@ -1575,7 +1873,8 @@ def partitioned(hg, dev, main_counts: dict, results: dict) -> dict:
           f"failover serve vs the same serve on the CPU (plain arm): max "
           f"|err| {err:.3e} (tol {TOL_CPU}), resilience counters equal")
     fail = {}
-    for name, e in (("failover", eng), ("never failed", never)):
+    for name, e in (("failover", eng), ("never failed", never),
+                    ("failover, eager", eager_eng)):
         walls = np.array([x["wall_s"] for x in e.step_log]) * 1e3
         fail[name] = {
             "step_wall_p50_ms": float(np.percentile(walls, 50)),
@@ -1595,8 +1894,9 @@ def partitioned(hg, dev, main_counts: dict, results: dict) -> dict:
               f"upload + forward + read-back {f['forward_ms']:.3f} ms",
               flush=True)
     out["failover"] = {"row": got, "steps": fail, "rungs": rungs,
-                       "compiles_after_warmup": st["compiles_after_warmup"]}
-    del b, eng, never, cpu_eng
+                       "compiles_after_warmup": st["compiles_after_warmup"],
+                       "captures": eng.fn.captures}
+    del b, eng, never, cpu_eng, eager_eng
     torch.cuda.empty_cache()
     return out
 
@@ -2184,7 +2484,8 @@ def granite_serve(dev, ops, profiles: dict) -> dict:
     from repro_torch.configs.registry import get_config
 
     cfg = get_config(GRANITE).replace(use_pallas=True)
-    return lm_serve(dev, ops, profiles, cfg, "granite", cfg.n_layers)
+    return lm_serve(dev, ops, profiles, cfg, "granite", cfg.n_layers,
+                    eager_check=True)
 
 
 DANUBE = "h2o-danube-3-4b"
@@ -2212,13 +2513,21 @@ def danube_serve(dev, ops, profiles: dict) -> dict:
 class DecodeStepAsForward:
     """One decode step of ``cfg`` on a grafted 4 x 2048 prompt, as a
     ``profile_forward`` "engine": each ``infer()`` runs the step at the
-    same position (it rewrites the same cache row)."""
+    same position (it rewrites the same cache row); with ``compiled``
+    through ``graphs.compiled``, as ``ServeEngine`` runs it (the token and
+    caches held, one capture, then replays)."""
 
-    def __init__(self, params, cfg, prompts):
+    def __init__(self, params, cfg, prompts, compiled: bool = False):
         import torch
+        from repro_torch import graphs
         from repro_torch.nn import transformer as tf
 
-        self.tf, self.params, self.cfg = tf, params, cfg
+        self.params = params
+
+        def step(p, t, c, pos):
+            return tf.lm_decode_step(p, cfg, t, c, pos)
+
+        self.step = graphs.compiled(step) if compiled else step
         t0 = prompts.shape[1]
         with torch.inference_mode():
             lg, pf = tf.lm_prefill(params, cfg, prompts)
@@ -2226,14 +2535,15 @@ class DecodeStepAsForward:
                 cfg, tf.init_kv_caches(cfg, prompts.shape[0], t0 + LM_NEW,
                                        prompts.device), pf, t0)
         self.token = lg[:, 0].argmax(dim=-1)[:, None]
-        self.pos = t0
+        # a captured step takes its position from the card, as the engine's
+        self.pos = (torch.tensor(t0, device=prompts.device) if compiled
+                    else t0)
 
     def infer(self):
         import torch
 
         with torch.inference_mode():
-            self.tf.lm_decode_step(self.params, self.cfg, self.token,
-                                   self.caches, self.pos)
+            self.step(self.params, self.token, self.caches, self.pos)
 
 
 def busy_shares(tag, prefill, step, profiles: dict) -> dict:
@@ -2259,15 +2569,18 @@ def busy_shares(tag, prefill, step, profiles: dict) -> dict:
 
 
 def lm_serve(dev, ops, profiles: dict, cfg, tag: str, attn_layers: int,
-             sampled: bool = False, prompt_len: int = LM_PROMPT) -> dict:
+             sampled: bool = False, prompt_len: int = LM_PROMPT,
+             eager_check: bool = False) -> dict:
     """``cfg`` (``use_pallas``) through ``ServeEngine.generate``: 4 requests
     of ``prompt_len``-token prompts and 32 greedy tokens, twice; exact
     launch counts (``attn_layers`` flash_attention a prefill and
-    decode_attention a step); the peak memory; the plain arm teacher-forced
-    on the kernel arm's tokens where there is attention
-    (``arms_vs_tokens``); a profiled prefill and decode step (busy share,
-    top device ops); with ``sampled`` one more wave on the same weights,
-    sampled at a temperature (``sampled_wave``)."""
+    decode_attention a step); one decode capture (one wave size); the peak
+    memory; the plain arm teacher-forced on the kernel arm's tokens where
+    there is attention (``arms_vs_tokens``); a profiled prefill and decode
+    step, eager and captured (busy share, top device ops); with
+    ``eager_check`` phase 11's ``decode_vs_eager``; with ``sampled`` one
+    more wave on the same weights, sampled at a temperature
+    (``sampled_wave``)."""
     import numpy as np
     import torch
     from repro_torch.nn import transformer as tf
@@ -2313,7 +2626,11 @@ def lm_serve(dev, ops, profiles: dict, cfg, tag: str, attn_layers: int,
           f"{tag} serve: {LM_SLOTS} x {LM_NEW} token ids in [0, "
           f"{cfg.vocab})")
     check(runs[1] == toks, f"{tag} serve: the same tokens on a second run")
-    timings = engine.timings[-1]
+    dec = engine._decode
+    check(dec.captures == 1 and dec.replays == 2 * steps - 1,
+          f"{tag} serve: {dec.captures} decode capture (one wave size), "
+          f"{dec.replays} replays (want {2 * steps - 1})")
+    timings = engine.timings[1]
     prefill_ms = timings["prefill_s"] * 1e3
     decode_ms = timings["decode_s"] * 1e3 / max(timings["decode_steps"], 1)
     n_tok = LM_SLOTS * LM_NEW
@@ -2341,14 +2658,130 @@ def lm_serve(dev, ops, profiles: dict, cfg, tag: str, attn_layers: int,
     busy = busy_shares(tag, lambda: tf.lm_prefill(params, cfg, tp),
                        step.infer, profiles)
     del step
+    step = DecodeStepAsForward(params, cfg, tp, compiled=True)
+    prof = profile_forward(step, f"{tag} captured decode step", reps=5,
+                           warmup=2)
+    profiles[f"{tag} captured decode step"] = prof
+    busy["captured_decode_busy_share"] = (prof["device_busy_ms"]
+                                          / prof["wall_ms"])
+    del step
     rec = {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
            "tokens_per_s": n_tok / wall, "tokens": n_tok,
            "run1": engine.timings[0], "run2": timings,
            **arms, "launches": counts[0],
+           "decode_captures": dec.captures,
            "params": n_params, "peak_gib": peak, **busy}
+    if eager_check:
+        rec["compiled"] = decode_vs_eager(tag, engine, params, cfg, prompts,
+                                          max_len, ops, rec)
     if sampled:
         rec["sampled"] = sampled_wave(dev, cfg, params)
     return rec
+
+
+def eager_wave(params, cfg, prompts, max_len: int, n_new: int):
+    """The engine's greedy wave as the eager loop the compiled decode step
+    replaced: prefill, graft into fresh caches, then ``lm_decode_step``,
+    argmax and a read-back each step.  Returns the tokens, every decode
+    step's logits and the decode ms a step (host clock, from the first
+    token to the last read-back)."""
+    import numpy as np
+    import torch
+    from repro_torch.nn import transformer as tf
+
+    dev = params["embed"].device
+    b, t0 = len(prompts), max(len(p) for p in prompts)
+    toks = np.zeros((b, t0), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, t0 - len(p):] = p
+    with torch.inference_mode():
+        lg, pf = tf.lm_prefill(params, cfg, torch.from_numpy(toks).to(dev))
+        caches = tf.graft_prefill_caches(
+            cfg, tf.init_kv_caches(cfg, b, max_len, dev), pf, t0)
+        del pf
+        cur = torch.argmax(lg[:, 0], dim=-1)
+        outs = [[t] for t in cur.tolist()]
+        t1 = time.perf_counter()
+        pos = torch.tensor(t0, device=dev)
+        logits = []
+        for _ in range(n_new - 1):
+            lg, caches = tf.lm_decode_step(params, cfg, cur[:, None], caches,
+                                           pos)
+            pos = pos + 1
+            logits.append(lg)
+            cur = torch.argmax(lg[:, 0], dim=-1)
+            for o, t in zip(outs, cur.tolist()):
+                o.append(t)
+        ms = (time.perf_counter() - t1) * 1e3 / (n_new - 1)
+    return outs, logits, ms
+
+
+def decode_vs_eager(tag, engine, params, cfg, prompts, max_len: int, ops,
+                    rec: dict) -> dict:
+    """Phase 11 on the LM decode: the engine's greedy wave (its decode step
+    captured) against ``eager_wave`` in turns (eager, captured, captured,
+    eager): tokens and every decode step's logits bitwise, the same
+    launches, decode ms a step of each; the captured step's busy share
+    from ``rec``."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import Request
+
+    dec = engine._decode
+    seen = []
+
+    def recorded(*a):
+        out = dec(*a)
+        seen.append(out[0])
+        return out
+
+    ms = {"eager": [], "captured": []}
+    toks, logits, counts = {}, {}, {}
+    for i, arm in enumerate(("eager", "captured", "captured", "eager")):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        if arm == "eager":
+            t, lg, step_ms = eager_wave(params, cfg, prompts, max_len,
+                                        LM_NEW)
+        else:
+            seen.clear()
+            engine._decode = recorded
+            try:
+                done = engine.generate([Request(prompt=p, max_tokens=LM_NEW)
+                                        for p in prompts])
+            finally:
+                engine._decode = dec
+            t, lg = [r.out_tokens for r in done], list(seen)
+            tm = engine.timings[-1]
+            step_ms = tm["decode_s"] * 1e3 / tm["decode_steps"]
+        torch.cuda.synchronize()
+        ms[arm].append(step_ms)
+        if arm not in toks:
+            toks[arm], logits[arm] = t, lg
+            counts[arm] = ops.launch_counts()
+        check(t == toks[arm], f"11 {tag} {arm} wave {i}: the same tokens")
+    same = (len(logits["eager"]) == len(logits["captured"]) == LM_NEW - 1
+            and all(torch.equal(a, c) for a, c in
+                    zip(logits["eager"], logits["captured"])))
+    check(toks["captured"] == toks["eager"] and same,
+          f"11 {tag}: greedy tokens and the {LM_NEW - 1} decode steps' "
+          f"logits of the captured step bitwise the eager lm_decode_step "
+          f"loop's")
+    check(counts["captured"] == counts["eager"] and dec.captures == 1,
+          f"11 {tag}: launches captured {counts['captured']} = eager "
+          f"{counts['eager']}; {dec.captures} decode capture")
+    out = {"decode_ms_per_step": {k: float(np.mean(v))
+                                  for k, v in ms.items()},
+           "in_turns": ms, "captures": dec.captures, "replays": dec.replays,
+           "captured_decode_busy_share": rec["captured_decode_busy_share"],
+           "eager_decode_busy_share": rec["decode_busy_share"]}
+    print(f"  11 {tag} decode: eager {out['decode_ms_per_step']['eager']:.3f}"
+          f" ms a step, captured "
+          f"{out['decode_ms_per_step']['captured']:.3f} ms (in turns: "
+          f"{ms}); busy eager {100 * rec['decode_busy_share']:.1f}%, "
+          f"captured {100 * rec['captured_decode_busy_share']:.1f}%; "
+          f"{dec.captures} capture, {dec.replays} replays", flush=True)
+    return out
 
 
 SASS_KERNELS = ("flash_attention_tc_kernel", "decode_split_kernel",
@@ -2935,6 +3368,7 @@ def vlm_serve(dev, ops, profiles: dict) -> dict:
     import gc
 
     import torch
+    from repro_torch import graphs
     from repro_torch.configs.registry import get_config
     from repro_torch.nn import transformer as tf
 
@@ -2958,17 +3392,25 @@ def vlm_serve(dev, ops, profiles: dict) -> dict:
                          generator=torch.Generator(device=dev).manual_seed(8))
     t_first = e + VLM_TEXT
     max_len = t_first + VLM_NEW
+    # the decode step compiled as ServeEngine compiles it: the caches, the
+    # token and the position held in buffers made once
+    held = tf.init_kv_caches(cfg, b, max_len, dev)
+    tok_buf = torch.zeros((b, 1), dtype=torch.long, device=dev)
+    pos_buf = torch.zeros((), dtype=torch.long, device=dev)
+    step = graphs.compiled(
+        lambda p, t, c, pos: tf.lm_decode_step(p, cfg, t, c, pos))
 
     def prefill():
         lg, pf = tf.lm_prefill(params, cfg, toks, extra_embeds=extra)
-        caches = tf.graft_prefill_caches(
-            cfg, tf.init_kv_caches(cfg, b, max_len, dev), pf, t_first)
-        return lg, caches
-
-    first_pos = torch.tensor(t_first, device=dev)
+        for c in held:
+            c["k"].zero_()
+            c["v"].zero_()
+        return lg, tf.graft_prefill_caches(cfg, held, pf, t_first)
 
     def decode(tok, caches, i):  # the position stays on the card
-        return tf.lm_decode_step(params, cfg, tok, caches, first_pos + i)[0]
+        tok_buf.copy_(tok)
+        pos_buf.fill_(t_first + i)
+        return step(params, tok_buf, caches, pos_buf)[0]
 
     rec, served = greedy_waves(f"internvl2 ({cfg.n_layers} layers) {b}x("
                                f"{e}+{VLM_TEXT})", prefill, decode, VLM_NEW,
@@ -2987,9 +3429,13 @@ def vlm_serve(dev, ops, profiles: dict) -> dict:
         "internvl2", lambda: tf.lm_prefill(params, cfg, toks,
                                            extra_embeds=extra),
         lambda: decode(tok, caches, 0), profiles))
+    check(step.captures == 1,
+          f"internvl2: {step.captures} decode capture, {step.replays} "
+          f"replays")
     rec.update(params=n_params, layers=cfg.n_layers, embeds=e,
-               text_tokens=VLM_TEXT)
-    del params, caches, extra
+               text_tokens=VLM_TEXT, decode_captures=step.captures,
+               decode_replays=step.replays)
+    del params, caches, extra, held, step
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -3510,7 +3956,7 @@ def mesh_han(dev, ops, hg, mesh) -> dict:
 
     cfg = HGNNConfig(model="han", dataset="imdb", fused=True,
                      use_pallas=True, fuse_na_sa=True)
-    plain = build_hgnn_infer(cfg, hg, dev)
+    plain = eager(build_hgnn_infer(cfg, hg, dev))
     meshed = build_hgnn_infer(cfg, hg, dev, mesh=mesh)
     runs = {}
     for tag, b in (("mesh-less", plain), ("mesh", meshed)):
@@ -3551,7 +3997,8 @@ def mesh_han(dev, ops, hg, mesh) -> dict:
                           ms["mesh"] - ms["mesh-less"])
     return {"forward_ms": ms, "overheads": over, "launches": {
         "gat_na_fused_sa": c_mesh["gat_na_fused_sa"],
-        "semantic_combine": c_mesh["semantic_combine"]}}
+        "semantic_combine": c_mesh["semantic_combine"]},
+        "lse_launches": c_mesh["decode_attention_lse"]}
 
 
 def mesh_granite(dev, ops, mesh) -> dict:
@@ -3649,6 +4096,7 @@ def mesh_granite(dev, ops, mesh) -> dict:
     meshed_ms, direct_ms, direct2_ms = (r[4:6] for r in (meshed, direct,
                                                          direct2))
     launches = {k: meshed[3][k] for k in want_all}
+    lse_launches = meshed[3]["decode_attention_lse"]
     print(f"  9b granite-8b 4x{s} prefill: mesh {meshed[4]:.2f} ms, direct "
           f"{direct[4]:.2f} / {direct2[4]:.2f} ms (before / after); decode "
           f"a step: mesh {meshed[5]:.3f} ms, direct {direct[5]:.3f} / "
@@ -3685,7 +4133,8 @@ def mesh_granite(dev, ops, mesh) -> dict:
             "decode_ms_per_step": {"mesh": meshed_ms[1],
                                    "direct": direct_ms[1],
                                    "direct_after": direct2_ms[1]},
-            "decode_overheads": over, "launches": launches}
+            "decode_overheads": over, "launches": launches,
+            "lse_launches": lse_launches}
 
 
 # 9d: every padded HGNN plan on the mesh: (tag, HGNNConfig kwargs, the
@@ -3724,7 +4173,7 @@ def mesh_plans(dev, ops, hg, mesh) -> dict:
     for tag, kw, gat_entry in MESH_PLANS:
         t0 = time.perf_counter()
         cfg = HGNNConfig(dataset="imdb", use_pallas=True, **kw)
-        plain = build_hgnn_infer(cfg, hg, dev)
+        plain = eager(build_hgnn_infer(cfg, hg, dev))
         meshed = build_hgnn_infer(cfg, hg, dev, mesh=mesh)
         runs = []
         for b in (plain, meshed):
@@ -3970,7 +4419,6 @@ def mesh_phase(dev, ops, hg, flush) -> dict:
     1, model=1)`` mesh for 9a, 9b and 9d, destroyed at the end of them;
     then 9e (one card, no mesh) and 9c, which needs no card."""
     import torch.distributed as dist
-    from repro_torch.kernels import decode_attention as tdec
     from repro_torch.launch.mesh import make_smoke_mesh
 
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
@@ -3978,9 +4426,6 @@ def mesh_phase(dev, ops, hg, flush) -> dict:
     try:
         mesh = make_smoke_mesh(data=1, model=1)
         print(f"  mesh: {mesh}")
-        # the decode kernel's log-sum-exp form, counted over 9a, 9b and 9d
-        # (ops.reset_launch_counts leaves this count alone)
-        tdec.decode_attention.lse_launches = 0
         rec = {"han": mesh_han(dev, ops, hg, mesh)}
         rec["granite"] = mesh_granite(dev, ops, mesh)
         t = time.perf_counter()
@@ -3988,7 +4433,10 @@ def mesh_phase(dev, ops, hg, flush) -> dict:
               "imdb at full width, use_pallas")
         rec["plans"] = mesh_plans(dev, ops, hg, mesh)
         print(f"  9d: {time.perf_counter() - t:.1f} s")
-        rec["lse_form_launches"] = tdec.decode_attention.lse_launches
+        # the decode kernel's log-sum-exp form, counted over 9a, 9b and 9d
+        rec["lse_form_launches"] = (
+            rec["han"]["lse_launches"] + rec["granite"]["lse_launches"]
+            + rec["plans"]["launches"].get("decode_attention_lse", 0))
         print(f"  9a/9b/9d: the decode kernel's log-sum-exp form launched "
               f"{rec['lse_form_launches']} times (a cache of one rank is "
               f"never split over the sequence)")
@@ -4466,6 +4914,52 @@ def characterization(hg, hg_r, dev) -> dict:
     return out
 
 
+def compiled_phase(phase11: dict, serve_rec: dict, part_rec: dict,
+                   serve: dict) -> dict:
+    """Phase 11's record: the full-graph forwards ``drive_variant``
+    recorded (``captured_vs_eager``), the served requests of phase 3m
+    eager against captured with the upload pageable against pinned, the
+    failover serve's captures (3p) and granite-8b's decode
+    (``decode_vs_eager``, 5c)."""
+    want11 = {f"{pre}L={n}{post}" for n in (1, 2) for pre, post in (
+        ("", " fuse_na_sa=True"), ("rgcn ", " padded"),
+        ("magnn ", " cache_rows=0"), ("gcn/reddit ", " cache_rows=0"))}
+    check(set(phase11) == want11,
+          f"11: the full-graph forwards recorded {sorted(phase11)}")
+    for tag, r in sorted(phase11.items()):
+        print(f"  11 forward {tag}: eager {r['eager_ms']:.4f} ms, captured "
+              f"{r['captured_ms']:.4f} ms; captured busy "
+              f"{100 * r['captured_busy_share']:.1f}%")
+    served11 = {}
+    for tag, r in serve_rec.items():
+        if "eager" not in r:
+            continue
+        served11[tag] = {
+            "step_wall_p50_ms": {"eager": r["eager"]["step_wall_p50_ms"],
+                                 "captured": r["step_wall_p50_ms"]["median"]},
+            "step_wall_p99_ms": {"eager": r["eager"]["step_wall_p99_ms"],
+                                 "captured": r["step_wall_p99_ms"]["median"]},
+            "targets_per_s": {"eager": r["eager"]["targets_per_s"],
+                              "captured": r["targets_per_s"]["median"]},
+            "upload": {"pageable_mib": r["h2d_mib_last_batch"],
+                       "pageable_ms": r["h2d_ms_last_batch"],
+                       "pinned_mib": r["pinned_upload_mib_last_batch"],
+                       "pinned_ms": r["pinned_upload_ms_last_batch"]},
+            "captures": r["captures"], "replays": r["replays"]}
+        v = served11[tag]
+        print(f"  11 {tag}: step p50 {v['step_wall_p50_ms']}, p99 "
+              f"{v['step_wall_p99_ms']}, targets/s {v['targets_per_s']} "
+              f"(eager, captured); upload {v['upload']}")
+    g11 = serve["compiled"]
+    print(f"  11 granite-8b decode ms a step {g11['decode_ms_per_step']} "
+          f"(eager, captured); busy eager "
+          f"{100 * g11['eager_decode_busy_share']:.1f}%, captured "
+          f"{100 * g11['captured_decode_busy_share']:.1f}%")
+    return {"forwards": phase11, "served": served11,
+            "failover_captures": part_rec["failover"]["captures"],
+            "granite_decode": g11}
+
+
 def main() -> None:
     import torch
 
@@ -4478,6 +4972,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     # every module of the main paths, imported before the check below
+    from repro_torch import graphs  # noqa: F401
     from repro_torch.configs.base import HGNNConfig
     from repro_torch.core.models import get_model  # noqa: F401
     from repro_torch.data.synthetic import make_dataset
@@ -4503,6 +4998,9 @@ def main() -> None:
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if bad:
         fail_now(f"the port imported {bad}")
+    # every graph's first replay traced and held to what it adds to the
+    # launch counters (measured_card)
+    graphs._card = measured_card()
 
     # ---------------- phase 1: the card and the build ----------------
     card = card_line()
@@ -4644,6 +5142,9 @@ def main() -> None:
     gat_na_buckets_vs_plain(bk_calls, results)
 
     # ---------------- phase 3: the main paths ----------------
+    # phase 11's full-graph forwards, recorded by drive_variant as the
+    # phase 3 paths run them (HAN fused, RGCN padded, MAGNN, GCN/Reddit 0.1)
+    phase11: dict = {}
     print("phase 3: HAN/imdb full-graph inference through the entry points")
     main_counts = {"gat_na": 0, "gat_na_fused_sa": 0, "semantic_combine": 0,
                    "segment_spmm": 0, "fused_fp_na": 0, "cached_gather": 0,
@@ -4668,7 +5169,7 @@ def main() -> None:
             counts, logits_of[tag] = drive_variant(
                 cfg1.replace(layers=layers, fuse_na_sa=fuse), hg, dev, tag,
                 han_launches(layers, fuse), layers == 1 and fuse,
-                forward_ms, profiles)
+                forward_ms, profiles, compiled=phase11 if fuse else None)
             add_counts(counts)
 
     print("phase 3b: RGCN/imdb full-graph inference through the entry points")
@@ -4681,7 +5182,8 @@ def main() -> None:
             counts, logits_of[tag] = drive_variant(
                 cfg_r.replace(layers=layers, degree_buckets=buckets), hg, dev,
                 tag, segment_spmm_launches(layers),
-                layers == 1 and not buckets, forward_ms, profiles)
+                layers == 1 and not buckets, forward_ms, profiles,
+                compiled=None if buckets else phase11)
             add_counts(counts)
     print("phase 3c: RGCN/dblp")
     main_counts["segment_spmm"] += rgcn_dblp(dev, forward_ms, profiles)
@@ -4707,7 +5209,8 @@ def main() -> None:
                 cfg_m.replace(layers=layers, cache_rows=c), hg, dev, tag,
                 lambda batch: {"gat_na": 2 * layers,
                                "cached_gather": 6 * layers if c else 0},
-                layers == 1 and c == 0, forward_ms, profiles)
+                layers == 1 and c == 0, forward_ms, profiles,
+                compiled=None if c else phase11)
             main_counts["gat_na_unstacked"] += counts["gat_na"]
             main_counts["cached_gather"] += counts["cached_gather"]
         check(torch.equal(logits_of[f"magnn L={layers} cache_rows=0"],
@@ -4810,7 +5313,8 @@ def main() -> None:
             counts, logits_of[tag] = drive_variant(
                 cfg_g.replace(layers=layers, cache_rows=c), hg_r, dev, tag,
                 lambda batch, n=layers: {"segment_sum": 2 * n},
-                layers == 1 and c == 0, forward_ms, profiles, twice=True)
+                layers == 1 and c == 0, forward_ms, profiles, twice=True,
+                compiled=None if c else phase11)
             main_counts["segment_sum"] += counts["segment_sum"]
         check(torch.equal(logits_of[tag],
                           logits_of[f"gcn/reddit L={layers} cache_rows=0"]),
@@ -5293,6 +5797,33 @@ def main() -> None:
             entry["elastic_launches"] = n
     print(f"phase 10: {time.perf_counter() - t10:.1f} s")
 
+    # ---------------- phase 11: the compiled steps ----------------
+    print("phase 11: the compiled steps (graphs.compiled: a CUDA graph a "
+          "signature, replayed) against the eager calls they stand for, "
+          "as phases 3, 3m, 3p and 5c ran them")
+    compiled_rec = compiled_phase(phase11, serve_rec, part_rec, serve)
+    gc.collect()
+    replayed = REPLAYS["launches"]
+    check(not REPLAYS["untraced"],
+          f"11: every replayed graph traced ({REPLAYS['graphs_traced']} "
+          f"graphs; replayed, never traced: {REPLAYS['untraced']})")
+    for entry in kernels:
+        # the gat_na counter holds every form; the epilogue's has its own
+        name = entry["name"]
+        if name in ("gat_na", "gat_na_unstacked", "gat_na_bucketed"):
+            entry["graph_replay_launches"] = (
+                replayed.get("gat_na", 0)
+                - replayed.get("gat_na_fused_sa", 0))
+            entry["graph_replay_note"] = ("every gat_na form but the "
+                                          "epilogue's, together; traced "
+                                          "kernels a replay x replays")
+        else:
+            entry["graph_replay_launches"] = replayed.get(name, 0)
+    compiled_rec["graph_replays"] = REPLAYS
+    print(f"  11: launches of CUDA-graph replays over the run (each graph's "
+          f"first replay traced, {REPLAYS['graphs_traced']} graphs; traced "
+          f"kernels a replay x its {REPLAYS['replays']} replays): "
+          f"{replayed}")
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
@@ -5321,6 +5852,7 @@ def main() -> None:
                       "overlap": ov_rec,
                       "mesh": mesh_rec,
                       "elastic": elastic_rec,
+                      "compiled": compiled_rec,
                       "profiles": profiles}))
     if failures:
         print(f"FAILED: {failures}", file=sys.stderr)

@@ -18,6 +18,7 @@ A failed build raises: there is no fallback to the plain versions.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -66,6 +67,9 @@ build_log = ""  # ptxas -v output of the last build in this process
 build_seconds = 0.0  # wall time of that build (0 when the library was cached)
 _lib: Optional[ctypes.CDLL] = None
 _scratch: Dict[tuple, "torch.Tensor"] = {}
+# while a CUDA graph is captured: where the scratch buffers that it reads
+# go, for the graph to keep (``keeping``)
+_taken: Optional[List["torch.Tensor"]] = None
 # things made at run time: library loads and new or grown scratch buffers
 # (what the serve engine's ``compiles_after_warmup`` counts after warmup)
 created = 0
@@ -166,17 +170,49 @@ def scratch(what: str, numel: int, dtype, device, stream: int
     ``what`` on one stream, zero when it is allocated.  A kernel that
     counts in it sets its counters back to 0 before it ends, so the next
     launch finds them so; launches on one stream run in order, so two
-    never share it at once."""
+    never share it at once.
+
+    While the stream captures a CUDA graph (``graphs.compiled``) the
+    buffer must exist already, at its size: the capture's eager warm-up on
+    the same stream made it, and an allocation now raises.  The buffer
+    goes to the list that :func:`keeping` names, which the graph holds: a
+    later, larger buffer for the same key takes its place in the table,
+    and the old one lives as long as a graph that reads it."""
     import torch
 
     global created
     key = (what, str(device), stream, dtype)
     buf = _scratch.get(key)
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        if buf is None or buf.numel() < numel:
+            raise RuntimeError(
+                f"{what}: a scratch buffer of {numel} elements would be "
+                "allocated while the stream captures a CUDA graph; run the "
+                "step once on the capture stream before capturing it")
+        if _taken is None:
+            raise RuntimeError(
+                f"{what}: scratch read by a CUDA graph that keeps none; "
+                "capture through graphs.compiled")
+        if all(b is not buf for b in _taken):
+            _taken.append(buf)
+        return buf
     if buf is None or buf.numel() < numel:
         buf = torch.zeros(numel, dtype=dtype, device=device)
         _scratch[key] = buf
         created += 1
     return buf
+
+
+@contextlib.contextmanager
+def keeping(into: List["torch.Tensor"]):
+    """The scratch buffers handed out while a graph is captured go to
+    ``into``, which the graph keeps."""
+    global _taken
+    prev, _taken = _taken, into
+    try:
+        yield into
+    finally:
+        _taken = prev
 
 
 def check(err: int, what: str) -> None:

@@ -32,8 +32,7 @@ version (:func:`decode_attention_plain`, ``kernels/ref.py``'s oracle); a
 CUDA tensor launches the kernels or raises.  ``decode_attention.launches``
 counts the launches (one a call: both kernels);
 ``decode_attention.lse_launches`` counts those of the log-sum-exp form
-among them, and only its caller sets it to 0 (``ops.reset_launch_counts``
-leaves it alone, so that it spans several phases of a run).
+among them (``ops.launch_counts()["decode_attention_lse"]``).
 :func:`decode_attention_emulate` replays the split loop in PyTorch, so the
 CPU tests check the design, not only the contract.
 """

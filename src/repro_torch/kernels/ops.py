@@ -201,29 +201,38 @@ def decode_attention(q, k, v, kv_len, use_pallas: bool = False,
     return ref.decode_attention(q, k, v, kv_len, return_lse=return_lse)
 
 
+# every launch counter of the kernel wrappers: name -> (wrapper, attribute)
+COUNTERS = {
+    "gat_na": (_gat.gat_na, "launches"),
+    "gat_na_fused_sa": (_gat.gat_na, "fused_launches"),
+    "semantic_combine": (_sem.semantic_combine, "launches"),
+    "segment_spmm": (_spmm.segment_spmm, "launches"),
+    "segment_sum": (_ssum.segment_sum, "launches"),
+    "fused_fp_na": (_ffn.fused_fp_na, "launches"),
+    "cached_gather": (_fc.cached_gather, "launches"),
+    "semantic_scores": (_sem.semantic_scores, "launches"),
+    "flash_attention": (_flash.flash_attention, "launches"),
+    "decode_attention": (_dec.decode_attention, "launches"),
+    "decode_attention_lse": (_dec.decode_attention, "lse_launches"),
+}
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    _gat.gat_na.launches = 0
-    _gat.gat_na.fused_launches = 0
-    _sem.semantic_combine.launches = 0
-    _spmm.segment_spmm.launches = 0
-    _ssum.segment_sum.launches = 0
-    _ffn.fused_fp_na.launches = 0
-    _fc.cached_gather.launches = 0
-    _sem.semantic_scores.launches = 0
-    _flash.flash_attention.launches = 0
-    _dec.decode_attention.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def launch_counts() -> Dict[str, int]:
     """Every kernel's launch count, by name."""
-    return {"gat_na": _gat.gat_na.launches,
-            "gat_na_fused_sa": _gat.gat_na.fused_launches,
-            "semantic_combine": _sem.semantic_combine.launches,
-            "segment_spmm": _spmm.segment_spmm.launches,
-            "segment_sum": _ssum.segment_sum.launches,
-            "fused_fp_na": _ffn.fused_fp_na.launches,
-            "cached_gather": _fc.cached_gather.launches,
-            "semantic_scores": _sem.semantic_scores.launches,
-            "flash_attention": _flash.flash_attention.launches,
-            "decode_attention": _dec.decode_attention.launches}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+
+
+def add_launch_counts(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (by name, as :func:`launch_counts` gives) to the
+    counts: a replayed CUDA graph launches its kernels without running
+    their wrappers (``graphs.compiled``)."""
+    for name, n in delta.items():
+        if n:
+            fn, attr = COUNTERS[name]
+            setattr(fn, attr, getattr(fn, attr) + n)

@@ -149,7 +149,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch import tree
+from repro_torch import graphs, tree
 from repro_torch.configs.base import HGNNConfig
 from repro_torch.dist.sharding import (NamedSharding, P, distribute_tree,
                                        named, use_mesh)
@@ -229,7 +229,10 @@ def build_hgnn_infer(cfg: HGNNConfig, hg, device: DeviceLike = None,
     layers, residency, partitioned plans (``gather_halo`` by
     ``plan.partition.halo``), and a plan with a schedule as the serial
     forward, as in the reference.  With ``mesh=None`` this is the
-    one-device path, bit for bit."""
+    one-device path, bit for bit.  Off a mesh, ``fn`` on the card is
+    ``graphs.compiled(model.forward)`` (the prepared batch and the
+    parameters held; ``fn.fn`` is the eager forward), but for a plan with
+    an async schedule, whose ``forward_overlapped`` runs eagerly."""
     from repro_torch.core.models import get_model
 
     dev = resolve_device(device)
@@ -248,11 +251,16 @@ def build_hgnn_infer(cfg: HGNNConfig, hg, device: DeviceLike = None,
     params = model.init(gen, batch)
     if mesh is None:
         # an async schedule serves the overlapped dispatcher (bitwise the
-        # serial forward); sampled serving keeps the serial forward, its
-        # overlap being the engine's sampler prefetch, as in the reference
-        fn = (model.executor.forward_overlapped
-              if plan.schedule is not None and plan.sample is None
-              else model.forward)
+        # serial forward), eagerly; sampled serving keeps the serial
+        # forward, its overlap being the engine's sampler prefetch, as in
+        # the reference.  The serial forward on the card is compiled (the
+        # reference's jax.jit): one CUDA graph a signature, the batch held
+        if plan.schedule is not None and plan.sample is None:
+            fn = model.executor.forward_overlapped
+        elif dev.type == "cuda":
+            fn = graphs.compiled(model.forward)
+        else:
+            fn = model.forward
         return BuiltHGNNInfer(fn, params, batch, plan, model.executor)
 
     def fn(p, b):

@@ -25,22 +25,28 @@ Sampling is greedy, or categorical at a per-slot temperature from the
 engine's own seeded ``torch.Generator`` (``jax.random`` streams cannot be
 reproduced).
 
-The reference jits the forward and the decode step; PyTorch runs eagerly,
-so the engines call them under ``torch.inference_mode``.
+The reference jits the forward and the decode step; here the engines run
+them through ``graphs.compiled`` (a CUDA graph captured once a signature
+and replayed; off the card the function itself), under
+``torch.inference_mode``.  A caller that passes ``fn=`` to an HGNN engine
+gets that function as given: ``fn=executor.forward`` is the eager arm.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import build
 from repro_torch.nn import transformer as tf
+from repro_torch.nn.ssm import MambaCache
 from repro_torch.serve import resilience
 from repro_torch.serve.resilience import (
     FAILED, OK, PARTIAL, AdmissionController, DegradationController,
@@ -48,14 +54,17 @@ from repro_torch.serve.resilience import (
 
 
 class HGNNInferEngine:
-    """Plan-driven HGNN serving over one prepared full-graph batch."""
+    """Plan-driven HGNN serving over one prepared full-graph batch.  With
+    ``fn=None`` the forward is ``graphs.compiled(executor.forward)``: on
+    the card the batch and parameters are held where they lie and each
+    ``infer`` after the first replays one captured graph."""
 
     def __init__(self, executor, params, batch, fn=None):
         self.executor = executor
         self.plan = executor.plan
         self.params = params
         self.batch = batch
-        self.fn = fn if fn is not None else executor.forward
+        self.fn = fn if fn is not None else graphs.compiled(executor.forward)
 
     def infer(self) -> torch.Tensor:
         """One full forward over the prepared batch -> logits."""
@@ -174,16 +183,18 @@ class _SamplerPrefetcher:
     def _mk_key(ids: np.ndarray, rung_limit: int):
         return (np.asarray(ids, np.int64).tobytes(), int(rung_limit))
 
-    def submit(self, ids: np.ndarray, rung_limit: int) -> None:
+    def submit(self, ids: np.ndarray, rung_limit: int, alloc=None) -> None:
         """Start sampling a speculative next-step batch (at most one in
-        flight; a pending one keeps its slot)."""
+        flight; a pending one keeps its slot); ``alloc`` as the sampler
+        takes it (``_PinnedRows``: no CUDA call, so the worker makes
+        none)."""
         if self._future is not None:
             return
         self._key = self._mk_key(ids, rung_limit)
         self.counters["issued"] += 1
         self._future = self._pool.submit(
             self.sampler.sample, np.asarray(ids, np.int64),
-            max_rung=int(rung_limit))
+            max_rung=int(rung_limit), alloc=alloc)
 
     def take(self, ids: np.ndarray, rung_limit: int):
         """The prefetched batch if it answers exactly ``(ids,
@@ -215,6 +226,48 @@ class _SamplerPrefetcher:
         self._pool.shutdown(wait=True)
 
 
+class _PinnedRows:
+    """Pinned host arrays for the sampler to write a served batch's feature
+    tables into (its ``alloc``), so that the compiled forward copies them
+    to the card straight from where they lie, with no host copy.
+
+    :meth:`reserve` (the serving thread, at warmup) pins ``DEPTH`` arrays
+    for a table's ``(type, shape, dtype)``; a call hands out the next of
+    them, in turn, and makes no CUDA call, so the prefetch worker may call
+    it.  A table not reserved comes back as a new pageable array.  A
+    batch's tables are rewritten ``DEPTH`` batches of that rung later: the
+    engine holds at most three at once (the step's, the prefetched one and
+    ``last_sb``), and the forward has read a step's before it returns."""
+
+    DEPTH = 4
+
+    def __init__(self):
+        self._rings: Dict[tuple, list] = {}
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def _key(t, shape, dtype) -> tuple:
+        return (t, tuple(shape), np.dtype(dtype).str)
+
+    def reserve(self, t, shape, dtype) -> np.ndarray:
+        """Pin the arrays of a table (once) and hand out the next."""
+        key = self._key(t, shape, dtype)
+        if key not in self._rings:
+            dt = torch.from_numpy(np.empty(0, dtype)).dtype
+            self._rings[key] = [0] + [
+                graphs._card.staging(tuple(shape), dt).numpy()
+                for _ in range(self.DEPTH)]
+        return self(t, shape, dtype)
+
+    def __call__(self, t, shape, dtype) -> np.ndarray:
+        ring = self._rings.get(self._key(t, shape, dtype))
+        if ring is None:
+            return np.empty(shape, dtype)
+        with self._lock:
+            ring[0] = ring[0] % self.DEPTH + 1
+            return ring[ring[0]]
+
+
 class HGNNServeEngine:
     """Slot-based continuous batching for HGNN requests.
 
@@ -225,19 +278,30 @@ class HGNNServeEngine:
     logits scatter back per request through ``SampledBatch.target_rows``.  Finished slots refill from the queue
     without stopping the step loop.
 
-    ``warmup()`` runs one forward per ladder rung on an all-pad batch.
-    The port runs eagerly, so there is no jit cache to diff:
+    The forward is ``graphs.compiled(executor.forward)`` (with ``fn=None``
+    or a compiled ``fn``, whose eager function it compiles anew for this
+    engine); a plain ``fn`` runs as given, on a batch placed by
+    :meth:`place`.  On the card the compiled forward holds the parameters
+    and takes each sampled host batch as it is: the sampler writes the
+    feature tables (most of a batch's bytes) into pinned arrays that the
+    engine reserved at warmup (``_PinnedRows``), the wrapper copies them
+    to the signature's own device buffers straight from there and the
+    rest through its pinned staging, and replays the rung's graph.
+    ``warmup()`` runs one forward per ladder rung on an all-pad batch: one
+    capture a rung.
     ``stats()["compiles_after_warmup"]`` counts, over this engine's own
-    forwards since warmup, each batch whose shapes no earlier forward had
-    (what the reference's jit would trace anew, and what a CUDA-graph
-    capture, ROADMAP Queue 1 item 18, would capture anew) plus what was
-    made at run time — kernel-library loads and new or grown kernel
+    forwards since warmup, the new signatures of the compiled forward
+    (``Compiled.signatures``: a graph captured on the card, what one
+    would be made for off it) or, for a plain ``fn``, the batches whose
+    shapes no earlier forward had — what the reference's jit would trace
+    anew — plus what was made at run time: kernel-library loads and new
+    or grown kernel
     scratch buffers (``kernels/build.py``'s process-wide ``created``), so
     another engine or kernel call in the process is not counted against
     it.  It stays 0 while a batch's shapes are a pure function of its
     rung; a partition failover changes ``K`` and with it the partitioned
-    shapes, which counts one for each rung served after it, as in the
-    reference.
+    shapes, which counts one for each rung served after it (one capture
+    a rung and ``K``), as in the reference.
 
     Partitioned plans (``plan.partition``) are served through a
     ``static_shapes`` copy of the spec: every sampled batch is partitioned
@@ -280,8 +344,15 @@ class HGNNServeEngine:
         self.sampler = sampler
         self.slots = slots
         self.slot_targets = slot_targets
-        self.fn = fn if fn is not None else executor.forward
+        if fn is None or isinstance(fn, graphs.Compiled):
+            fn = graphs.compiled(executor.forward if fn is None else fn.fn)
+        self.fn = fn
         self.device = _first_tensor(self.params).device
+        # the compiled forward on the card: host batches go to it as they are
+        self._captured = (isinstance(fn, graphs.Compiled)
+                          and graphs.on_card(self.params))
+        # pinned feature tables for the sampler to write into (warmup)
+        self._rows = _PinnedRows() if self._captured else None
         max_t = max(t for t, _ in sampler.ladder)
         if slots * slot_targets > max_t:
             raise ValueError(
@@ -349,7 +420,9 @@ class HGNNServeEngine:
             self.caches[tgt].unpin(ids)
 
     def place(self, batch: Dict) -> Dict:
-        """A sampled host batch (CPU tensors) on the engine's device."""
+        """A sampled host batch (CPU tensors) on the engine's device
+        (pageable copies; the compiled forward on the card uploads from
+        pinned memory instead)."""
         from repro_torch.core.pipeline import _to_device
 
         return _to_device(batch, self.device)
@@ -357,30 +430,43 @@ class HGNNServeEngine:
     def _forward_batch(self, batch: Dict) -> Dict:
         """A sampled host batch in the layout the serve plan runs:
         partitioned on the host over the current (static-shape) spec, or
-        as it is."""
+        as it is.  The partitioner's per-step record (``part["meta"]``: K
+        and the cut edges), which no forward reads, is left out, so that
+        the batch's signature is a function of its rung and K."""
         if self._serve_plan.partition is None:
             return batch
         from repro_torch.dist.partition import partition_batch
 
-        return partition_batch(self._serve_plan, batch)
+        batch = partition_batch(self._serve_plan, batch)
+        part = dict(batch["part"])
+        part.pop("meta", None)
+        return dict(batch, part=part)
 
     def _forward(self, batch: Dict) -> np.ndarray:
         """Partition a sampled host batch if the plan says so, upload it to
         the engine's device, run the forward and read the logits back;
-        after warmup, count a batch of new shapes and what the forward made
-        (``build.created``'s change).  The host partitioner's seconds go to
-        ``last_partition_s``."""
+        after warmup, count a new signature (the compiled forward's) or a
+        batch of new shapes (a plain ``fn``), and what the forward made
+        (``build.created``'s change).  The host partitioner's seconds go
+        to ``last_partition_s``."""
         t0 = time.perf_counter()
         batch = self._forward_batch(batch)
         self.last_partition_s = time.perf_counter() - t0
-        sig = _shapes(batch)
         made = build.created
-        with torch.inference_mode():
-            out = self.fn(self.params, self.place(batch)).cpu().numpy()
+        if isinstance(self.fn, graphs.Compiled):
+            sigs = self.fn.signatures
+            with torch.inference_mode():
+                out = self.fn(self.params, batch if self._captured
+                              else self.place(batch)).cpu().numpy()
+            new = self.fn.signatures - sigs
+        else:  # the eager arm
+            sig = _shapes(batch)
+            with torch.inference_mode():
+                out = self.fn(self.params, self.place(batch)).cpu().numpy()
+            new = int(sig not in self._shapes_seen)
+            self._shapes_seen.add(sig)
         if self._made_after_warmup is not None:
-            self._made_after_warmup += (build.created - made
-                                        + (sig not in self._shapes_seen))
-        self._shapes_seen.add(sig)
+            self._made_after_warmup += build.created - made + new
         return out
 
     def _predict_next(self, active, q, chunks):
@@ -445,8 +531,9 @@ class HGNNServeEngine:
         kernels and sizes every scratch buffer; then starts the count that
         ``stats`` reports as ``compiles_after_warmup`` at 0.  Returns the
         number of rungs warmed."""
+        alloc = self._rows.reserve if self._rows is not None else None
         for i in range(len(self.sampler.ladder)):
-            self._forward(self.sampler.dummy_batch(i).batch)
+            self._forward(self.sampler.dummy_batch(i, alloc=alloc).batch)
         self._made_after_warmup = 0
         return len(self.sampler.ladder)
 
@@ -520,7 +607,7 @@ class HGNNServeEngine:
                       if self.prefetch is not None else None)
             sample_call = ((lambda: sb_pre) if sb_pre is not None else
                            (lambda: self.sampler.sample(
-                               ids, max_rung=rung_limit)))
+                               ids, max_rung=rung_limit, alloc=self._rows)))
             try:
                 sb = retry.run(
                     "sampler", sample_call,
@@ -530,7 +617,7 @@ class HGNNServeEngine:
                 if self.prefetch is not None:
                     nxt = self._predict_next(active, q, chunks)
                     if nxt is not None:
-                        self.prefetch.submit(*nxt)
+                        self.prefetch.submit(*nxt, alloc=self._rows)
                 out = retry.run(
                     "forward", lambda: self._forward(sb.batch),
                     hook=(lambda a: inj.check("forward", step, a))
@@ -677,6 +764,18 @@ class Request:
 class ServeEngine:
     """LM serving engine; runs on the device of ``params["embed"]``.
 
+    The decode step is ``graphs.compiled(lm_decode_step)``, as the
+    reference jits it: on the card one graph a wave batch size, captured
+    at the first wave of that size.  Everything it reads is held where it
+    lies: the parameters, the decode caches, the token and the position.
+    The engine owns one set of caches for ``batch_slots`` rows, made at
+    its first wave; a wave of ``b`` decodes in their first ``b`` rows
+    (views at the same addresses), zeroed and grafted in place, so the
+    caches of one full wave are all it ever holds.  The token buffer is
+    sliced the same way, and the position advances in place after each
+    step.  The prefill, the sampling and the read-back stay outside it,
+    as in the reference.
+
     ``timings`` holds, per wave, the host-clock seconds to the first token
     (prefill, graft and the first sample) and of the decode steps, and the
     number of decode steps; both spans end where the engine reads tokens
@@ -692,6 +791,12 @@ class ServeEngine:
         self.device = params["embed"].device
         self.gen = torch.Generator(device=self.device).manual_seed(rng_seed)
         self.timings: List[dict] = []
+        self._decode = graphs.compiled(
+            lambda p, t, c, pos: tf.lm_decode_step(p, cfg, t, c, pos))
+        self._caches: Optional[List] = None  # batch_slots rows, made once
+        self._token = torch.zeros((batch_slots, 1), dtype=torch.int64,
+                                  device=self.device)
+        self._pos = torch.zeros((), dtype=torch.int64, device=self.device)
 
     def _sample(self, logits: torch.Tensor,
                 temps: Optional[torch.Tensor]) -> torch.Tensor:
@@ -716,6 +821,36 @@ class ServeEngine:
                 out.extend(self._run_wave(wave))
         return out
 
+    def _wave_caches(self, b: int, prefill, t0: int) -> List:
+        """The decode caches of a wave of ``b`` with the prefill grafted in:
+        the first ``b`` rows of the engine's caches (each run's ``[L, B,
+        ...]`` sliced on ``B``, so a layer's rows stay contiguous and every
+        wave of ``b`` finds them where its graph captured them).  The
+        attention rows are zeroed, as fresh caches are, before the graft,
+        and each Mamba run's prefill state is copied into its rows."""
+        if self._caches is None:
+            self._caches = tf.init_kv_caches(self.cfg, self.slots,
+                                             self.max_len, self.device)
+        held = [MambaCache(*[f[:, :b] for f in c])
+                if isinstance(c, MambaCache)
+                else {"k": c["k"][:, :b], "v": c["v"][:, :b]}
+                for c in self._caches]
+        for c in held:
+            if not isinstance(c, MambaCache):
+                c["k"].zero_()
+                c["v"].zero_()
+        grafted = tf.graft_prefill_caches(self.cfg, list(held), prefill, t0)
+        for h, g in zip(held, grafted):
+            if isinstance(h, MambaCache):
+                for dst, src in zip(h, g):
+                    if dst.shape != src.shape or dst.dtype != src.dtype:
+                        raise ValueError(
+                            f"a Mamba prefill state {tuple(src.shape)} "
+                            f"{src.dtype} does not fit the held "
+                            f"{tuple(dst.shape)} {dst.dtype}")
+                    dst.copy_(src)
+        return held
+
     def _run_wave(self, wave: List[Request]) -> List[Request]:
         cfg, dev = self.cfg, self.device
         t_start = time.perf_counter()
@@ -726,9 +861,9 @@ class ServeEngine:
             toks[i, t0 - len(r.prompt):] = r.prompt  # left-pad
         logits, pf_caches = tf.lm_prefill(
             self.params, cfg, torch.from_numpy(toks).to(dev))
-        caches = tf.graft_prefill_caches(
-            cfg, tf.init_kv_caches(cfg, b, self.max_len, dev), pf_caches, t0)
+        caches = self._wave_caches(b, pf_caches, t0)
         del pf_caches
+        token, pos = self._token[:b], self._pos
         max_new = max(r.max_tokens for r in wave)
         temps_host = np.array([r.temperature for r in wave], np.float32)
         temps = (torch.from_numpy(temps_host).to(dev)
@@ -737,12 +872,12 @@ class ServeEngine:
         outs = [[t] for t in cur.tolist()]
         t_first = time.perf_counter()
         done = np.zeros(b, bool)
-        pos = torch.tensor(t0, device=dev)  # advanced on the device
+        pos.fill_(t0)  # advanced on the device
         steps = 0
         for step in range(1, max_new):
-            logits, caches = tf.lm_decode_step(self.params, cfg, cur[:, None],
-                                               caches, pos)
-            pos = pos + 1
+            token.copy_(cur[:, None])
+            logits, caches = self._decode(self.params, token, caches, pos)
+            pos.add_(1)
             steps += 1
             cur = self._sample(logits[:, 0], temps)
             cur_host = cur.tolist()

@@ -107,13 +107,27 @@ class _TypeTable:
         """Global -> local; dropped (truncated) ids come back as -1."""
         return self._lut[ids]
 
-    def rows(self, feats: np.ndarray) -> np.ndarray:
-        """The local feature table, zero rows past ``n_real``."""
+    def rows(self, feats: np.ndarray, out: Optional[np.ndarray] = None
+             ) -> np.ndarray:
+        """The local feature table, zero rows past ``n_real``; written into
+        ``out`` (``[cap, ...]`` of ``feats``' dtype) when it is given."""
         if self.identity:
             return feats
-        out = np.zeros((self.cap,) + feats.shape[1:], feats.dtype)
-        out[: self.n_real] = feats[self.ids]
+        if out is None:
+            out = np.zeros((self.cap,) + feats.shape[1:], feats.dtype)
+            out[: self.n_real] = feats[self.ids]
+            return out
+        np.take(feats, self.ids, axis=0, out=out[: self.n_real])
+        out[self.n_real:] = 0
         return out
+
+
+def _rows(table: _TypeTable, t: str, feats: np.ndarray, alloc) -> np.ndarray:
+    """``table.rows(feats)``, into ``alloc(t, shape, dtype)`` if given."""
+    if alloc is None or table.identity:
+        return table.rows(feats)
+    return table.rows(feats, alloc(t, (table.cap,) + feats.shape[1:],
+                                   feats.dtype))
 
 
 class HGNNSampler:
@@ -233,7 +247,12 @@ class HGNNSampler:
     # sampling entry points
     # ------------------------------------------------------------------
     def sample(self, targets: np.ndarray, rung: Optional[int] = None,
-               max_rung: Optional[int] = None) -> SampledBatch:
+               max_rung: Optional[int] = None,
+               alloc=None) -> SampledBatch:
+        """The rung-padded batch of ``targets``.  ``alloc(type, shape,
+        dtype)``, if given, returns the array that a relabeled type's
+        feature table is written into (the bulk of a batch's bytes; the
+        serve engine hands out pinned host memory), else a new one."""
         targets = np.asarray(targets, np.int64).reshape(-1)
         if len(targets) and (targets.min() < 0
                              or targets.max() >= self.n_target_type):
@@ -241,17 +260,17 @@ class HGNNSampler:
                              f"{self.target!r} ({self.n_target_type} nodes)")
         kind = self.plan.na.kind
         if kind == "gat":
-            return self._sample_gat(targets, rung, max_rung)
+            return self._sample_gat(targets, rung, max_rung, alloc)
         if kind == "mean":
-            return self._sample_mean(targets, rung, max_rung)
+            return self._sample_mean(targets, rung, max_rung, alloc)
         if kind == "instance":
-            return self._sample_instance(targets, rung, max_rung)
-        return self._sample_gcn(targets, rung, max_rung)
+            return self._sample_instance(targets, rung, max_rung, alloc)
+        return self._sample_gcn(targets, rung, max_rung, alloc)
 
-    def dummy_batch(self, rung: int) -> SampledBatch:
+    def dummy_batch(self, rung: int, alloc=None) -> SampledBatch:
         """An all-pad batch at the rung's exact shapes — warmup runs one
         forward per rung, so serving meets no new shape."""
-        return self.sample(np.zeros(0, np.int64), rung=rung)
+        return self.sample(np.zeros(0, np.int64), rung=rung, alloc=alloc)
 
     # ------------------------------------------------------------------
     # shared pieces
@@ -338,7 +357,8 @@ class HGNNSampler:
         return hop_sets
 
     def _sample_gat(self, targets: np.ndarray, rung: Optional[int],
-                    max_rung: Optional[int] = None) -> SampledBatch:
+                    max_rung: Optional[int] = None,
+                    alloc=None) -> SampledBatch:
         cfg, plan = self.cfg, self.plan
         k = self.k_eff
         hop_sets = self._expand_gat(targets)
@@ -350,7 +370,8 @@ class HGNNSampler:
         table = _TypeTable(self.n_target_type, f_cap, targets, frontier)
         tables = {self.target: table}
 
-        feats = table.rows(self.hg.features[self.target])
+        feats = _rows(table, self.target, self.hg.features[self.target],
+                      alloc)
         batch: Dict = {
             "feats": {self.target: _t(feats)},
             "feat_dims": {self.target: self.feat_dims[self.target]},
@@ -445,7 +466,8 @@ class HGNNSampler:
     # RGCN — per-relation padded (or bucketed) tables, typed k-hop ball
     # ------------------------------------------------------------------
     def _sample_mean(self, targets: np.ndarray, rung: Optional[int],
-                     max_rung: Optional[int] = None) -> SampledBatch:
+                     max_rung: Optional[int] = None,
+                     alloc=None) -> SampledBatch:
         cfg, plan = self.cfg, self.plan
         k = self.k_eff
         # typed frontier expansion: per hop, every relation (s, r, d) pulls
@@ -498,7 +520,7 @@ class HGNNSampler:
                                    self._clamp(f_cap, t), tgt, frontier)
 
         batch: Dict = {
-            "feats": {t: _t(tables[t].rows(self.hg.features[t]))
+            "feats": {t: _t(_rows(tables[t], t, self.hg.features[t], alloc))
                       for t in self.hg.features},
             "counts": {t: tables[t].cap for t in self.hg.node_counts},
             "feat_dims": dict(self.feat_dims),
@@ -559,7 +581,8 @@ class HGNNSampler:
     # MAGNN — instance tables; frontier = instance node sets
     # ------------------------------------------------------------------
     def _sample_instance(self, targets: np.ndarray, rung: Optional[int],
-                         max_rung: Optional[int] = None) -> SampledBatch:
+                         max_rung: Optional[int] = None,
+                         alloc=None) -> SampledBatch:
         plan, cfg = self.plan, self.cfg
         i_cap = self.k_eff  # instances per target (the MAGNN fan-out knob)
         # target-type rows that need REAL instance rows: the requested
@@ -624,7 +647,7 @@ class HGNNSampler:
 
         tt = tables[self.target]
         batch: Dict = {
-            "feats": {t: _t(tables[t].rows(self.hg.features[t]))
+            "feats": {t: _t(_rows(tables[t], t, self.hg.features[t], alloc))
                       for t in sorted(types_used)},
             "feat_dims": {t: self.feat_dims[t] for t in sorted(types_used)},
             "n_nodes": tt.cap,
@@ -658,7 +681,8 @@ class HGNNSampler:
     # GCN — homogeneous edge list, 2 aggregation hops per layer
     # ------------------------------------------------------------------
     def _sample_gcn(self, targets: np.ndarray, rung: Optional[int],
-                    max_rung: Optional[int] = None) -> SampledBatch:
+                    max_rung: Optional[int] = None,
+                    alloc=None) -> SampledBatch:
         plan = self.plan
         k = self.k_eff
         indptr, indices = self.csr.indptr, self.csr.indices
@@ -706,7 +730,8 @@ class HGNNSampler:
                 idx[e: e + len(loc)] = loc
                 e += len(loc)
         batch: Dict = {
-            "x": _t(table.rows(self.hg.features[self.target])),
+            "x": _t(_rows(table, self.target, self.hg.features[self.target],
+                          alloc)),
             "seg": _t(seg),
             "idx": _t(idx),
             "n_nodes": table.cap,
