@@ -120,8 +120,9 @@ parameters replicated on a ``(pod, data, model)`` mesh and on the mesh
 the single process's losses (10d).  Phase 11 is the compiled step
 (``graphs.compiled``, the port's counterpart of the reference's
 ``jax.jit``): the engines and ``build_hgnn_infer`` replay a CUDA graph
-captured once a signature in every phase above (the mesh paths and
-``forward_overlapped`` stay eager), with the launch counts of a replay
+captured once a signature in every phase above (``forward_overlapped``
+stays eager; phases 6c, 9 and 10 hold their eager gates on the eager
+arms, ``fn.fn`` and ``jit_step(...).fn``), with the launch counts of a replay
 added back, so every exact launch check holds; the first replay of every
 graph is traced and its device kernels, mapped to the wrapper counters,
 must be what it adds (``measured_card``); HAN fused, RGCN padded,
@@ -133,7 +134,17 @@ upload pageable against pinned); phase 3p's failover serve (one
 capture a rung and K, bitwise the eager serve); granite-8b's decode in
 phase 5c (tokens and every decode step's logits bitwise an eager
 ``lm_decode_step`` loop, ms a step of both in turns, busy shares); the
-family serves of phases 7b and 8b run captured.  It imports nothing of
+family serves of phases 7b and 8b run captured; 11m, beside phase 9
+on its mesh: 9a's HAN/imdb forward and 9d's ten plans captured on the
+mesh (``captured_mesh``: bitwise the eager mesh forward, one capture with
+no collective, the replays' launches traced), granite-8b's prefill and
+32 decode steps through the compiled ``jit_step`` (tokens and logits
+bitwise the eager mesh wave, the caches donated), walls of both;
+11t, beside phases 6c and 10a: smollm-360m's compiled step with the
+state donated, mesh-less through ``launch/train.setup`` and on the mesh
+through ``jit_step`` (``captured_train``: loss, grad_norm and every
+state leaf bitwise the eager steps, the same tensors back from every
+call, one capture, ms a step and peak memory).  It imports nothing of
 jax or of the JAX package ``repro``.
 
 Output: progress lines, then the card's name and power limit as
@@ -3707,13 +3718,94 @@ def train_two_layers(dev) -> dict:
     return out
 
 
+def captured_train(tag: str, step, state, batches, want, ops) -> dict:
+    """11t: ``step`` (``graphs.compiled`` with the state donated, or a
+    ``jit_step`` over it) from ``state`` over ``batches``: each step's
+    loss and grad_norm bitwise the eager run's (``want[i]``: loss,
+    grad_norm and the eager state after that step, or None) and, where
+    given, every state leaf (``want[i]`` None: a step only timed); every
+    call returning the tensors of the state it was given; one capture
+    (the first step warms up and captures), the other steps replays, each
+    launching what the graph's traced replay launched (``measured_card``):
+    ``TRAIN_MB`` ``segment_sum`` (the embedding gradient, a microbatch
+    each).  The walls of the steps (the median of the replays after the
+    traced first one is the step's ms) and the peak memory allocated over
+    them."""
+    import contextlib
+    import statistics
+
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch import graphs, tree
+    from repro_torch.dist.sharding import whole
+
+    fn = step if isinstance(step, graphs.Compiled) else step.compiled
+    gc.collect()  # the eager runs' autograd cycles, before the baseline
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    leaves = tree.leaves(state)
+    ops.reset_launch_counts()
+    walls, same, ok = [], [], []
+    comm = CommDebugMode()  # the capturing step's collectives, recorded
+    for i, (b, w) in enumerate(zip(batches, want)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with comm if i == 0 else contextlib.nullcontext():
+            state, m = step(state, b)
+        float(whole(m["loss"]))  # the launcher's one read a step
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        same.append(all(x is y for x, y in zip(tree.leaves(state), leaves)))
+        ok.append(w is None or (
+            bitwise(m["loss"], w[0]) and bitwise(m["grad_norm"], w[1])
+            and (w[2] is None or bitwise(state, w[2]))))
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    traced = [getattr(g, "measured", None) for g in fn.graphs.values()]
+    n = len(batches)
+    check(all(ok), f"11t {tag}: {n} captured steps' loss, grad_norm and "
+          f"state (where the eager run has it) bitwise the eager steps "
+          f"({ok})")
+    check(all(same), f"11t {tag}: every call returns the state tensors "
+          f"it was given ({same})")
+    check(fn.captures == 1 and fn.replays == n - 1
+          and traced == [{"segment_sum": TRAIN_MB}]
+          and counts == {"segment_sum": TRAIN_MB * n},
+          f"11t {tag}: {fn.captures} capture, {fn.replays} replays, "
+          f"launches {counts} (the graph's traced replay {traced}; want "
+          f"{TRAIN_MB} segment_sum a step)")
+    med = statistics.median(walls[2:])
+    print(f"  11t {tag} train step (batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{TRAIN_MB} microbatches), captured: the capturing step "
+          f"{walls[0]:.2f} ms, the first replay (traced) {walls[1]:.2f} ms, "
+          f"then {' / '.join(f'{w:.2f}' for w in walls[2:])} ms (median "
+          f"{med:.2f}); peak memory allocated {peak:.2f} GiB ({held_gib:.2f} "
+          f"GiB held before the first step), reserved after {reserved:.2f} "
+          f"GiB; the capturing step's c10d collectives (warm-up and "
+          f"capture) {dict(comm.get_comm_counts())}; card {card_line()}",
+          flush=True)
+    return {"step_ms": walls, "replay_ms_median": med, "peak_gib": peak,
+            "capture_collectives": {str(k): v for k, v in
+                                    comm.get_comm_counts().items()},
+            "held_gib": held_gib, "reserved_gib": reserved,
+            "captures": fn.captures, "replays": fn.replays,
+            "launches_a_replay_traced": traced}
+
+
 def train_full(dev, ops, profiles: dict) -> dict:
     """Phase 6c: smollm-360m as its config gives it (32 layers, bf16, remat
     full, heads padded 15 -> 16 and 5 -> 16) through ``launch.train``'s
     setup and step, seq 2048, global batch 8 as 2 microbatches of 4.  Ten
     steps on one repeated batch (the loss must fall; the last 8 timed),
     two runs of the same 3 steps from one state (bitwise), exact
-    ``segment_sum`` launches, the peak memory and a profiled step."""
+    ``segment_sum`` launches, the peak memory and a profiled step, all
+    through the eager step (``step_fn.fn``); 11t: the compiled step that
+    the launcher runs on the card (the state donated) over the first
+    run's 3 steps and two more, on the loader's numpy batches
+    (``captured_train``)."""
     import gc
     import math
 
@@ -3748,11 +3840,12 @@ def train_full(dev, ops, profiles: dict) -> dict:
     held = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    step = run.step_fn.fn  # the eager step; 11t: the compiled one
     state, losses, walls = run.state, [], []
     for i in range(TRAIN_WARMUP + TRAIN_TIMED):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = run.step_fn(state, batch)
+        state, m = step(state, batch)
         losses.append(float(m["loss"]))  # the launcher's one read a step
         torch.cuda.synchronize()  # the optimizer's update too
         walls.append((time.perf_counter() - t0) * 1e3)
@@ -3793,14 +3886,15 @@ def train_full(dev, ops, profiles: dict) -> dict:
     runs, run_counts = [], []
     for _ in range(2):
         ops.reset_launch_counts()
-        s, ls = run.state, []
+        s, ls, gs = run.state, [], []
         for i in range(3):
-            s, m = run.step_fn(s, launch_train.to_device(
+            s, m = step(s, launch_train.to_device(
                 synth_batch(cfg, run.shape, i), dev))
             ls.append(m["loss"])
+            gs.append(m["grad_norm"])
         torch.cuda.synchronize()
         run_counts.append(ops.launch_counts()["segment_sum"])
-        runs.append((torch.stack(ls), s))
+        runs.append((torch.stack(ls), s, gs))
         del s
     check(torch.equal(runs[0][0], runs[1][0]) and all(
         torch.equal(a, b) for a, b in zip(tree.leaves(runs[0][1]),
@@ -3810,12 +3904,25 @@ def train_full(dev, ops, profiles: dict) -> dict:
     check(run_counts == [3 * TRAIN_MB] * 2,
           f"smollm train, 3 steps: segment_sum launches {run_counts} (want "
           f"{3 * TRAIN_MB} each)")
+    # 11t: the launcher's compiled step over the first run's 3 steps and
+    # two more (timed only: three replays after the traced one), from a
+    # copy of the state at step 0 (donated: overwritten step by step)
+    rec11 = captured_train(
+        "smollm-360m mesh-less", run.step_fn,
+        tree.map(torch.clone, run.state),
+        [synth_batch(cfg, run.shape, i) for i in range(5)],
+        [(runs[0][0][i], runs[0][2][i], runs[0][1] if i == 2 else None)
+         for i in range(3)] + [None, None], ops)
+    rec11["eager_step_ms_median"] = med
+    rec11["eager_peak_gib"] = peak
     s = runs[0][1]
     del runs
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"  {time.perf_counter() - t_phase:.1f} s so far")
     # one "forward" of the profile below is one whole train step
     prof = profile_forward(types.SimpleNamespace(
-        infer=lambda: run.step_fn(s, batch)), "smollm train step", reps=1,
+        infer=lambda: step(s, batch)), "smollm train step", reps=1,
         warmup=0)
     profiles["smollm train step"] = prof
     busy = prof["device_busy_ms"] / prof["wall_ms"]
@@ -3827,7 +3934,7 @@ def train_full(dev, ops, profiles: dict) -> dict:
             "flop_per_step": flops, "params": n_params,
             "peak_gib": peak, "held_gib": held, "busy_share": busy,
             "losses": losses,
-            "launches": counts["segment_sum"]}
+            "launches": counts["segment_sum"], "compiled": rec11}
 
 
 # ---------------------------------------------------------------------------
@@ -3945,6 +4052,50 @@ def mesh_overheads(tag: str, plain, meshed, extra_ms: float) -> dict:
             "extra_ms": extra_ms, "us_per_dtensor_op": per_op_us}
 
 
+def captured_mesh(tag: str, b, want, counts: dict, ops) -> dict:
+    """11m on one mesh forward: ``b.fn`` (``graphs.compiled`` of the mesh
+    forward, as ``build_hgnn_infer(mesh=...)`` returns it on the card)
+    warmed up and captured on the mesh under ``CommDebugMode``, then
+    ITERS replays: every result bitwise the eager mesh forward's ``want``
+    (a DTensor: local tensor and placements), one capture, no c10d
+    collective in the capture, and the replays launching what the
+    graph's traced replay launched (``measured_card``), which must be
+    ``counts`` (the eager mesh forward's launches), times ITERS."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch import graphs
+
+    fn = b.fn
+    check(isinstance(fn, graphs.Compiled),
+          f"11m {tag}: build_hgnn_infer(mesh=...) compiles its forward on "
+          f"the card ({type(fn).__name__})")
+    comm = CommDebugMode()
+    with comm, torch.inference_mode():
+        outs = [fn(b.params, b.batch)]
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        outs += [fn(b.params, b.batch) for _ in range(ITERS)]
+    torch.cuda.synchronize()
+    replayed = {k: v for k, v in ops.launch_counts().items() if v}
+    traced = getattr(fn.graph_of(b.params, b.batch), "measured", None)
+    per = {k: v for k, v in counts.items() if v}
+    same = all(type(o).__name__ == "DTensor"
+               and o.placements == want.placements
+               and torch.equal(o.to_local(), want.to_local()) for o in outs)
+    check(same, f"11m {tag}: {len(outs)} captured mesh forwards (the "
+          f"capture's and {ITERS} replays) bitwise the eager mesh forward")
+    n_coll = comm.get_total_counts()
+    check(fn.captures == 1 and fn.replays == ITERS and traced == per
+          and replayed == {k: v * ITERS for k, v in per.items()}
+          and n_coll == 0,
+          f"11m {tag}: {fn.captures} capture with {n_coll} c10d "
+          f"collectives, {fn.replays} replays launching {replayed} (the "
+          f"graph's traced replay {traced} x {ITERS}; the eager mesh "
+          f"forward's {per})")
+    return {"captures": fn.captures, "replays": fn.replays,
+            "collectives": n_coll, "launches_a_replay_traced": traced}
+
+
 def mesh_han(dev, ops, hg, mesh) -> dict:
     """9a: HAN/imdb full graph (fused, kernels, the NA->SA epilogue)
     through ``build_hgnn_infer(mesh=...)`` against the mesh-less build:
@@ -3957,7 +4108,8 @@ def mesh_han(dev, ops, hg, mesh) -> dict:
     cfg = HGNNConfig(model="han", dataset="imdb", fused=True,
                      use_pallas=True, fuse_na_sa=True)
     plain = eager(build_hgnn_infer(cfg, hg, dev))
-    meshed = build_hgnn_infer(cfg, hg, dev, mesh=mesh)
+    compiled = build_hgnn_infer(cfg, hg, dev, mesh=mesh)
+    meshed = eager(compiled)  # the eager mesh forward; 11m: the captured
     runs = {}
     for tag, b in (("mesh-less", plain), ("mesh", meshed)):
         ops.reset_launch_counts()
@@ -3966,10 +4118,11 @@ def mesh_han(dev, ops, hg, mesh) -> dict:
         torch.cuda.synchronize()
         runs[tag] = (out, ops.launch_counts())
     want, c_plain = runs["mesh-less"]
-    got, c_mesh = runs["mesh"]
-    check(type(got).__name__ == "DTensor",
-          f"9a: the mesh forward returns a DTensor ({type(got).__name__})")
-    got = got.full_tensor()
+    got_mesh, c_mesh = runs["mesh"]
+    check(type(got_mesh).__name__ == "DTensor",
+          f"9a: the mesh forward returns a DTensor "
+          f"({type(got_mesh).__name__})")
+    got = got_mesh.full_tensor()
     check(got.shape == want.shape == (4278, 8)
           and bool(torch.isfinite(got).all()),
           f"9a: logits {tuple(got.shape)} finite")
@@ -3987,15 +4140,22 @@ def mesh_han(dev, ops, hg, mesh) -> dict:
                 b.fn(b.params, b.batch)
         return go
 
-    ms = wall_median_ms({"mesh-less": fwd(plain), "mesh": fwd(meshed)},
-                        MESH_REPS)
+    rec11 = captured_mesh("9a HAN/imdb", compiled, got_mesh, c_mesh, ops)
+    ms = wall_median_ms({"mesh-less": fwd(plain), "mesh": fwd(meshed),
+                         "mesh captured": fwd(compiled)}, MESH_REPS)
     print(f"  9a HAN/imdb forward wall (median of {MESH_REPS}, in turns): "
           f"mesh {ms['mesh']:.4f} ms, mesh-less {ms['mesh-less']:.4f} ms; "
           f"launches {c_mesh['gat_na_fused_sa']} gat_na (sem=) + "
           f"{c_mesh['semantic_combine']} semantic_combine a forward")
+    print(f"  11m HAN/imdb mesh forward wall (median of {MESH_REPS}, in "
+          f"turns with the above): eager {ms['mesh']:.4f} ms, captured "
+          f"{ms['mesh captured']:.4f} ms; card {card_line()}")
     over = mesh_overheads("9a HAN/imdb forward", fwd(plain), fwd(meshed),
                           ms["mesh"] - ms["mesh-less"])
-    return {"forward_ms": ms, "overheads": over, "launches": {
+    rec11["forward_ms"] = {"eager": ms["mesh"],
+                           "captured": ms["mesh captured"]}
+    return {"forward_ms": ms, "overheads": over, "compiled": rec11,
+            "launches": {
         "gat_na_fused_sa": c_mesh["gat_na_fused_sa"],
         "semantic_combine": c_mesh["semantic_combine"]},
         "lse_launches": c_mesh["decode_attention_lse"]}
@@ -4004,13 +4164,17 @@ def mesh_han(dev, ops, hg, mesh) -> dict:
 def mesh_granite(dev, ops, mesh) -> dict:
     """9b: granite-8b at full width (36 layers, bf16, the kernels): the
     prefill of 4 x 2048 tokens and 32 greedy decode steps through
-    ``build_prefill_step`` / ``build_decode_step`` (``jit_step``) on the
-    mesh against ``lm_prefill`` / ``lm_decode_step`` called directly:
-    logits and tokens bitwise, the same flash_attention and
-    decode_attention launches (36 a prefill, 36 a step); then one more
-    step through the step function on each path (``mesh_overheads``)."""
+    ``build_prefill_step`` / ``build_decode_step`` (``jit_step``'s eager
+    arm, ``.fn``) on the mesh against ``lm_prefill`` / ``lm_decode_step``
+    called directly: logits and tokens bitwise, the same flash_attention
+    and decode_attention launches (36 a prefill, 36 a step); 11m: the same
+    wave through the compiled ``jit_step`` (prefill captured, decode
+    captured at its first step, the caches donated), bitwise the eager
+    mesh wave, one capture each with no collective; then one more step
+    through the step function on each path (``mesh_overheads``)."""
     import numpy as np
     import torch
+    from torch.distributed.tensor.debug import CommDebugMode
     from repro_torch import tree
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_config
@@ -4033,14 +4197,30 @@ def mesh_granite(dev, ops, mesh) -> dict:
         p_mesh = distribute_tree(params, pre.in_shardings[0])
     prefill, decode = jit_step(pre), jit_step(dec)
 
-    def wave(meshed: bool):
+    comm = {}  # 11m: the c10d collectives of each capture
+
+    def wave(arm: str):
+        """The prefill and ``n`` greedy steps: ``direct`` (no mesh),
+        ``mesh`` (``jit_step``'s eager arm) or ``captured`` (``jit_step``
+        compiled: its prefill captured and replayed once, traced, before
+        the clock starts; its first decode step the decode's capture and
+        its second the traced first replay, both timed apart)."""
+        meshed = arm != "direct"
+        pre_fn = prefill.fn if arm == "mesh" else prefill
+        dec_fn = decode.fn if arm == "mesh" else decode
         logits_all, toks = [], []
+        if arm == "captured":
+            comm["prefill"] = CommDebugMode()
+            with comm["prefill"], torch.inference_mode():
+                pre_fn(p_mesh, {"tokens": tokens})
+            with torch.inference_mode():  # the first replay: traced
+                pre_fn(p_mesh, {"tokens": tokens})
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
             if meshed:
-                lg, pf = prefill(p_mesh, {"tokens": tokens})
+                lg, pf = pre_fn(p_mesh, {"tokens": tokens})
                 lg = lg.full_tensor()
                 pf = tree.map(lambda c: c.full_tensor(), pf)
             else:
@@ -4057,11 +4237,17 @@ def mesh_granite(dev, ops, mesh) -> dict:
             logits_all.append(lg)
             toks.append(tok)
             torch.cuda.synchronize()
-            t1 = time.perf_counter()
+            t_steps = time.perf_counter()
+            apart = []  # the capturing step and the traced first replay
             for i in range(n):
                 pos = torch.tensor(s + i, dtype=torch.int32, device=dev)
                 if meshed:
-                    lg, caches = decode(p_mesh, tok, caches, pos)
+                    if arm == "captured" and i == 0:
+                        comm["decode"] = CommDebugMode()
+                        with comm["decode"]:
+                            lg, caches = dec_fn(p_mesh, tok, caches, pos)
+                    else:
+                        lg, caches = dec_fn(p_mesh, tok, caches, pos)
                     lg = lg.full_tensor()
                 else:
                     lg, caches = tf.lm_decode_step(params, cfg, tok, caches,
@@ -4069,30 +4255,71 @@ def mesh_granite(dev, ops, mesh) -> dict:
                 tok = lg[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
                 logits_all.append(lg)
                 toks.append(tok)
+                if arm == "captured" and i < 2:
+                    torch.cuda.synchronize()
+                    now = time.perf_counter()
+                    apart.append((now - t_steps) * 1e3)
+                    t_steps = now
             torch.cuda.synchronize()
-            t_dec = time.perf_counter() - t1
+            t_dec = time.perf_counter() - t_steps
         c_all = ops.launch_counts()
+        per_step = t_dec * 1e3 / (n - len(apart))
         return (logits_all, torch.cat(toks, dim=1), c_pre, c_all,
-                t_pre * 1e3, t_dec * 1e3 / n, (tok, caches))
+                t_pre * 1e3, per_step, (tok, caches), apart)
 
-    direct = wave(False)
-    meshed = wave(True)
-    direct2 = wave(False)  # the mesh-less times again, after the mesh's
+    direct = wave("direct")
+    meshed = wave("mesh")
+    direct2 = wave("direct")  # the mesh-less times again, after the mesh's
     check(all(torch.equal(a, c) for a, c in zip(meshed[0], direct[0])),
           f"9b: granite logits on the mesh bitwise the direct calls over "
           f"the prefill and {n} decode steps")
     check(torch.equal(meshed[1], direct[1]) and torch.equal(direct2[1],
                                                              direct[1]),
           "9b: the same greedy tokens")
+    captured = wave("captured")
+    check(all(torch.equal(a, c) for a, c in zip(captured[0], meshed[0]))
+          and torch.equal(captured[1], meshed[1]),
+          f"11m granite-8b: the captured mesh prefill and {n} decode steps "
+          f"give the eager mesh wave's tokens and every logit bitwise")
     layers = cfg.n_layers
     want_pre = dict(flash_attention=layers, decode_attention=0)
     want_all = dict(flash_attention=layers, decode_attention=layers * n)
-    for tag, r in (("mesh", meshed), ("direct", direct)):
+    for tag, r in (("mesh", meshed), ("direct", direct),
+                   ("11m captured", captured)):
         pre_c = {k: r[2][k] for k in want_pre}
         all_c = {k: r[3][k] for k in want_all}
         check(pre_c == want_pre and all_c == want_all,
               f"9b {tag}: launches prefill {pre_c}, whole {all_c} (want "
               f"{want_pre}, {want_all})")
+    traced = {k: [getattr(g, "measured", None)
+                  for g in j.compiled.graphs.values()]
+              for k, j in (("prefill", prefill), ("decode", decode))}
+    n_coll = {k: c.get_total_counts() for k, c in comm.items()}
+    check((prefill.compiled.captures, prefill.compiled.replays,
+           decode.compiled.captures, decode.compiled.replays)
+          == (1, 2, 1, n - 1)
+          and traced == {"prefill": [{"flash_attention": layers}],
+                         "decode": [{"decode_attention": layers}]}
+          and n_coll == {"prefill": 0, "decode": 0},
+          f"11m granite-8b: one capture each (prefill "
+          f"{prefill.compiled.captures}, decode {decode.compiled.captures}) "
+          f"with {n_coll} c10d collectives, replays prefill "
+          f"{prefill.compiled.replays} decode {decode.compiled.replays}, "
+          f"each graph's traced replay {traced}")
+    print(f"  11m granite-8b 4x{s} on the mesh: prefill eager "
+          f"{meshed[4]:.2f} ms, captured {captured[4]:.2f} ms (its second "
+          f"replay); decode a step eager {meshed[5]:.3f} ms, captured "
+          f"{captured[5]:.3f} ms (the last {n - 2} steps; the capturing "
+          f"step {captured[7][0]:.1f} ms, the traced first replay "
+          f"{captured[7][1]:.1f} ms); card {card_line()}")
+    compiled11 = {"prefill_ms": {"eager": meshed[4], "captured": captured[4]},
+                  "decode_ms_per_step": {"eager": meshed[5],
+                                         "captured": captured[5]},
+                  "capture_step_ms": captured[7][0],
+                  "traced_replay_step_ms": captured[7][1],
+                  "collectives": n_coll,
+                  "launches_a_replay_traced": traced}
+    del captured, prefill, decode
     meshed_ms, direct_ms, direct2_ms = (r[4:6] for r in (meshed, direct,
                                                          direct2))
     launches = {k: meshed[3][k] for k in want_all}
@@ -4134,7 +4361,7 @@ def mesh_granite(dev, ops, mesh) -> dict:
                                    "direct": direct_ms[1],
                                    "direct_after": direct2_ms[1]},
             "decode_overheads": over, "launches": launches,
-            "lse_launches": lse_launches}
+            "lse_launches": lse_launches, "compiled": compiled11}
 
 
 # 9d: every padded HGNN plan on the mesh: (tag, HGNNConfig kwargs, the
@@ -4174,7 +4401,8 @@ def mesh_plans(dev, ops, hg, mesh) -> dict:
         t0 = time.perf_counter()
         cfg = HGNNConfig(dataset="imdb", use_pallas=True, **kw)
         plain = eager(build_hgnn_infer(cfg, hg, dev))
-        meshed = build_hgnn_infer(cfg, hg, dev, mesh=mesh)
+        compiled = build_hgnn_infer(cfg, hg, dev, mesh=mesh)
+        meshed = eager(compiled)
         runs = []
         for b in (plain, meshed):
             ops.reset_launch_counts()
@@ -4183,8 +4411,8 @@ def mesh_plans(dev, ops, hg, mesh) -> dict:
                 out = b.fn(b.params, b.batch)
             torch.cuda.synchronize()
             runs.append((out, ops.launch_counts(), comm.get_total_counts()))
-        (want, c_plain, _), (got, c_mesh, n_coll) = runs
-        got = got.full_tensor()
+        (want, c_plain, _), (got_mesh, c_mesh, n_coll) = runs
+        got = got_mesh.full_tensor()
         check(bool(torch.isfinite(got).all()) and got.shape == want.shape
               == (4278, 8), f"9d {tag}: logits {tuple(got.shape)} finite")
         check(torch.equal(got, want), f"9d {tag}: mesh logits bitwise the "
@@ -4201,22 +4429,25 @@ def mesh_plans(dev, ops, hg, mesh) -> dict:
                     b.fn(b.params, b.batch)
             return go
 
-        ms = wall_median_ms({"mesh-less": fwd(plain), "mesh": fwd(meshed)},
+        rec11 = captured_mesh(f"9d {tag}", compiled, got_mesh, c_mesh, ops)
+        ms = wall_median_ms({"mesh-less": fwd(plain), "mesh": fwd(meshed),
+                             "mesh captured": fwd(compiled)},
                             MESH_PLAN_REPS)
         seen = dtensor_ops(fwd(meshed))
         n_ops = sum(seen.values())
         print(f"  9d {tag}: forward wall (median of {MESH_PLAN_REPS}, in "
               f"turns) mesh {ms['mesh']:.4f} ms, mesh-less "
-              f"{ms['mesh-less']:.4f} ms; {n_ops} DTensor ops a call (top "
-              f"{dict(seen.most_common(5))}); launches {used}; "
+              f"{ms['mesh-less']:.4f} ms, 11m mesh captured "
+              f"{ms['mesh captured']:.4f} ms; {n_ops} DTensor ops a call "
+              f"(top {dict(seen.most_common(5))}); launches {used}; "
               f"{time.perf_counter() - t0:.1f} s")
         recs[tag] = {"forward_ms": ms, "dtensor_ops": n_ops,
                      "top_ops": dict(seen.most_common(8)),
-                     "launches": used}
+                     "launches": used, "compiled": rec11}
         for name, n in used.items():
             entry = gat_entry if name == "gat_na" else name
             launches[entry] = launches.get(entry, 0) + n
-        del plain, meshed
+        del plain, meshed, compiled
     return {"plans": recs, "launches": launches}
 
 
@@ -4490,14 +4721,18 @@ def elastic_train(dev, ops) -> dict:
     remat full, fp32 AdamW, seq 2048, global batch 8 in 2 microbatches),
     its state laid out on a ``(data=1, model=1)`` NCCL mesh by
     ``reshard_state(state, state_shardings(...))`` and trained through
-    ``build_train_step`` / ``jit_step``: two steps bitwise the mesh-less
-    ``make_train_step`` with the same ``segment_sum`` launches, the steps
-    of the two arms taken and timed in turns.  The mesh state after two steps
-    saved through ``AsyncCheckpointer`` (bytes from the manifest, save and
-    restore seconds), restored with ``restore(shardings=)`` onto the mesh
-    that ``surviving_mesh`` leaves of a ``(pod=1, data=1, model=1)`` mesh,
-    two more steps there bitwise the uninterrupted four-step mesh run.  At
-    2 layers, the mesh save's digest equals the mesh-less save's."""
+    ``build_train_step`` / ``jit_step`` (its eager arm, ``.fn``): two
+    steps bitwise the mesh-less ``make_train_step`` with the same
+    ``segment_sum`` launches, the steps of the two arms taken and timed in
+    turns.  The mesh state after two steps saved through
+    ``AsyncCheckpointer`` (bytes from the manifest, save and restore
+    seconds), restored with ``restore(shardings=)`` onto the mesh that
+    ``surviving_mesh`` leaves of a ``(pod=1, data=1, model=1)`` mesh, two
+    more steps there bitwise the uninterrupted four-step mesh run.  At 2
+    layers, the mesh save's digest equals the mesh-less save's.  11t: the
+    compiled ``jit_step`` (the state donated) from a copy of the state at
+    step 0 over the four steps of the uninterrupted mesh run, bitwise it,
+    and one more (``captured_train``)."""
     import dataclasses
     import gc
     import math
@@ -4542,31 +4777,34 @@ def elastic_train(dev, ops) -> dict:
 
     def run(fn, s, todo):
         ops.reset_launch_counts()
-        losses = []
+        losses, gnorms = [], []
         for b in todo:
             s, m = fn(s, b)
             losses.append(m["loss"])
+            gnorms.append(m["grad_norm"])
         torch.cuda.synchronize()
-        return s, losses, ops.launch_counts()
+        return s, losses, ops.launch_counts(), gnorms
 
     # the first steps of both arms in turns (mesh-less, mesh, ...), each
-    # timed and its launches counted alone
-    arms = {"mesh-less": [plain, state, [], {}, []],
-            "mesh": [step, laid, [], {}, []]}
+    # timed and its launches counted alone; the mesh arm is jit_step's
+    # eager one (11t: the compiled one)
+    arms = {"mesh-less": [plain, state, [], {}, [], []],
+            "mesh": [step.fn, laid, [], {}, [], []]}
     for b in batches[:ELASTIC_STEPS]:
         for arm in arms.values():
-            fn, s_in, losses, counts, walls = arm
+            fn, s_in, losses, counts, walls, gnorms = arm
             ops.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             arm[1], m = fn(s_in, b)
             losses.append(m["loss"])
+            gnorms.append(m["grad_norm"])
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
             for n, v in ops.launch_counts().items():
                 counts[n] = counts.get(n, 0) + v
-    _, s_plain, l_plain, c_plain, w_plain = arms["mesh-less"]
-    _, s_mesh, l_mesh, c_mesh, w_mesh = arms["mesh"]
+    _, s_plain, l_plain, c_plain, w_plain, _ = arms["mesh-less"]
+    _, s_mesh, l_mesh, c_mesh, w_mesh, g_mesh = arms["mesh"]
     del arms
     want_ss = TRAIN_MB * ELASTIC_STEPS
     check(type(l_mesh[0]).__name__ == "DTensor"
@@ -4616,7 +4854,33 @@ def elastic_train(dev, ops) -> dict:
               f"AsyncCheckpointer.submit (gather + copy to the host) "
               f"{submit_s:.2f} s, submit to close (written, digest, "
               f"published) {save_s:.2f} s")
-        whole, l_whole, c_whole = run(step, s_mesh, batches[ELASTIC_STEPS:])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held_gib = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        whole, l_whole, c_whole, g_whole = run(step.fn, s_mesh,
+                                               batches[ELASTIC_STEPS:])
+        eager_peak = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "held_gib": held_gib}
+        print(f"  10b the uninterrupted mesh run's steps 3 and 4 (eager): "
+              f"peak memory allocated {eager_peak['peak_gib']:.2f} GiB "
+              f"({held_gib:.2f} GiB held before them)")
+        # 11t: the compiled jit_step from a copy of the state at step 0
+        # (donated), over the steps of the eager mesh run and one more
+        # (timed only: three replays after the traced one)
+        want = [(loss, g, None) for loss, g in zip(l_mesh + l_whole,
+                                                   g_mesh + g_whole)]
+        want[ELASTIC_STEPS - 1] = want[ELASTIC_STEPS - 1][:2] + (s_mesh,)
+        want[-1] = want[-1][:2] + (whole,)
+        rec11 = captured_train(
+            "smollm-360m on the mesh", step,
+            reshard_state(tree.map(torch.clone, state), layout(mesh)),
+            batches + batches[:1], want + [None], ops)
+        rec11["eager_step_ms"] = w_mesh
+        rec11["eager_memory"] = eager_peak
+        gc.collect()
+        torch.cuda.empty_cache()
         fresh = surviving_mesh(cuda_mesh((1, 1, 1), ("pod", "data",
                                                       "model")), [])
         check(fresh.axis_names == ("data", "model")
@@ -4637,8 +4901,8 @@ def elastic_train(dev, ops) -> dict:
               "10b: the restored state bitwise the saved one, on the fresh "
               "mesh")
         del s_mesh
-        restarted, l_restart, c_restart = run(mesh_step(fresh), back,
-                                              batches[ELASTIC_STEPS:])
+        restarted, l_restart, c_restart, _ = run(mesh_step(fresh).fn, back,
+                                                 batches[ELASTIC_STEPS:])
         check(bitwise(l_restart, l_whole) and bitwise(restarted, whole),
               f"10b: {ELASTIC_STEPS} steps after the restart: losses "
               f"{[float(x.full_tensor()) for x in l_restart]} and state "
@@ -4671,6 +4935,7 @@ def elastic_train(dev, ops) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"step_ms": {"mesh": w_mesh, "mesh-less": w_plain},
+            "compiled": rec11,
             "losses": [float(x) for x in l_plain],
             "launches": {"mesh": c_mesh["segment_sum"]
                          + c_whole["segment_sum"]
@@ -4915,12 +5180,15 @@ def characterization(hg, hg_r, dev) -> dict:
 
 
 def compiled_phase(phase11: dict, serve_rec: dict, part_rec: dict,
-                   serve: dict) -> dict:
+                   serve: dict, mesh_rec: dict, train_rec: dict,
+                   elastic_rec: dict) -> dict:
     """Phase 11's record: the full-graph forwards ``drive_variant``
     recorded (``captured_vs_eager``), the served requests of phase 3m
     eager against captured with the upload pageable against pinned, the
-    failover serve's captures (3p) and granite-8b's decode
-    (``decode_vs_eager``, 5c)."""
+    failover serve's captures (3p), granite-8b's decode
+    (``decode_vs_eager``, 5c), the mesh steps captured beside phase 9
+    (11m: ``captured_mesh``, granite's ``jit_step`` wave) and the training
+    steps captured beside phases 6c and 10a (11t: ``captured_train``)."""
     want11 = {f"{pre}L={n}{post}" for n in (1, 2) for pre, post in (
         ("", " fuse_na_sa=True"), ("rgcn ", " padded"),
         ("magnn ", " cache_rows=0"), ("gcn/reddit ", " cache_rows=0"))}
@@ -4955,9 +5223,37 @@ def compiled_phase(phase11: dict, serve_rec: dict, part_rec: dict,
           f"(eager, captured); busy eager "
           f"{100 * g11['eager_decode_busy_share']:.1f}%, captured "
           f"{100 * g11['captured_decode_busy_share']:.1f}%")
+    mesh11 = {"han": mesh_rec["han"]["compiled"],
+              "plans": {k: r["compiled"]
+                        for k, r in mesh_rec["plans"]["plans"].items()},
+              "granite": mesh_rec["granite"]["compiled"]}
+    card = card_line()
+    h = mesh11["han"]["forward_ms"]
+    print(f"  11m HAN/imdb mesh forward: eager {h['eager']:.4f} ms, "
+          f"captured {h['captured']:.4f} ms; card {card}")
+    for tag, r in sorted(mesh_rec["plans"]["plans"].items()):
+        print(f"  11m {tag} mesh forward: eager {r['forward_ms']['mesh']:.4f}"
+              f" ms, captured {r['forward_ms']['mesh captured']:.4f} ms")
+    g = mesh11["granite"]
+    print(f"  11m granite-8b mesh prefill ms {g['prefill_ms']}, decode ms a "
+          f"step {g['decode_ms_per_step']} (eager, captured); card {card}")
+    train11 = {"mesh-less": train_rec["compiled"],
+               "mesh": elastic_rec["train"]["compiled"]}
+    t = train11["mesh-less"]
+    print(f"  11t smollm-360m step mesh-less: eager "
+          f"{t['eager_step_ms_median']:.2f} ms (6c median), captured "
+          f"{t['replay_ms_median']:.2f} ms (replays); peak GiB eager "
+          f"{t['eager_peak_gib']:.2f}, captured {t['peak_gib']:.2f}; card "
+          f"{card}")
+    t = train11["mesh"]
+    print(f"  11t smollm-360m step on the mesh: eager "
+          f"{' / '.join(f'{w:.2f}' for w in t['eager_step_ms'])} ms (10a), "
+          f"captured {t['replay_ms_median']:.2f} ms (replays); peak GiB "
+          f"eager {t['eager_memory']['peak_gib']:.2f} (10b's steps 3-4), "
+          f"captured {t['peak_gib']:.2f}; card {card}")
     return {"forwards": phase11, "served": served11,
             "failover_captures": part_rec["failover"]["captures"],
-            "granite_decode": g11}
+            "granite_decode": g11, "mesh": mesh11, "train": train11}
 
 
 def main() -> None:
@@ -5800,8 +6096,10 @@ def main() -> None:
     # ---------------- phase 11: the compiled steps ----------------
     print("phase 11: the compiled steps (graphs.compiled: a CUDA graph a "
           "signature, replayed) against the eager calls they stand for, "
-          "as phases 3, 3m, 3p and 5c ran them")
-    compiled_rec = compiled_phase(phase11, serve_rec, part_rec, serve)
+          "as phases 3, 3m, 3p and 5c ran them; 11m the mesh steps (9a, "
+          "9b, 9d) and 11t the training steps (6c, 10a)")
+    compiled_rec = compiled_phase(phase11, serve_rec, part_rec, serve,
+                                  mesh_rec, train_rec, elastic_rec)
     gc.collect()
     replayed = REPLAYS["launches"]
     check(not REPLAYS["untraced"],

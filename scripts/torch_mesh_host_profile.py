@@ -6,8 +6,9 @@
 Builds HAN/imdb (fused, the kernels, the NA->SA epilogue) through
 ``launch/serve.build_hgnn_infer`` with and without a ``(data=1, model=1)``
 mesh over a process group of one rank (NCCL on the card, gloo with
-``--device cpu``), times a forward of each (median of ``--reps``, in
-turns), and runs ``--reps`` mesh forwards under cProfile.  It reports the
+``--device cpu``), times an eager forward of each (``fn.fn`` where the
+card compiles ``fn``; median of ``--reps``, in turns), and runs ``--reps``
+eager mesh forwards under cProfile.  It reports the
 mesh forward's calls into DTensor's uncached sharding propagation
 (``_propagate_op_sharding_dispatch_slow_path``: a fake-tensor run of the
 op to learn its output's shape) and their share of the profiled time, and
@@ -59,9 +60,9 @@ def main() -> None:
                  "mesh": build_hgnn_infer(cfg, hg, dev,
                                           mesh=make_smoke_mesh(1, 1))}
 
-        def forward(b):
+        def forward(b):  # the eager forward: what a capture pays once
             with torch.inference_mode():
-                b.fn(b.params, b.batch)
+                getattr(b.fn, "fn", b.fn)(b.params, b.batch)
 
         for _ in range(5):
             for b in built.values():

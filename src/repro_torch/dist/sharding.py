@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -456,11 +457,24 @@ def _grad_placements(in_pl):
 
 def _waited(t):
     """A local shard that a pending collective still writes (DTensor's
-    ``AsyncCollectiveTensor``), waited for; any other tensor as it is."""
+    ``AsyncCollectiveTensor``), waited for; any other tensor as it is.
+    On the card the wait orders the current stream after the collective's
+    (c10d's ``wait_tensor``), and the host goes on, so a CUDA-graph capture
+    records it (``graphs.compiled``).  Under ``TORCH_NCCL_BLOCKING_WAIT``
+    the host would block on the device, which a capture cannot: that
+    raises."""
     from torch.distributed._functional_collectives import (
         AsyncCollectiveTensor)
 
-    return t.wait() if isinstance(t, AsyncCollectiveTensor) else t
+    if not isinstance(t, AsyncCollectiveTensor):
+        return t
+    if (t.is_cuda and torch.cuda.is_current_stream_capturing()
+            and os.environ.get("TORCH_NCCL_BLOCKING_WAIT", "0") not in
+            ("0", "")):
+        raise RuntimeError(
+            "a collective's wait under TORCH_NCCL_BLOCKING_WAIT blocks the "
+            "host, which a CUDA-graph capture cannot")
+    return t.wait()
 
 
 def replicate(x):

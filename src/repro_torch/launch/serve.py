@@ -126,7 +126,11 @@ group of one rank.  :func:`build_hgnn_infer` lays the parameters and the
 batch out by the plan's sharding rules (:func:`hgnn_shardings`: FP weights
 over ``'model'``, destination-node tables over the ``BATCH`` axes, source
 pools replicated) and runs the forward under ``use_mesh``; each kernel
-call runs on a rank's shards (``dist.sharding.local``).  Rank 0 prints the
+call runs on a rank's shards (``dist.sharding.local``).  On the card the
+mesh forward is compiled as the one-device forward is (``graphs.compiled``:
+captured once, replayed); a collective in it (``--partitions`` over more
+than one rank) is captured with it, which no run on one card exercises.
+Rank 0 prints the
 reference's line with the mesh in place of ``single-device``:
 
   han/imdb [na=gat/stacked +fused-sa] logits (4278, 8) on {'data': 2, 'model': 1}: ... ms/iter
@@ -229,10 +233,11 @@ def build_hgnn_infer(cfg: HGNNConfig, hg, device: DeviceLike = None,
     layers, residency, partitioned plans (``gather_halo`` by
     ``plan.partition.halo``), and a plan with a schedule as the serial
     forward, as in the reference.  With ``mesh=None`` this is the
-    one-device path, bit for bit.  Off a mesh, ``fn`` on the card is
-    ``graphs.compiled(model.forward)`` (the prepared batch and the
-    parameters held; ``fn.fn`` is the eager forward), but for a plan with
-    an async schedule, whose ``forward_overlapped`` runs eagerly."""
+    one-device path, bit for bit.  On the card ``fn`` is compiled
+    (``graphs.compiled``, the reference's ``jax.jit``; the prepared batch
+    and the parameters held, DTensors on a mesh through their local
+    tensors; ``fn.fn`` is the eager forward), but for a plan with an async
+    schedule off a mesh, whose ``forward_overlapped`` runs eagerly."""
     from repro_torch.core.models import get_model
 
     dev = resolve_device(device)
@@ -270,6 +275,8 @@ def build_hgnn_infer(cfg: HGNNConfig, hg, device: DeviceLike = None,
     p_sh, b_sh = hgnn_shardings(plan, params, batch, mesh)
     params = distribute_tree(params, p_sh)
     batch = distribute_tree(batch, b_sh)
+    if dev.type == "cuda":  # the reference's jax.jit(fn) on the mesh
+        fn = graphs.compiled(fn)
     return BuiltHGNNInfer(fn, params, batch, plan, model.executor)
 
 

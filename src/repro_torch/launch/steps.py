@@ -15,13 +15,31 @@ function under ``use_mesh(mesh)``, so the layers' ``shard`` constraints
 name this mesh's axes.  The output shapes are derived from the config
 (the reference traces the function with ``jax.eval_shape``).
 
-:func:`jit_step` is the reference's ``jax.jit`` with the shardings, minus
-the compile: it returns a callable that lays each input out as
-``in_shardings`` says (``distribute_tensor`` of a full tensor, a
-redistribute of a DTensor), runs ``fn`` eagerly on the DTensors, and lays
-the outputs out as ``out_shardings`` says.  It compiles nothing.  The
-decode step writes its caches in place, so there is nothing to donate;
-``donate`` keeps the reference's indices as a record.
+:func:`jit_step` is the reference's ``jax.jit`` with the shardings and
+``donate_argnums``: its call lays each input out as ``in_shardings`` says
+(``distribute_tensor`` of a full tensor, a redistribute of a DTensor, a
+DTensor already laid out as it is), outside the graph, and hands the
+DTensors to ``graphs.compiled`` of ``fn`` together with the
+``out_shardings`` layout of its outputs.  On the card the first call of a
+signature warms up and captures one CUDA graph, and later calls replay it,
+so the DTensor dispatch is paid once (``graphs``'s module docstring); off
+the card (the CPU, a gloo mesh) the step runs eagerly.  Its ``fn`` is the
+eager arm: the same layout and ``fn`` with no capture.
+
+What each argument is to the graph:
+
+* the weights (position 0 of prefill and decode) are held: lay them out
+  once (``distribute_tree``) and pass the same DTensors every call;
+* what ``built.donate`` names is donated, as in the reference: the train
+  step's state and the decode step's caches.  Each call copies the step's
+  new state (or caches) into the tensors passed and returns them, so a
+  loop passes the same addresses every call; the caller's old state is
+  gone after the call.  The decode writes its caches in place, so there
+  the copy is empty;
+* every other argument (a batch, the token that an ``argmax`` made, the
+  position) is new each step: it is copied into the signature's own
+  device buffers before the replay (``copied=``), so it need not stay
+  where it lies.  A held tensor that moved still raises.
 """
 from __future__ import annotations
 
@@ -29,6 +47,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.configs.specs import (cache_shardings, input_shardings,
                                        input_specs)
@@ -46,7 +65,7 @@ class BuiltStep(NamedTuple):
     in_specs: Tuple  # abstract inputs (meta tensors), positional
     in_shardings: Tuple
     out_shardings: Any
-    donate: Tuple  # the reference's donated positions (a record here)
+    donate: Tuple  # the donated positions (jit_step's donate=)
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -187,14 +206,37 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     return build_decode_step(cfg, shape, mesh)
 
 
-def jit_step(built: BuiltStep):
-    """The reference's ``jax.jit(fn, in_shardings, out_shardings)`` without
-    the compile (module docstring): inputs laid out by ``in_shardings``,
-    ``fn`` run eagerly on the DTensors, outputs laid out by
-    ``out_shardings``."""
-    def call(*args):
-        args = tuple(distribute_tree(a, s)
-                     for a, s in zip(args, built.in_shardings))
-        return distribute_tree(built.fn(*args), built.out_shardings)
+class JitStep:
+    """:func:`jit_step`'s call (module docstring); ``fn`` is its eager arm
+    and ``compiled`` the ``graphs.Compiled`` it replays."""
 
-    return call
+    def __init__(self, built: BuiltStep):
+        self.built = built
+
+        def step(*args):
+            return distribute_tree(built.fn(*args), built.out_shardings)
+
+        self.step = step
+        # the per-step inputs: every position neither the weights or
+        # state (0) nor donated
+        self.compiled = graphs.compiled(
+            step, donate=built.donate,
+            copied=[i for i in range(1, len(built.in_shardings))
+                    if i not in built.donate])
+
+    def _laid(self, args) -> tuple:
+        return tuple(distribute_tree(a, s)
+                     for a, s in zip(args, self.built.in_shardings))
+
+    def __call__(self, *args):
+        return self.compiled(*self._laid(args))
+
+    def fn(self, *args):
+        """The step eagerly: the same layout, no capture, no donation."""
+        return self.step(*self._laid(args))
+
+
+def jit_step(built: BuiltStep) -> JitStep:
+    """The reference's ``jax.jit(fn, in_shardings, out_shardings,
+    donate_argnums)`` (module docstring)."""
+    return JitStep(built)

@@ -11,6 +11,18 @@ The weights are drawn from seed 0 on the device (``init_lm_params``, or
 batches carry internvl2's ``extra_embeds`` and seamless's ``frames``.  One line names the device, then one line a step, as the
 reference prints it; the host reads the loss back once a step.
 
+On the card the step is compiled with the state donated, as the
+reference's ``jax.jit(step_fn, donate_argnums=(0,))``: the first step
+warms up and captures a CUDA graph (``graphs.compiled(step_fn,
+donate=(0,))``), every later one replays it.  Each step writes the new
+state into the tensors of the state it was given and returns them, so
+the loop passes the same tensors every step; the loader's numpy batch
+goes to the step as it is and is uploaded through the graph's pinned
+staging.  A checkpoint's ``submit`` copies the state to the host before
+it returns, before the next step overwrites it.  ``--resume`` restores
+the state before the first step, so the graph is captured on the
+restored tensors.  Off the card the step runs eagerly on tensors.
+
 On a cluster: one process a device, ``--distributed`` (the reference's
 ``jax.distributed.initialize()``), started by ``torchrun``:
 
@@ -34,6 +46,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.configs.registry import get_config, get_reduced
 from repro_torch.data.loader import PrefetchLoader
@@ -47,7 +60,9 @@ from repro_torch.train.train_step import (TrainState, init_train_state,
 
 class TrainRun(NamedTuple):
     """What the launcher trains: the config, the batch shape, the
-    optimizer, the step function and the initial state."""
+    optimizer, the step function (on the card ``graphs.compiled`` with the
+    state donated; ``step_fn.fn`` is the eager step) and the initial
+    state."""
     cfg: ModelConfig
     shape: ShapeConfig
     optimizer: Optimizer
@@ -58,11 +73,15 @@ class TrainRun(NamedTuple):
 def setup(cfg: ModelConfig, steps: int, seq_len: int, batch: int,
           microbatches: int = 1, device: DeviceLike = None) -> TrainRun:
     """The launcher's model, optimizer (``build_optimizer`` over
-    ``max(steps, 10)`` steps), step and state at step 0 on ``device``."""
+    ``max(steps, 10)`` steps), step and state at step 0 on ``device``.  On
+    the card the step is ``graphs.compiled(step_fn, donate=(0,))`` (the
+    module docstring); on the CPU it is ``step_fn`` itself."""
     dev = resolve_device(device)
     shape = ShapeConfig("custom", seq_len, batch, "train")
     opt = build_optimizer(cfg, total_steps=max(steps, 10))
     step_fn = make_train_step(cfg, opt, n_microbatches=microbatches)
+    if dev.type == "cuda":
+        step_fn = graphs.compiled(step_fn, donate=(0,))
     state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
                              opt)
     return TrainRun(cfg, shape, opt, step_fn, state)
@@ -133,7 +152,9 @@ def _train(args, dev: torch.device, rank: int) -> None:
     loader = PrefetchLoader(cfg, run.shape, start_step=start)
     try:
         for i in range(start, start + args.steps):
-            batch = to_device(next(loader), dev)
+            batch = next(loader)
+            if dev.type != "cuda":  # the compiled step uploads numpy
+                batch = to_device(batch, dev)
             t0 = time.time()
             state, metrics = run.step_fn(state, batch)
             loss = float(metrics["loss"])

@@ -1,7 +1,8 @@
 """Elastic restart on the card, at a tiny size (``chip_smoke.py`` phase
 10's checks).  On a 1-rank NCCL mesh: the reduced smollm's state laid out
 by ``reshard_state(state, state_shardings(...))`` trains through
-``launch/steps.build_train_step`` / ``jit_step`` bitwise the mesh-less
+``launch/steps.build_train_step`` / ``jit_step`` (compiled, the state
+donated) bitwise the mesh-less
 ``make_train_step`` with the same ``segment_sum`` launches; saved from the
 mesh after two steps (``AsyncCheckpointer``) it is byte-equal to the
 mesh-less save, restores with ``restore(shardings=)`` onto the mesh that
@@ -145,7 +146,10 @@ def test_mesh_training_checkpoint_and_restart_are_bitwise(group, cuda,
         torch.cuda.synchronize()
         return s, losses, ops.launch_counts()["segment_sum"]
 
-    laid = reshard_state(state, state_shardings(state, opt, mesh))
+    # jit_step's step donates the state it is given: the mesh run starts
+    # from a copy, and a state compared later is copied before a step
+    laid = reshard_state(tree.map(torch.clone, state),
+                         state_shardings(state, opt, mesh))
     s_plain, l_plain, n_plain = run(plain_step, state, batches[:2])
     s_mesh, l_mesh, n_mesh = run(step, laid, batches[:2])
     assert n_mesh == n_plain == 2
@@ -159,13 +163,14 @@ def test_mesh_training_checkpoint_and_restart_are_bitwise(group, cuda,
     assert _files(str(tmp_path / "mesh"), 2) == \
         _files(str(tmp_path / "plain"), 2)
 
+    saved = tree.map(torch.clone, s_mesh)
     whole, l_whole, _ = run(step, s_mesh, batches[2:])
     fresh = surviving_mesh(_mesh((1, 1, 1), ("pod", "data", "model")), [])
     assert fresh.axis_names == ("data", "model")
     back = ckpt.restore(str(tmp_path / "mesh"), state, shardings=
                         state_shardings(state, opt, fresh))
     assert all(_equal(a, b) for a, b in zip(tree.leaves(back),
-                                            tree.leaves(s_mesh)))
+                                            tree.leaves(saved)))
     assert int(back.step.full_tensor()) == 2
     restarted, l_restart, _ = run(
         jit_step(build_train_step(cfg, shape, fresh)), back, batches[2:])

@@ -3,12 +3,13 @@ of the reference's ``jax.jit``), its use by the engines and
 ``build_hgnn_infer``, and the launch counters it replays.
 
 There is no card here, so capture and replay are driven through a stand-in
-for the module's CUDA calls (``_FakeCard``, installed with ``monkeypatch``):
-a tensor whose storage ``_on_card`` marked (or a view of it) counts as one
-on the card, staging is "pinned", a "graph" is ``fn``
-itself, and its replay runs ``fn`` again on the graph's static upload
-buffers and copies the result into the captured output, with the launch
-counters left as a real replay leaves them.  On it: one capture a
+for the module's CUDA calls (``tests/torch_fake_card.FakeCard``, installed
+with ``monkeypatch``): a tensor whose storage ``on_card`` marked (or a view
+of it) counts as one on the card, staging is "pinned", a "graph" is ``fn``
+itself (a capture puts the marked storages back as they were, since a
+real capture runs nothing), and its replay runs ``fn`` again on the
+graph's static upload buffers and copies the result into the captured
+output, with the launch counters left as a real replay leaves them.  On it: one capture a
 signature (a rung of a tiny-graph serve, a rung and K after a failover),
 ``compiles_after_warmup`` equal to the JAX engine's, a held tensor that
 moved raising, each replay adding its capture's launches (a capture that
@@ -22,7 +23,6 @@ the sampler's ``alloc`` gives the same batch.
 Stability: inputs from fixed numpy seeds and a fixed graph; no clock, no
 subprocess; the dataset registries and the module seams are touched only
 through ``monkeypatch``.  Well under 30 s on one worker."""
-import contextlib
 import importlib
 import pkgutil
 
@@ -53,6 +53,7 @@ from repro_torch.serve.engine import (HGNNInferEngine, HGNNRequest,
                                       _shapes)
 from repro_torch.serve.faults import Fault, FaultInjector
 from repro_torch.serve.sampler import HGNNSampler
+from torch_fake_card import ON_CARD, FakeCard, on_card
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 SMALL = dict(dataset="tiny", hidden=16, n_heads=4, n_classes=3,
@@ -61,107 +62,14 @@ SMALL = dict(dataset="tiny", hidden=16, n_heads=4, n_classes=3,
 LADDER = ((4, 12), (8, 24), (16, 40))
 
 
-class _Nothing:
-    def wait_stream(self, other):
-        pass
-
-    def synchronize(self):
-        pass
-
-    def record(self, stream=None):
-        pass
-
-
-class _FakeGraph:
-    def __init__(self, fn, out):
-        self.fn, self.out = fn, out
-
-    def replay(self):
-        """``fn`` again on the static buffers, its output copied into the
-        captured one; the wrappers it runs are not counted, as a real
-        replay runs none."""
-        before = ops.launch_counts()
-        new = self.fn()
-        ops.add_launch_counts({k: before[k] - n
-                               for k, n in ops.launch_counts().items()})
-        for dst, src in zip(tree.leaves(self.out), tree.leaves(new)):
-            if isinstance(dst, torch.Tensor) and dst is not src:
-                dst.copy_(src)
-
-
-class _FakeCard:
-    """``graphs._Card`` on the CPU: tensors on a storage ``_on_card``
-    marked are held, and staging counts as pinned."""
-
-    def __init__(self):
-        self.captured = 0
-        self._pinned = {}  # storage address -> a "pinned" tensor on it
-
-    @staticmethod
-    def resident(x):
-        return x.untyped_storage().data_ptr() in _ON_CARD
-
-    def stream(self, device):
-        return _Nothing()
-
-    def current(self, device):
-        return _Nothing()
-
-    def use(self, stream):
-        return contextlib.nullcontext()
-
-    def pool(self):
-        return object()
-
-    def capture(self, fn, pool, stream):
-        self.captured += 1
-        out = fn()
-        return _FakeGraph(fn, out), out
-
-    def staging(self, shape, dtype):
-        x = torch.empty(shape, dtype=dtype)
-        self._pinned[x.untyped_storage().data_ptr()] = x
-        return x
-
-    def pinned(self, x):
-        return x.untyped_storage().data_ptr() in self._pinned
-
-    @staticmethod
-    def buffer(shape, dtype, device):
-        return torch.empty(shape, dtype=dtype)
-
-    def event(self):
-        return _Nothing()
-
-    @staticmethod
-    def keep(x, stream):
-        pass
-
-    @staticmethod
-    def replay(g):
-        g.graph.replay()
-
-
-# storage address -> a tensor on it (kept, so the address is not reused):
-# the storages that the stand-in card treats as on the card, views too
-_ON_CARD = {}
-
-
-def _on_card(t):
-    for x in tree.leaves(t):
-        if isinstance(x, torch.Tensor):
-            _ON_CARD[x.untyped_storage().data_ptr()] = x
-    return t
-
-
 @pytest.fixture
 def card(monkeypatch):
-    fake = _FakeCard()
+    fake = FakeCard()
     monkeypatch.setattr(graphs, "_card", fake)
     ops.reset_launch_counts()
-    _ON_CARD.clear()
+    ON_CARD.clear()
     yield fake
-    _ON_CARD.clear()
+    ON_CARD.clear()
     ops.reset_launch_counts()
 
 
@@ -182,7 +90,7 @@ def _step(p, x, scale):
 
 
 def _params(rng, d=4):
-    return _on_card({"w": torch.from_numpy(
+    return on_card({"w": torch.from_numpy(
         rng.standard_normal((d, 3)).astype(np.float32))})
 
 
@@ -241,13 +149,13 @@ def test_a_held_tensor_that_moved_raises(card):
     f = graphs.compiled(_step)
     f(p, x, 1.0)
     f(p, x, 1.0)
-    moved = _on_card({"w": p["w"].clone()})
+    moved = on_card({"w": p["w"].clone()})
     with pytest.raises(RuntimeError, match="moved since its graph"):
         f(moved, x, 1.0)
-    square = _on_card({"w": torch.zeros(4, 4)})
+    square = on_card({"w": torch.zeros(4, 4)})
     g = graphs.compiled(lambda p, x: x @ p["w"])
     g(square, x)
-    strided = _on_card({"w": square["w"].t()})  # same address, new strides
+    strided = on_card({"w": square["w"].t()})  # same address, new strides
     with pytest.raises(RuntimeError, match="moved since its graph"):
         g(strided, x)
     assert (f.captures, f.replays) == (1, 1)
@@ -255,7 +163,7 @@ def test_a_held_tensor_that_moved_raises(card):
 
 def test_outputs_are_the_callers_and_held_outputs_are_the_inputs(card):
     rng = np.random.default_rng(3)
-    cache = _on_card(torch.zeros(5, 3))
+    cache = on_card(torch.zeros(5, 3))
 
     def fn(p, x, cache):
         y = x @ p["w"]
@@ -312,19 +220,59 @@ def test_signatures_are_counted_off_the_card_too():
     assert (f.signatures, f.captures, f.replays) == (3, 0, 0)
 
 
-def test_a_dtensor_or_an_unhashable_leaf_raises(card):
-    class DTensor(torch.Tensor):
-        pass
+def _no_group_mesh(monkeypatch):
+    """A one-rank ``DeviceMesh`` on the CPU with no process group (this
+    process's rank taken as 0): DTensor metadata and dispatch, no
+    collective."""
+    import torch.distributed.device_mesh as dm
 
+    monkeypatch.setattr(dm, "get_rank", lambda *a, **k: 0)
+    return dm.DeviceMesh("cpu", [0], _init_backend=False)
+
+
+@pytest.mark.parametrize("leaf", ["unhashable", "dtensor"])
+def test_a_dtensor_or_an_unhashable_leaf_raises(card, monkeypatch, leaf):
+    """An unhashable leaf raises; a DTensor leaf, which raised before the
+    mesh steps were compiled, is held through its local tensor, with its
+    mesh and placements in the signature."""
     class Unhashable:
         __hash__ = None
 
-    f = graphs.compiled(lambda *a: a)
-    with pytest.raises(TypeError, match="DTensor"):
-        f(torch.zeros(2).as_subclass(DTensor))
-    with pytest.raises(TypeError, match="neither an array nor hashable"):
-        f(_on_card(torch.zeros(2)), Unhashable())
-    assert f.captures == 0
+    if leaf == "unhashable":
+        f = graphs.compiled(lambda *a: a)
+        with pytest.raises(TypeError, match="neither an array nor hashable"):
+            f(on_card(torch.zeros(2)), Unhashable())
+        assert f.captures == 0
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = _no_group_mesh(monkeypatch)
+    rng = np.random.default_rng(5)
+    w = on_card(torch.from_numpy(rng.standard_normal((6, 3)).astype(
+        np.float32)))
+    d = DTensor.from_local(w, mesh, [Shard(0)], run_check=False)
+    f = graphs.compiled(lambda w, x: w * x)
+    for x in (2.0, 2.0, 3.0):
+        out = f(d, x)
+        assert isinstance(out, DTensor) and out.placements == (Shard(0),)
+        assert torch.equal(out.to_local(), w * x)
+    assert (f.captures, f.replays) == (2, 1)
+    g = f.graph_of(d, 2.0)
+    assert [i for i, _, _ in g.held] == [0]
+    assert g.held[0][1] == w.data_ptr()
+    sig = next(k for k, v in f.graphs.items() if v is g)
+    assert sig[1][0][0] == "held"
+    spec = sig[1][0][-1]  # the DTensorSpec: mesh, placements, shape, stride
+    assert spec.mesh == mesh and spec.placements == (Shard(0),)
+    assert tuple(spec.tensor_meta.shape) == (6, 3)
+    assert tuple(spec.tensor_meta.stride) == (3, 1)
+    rep = DTensor.from_local(w, mesh, [Replicate()], run_check=False)
+    f(rep, 2.0)  # other placements: another signature
+    assert f.captures == 3
+    moved = DTensor.from_local(on_card(w.clone()), mesh, [Shard(0)],
+                               run_check=False)
+    with pytest.raises(RuntimeError, match="moved since its graph"):
+        f(moved, 2.0)
 
 
 # ---------------------------------------------------------------------------
@@ -457,7 +405,7 @@ def test_build_hgnn_infer_and_engine_on_the_cpu_run_fn(tiny_hg):
 def test_infer_engine_replays_bitwise_the_eager_forward(card, tiny_hg, model):
     cfg = HGNNConfig(**dict(SMALL, model=model, use_pallas=True))
     b = build_hgnn_infer(cfg, _port_hg(tiny_hg), "cpu")
-    _on_card((b.params, b.batch))
+    on_card((b.params, b.batch))
     eager = HGNNInferEngine(b.executor, b.params, b.batch, fn=b.fn)
     eng = HGNNInferEngine(b.executor, b.params, b.batch)
     want = eager.infer()
@@ -492,7 +440,7 @@ def _serve_both(tiny_hg, fault=None, **kw):
     hg = _port_hg(tiny_hg)
     p = interop.params_from_numpy(ref_p, device="cpu")
     out = []
-    for fn, params in ((m.executor.forward, p), (None, _on_card(
+    for fn, params in ((m.executor.forward, p), (None, on_card(
             tree.map(torch.clone, p)))):
         eng = HGNNServeEngine(m.executor, params,
                               HGNNSampler(m.plan(), cfg, hg), slots=4,
@@ -622,15 +570,15 @@ def test_decode_holds_one_cache_set_over_waves_of_two_sizes(card,
     made = []
 
     def init(*a, **k):
-        made.append(_on_card(engine_mod.tf.init_kv_caches.__wrapped__(
+        made.append(on_card(engine_mod.tf.init_kv_caches.__wrapped__(
             *a, **k)))
         return made[-1]
 
     init.__wrapped__ = engine_mod.tf.init_kv_caches
     monkeypatch.setattr(engine_mod.tf, "init_kv_caches", init)
-    eng = ServeEngine(cfg, _on_card(tree.map(torch.clone, params)),
+    eng = ServeEngine(cfg, on_card(tree.map(torch.clone, params)),
                       batch_slots=3, max_len=32)
-    _on_card([eng._token, eng._pos])
+    on_card([eng._token, eng._pos])
     got = eng.generate(reqs()) + eng.generate(reqs())
     assert [r.out_tokens for r in got] == [r.out_tokens for r in want] * 2
     assert len(made) == 1 and eng._caches is made[0]
