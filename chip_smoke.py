@@ -36,7 +36,9 @@ paper's characterization on this card: per-stage records through
 ``HGNNInferEngine.characterize(timed=True)`` for HAN/imdb's baseline and
 optimized plans, RGCN/imdb's and MAGNN/imdb's baselines, MAGNN/imdb with
 residency and GCN/Reddit, the FLOPs and bytes held equal to the CPU's
-records, every device kernel in a class.  Phase 3m is request-path
+records, every device kernel in a class, each stage's wall its CUDA
+graph's replay printed beside the eager stage's, the replay's kernels
+held to the eager stage's.  Phase 3m is request-path
 serving: ``HGNNSampler`` and ``HGNNServeEngine`` serve 32 requests of the
 CLI's queue (fan-out 8, 8 slots of 4 targets) for HAN/imdb through the
 ``gat_na`` epilogue and ``semantic_combine``, RGCN/imdb on rung-padded
@@ -58,10 +60,14 @@ and ``bench_resilience.py``'s failover serve (its row reproduced, bitwise
 the never-failed serve).  Phase 3o is the async stage-graph schedule:
 ``bench_overlap.py``'s cases (HAN/imdb on 3 degree buckets, MAGNN/imdb,
 HAN/imdb and RGCN/imdb at K = 4 and L = 2) and HAN/imdb ``csr`` through
-``forward_overlapped`` (sibling stages on side streams), bitwise the
-serial kernel arm with the same launches and ``BENCH_hgnn.json``'s
-``overlap`` counters, the forward walls of both in turns, the stage walls'
-critical path, the kernels that overlap in a profiled forward; then the
+``forward_overlapped`` (each stage a CUDA graph replayed, one a stage key
+of the reference's; sibling stages captured on capture streams of their
+own and replayed on side streams), bitwise the serial kernel arm with the
+same launches and ``BENCH_hgnn.json``'s ``overlap`` counters, no capture
+and no scratch after the first forward, the eager walk bitwise too; the
+forward walls of the eager and the captured overlapped and serial
+forwards in turns, the stage walls' critical path, the kernels that
+overlap in a profiled captured and eager forward; then the
 sampler-prefetch serves (HAN/imdb, RGCN/imdb, the failover serve) bitwise
 the serves without it.  Phase 6 is LM training of smollm-360m: the
 embedding's gradient through ``segment_sum`` bitwise its CPU version and
@@ -121,8 +127,9 @@ the single process's losses (10d).  Phase 11 is the compiled step
 (``graphs.compiled``, the port's counterpart of the reference's
 ``jax.jit``): the engines and ``build_hgnn_infer`` replay a CUDA graph
 captured once a signature in every phase above (``forward_overlapped``
-stays eager; phases 6c, 9 and 10 hold their eager gates on the eager
-arms, ``fn.fn`` and ``jit_step(...).fn``), with the launch counts of a replay
+and the characterization's stages a graph a stage, phases 3o and 3l;
+phases 6c, 9 and 10 hold their eager gates on the eager arms, ``fn.fn``
+and ``jit_step(...).fn``), with the launch counts of a replay
 added back, so every exact launch check holds; the first replay of every
 graph is traced and its device kernels, mapped to the wrapper counters,
 must be what it adds (``measured_card``); HAN fused, RGCN padded,
@@ -750,15 +757,18 @@ def measured_card():
                 g.pending[0] += 1
                 return
             names, _, spins = traced_call(g.graph.replay)
+            credit = {k: v for k, v in g.launches.items() if v}
+            # nothing between the last lead-in and the tail is a whole
+            # trace of a graph that launches no kernel of a wrapper (an
+            # identity stage's graph is empty)
             if not (len(spins) >= 2 and spins[-1] == len(names) - 1
-                    and spins[-1] - spins[-2] > 1):
+                    and (spins[-1] - spins[-2] > 1 or not credit)):
                 print(f"  (a graph's first traced replay lost its lead-in "
                       f"or tail: {len(names)} device events; the next "
                       "replay is traced)")
                 g.pending[0] += 1
                 return
             counts, pairs = kernel_counts(names[spins[-2] + 1:spins[-1]])
-            credit = {k: v for k, v in g.launches.items() if v}
             check(counts == credit and credit.get(
                 "decode_attention_lse", 0) == 0
                 and all(a == b for a, b in pairs.values()),
@@ -1739,9 +1749,11 @@ def partitioned(hg, dev, main_counts: dict, results: dict) -> dict:
     for model in ("han", "rgcn"):
         base = HGNNConfig(model=model, **PART_BENCH)
         flat = build_hgnn_infer(base, hg, dev)
+        # the eager stages (fn.fn): a replay would add its output's copy
         fns = flat.executor.stage_fns(flat.params, flat.batch)
         with torch.inference_mode():
-            na_flat = time_ms(lambda: fns["NA"][0](*fns["NA"][1]), 20, flush)
+            na_flat = time_ms(lambda: fns["NA"][0].fn(*fns["NA"][1]), 20,
+                              flush)
         print(f"  sweep {model}/imdb (max_degree 32) unpartitioned: NA "
               f"{na_flat:.5f} ms cold", flush=True)
         out["sweep"][f"{model}/imdb/unpartitioned"] = {"na_ms": na_flat}
@@ -1749,6 +1761,7 @@ def partitioned(hg, dev, main_counts: dict, results: dict) -> dict:
             b = build_hgnn_infer(base.replace(partitions=k), hg, dev)
             fns = b.executor.stage_fns(flat.params, b.batch)
             gh_fn, gh_args = fns["gather_halo"]
+            gh_fn = gh_fn.fn
             tr = ch.partition_traffic(b.batch["part"], gh_args[0])
             got = {"cut_edges": tr["cut_edges"],
                    "cut_ratio": round(tr["cut_ratio"], 4),
@@ -1759,6 +1772,7 @@ def partitioned(hg, dev, main_counts: dict, results: dict) -> dict:
                   f"partition {model}/imdb/k{k}: {got} equal "
                   f"BENCH_hgnn.json's")
             na_fn, na_args = fns["NA"]
+            na_fn = na_fn.fn
             with torch.inference_mode():
                 t = {"na_ms": time_ms(lambda: na_fn(*na_args), 20, flush),
                      "na_warm_ms": time_ms(lambda: na_fn(*na_args), 20),
@@ -1916,17 +1930,26 @@ def partitioned(hg, dev, main_counts: dict, results: dict) -> dict:
 # cases at its settings, HAN's csr layout, and the sampler-prefetch serves
 OV_BENCH = dict(dataset="imdb", hidden=64, n_heads=8, n_classes=8,
                 max_degree=32, fused=True, use_pallas=True)
+# the reference's per-stage jit keys (src/repro/core/pipeline.py:941-996)
+# of a one-layer metapath split and of the two-layer own/halo split, and
+# the pairs of sibling stages each runs at once
+OV_KEYS_METAPATHS = (("FP0", "NA.p0.0", "NA.p0.1", "SA0", "head"),
+                     (("NA.p0.0", "NA.p0.1"),))
+OV_KEYS_K4L2 = (("FP0", "FP1", "NA.merge0", "NA.merge1", "NA.own0",
+                 "NA.own1", "SA0", "SA1", "halo_exchange", "head"),
+                (("halo_exchange", "NA.own0"), ("halo_exchange", "NA.own1")))
 # (BENCH_hgnn.json overlap row or a tag, model, config, main_counts key of
-# the NA kernel the case launches)
+# the NA kernel the case launches, stage keys and sibling pairs)
 OV_CASES = (("han/imdb/bucketed", "han", dict(degree_buckets=3),
-             ("gat_na", "gat_na_bucketed")),
-            ("magnn/imdb/base", "magnn", {}, ("gat_na", "gat_na_unstacked")),
+             ("gat_na", "gat_na_bucketed"), OV_KEYS_METAPATHS),
+            ("magnn/imdb/base", "magnn", {}, ("gat_na", "gat_na_unstacked"),
+             OV_KEYS_METAPATHS),
             ("han/imdb/k4L2", "han", dict(partitions=4, layers=2),
-             ("gat_na", "gat_na")),
+             ("gat_na", "gat_na"), OV_KEYS_K4L2),
             ("rgcn/imdb/k4L2", "rgcn", dict(partitions=4, layers=2),
-             ("segment_spmm", "segment_spmm")),
+             ("segment_spmm", "segment_spmm"), OV_KEYS_K4L2),
             ("han/imdb/csr", "han", dict(fused=False),
-             ("segment_sum", "segment_sum")))
+             ("segment_sum", "segment_sum"), OV_KEYS_METAPATHS))
 OV_REPS = 20  # forward walls a schedule, interleaved
 OV_DAG_KEYS = ("depth", "stages", "edges", "concurrent_pairs",
                "overlapped_stages", "bitexact")
@@ -2074,22 +2097,29 @@ def overlapped(hg, dev, main_counts: dict, results: dict) -> dict:
     """Phase 3o.  Per case of ``OV_CASES`` at ``bench_overlap.py``'s
     settings, on the overlapped build's batch and parameters: its logits
     through ``HGNNInferEngine`` (``build_hgnn_infer`` serves
-    ``forward_overlapped``) bitwise the serial kernel arm's, ``depth=1``
-    bitwise with one stage in flight, launches over ITERS forwards (set
-    to 0 just before, read just after) equal to the serial forward's
-    kernel by kernel, the DAG counters and ``bitexact`` equal to
-    ``BENCH_hgnn.json``'s ``overlap`` row, no scratch buffer made after
-    the first forward; the overlapped and serial forward walls (median of
-    ``OV_REPS`` each, in turns), the stage walls by CUDA events folded
-    through ``characterize.overlap_accounting``, one profiled forward's
-    kernels that overlap in time, and the merge NA's device time beside
-    the serial partitioned NA's.  Then HAN/imdb and RGCN/imdb served at
+    ``forward_overlapped``, each stage a CUDA graph replayed) bitwise the
+    serial kernel arm's, ``depth=1`` bitwise with one stage in flight,
+    launches over ITERS forwards (set to 0 just before, read just after)
+    equal to the serial forward's kernel by kernel, the DAG counters and
+    ``bitexact`` equal to ``BENCH_hgnn.json``'s ``overlap`` row, one
+    capture a stage key with the reference's keys, each sibling pair's
+    graphs captured on distinct capture streams with no scratch buffer in
+    common, no capture and no scratch buffer made after the first
+    forward, the eager walk (each cached stage's ``fn``) bitwise too;
+    the forward walls of the eager and the captured overlapped forward,
+    the eager serial forward and the captured one (``graphs.compiled``),
+    median of ``OV_REPS`` each, in turns; the stage walls (replays) by
+    CUDA events folded through ``characterize.overlap_accounting``, one
+    profiled captured and one eager forward's kernels that overlap in
+    time, and the merge NA's device time beside the serial partitioned
+    NA's (the eager stages).  Then HAN/imdb and RGCN/imdb served at
     ``--overlap 2 --fanout 8`` and ``bench_resilience.py``'s failover serve
     with the prefetch on (:func:`overlap_serve`)."""
     import functools
 
     import numpy as np
     import torch
+    from repro_torch import graphs
     from repro_torch.configs.base import HGNNConfig
     from repro_torch.core import characterize as ch
     from repro_torch.core.models import get_model
@@ -2102,7 +2132,8 @@ def overlapped(hg, dev, main_counts: dict, results: dict) -> dict:
     flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=dev)
     out = {"forwards": {}, "serves": {}}
     ov_counts = dict.fromkeys(main_counts, 0)  # this phase's launches
-    for case, model, kw, (kernel, key) in OV_CASES:
+    card = card_line()
+    for case, model, kw, (kernel, key), (want_keys, siblings) in OV_CASES:
         tag = f"overlap {case}"
         cfg = HGNNConfig(model=model, overlap=2, **dict(OV_BENCH, **kw))
         b = build_hgnn_infer(cfg, hg, dev)
@@ -2111,9 +2142,13 @@ def overlapped(hg, dev, main_counts: dict, results: dict) -> dict:
               f"{tag}: build_hgnn_infer serves forward_overlapped")
         serial_ex = get_model(cfg.replace(overlap=0)).executor
         depth1 = get_model(cfg.replace(overlap=1)).executor
+        serial_c = graphs.compiled(serial_ex.forward)
 
         def serial():
             return serial_ex.forward(b.params, b.batch)
+
+        def serial_captured():
+            return serial_c(b.params, b.batch)
 
         ops.reset_launch_counts()
         with torch.inference_mode():
@@ -2121,15 +2156,37 @@ def overlapped(hg, dev, main_counts: dict, results: dict) -> dict:
         torch.cuda.synchronize()
         per = ops.launch_counts()
         logits = eng.infer()
+        ov = b.executor._ov_jit
+        caps = {k: c.captures for k, c in ov.items()}
+        check(sorted(ov) == sorted(want_keys)
+              and all(n == len(ov[k].graphs) == 1 for k, n in caps.items()),
+              f"{tag}: one capture a stage key {caps}, the reference's "
+              f"keys {sorted(want_keys)}")
+        for a, c in siblings:
+            (g_a,), (g_c,) = ov[a].graphs.values(), ov[c].graphs.values()
+            shared = ({id(x) for x in g_a.scratch}
+                      & {id(x) for x in g_c.scratch})
+            check(g_a.stream is not g_c.stream
+                  and ov[a].stream != ov[c].stream and not shared,
+                  f"{tag}: siblings {a} and {c} captured on capture streams "
+                  f"{ov[a].stream} and {ov[c].stream}, {len(g_a.scratch)} "
+                  f"and {len(g_c.scratch)} scratch buffers, "
+                  f"{len(shared)} in common")
         with torch.inference_mode():
             one = depth1.forward_overlapped(b.params, b.batch)
-        # each executor owns its side streams, and a stream its scratch
+        # each executor owns its side streams, each branch its capture
+        # stream, and a stream its scratch
         made = build.created
         ops.reset_launch_counts()
         for _ in range(ITERS):
             logits = eng.infer()
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        check(build.created == made,
+              f"{tag}: no scratch buffer made after the first overlapped "
+              f"forward ({build.created - made} made)")
+        check({k: c.captures for k, c in ov.items()} == caps,
+              f"{tag}: no capture after the first overlapped forward")
         check(counts == {n: v * ITERS for n, v in per.items()}
               and per[kernel] > 0,
               f"{tag}: launches {counts} over {ITERS} forwards = the serial "
@@ -2143,6 +2200,18 @@ def overlapped(hg, dev, main_counts: dict, results: dict) -> dict:
               and depth1.last_dispatch["max_inflight"] == 1,
               f"{tag}: depth=1 bitwise, max_inflight "
               f"{depth1.last_dispatch['max_inflight']}")
+        # the eager walk: the same schedule over each cached stage's fn
+        eager_ex = get_model(cfg).executor
+        eager_ex._ov_jit = {k: c.fn for k, c in ov.items()}
+
+        def eager_overlapped():
+            return eager_ex.forward_overlapped(b.params, b.batch)
+
+        with torch.inference_mode():
+            check(torch.equal(eager_overlapped(), want)
+                  and torch.equal(serial_captured(), want),
+                  f"{tag}: the eager walk and the captured serial forward "
+                  f"bitwise the serial kernel arm")
         rec = dict(b.executor.overlap_record(), bitexact=int(bitwise))
         rec.pop("pairs")
         if case in bench:
@@ -2150,20 +2219,28 @@ def overlapped(hg, dev, main_counts: dict, results: dict) -> dict:
             got = {k: rec[k] for k in OV_DAG_KEYS}
             check(got == row, f"{tag}: {got} equal BENCH_hgnn.json's "
                               f"overlap row")
-        walls = {"serial": [], "overlapped": []}
+        turns = (("eager_overlapped", eager_overlapped),
+                 ("overlapped", eng.infer), ("eager_serial", serial),
+                 ("serial", serial_captured))
+        walls = {name: [] for name, _ in turns}
         with torch.inference_mode():
             for _ in range(3):
-                serial()
-                eng.infer()
+                for _, fn in turns:
+                    fn()
             for _ in range(OV_REPS):
-                for name, fn in (("serial", serial),
-                                 ("overlapped", eng.infer)):
+                for name, fn in turns:
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     fn()
                     torch.cuda.synchronize()
                     walls[name].append((time.perf_counter() - t0) * 1e3)
         med = {n: float(np.median(v)) for n, v in walls.items()}
+        # the host time a stage call spends on its signature: every leaf
+        # of params and batch described (ov["FP0"]'s own arguments)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            ov["FP0"]._leaves((b.params, b.batch))
+        sign_us = (time.perf_counter() - t0) / 200 * 1e6
         fns = b.executor.overlap_stage_fns(b.params, b.batch)
         with torch.inference_mode():
             stage_us = {n: ch.stage_time_us(functools.partial(f, *a))
@@ -2171,41 +2248,48 @@ def overlapped(hg, dev, main_counts: dict, results: dict) -> dict:
             acct = ch.overlap_accounting(b.executor.schedule_edges(),
                                          stage_us)
             prof = stream_overlap(eng.infer)
+            prof_eager = stream_overlap(eager_overlapped)
         rec.update(wall_ms=med, stage_us=stage_us, accounting=acct,
-                   profile=prof, launches=per)
+                   profile=prof, profile_eager=prof_eager, launches=per,
+                   captures=caps, signature_us=sign_us, card=card)
         if "partitions" in kw:
             sfns = serial_ex.stage_fns(b.params, b.batch)
             with torch.inference_mode():
                 merge = fns["L1.NA"]
-                rec["merge_na_ms"] = time_ms(lambda: merge[0](*merge[1]), 20,
-                                             flush)
+                rec["merge_na_ms"] = time_ms(
+                    lambda: merge[0].fn(*merge[1]), 20, flush)
                 own = fns["L1.NA.own"]
-                rec["own_na_ms"] = time_ms(lambda: own[0](*own[1]), 20,
+                rec["own_na_ms"] = time_ms(lambda: own[0].fn(*own[1]), 20,
                                            flush)
                 na = sfns["L1.NA"]
-                rec["serial_na_ms"] = time_ms(lambda: na[0](*na[1]), 20,
+                rec["serial_na_ms"] = time_ms(lambda: na[0].fn(*na[1]), 20,
                                               flush)
             print(f"  {tag}: L1 NA device time cold: merge "
                   f"{rec['merge_na_ms']:.5f} ms + NA.own "
                   f"{rec['own_na_ms']:.5f} ms, serial partitioned NA "
                   f"{rec['serial_na_ms']:.5f} ms", flush=True)
-        check(build.created == made,
-              f"{tag}: no scratch buffer made after the first overlapped "
-              f"forward ({build.created - made} made)")
         print(f"  {tag}: forward wall median of {OV_REPS} in turns: "
-              f"overlapped {med['overlapped']:.4f} ms, serial "
-              f"{med['serial']:.4f} ms; stages {rec['stages']}, "
-              f"concurrent pairs {rec['concurrent_pairs']}; stage walls: "
-              f"serial sum {acct['serial_sum_us']:.1f} us, critical path "
+              f"overlapped eager {med['eager_overlapped']:.4f} ms, captured "
+              f"{med['overlapped']:.4f} ms; serial eager "
+              f"{med['eager_serial']:.4f} ms, captured {med['serial']:.4f} "
+              f"ms ({card}); {sum(caps.values())} stage graphs, "
+              f"{sign_us:.1f} us of host time to sign params and batch a "
+              f"stage; stages "
+              f"{rec['stages']}, concurrent pairs {rec['concurrent_pairs']}; "
+              f"stage walls (replays): serial sum "
+              f"{acct['serial_sum_us']:.1f} us, critical path "
               f"{acct['critical_path_us']:.1f} us, saved "
-              f"{acct['overlap_saved_us']:.1f} us; profiled forward: "
-              f"{prof['kernels']} device events on {prof['streams']} "
-              f"streams, {prof['overlapped_us']:.1f} us with two or more "
-              f"at once, busy {prof['busy_us']:.1f} of "
-              f"{prof['wall_us']:.1f} us ({100 * prof['busy_share']:.1f}%)",
-              flush=True)
+              f"{acct['overlap_saved_us']:.1f} us", flush=True)
+        for name, pr in (("captured", prof), ("eager", prof_eager)):
+            print(f"  {tag}: profiled {name} overlapped forward: "
+                  f"{pr['kernels']} device events on {pr['streams']} "
+                  f"streams, {pr['overlapped_us']:.1f} us with two or more "
+                  f"at once, busy {pr['busy_us']:.1f} of "
+                  f"{pr['wall_us']:.1f} us "
+                  f"({100 * pr['busy_share']:.1f}%)", flush=True)
         out["forwards"][case] = rec
-        del b, eng, serial_ex, depth1, fns
+        del b, eng, serial_ex, depth1, fns, serial_c, eager_ex, ov
+        gc.collect()  # an executor and its compiled stages are a cycle
         torch.cuda.empty_cache()
 
     serve_cfg = dict(dataset="imdb", fused=True, use_pallas=True,
@@ -5116,14 +5200,23 @@ def characterization(hg, hg_r, dev) -> dict:
     scale 0.1.  Checked: the card's FLOPs and bytes equal the CPU's records
     of the same plan exactly (the batch moved to the CPU, the same
     parameters); each stage's device time by class sums to its device
-    time; no device kernel lands in OTHER.  Printed: a line a stage, as
-    the CLI prints it, the Fig. 2 shares of each case's device time, and
-    the stages' summed times beside the forward's wall (the stage split
-    adds a synchronisation a stage: a line to read, not a check)."""
+    time; no device kernel lands in OTHER; each stage's ``time_us`` is its
+    CUDA graph's replay (``stage_fns`` compiles each stage, as the
+    reference jits it) while its records and ``device_us`` come from the
+    eager stage, so the replay's device kernels must be the eager stage's,
+    name for name and count for count (memory copies and sets aside).
+    Printed: a line a stage, as the CLI prints it, with the eager stage's
+    wall beside the replay's, the Fig. 2 shares of each case's device
+    time, and the stages' summed times beside the forward's wall (the
+    stage split adds a synchronisation a stage: a line to read, not a
+    check)."""
+    import functools
     import math
+    from collections import Counter
 
     import torch
     from repro_torch.configs.base import HGNNConfig
+    from repro_torch.core import characterize as ch
     from repro_torch.launch.serve import build_hgnn_infer, stage_line
     from repro_torch.serve.engine import HGNNInferEngine
 
@@ -5153,8 +5246,30 @@ def characterization(hg, hg_r, dev) -> dict:
             recs[n][k] == on_cpu["stages"][n][k] for n in recs for k in keys)
         check(same, f"{tag}: the card's records (FLOPs, bytes, by class) "
                     f"equal the CPU's exactly")
+        fns = b.executor.stage_fns(b.params, b.batch)
+
+        def kernels_of(fn):
+            return Counter(n for n in device_kernels(fn)
+                           if not n.startswith(("Memcpy", "Memset")))
+
+        eager_us = {}
+        with torch.inference_mode():
+            for name, (f, a) in fns.items():
+                f(*a)  # the head's capture: the chain runs every other
+                eager_us[name] = ch.stage_time_us(functools.partial(f.fn,
+                                                                    *a))
+                if not recs[name]["hbm_bytes"]:
+                    continue  # a stage of no op launches no kernel
+                eager_k = kernels_of(functools.partial(f.fn, *a))
+                replay_k = kernels_of(f.graph_of(*a).graph.replay)
+                check(eager_k == replay_k,
+                      f"{tag} {name}: the replay's device kernels "
+                      f"{dict(replay_k)} are the eager stage's "
+                      f"{dict(eager_k)}")
         for name, rec in recs.items():
-            print(f"  {tag} {name}: {stage_line(rec)}")
+            rec["eager_time_us"] = eager_us[name]
+            print(f"  {tag} {name}: {stage_line(rec)} (replay; eager stage "
+                  f"{eager_us[name]:.1f} us)")
             check(math.isclose(sum(rec["device_us_by_class"].values()),
                                rec["device_us"], rel_tol=1e-9),
                   f"{tag} {name}: device time by class sums to "
@@ -5173,8 +5288,10 @@ def characterization(hg, hg_r, dev) -> dict:
         print(f"  {tag}: stages' time_us sum {time_total:.1f} us beside the "
               f"forward wall {1e3 * wall:.1f} us")
         out[tag] = {"stages": recs, "time_us_sum": time_total,
+                    "eager_time_us_sum": sum(eager_us.values()),
                     "wall_us": 1e3 * wall}
-        del b, engine
+        del b, engine, fns
+        gc.collect()
         torch.cuda.empty_cache()
     return out
 

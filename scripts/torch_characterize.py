@@ -13,8 +13,9 @@ plain PyTorch arms; HAN's and RGCN's ``csr`` layouts) and the optimized
 ``fused=True, use_pallas=True`` (HAN with the fused NA→SA epilogue), and
 characterized through ``HGNNInferEngine.characterize(timed=True)``
 (``core/characterize.py``): each stage's ``time_us`` (CUDA events around
-the stage, median of 20 calls) and ``device_us`` (its kernels under
-``torch.profiler``) with the device time by class (DM, TB, EW, DR).
+the replay of the stage's CUDA graph, as the reference times its jitted
+stage, median of 20 calls) and ``device_us`` (the eager stage's kernels
+under ``torch.profiler``) with the device time by class (DM, TB, EW, DR).
 
 It prints, per case and plan, the FP/NA/SA shares of the device time
 (the paper's Fig. 2 method) and of the stage walls, and the class shares

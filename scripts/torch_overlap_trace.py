@@ -7,8 +7,10 @@ one overlapped forward, stage by stage.
 For each case (HAN/imdb ``csr``, HAN/imdb on 3 degree buckets, RGCN/imdb
 at K = 4 and L = 2; ``bench_overlap.py``'s settings: hidden 64, 8 heads,
 ``max_degree`` 32, ``overlap=2``) one ``forward_overlapped`` call runs
-under ``torch.profiler`` after 3 warm-ups, each stage's dispatch wrapped
-in a ``record_function`` window.  It prints, per stage, the host window
+under ``torch.profiler`` after 3 warm-ups (the first captures each
+stage's CUDA graph, the later ones replay them, as the traced call does),
+each stage's dispatch (its stream switch, event waits, the replay and the
+window's admission) wrapped in a ``record_function`` window.  It prints, per stage, the host window
 that issued it and the device window of its kernels (first start, last
 end) with the stream they ran on, in µs from the forward's first event;
 then the device time that two streams' kernels overlapped.  So one can
@@ -94,11 +96,9 @@ def trace(built) -> dict:
     walk = ex._walk_schedule
 
     def traced(params, batch, emit):
-        def wrapped(name, fn, args):
-            def run(*a):
-                with record_function(f"stage::{name}"):
-                    return fn(*a)
-            return emit(name, run, args)
+        def wrapped(name, key, fn, args):
+            with record_function(f"stage::{name}"):
+                return emit(name, key, fn, args)
         return walk(params, batch, wrapped)
 
     ex._walk_schedule = traced

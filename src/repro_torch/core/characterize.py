@@ -5,8 +5,9 @@ FLOPs and HBM bytes, an H100 roofline, measured stage and device times.
 The paper sorts CUDA kernels into four classes and attributes time, bytes
 and arithmetic intensity to each (Fig. 3, Table 3).  The reference runs on
 a TPU, which has no CUDA kernels, so it walks the compiled HLO and
-predicts each class's time from a roofline.  Here the stages run eagerly,
-so:
+predicts each class's time from a roofline.  Here each stage is counted
+and profiled as it runs eagerly (a captured stage's replay dispatches no
+op and launches its kernels with no aten op around them), so:
 
 * **Records** (:class:`Recorder`): a ``TorchDispatchMode`` counts every
   aten op a stage runs by the reference's rule for an unfused op
@@ -38,7 +39,9 @@ so:
   the same records.
 
 * **Times** (:func:`stage_time_us`, :func:`device_times_us`, CUDA only):
-  CUDA events around a stage callable, and the stage's device kernels from
+  CUDA events around a stage callable (``stage_records`` times the
+  stage's CUDA graph replayed, as the reference times its jitted stage),
+  and the eager stage's device kernels from
   ``torch.profiler`` (a window a stage), each kernel classed by its symbol (the port's own,
   :data:`KERNEL_CLASS`), else by the aten op that launched it (the same
   table as the records), memset and memcpy as DR; anything left is OTHER

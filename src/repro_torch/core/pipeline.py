@@ -72,10 +72,14 @@ hot-feature residency, and HAN, RGCN and MAGNN graph-partitioned over
   partitioned plan splits NA at the gather: ``NA.own`` pre-gathers the
   owned rows while ``gather_halo`` (the exchange alone) runs, and the
   merge NA selects the halo rows in and runs the serial arm's kernels on
-  the merged rows.  On the card a sibling branch (``NA.p{i}`` for i > 0,
-  ``NA.own``) runs on a side stream of the executor's own, ordered by CUDA
-  events.  The split stages are row selections and elementwise
-  rearrangements, so the logits are bitwise the serial forward's.
+  the merged rows.  Each stage is compiled once under the reference's
+  jit key (``FP0``, ``NA.p0.1``, ``halo_exchange``, ...; a
+  ``graphs.compiled`` wrapper kept in ``_ov_jit``), so on the card every
+  stage replays a CUDA graph.  A sibling branch (``NA.p{i}`` for i > 0,
+  ``NA.own``) is captured on a capture stream of its own and replays on
+  a side stream of the executor's, ordered by CUDA events.  The split
+  stages are row selections and elementwise rearrangements, so the
+  logits are bitwise the serial forward's.
 
 :func:`check_ported` accepts exactly HAN's, RGCN's, MAGNN's and GCN's
 combinations of these arms.  Arms of later slices raise
@@ -113,6 +117,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils._pytree import tree_flatten
 
+from repro_torch import graphs
 from repro_torch.core import residency, semantics, stages
 from repro_torch.core.plan import StagePlan
 from repro_torch.dist import partition as dpart
@@ -254,6 +259,9 @@ class StageGraphExecutor:
         # the async schedule's side streams, a list a CUDA device (made at
         # first use, kept, so their kernel scratch is made once)
         self._streams: Dict = {}
+        # forward_overlapped's compiled stages, one a stage key, kept across
+        # calls as the reference keeps its per-stage jits
+        self._ov_jit: Dict[str, graphs.Compiled] = {}
         # the last forward_overlapped's dispatch trace
         self.last_dispatch: Dict = {}
 
@@ -1148,13 +1156,28 @@ class StageGraphExecutor:
             "pairs": [f"{a}|{b}" for a, b in pairs],
         }
 
+    def _ovjit(self, key: str, fn, copied=(), stream: int = 0
+               ) -> graphs.Compiled:
+        """The stage ``key``'s compiled callable, made at its first use
+        and kept (the reference's ``_ovjit``, ``:924``): one wrapper, and
+        so one memory pool, a key."""
+        f = self._ov_jit.get(key)
+        if f is None:
+            f = self._ov_jit[key] = graphs.compiled(fn, copied=copied,
+                                                     stream=stream)
+        return f
+
     def _walk_schedule(self, params: Dict, batch: Dict, emit):
         """Walk the stage DAG in topological order, each stage through
-        ``emit(name, fn, args) -> value`` (``name`` as in
-        :meth:`schedule_edges`).  The async driver and the per-stage
-        timing walk this one graph.  One device only: on a mesh a plan
-        with a schedule runs the serial :meth:`forward`, as the
-        reference's does (``launch/serve.build_hgnn_infer``)."""
+        ``emit(name, key, fn, args) -> value``: ``name`` as in
+        :meth:`schedule_edges`, ``key`` the reference's jit-cache key
+        (layer-indexed, but ``halo_exchange`` and ``gather_halo``, which
+        every layer shares: ``FP0``, ``FP{l}``, ``NA{l}``, ``NA.p{l}.{i}``,
+        ``NA.own{l}``, ``NA.merge{l}``, ``SA{l}``, ``head``).  The async
+        dispatcher and the per-stage timing walk this one graph.  One device
+        only: on a mesh a plan with a schedule runs the serial
+        :meth:`forward`, as the reference's does
+        (``launch/serve.build_hgnn_infer``)."""
         if current_mesh() is not None:
             raise ValueError("the async stage-graph schedule runs on one "
                              "device; on a mesh the serial forward runs")
@@ -1164,50 +1187,54 @@ class StageGraphExecutor:
         for l, lp in enumerate(plan.layers):
             pre = f"L{l + 1}." if n_l > 1 else ""
             if l == 0:
-                h = emit(pre + "FP", lambda p, b: self.fp(p, b),
+                h = emit(pre + "FP", "FP0", lambda p, b: self.fp(p, b),
                          (params, batch))
             else:
-                h = emit(pre + "FP",
+                h = emit(pre + "FP", f"FP{l}",
                          lambda p, s, lp=lp, l=l: self._fp_hidden(
                              lp, self._layer_params(p, l), s),
                          (params, state))
             if plan.partition is not None:
                 if self._split_halo():
                     # both read FP's output alone: they run side by side
-                    halos = emit(pre + "gather_halo",
+                    halos = emit(pre + "gather_halo", "halo_exchange",
                                  lambda b, hh: self.halo_exchange(b, hh),
                                  (batch, h))
-                    pre_g = emit(pre + "NA.own",
+                    pre_g = emit(pre + "NA.own", f"NA.own{l}",
                                  lambda p, b, hh, l=l:
                                  self._na_partitioned_own(
                                      self._layer_params(p, l), b, hh),
                                  (params, batch, h))
-                    z = emit(pre + "NA",
+                    z = emit(pre + "NA", f"NA.merge{l}",
                              lambda p, b, hh, ha, pg, l=l:
                              self._na_partitioned_merge(
                                  self._layer_params(p, l), b, hh, ha, pg),
                              (params, batch, h, halos, pre_g))
                 else:
-                    h = emit(pre + "gather_halo",
+                    h = emit(pre + "gather_halo", "gather_halo",
                              lambda b, hh: self.gather_halo(b, hh),
                              (batch, h))
-                    z = emit(pre + "NA", lambda p, b, hh, l=l: self.na(
-                        self._layer_params(p, l), b, hh), (params, batch, h))
+                    z = emit(pre + "NA", f"NA{l}",
+                             lambda p, b, hh, l=l: self.na(
+                                 self._layer_params(p, l), b, hh),
+                             (params, batch, h))
             elif self._split_metapaths():
-                z = [emit(pre + f"NA.p{i}",
+                z = [emit(pre + f"NA.p{i}", f"NA.p{l}.{i}",
                           lambda p, b, hh, l=l, i=i: self._na_metapath(
                               self._layer_params(p, l), b, hh, i),
                           (params, batch, h))
                      for i in range(len(plan.metapaths))]
             else:
-                z = emit(pre + "NA", lambda p, b, hh, l=l: self.na(
+                z = emit(pre + "NA", f"NA{l}", lambda p, b, hh, l=l: self.na(
                     self._layer_params(p, l), b, hh), (params, batch, h))
-            out = emit(pre + "SA", lambda p, b, zz, l=l: self._sa_entry(
-                self._layer_params(p, l), b, zz), (params, batch, z))
+            out = emit(pre + "SA", f"SA{l}",
+                       lambda p, b, zz, l=l: self._sa_entry(
+                           self._layer_params(p, l), b, zz),
+                       (params, batch, z))
             if l + 1 < n_l:
                 # host-side repackaging of the owned rows, no stage
                 state = self._handoff(lp, batch, h, out)
-        return emit("head", lambda p, b, oo: self.head(p, oo, b),
+        return emit("head", "head", lambda p, b, oo: self.head(p, oo, b),
                     (params, batch, out))
 
     @staticmethod
@@ -1233,16 +1260,24 @@ class StageGraphExecutor:
         """``forward``'s layer loop over the plan's stage DAG: each stage
         admitted to an :class:`InflightWindow` of ``plan.schedule.depth``
         (``depth=1``: every stage waited for, the serial baseline), the
-        window drained at the end.  On the card the stages of one branch
-        run on the current stream, and a sibling branch (:meth:`_branch`)
-        on a side stream of the executor's own; a stage waits for the
-        CUDA events of the stages it depends on and records its own, and
-        a tensor made on one stream and read on another is recorded on
-        the reader (``record_stream``), so the allocator cannot hand its
-        block out early.  The split stages are row selections and
-        elementwise rearrangements, so the logits are bitwise
-        :meth:`forward`'s.  ``last_dispatch`` keeps the stages in dispatch
-        order, ``max_inflight`` and ``depth``."""
+        window drained at the end.  Each stage is its compiled callable
+        (:meth:`_ovjit`, the reference's per-stage jit): on the card its
+        first call captures a CUDA graph and later calls replay it, with
+        ``params`` and ``batch`` held and every earlier stage's output
+        copied into the graph's buffers; off the card it is the stage
+        function itself.  On the card the stages of one branch run on the
+        current stream, and a sibling branch (:meth:`_branch`) on a side
+        stream of the executor's own, its graph captured on the device's
+        capture stream of that branch, so that two siblings replayed at
+        once never share a kernel's scratch; a stage waits for the CUDA
+        events of the stages it depends on and records its own, and a
+        tensor made on one stream and read on another is recorded on the
+        reader (``record_stream``), so the allocator cannot hand its block
+        out early.  The split stages are row selections and elementwise
+        rearrangements, so the logits are bitwise :meth:`forward`'s.
+        ``last_dispatch`` keeps the stages in dispatch order,
+        ``max_inflight`` and ``depth``.  The cached wrappers' ``fn`` are
+        the eager stages."""
         sched = self.plan.schedule
         win = InflightWindow(sched.depth if sched is not None else 1)
         edges = self.schedule_edges()
@@ -1251,10 +1286,14 @@ class StageGraphExecutor:
         main = torch.cuda.current_stream(dev) if cuda else None
         done: Dict[str, Tuple] = {}  # stage -> (event, stream)
 
-        def emit(name, fn, args):
-            if not cuda:
-                return win.admit(name, fn(*args))
+        def emit(name, key, fn, args):
             i = self._branch(name)
+            # earlier stages' outputs: copied in, and read on this stream
+            copied = [j for j, a in enumerate(args)
+                      if a is not params and a is not batch]
+            f = self._ovjit(key, fn, copied, i)
+            if not cuda:
+                return win.admit(name, f(*args))
             stream = main if i == 0 else self._side_stream(dev, i)
             if stream is not main and self.plan.sa.fuse_epilogue:
                 # the epilogue's score sum launches with programmatic
@@ -1266,11 +1305,10 @@ class StageGraphExecutor:
                 if d_stream is not stream:
                     stream.wait_event(event)
             if stream is not main:
-                for x in _tensors([a for a in args
-                                   if a is not params and a is not batch]):
+                for x in _tensors([args[j] for j in copied]):
                     x.record_stream(stream)
             with torch.cuda.stream(stream):
-                out = fn(*args)
+                out = f(*args)
                 event = torch.cuda.Event()
                 event.record(stream)
                 win.admit(name, out)
@@ -1289,15 +1327,19 @@ class StageGraphExecutor:
 
     def overlap_stage_fns(self, params: Dict, batch: Dict
                           ) -> Dict[str, Tuple]:
-        """One callable a node of :meth:`schedule_edges`, chained on
+        """One compiled callable a node of :meth:`schedule_edges`, made
+        anew here as the reference jits anew (``:1077``), chained on
         concrete intermediates (``name -> (fn, args)``, each run once
-        here, on the current stream): what the per-stage walls of
+        here, on the current stream; on the card that call captures it and
+        later calls replay, every argument held; ``fn.fn`` is the eager
+        stage): what the per-stage walls of
         ``characterize.overlap_accounting`` time."""
         fns: Dict[str, Tuple] = {}
 
-        def emit(name, fn, args):
-            fns[name] = (fn, args)
-            return fn(*args)
+        def emit(name, key, fn, args):
+            f = graphs.compiled(fn)
+            fns[name] = (f, args)
+            return f(*args)
 
         with torch.inference_mode():
             self._walk_schedule(params, batch, emit)
@@ -1307,41 +1349,50 @@ class StageGraphExecutor:
     # per-stage characterization hooks
     # ------------------------------------------------------------------
     def stage_fns(self, params: Dict, batch: Dict) -> Dict[str, Tuple]:
-        """One callable per stage, chained on concrete intermediates:
-        ``name -> (fn, args)``, each run once here to make the next one's
-        input (the reference's per-stage jits, ``:1032``; separate calls
-        expose the NA→SA barrier, paper Fig. 5c).  A one-layer plan names
+        """One compiled callable per stage (``graphs.compiled``, made anew
+        here as the reference jits each stage anew, ``:1032``; separate
+        calls expose the NA→SA barrier, paper Fig. 5c), chained on
+        concrete intermediates: ``name -> (fn, args)``, each run once here
+        to make the next one's input.  On the card that call captures the
+        stage and later calls replay it, its arguments held (the exchange,
+        one callable for every layer as in the reference, copies its
+        table in); ``fn.fn`` is the eager stage.  A one-layer plan names
         its stages ``FP``/``NA``/``SA``/``head`` (partitioned: ``FP``/
         ``gather_halo``/``NA``/...); an L-layer stack prefixes every
         per-layer stage with ``L{i}.`` (1-based)."""
         n_l = self.plan.n_layers
         fns: Dict[str, Tuple] = {}
         state = out = None
-        # one exchange callable shared by every layer, as in the reference
         gh = (None if self.plan.partition is None
-              else (lambda hh: self.gather_halo(batch, hh)))
+              else graphs.compiled(lambda hh: self.gather_halo(batch, hh),
+                                   copied=(0,)))
         with torch.inference_mode():
             for l, lp in enumerate(self.plan.layers):
                 pre = f"L{l + 1}." if n_l > 1 else ""
                 if l == 0:
-                    fns[pre + "FP"] = (lambda p: self.fp(p, batch), (params,))
+                    fp = graphs.compiled(lambda p: self.fp(p, batch))
+                    args: Tuple = (params,)
                 else:
-                    fns[pre + "FP"] = (
+                    fp = graphs.compiled(
                         lambda p, s, lp=lp, l=l: self._fp_hidden(
-                            lp, self._layer_params(p, l), s), (params, state))
-                fn, args = fns[pre + "FP"]
-                h = fn(*args)
+                            lp, self._layer_params(p, l), s))
+                    args = (params, state)
+                fns[pre + "FP"] = (fp, args)
+                h = fp(*args)
                 if gh is not None:
                     fns[pre + "gather_halo"] = (gh, (h,))
                     h = gh(h)
-                fns[pre + "NA"] = (lambda p, hh, l=l: self.na(
-                    self._layer_params(p, l), batch, hh), (params, h))
-                z = fns[pre + "NA"][0](params, h)
-                fns[pre + "SA"] = (lambda p, zz, l=l: self.sa(
-                    self._layer_params(p, l), batch, zz), (params, z))
-                out = fns[pre + "SA"][0](params, z)
+                na = graphs.compiled(lambda p, hh, l=l: self.na(
+                    self._layer_params(p, l), batch, hh))
+                fns[pre + "NA"] = (na, (params, h))
+                z = na(params, h)
+                sa = graphs.compiled(lambda p, zz, l=l: self.sa(
+                    self._layer_params(p, l), batch, zz))
+                fns[pre + "SA"] = (sa, (params, z))
+                out = sa(params, z)
                 state = self._handoff(lp, batch, h, out)
-        fns["head"] = (lambda p, oo: self.head(p, oo, batch), (params, out))
+        fns["head"] = (graphs.compiled(lambda p, oo: self.head(p, oo, batch)),
+                       (params, out))
         return fns
 
     def stage_records(self, params: Dict, batch: Dict, n_chips: int = 1,
@@ -1351,7 +1402,9 @@ class StageGraphExecutor:
         stage name -> ``flops``, ``hbm_bytes``, ``flops_by_class``,
         ``hbm_bytes_by_class`` and the H100 ``roofline``, counted by
         ``core/characterize.py``'s recorder over the exact stage callables
-        of :meth:`stage_fns`; ``total`` is the sum over the stages.  With
+        of :meth:`stage_fns` run eagerly (``fn.fn``: a capture would run a
+        stage's ops twice, a replay none); ``total`` is the sum over the
+        stages.  With
         residency, ``residency`` holds the batch's counters priced at
         ``4 * hidden`` bytes a row, and each NA record's bytes drop by the
         hot rows it did not re-read (its TB bytes too), the cache fill
@@ -1359,10 +1412,12 @@ class StageGraphExecutor:
 
         ``timed=True`` (a CUDA batch only: walls count only on the card)
         adds to each stage ``time_us``, the median of CUDA events around
-        its callable over 20 calls, synchronised, after warm-up, and
-        ``device_us`` / ``device_us_by_class`` / ``other_kernels``, its
-        device kernels under ``torch.profiler``, each stage in a window of
-        its own.
+        its compiled callable (a replay, as the reference times its jitted
+        stage) over 20 calls, synchronised, after warm-up, and
+        ``device_us`` / ``device_us_by_class`` / ``other_kernels``, the
+        eager stage's device kernels under ``torch.profiler``, each stage
+        in a window of its own (the replay runs the same kernels, but
+        without the aten op around each launch that classes it).
 
         ``sample_meta`` (request-path serving): the sampler's host-side
         batch metadata; adds the SAMPLE stage (``characterize.
@@ -1386,7 +1441,7 @@ class StageGraphExecutor:
         with torch.inference_mode():
             for name, (fn, args) in fns.items():
                 with ch.Recorder() as rec:
-                    fn(*args)
+                    fn.fn(*args)
                 rep = rec.report()
                 recs[name] = {
                     "flops": rep["total_flops"],
@@ -1396,17 +1451,17 @@ class StageGraphExecutor:
                     "roofline": ch.roofline(rep, n_chips, 0.0),
                 }
             if timed:
-                calls = {name: functools.partial(fn, *args)
-                         for name, (fn, args) in fns.items()}
                 # a stage of no op (GCN's SA) launches no kernel
                 on_card = ch.device_times_us({
-                    name: call for name, call in calls.items()
+                    name: functools.partial(fn.fn, *args)
+                    for name, (fn, args) in fns.items()
                     if recs[name]["hbm_bytes"]})
-                for name, call in calls.items():
+                for name, (fn, args) in fns.items():
                     dev_us, by_class, other = on_card.get(name,
                                                           (0.0, {}, []))
                     recs[name].update(
-                        time_us=ch.stage_time_us(call),
+                        time_us=ch.stage_time_us(
+                            functools.partial(fn, *args)),
                         device_us=dev_us, device_us_by_class=by_class,
                         other_kernels=other)
         res = batch.get("residency")

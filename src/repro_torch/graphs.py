@@ -7,9 +7,12 @@ forward (``repro/serve/engine.py:48``), the ``HGNNServeEngine`` forward
 the LM decode step (``:588``), the forward that ``build_hgnn_infer``
 returns, on one device and on a mesh (``repro/launch/serve.py:119,
 129``), the mesh steps of ``jit_step`` with their shardings and donation
-(``repro/launch/steps.py:150``) and the training launcher's step
-(``repro/launch/train.py:53``, ``donate_argnums=(0,)``).  :func:`compiled`
-stands at those sites here.  On the card it runs a step once eagerly for
+(``repro/launch/steps.py:150``), the training launcher's step
+(``repro/launch/train.py:53``, ``donate_argnums=(0,)``) and the executor's
+per-stage jits: ``forward_overlapped``'s, one a stage key cached on the
+executor (``_ovjit``, ``repro/core/pipeline.py:924``), and those of
+``stage_fns`` and ``overlap_stage_fns`` (``:1047-1090``).
+:func:`compiled` stands at those sites here.  On the card it runs a step once eagerly for
 each new signature, captures it into a ``torch.cuda.CUDAGraph`` and
 replays the graph on every later call with that signature, as a jitted
 function traces once and then runs its executable.
@@ -20,9 +23,14 @@ function traces once and then runs its executable.
   shape and dtype, a DTensor's mesh, placements, global shape and stride,
   and the value of every other leaf.  A new one is run once on the
   device's capture stream (the warm-up: the kernels are built,
-  ``kernels/build.scratch`` sizes its buffers for that stream, which
-  every wrapper on the device shares, an autograd backward starts its
-  device thread and a collective its communicator), then captured there.
+  ``kernels/build.scratch`` sizes its buffers for that stream, an
+  autograd backward starts its device thread and a collective its
+  communicator), then captured there.  Every wrapper captures on the
+  device's capture stream 0, so their graphs share the scratch of one
+  stream, but a wrapper made with ``stream=i`` captures on the device's
+  capture stream ``i``: a sibling branch of the async schedule, whose
+  graph replays on a side stream while branch 0's replay on the caller's,
+  so that the two never share a kernel's counters.
   The wrapper's graphs share one memory pool, and each graph keeps the
   scratch buffers that its kernels read.  The first call of a signature
   returns the warm-up's result and later ones replay, so a step that
@@ -83,6 +91,7 @@ can stand in for.
 from __future__ import annotations
 
 import functools
+import gc
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -105,12 +114,13 @@ class _Card:
     def resident(x: torch.Tensor) -> bool:
         return x.is_cuda
 
-    def stream(self, device):
-        """The device's capture stream, one for every wrapper, so that the
-        graphs of all engines share ``build.scratch``'s buffers."""
-        s = self._streams.get(device)
+    def stream(self, device, i: int = 0):
+        """The device's capture stream ``i``: 0 for every wrapper but a
+        sibling branch of the async schedule, so that the graphs of all
+        engines share ``build.scratch``'s buffers of one stream."""
+        s = self._streams.get((device, i))
         if s is None:
-            s = self._streams[device] = torch.cuda.Stream(device)
+            s = self._streams[(device, i)] = torch.cuda.Stream(device)
         return s
 
     @staticmethod
@@ -128,10 +138,20 @@ class _Card:
     @staticmethod
     def capture(fn: Callable[[], Any], pool, stream):
         """``(graph, fn's output)`` with ``fn``'s kernels captured on
-        ``stream`` into ``graph``, which allocates from ``pool``."""
+        ``stream`` into ``graph``, which allocates from ``pool``.  Python's
+        cyclic garbage collector is off meanwhile: a collection could
+        destroy another graph (an executor and the compiled stages that
+        close over it are a cycle), which the card does not permit while
+        a stream captures."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
-            out = fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
         return graph, out
 
     @staticmethod
@@ -303,6 +323,7 @@ class _Graph:
         self.alias: List[Optional[int]] = []
         self.launches: Dict[str, int] = {}
         self.scratch: List[torch.Tensor] = []  # kernel scratch it reads
+        self.stream = None  # the capture stream it was captured on
 
     def check(self, flat: List) -> None:
         for i, ptr, stride in self.held:
@@ -367,10 +388,11 @@ class Compiled:
     """``fn`` compiled by :func:`compiled`; ``fn`` is the eager step."""
 
     def __init__(self, fn: Callable, donate: Sequence[int] = (),
-                 copied: Sequence[int] = ()):
+                 copied: Sequence[int] = (), stream: int = 0):
         self.fn = fn
         self.donate = tuple(donate)
         self.copied = frozenset(copied)
+        self.stream = stream
         self.graphs: Dict[tuple, _Graph] = {}
         self.captures = 0
         self.replays = 0
@@ -458,8 +480,10 @@ class Compiled:
                 first += n
         if self._pool is None:
             self._pool = _card.pool()
-        stream, cur = _card.stream(device), _card.current(device)
+        stream = _card.stream(device, self.stream)
+        cur = _card.current(device)
         g = _Graph(device, flat, kinds)
+        g.stream = stream
         inputs = tree.unflatten(args, g.inputs)
         before = ops.launch_counts()
         stream.wait_stream(cur)
@@ -494,12 +518,15 @@ class Compiled:
 
 
 def compiled(fn: Callable, donate: Sequence[int] = (),
-             copied: Sequence[int] = ()) -> Compiled:
+             copied: Sequence[int] = (), stream: int = 0) -> Compiled:
     """``fn`` captured once a signature on the card and replayed, or called
     as it is off the card (the module docstring).  ``donate``: the
     positions of arguments whose tensors the call overwrites with their
     counterparts in the output and returns (the reference's
     ``donate_argnums``; the caller's old values are gone).  ``copied``:
     the positions of arguments whose tensors on the card are copied into
-    the signature's own buffers each call instead of held."""
-    return Compiled(fn, donate, copied)
+    the signature's own buffers each call instead of held.  ``stream``:
+    which of the device's capture streams the graphs are captured on (0,
+    the one every other wrapper shares, but for a sibling branch of the
+    async schedule)."""
+    return Compiled(fn, donate, copied, stream)

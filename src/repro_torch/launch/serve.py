@@ -103,8 +103,8 @@ counts the batches of the new shapes).
 
 ``--overlap D`` (D >= 1) declares the async stage-graph schedule: the
 forward runs through ``forward_overlapped`` (the stage DAG, ``D`` stage
-results in flight, sibling branches on side streams on the card; ``1`` is
-the serial baseline), the tag gains `` +overlap=D``, and the reference's
+results in flight; on the card each stage a replayed CUDA graph and
+sibling branches on side streams; ``1`` is the serial baseline), the tag gains `` +overlap=D``, and the reference's
 line follows the timing line
 
   overlap: depth=... stages=... edges=... concurrent_pairs=...
@@ -237,7 +237,9 @@ def build_hgnn_infer(cfg: HGNNConfig, hg, device: DeviceLike = None,
     (``graphs.compiled``, the reference's ``jax.jit``; the prepared batch
     and the parameters held, DTensors on a mesh through their local
     tensors; ``fn.fn`` is the eager forward), but for a plan with an async
-    schedule off a mesh, whose ``forward_overlapped`` runs eagerly."""
+    schedule off a mesh: ``fn`` is then ``forward_overlapped`` itself, as
+    in the reference, which compiles each stage (one CUDA graph a stage
+    key on the card)."""
     from repro_torch.core.models import get_model
 
     dev = resolve_device(device)
@@ -256,10 +258,11 @@ def build_hgnn_infer(cfg: HGNNConfig, hg, device: DeviceLike = None,
     params = model.init(gen, batch)
     if mesh is None:
         # an async schedule serves the overlapped dispatcher (bitwise the
-        # serial forward), eagerly; sampled serving keeps the serial
-        # forward, its overlap being the engine's sampler prefetch, as in
-        # the reference.  The serial forward on the card is compiled (the
-        # reference's jax.jit): one CUDA graph a signature, the batch held
+        # serial forward), which compiles each of its stages; sampled
+        # serving keeps the serial forward, its overlap being the engine's
+        # sampler prefetch, as in the reference.  The serial forward on the
+        # card is compiled (the reference's jax.jit): one CUDA graph a
+        # signature, the batch held
         if plan.schedule is not None and plan.sample is None:
             fn = model.executor.forward_overlapped
         elif dev.type == "cuda":

@@ -1,5 +1,6 @@
 """The async stage-graph schedule on the card (``StageGraphExecutor.
-forward_overlapped`` with side streams, CUDA events and ``record_stream``;
+forward_overlapped``, each stage a replayed CUDA graph, with side streams,
+CUDA events and ``record_stream``;
 ``kernels/streaming.py``'s ``InflightWindow``; the serve engine's sampler
 prefetch) and the ``segment_sum`` kernel's residency form: on a small
 graph, every overlapped forward bitwise the serial kernel arm's on the
@@ -108,9 +109,9 @@ def test_overlapped_forward_bitwise_the_serial_kernel_arm(cuda, model, kw):
 
 
 def test_sibling_stages_run_on_a_side_stream(cuda, monkeypatch):
-    """``NA.p1`` and ``NA.own`` run on a side stream of the executor's,
-    the rest on the caller's stream, and a tensor that crosses streams is
-    recorded on its reader."""
+    """``NA.p1`` and ``NA.own`` are called (their graphs replayed) on a
+    side stream of the executor's, the rest on the caller's stream, and a
+    tensor that crosses streams is recorded on its reader."""
     seen = {}
     recorded = []
     orig_record = torch.Tensor.record_stream
@@ -120,20 +121,20 @@ def test_sibling_stages_run_on_a_side_stream(cuda, monkeypatch):
         return orig_record(self, stream)
 
     monkeypatch.setattr(torch.Tensor, "record_stream", record)
-    for model, kw, side in [("han", {"degree_buckets": 3}, "NA.p1"),
-                            ("rgcn", {"partitions": 4}, "NA.own")]:
+    for model, kw, side in [("han", {"degree_buckets": 3}, "NA.p0.1"),
+                            ("rgcn", {"partitions": 4}, "NA.own0")]:
         m, b, p = _model(cuda, model, kw)
-        walk = m.executor._walk_schedule
+        ovjit = m.executor._ovjit
 
-        def spy(params, batch, emit, walk=walk):
-            def wrapped(name, fn, args):
-                def run(*a):
-                    seen[name] = torch.cuda.current_stream()
-                    return fn(*a)
-                return emit(name, run, args)
-            return walk(params, batch, wrapped)
+        def spy(key, fn, copied=(), stream=0, ovjit=ovjit):
+            f = ovjit(key, fn, copied, stream)
 
-        monkeypatch.setattr(m.executor, "_walk_schedule", spy)
+            def call(*a):
+                seen[key] = torch.cuda.current_stream()
+                return f(*a)
+            return call
+
+        monkeypatch.setattr(m.executor, "_ovjit", spy)
         main = torch.cuda.current_stream()
         recorded.clear()
         with torch.inference_mode():

@@ -8,7 +8,9 @@ its output and then puts every marked storage back as it was, since a
 real capture runs nothing (a step that donates its state would otherwise
 take two steps at its first call).  A replay runs ``fn`` again on the
 graph's static buffers and copies the result into the captured output,
-with the launch counters left as a real replay leaves them.
+with the launch counters and any ``characterize.Recorder`` left as a real
+replay leaves them (it dispatches no op).  Each capture stream is an
+object of its own (``stream(device, i)``), kept on the graph.
 
   monkeypatch.setattr(graphs, "_card", FakeCard())
 """
@@ -17,8 +19,10 @@ from __future__ import annotations
 import contextlib
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch import tree
+from repro_torch.core import characterize
 from repro_torch.kernels import ops
 
 # storage address -> a tensor on it (kept, so the address is not reused):
@@ -51,6 +55,13 @@ class _Nothing:
         pass
 
 
+class _Stream(_Nothing):
+    """A capture stream: ``i`` says which of the device's."""
+
+    def __init__(self, i):
+        self.i = i
+
+
 class _FakeGraph:
     def __init__(self, fn, out):
         self.fn, self.out = fn, out
@@ -58,9 +69,15 @@ class _FakeGraph:
     def replay(self):
         """``fn`` again on the static buffers, its output copied into the
         captured one; the wrappers it runs are not counted, as a real
-        replay runs none."""
+        replay runs none, and no dispatch mode or recorder sees its ops."""
         before = ops.launch_counts()
-        new = self.fn()
+        recorders = characterize._recorders[:]
+        characterize._recorders.clear()
+        try:
+            with _disable_current_modes():
+                new = self.fn()
+        finally:
+            characterize._recorders[:] = recorders
         ops.add_launch_counts({k: before[k] - n
                                for k, n in ops.launch_counts().items()})
         for dst, src in zip(tree.leaves(self.out), tree.leaves(new)):
@@ -75,13 +92,14 @@ class FakeCard:
     def __init__(self):
         self.captured = 0
         self._pinned = {}  # storage address -> a "pinned" tensor on it
+        self._streams = {}  # i -> capture stream i
 
     @staticmethod
     def resident(x):
         return x.untyped_storage().data_ptr() in ON_CARD
 
-    def stream(self, device):
-        return _Nothing()
+    def stream(self, device, i=0):
+        return self._streams.setdefault(i, _Stream(i))
 
     def current(self, device):
         return _Nothing()
